@@ -1,0 +1,19 @@
+"""``repro_torch.index`` — eps-range-query backends (port of
+``repro.index``): the backend protocol and registry, the signed-RP
+signatures, the sweep engine and the random-projection backend.
+
+``RandomProjectionBackend`` loads lazily: its module imports the kernel
+package, which itself imports ``index.signatures``, so an eager import
+here would make ``import repro_torch.kernels...`` order-dependent.
+"""
+
+from .base import BACKENDS, RangeBackend, as_fitted, make_backend, register_backend  # noqa: F401
+from .signatures import collision_fraction, hamming_band, make_projection, sign_signatures  # noqa: F401
+
+
+def __getattr__(name):
+    if name == "RandomProjectionBackend":
+        from .random_projection import RandomProjectionBackend
+
+        return RandomProjectionBackend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,7 @@
+from .ops import (  # noqa: F401
+    col_reduce,
+    label_prop_rect,
+    label_prop_update,
+    packed_cluster_fixpoint,
+    packed_cluster_labels,
+)

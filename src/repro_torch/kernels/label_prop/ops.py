@@ -1,0 +1,212 @@
+"""Kernel wrappers and the one-sync cluster fixpoint over a packed sweep
+slab (port of ``repro.kernels.label_prop.ops``).
+
+``packed_cluster_labels`` takes the sweep engine's rectangular packed
+slab (R executed rows x W words of database columns) and computes,
+without unpacking and without reading anything on the host: the exact
+neighbor counts (popcount), the tau core test, the min-label connected
+components of the core-core graph (min propagation with pointer
+jumping), the min-core-neighbor border owner per column and the
+transposed partial-count sums.
+
+The reference keeps its ``changed`` flag inside a ``lax.while_loop``.
+Here the host enqueues ``max_iters`` rounds up front; round ``it``'s
+kernels read ``flags[it]`` on the device and return at once when it is
+clear, and the update kernel sets ``flags[it + 1]`` when a label
+changed.  Round ``it`` reads one label buffer and writes the other, so
+after ``rounds = sum(flags[:max_iters])`` rounds the labels sit in
+buffer ``rounds % 2``, chosen on the device.  Nothing syncs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...index.signatures import popcount32
+from ...obs import metrics as _metrics
+from .. import _build
+from ..hamming_filter.ops import _tail_word_mask
+from .ref import BIG, col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
+
+__all__ = [
+    "label_prop_rect",
+    "col_reduce",
+    "label_prop_update",
+    "fixpoint_inputs",
+    "packed_cluster_fixpoint",
+    "packed_cluster_labels",
+    "LAUNCHES",
+]
+
+LAUNCHES = {
+    "label_prop_rect": "kernel.label_prop_rect.launches",
+    "col_reduce": "kernel.col_reduce.launches",
+    "label_prop_update": "kernel.label_prop_update.launches",
+}
+
+
+def _int32_vec(t, n, what):
+    if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous ({n},) int32 tensor")
+
+
+def _check_slab(bitmap):
+    if bitmap.dtype != torch.int32 or bitmap.dim() != 2 or not bitmap.is_contiguous():
+        raise ValueError("bitmap must be a contiguous (R, W) int32 slab")
+
+
+def _cuda(tensors, what):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what}: every operand must be on one CUDA device")
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def label_prop_rect(row_labels, col_labels, bitmap, *, out=None, flag=None):
+    """``out[i] = min(row_labels[i], min over set bits j of bitmap[i] of
+    col_labels[j])`` for an (R, W) slab and (W*32,) column labels.
+    ``flag`` (a one-element int32 tensor) makes the call a no-op when it
+    holds 0 — read on the device by the kernel."""
+    _check_slab(bitmap)
+    r, w = bitmap.shape
+    _int32_vec(row_labels, r, "row_labels")
+    _int32_vec(col_labels, w * 32, "col_labels")
+    if out is None:
+        out = torch.empty(r, dtype=torch.int32, device=bitmap.device)
+    _int32_vec(out, r, "out")
+    if bitmap.device.type == "cpu":
+        if flag is None or int(flag[0]) != 0:
+            out.copy_(label_prop_rect_ref(row_labels, col_labels, bitmap))
+        return out
+    operands = [bitmap, row_labels, col_labels, out] + ([flag] if flag is not None else [])
+    stream = _cuda(operands, "label_prop_rect")
+    err = _build.load("label_prop").label_prop_rect_launch(
+        row_labels.data_ptr(), col_labels.data_ptr(), bitmap.data_ptr(), r, w,
+        out.data_ptr(), flag.data_ptr() if flag is not None else None, stream,
+    )
+    _build.check(err, "label_prop_rect")
+    _metrics.counter(LAUNCHES["label_prop_rect"]).inc()
+    return out
+
+
+def col_reduce(bitmap, row_vals, row_weights):
+    """(col_min, col_sum), each (W*32,) int32, in one launch: per column
+    the min of ``row_vals`` over rows with the bit set (INT32_MAX where
+    none) and the sum of ``row_weights`` over those rows."""
+    _check_slab(bitmap)
+    r, w = bitmap.shape
+    _int32_vec(row_vals, r, "row_vals")
+    _int32_vec(row_weights, r, "row_weights")
+    if bitmap.device.type == "cpu":
+        return col_reduce_ref(bitmap, row_vals, row_weights)
+    stream = _cuda([bitmap, row_vals, row_weights], "col_reduce")
+    col_min = torch.full((w * 32,), BIG, dtype=torch.int32, device=bitmap.device)
+    col_sum = torch.zeros(w * 32, dtype=torch.int32, device=bitmap.device)
+    err = _build.load("label_prop").col_reduce_launch(
+        bitmap.data_ptr(), row_vals.data_ptr(), row_weights.data_ptr(), r, w,
+        col_min.data_ptr(), col_sum.data_ptr(), stream,
+    )
+    _build.check(err, "col_reduce")
+    _metrics.counter(LAUNCHES["col_reduce"]).inc()
+    return col_min, col_sum
+
+
+def label_prop_update(lab, m, pos, out, flags, it: int) -> None:
+    """Round ``it``'s scatter-min + pointer jump from ``lab`` into
+    ``out`` (see ``csrc/label_prop.cu``); a no-op when ``flags[it]`` is
+    0, sets ``flags[it + 1]`` when a label changed."""
+    cap = lab.shape[0]
+    _int32_vec(lab, cap, "lab")
+    _int32_vec(pos, cap, "pos")
+    _int32_vec(out, cap, "out")
+    if m.dtype != torch.int32 or m.dim() != 1 or not m.is_contiguous():
+        raise ValueError("m must be a contiguous 1-d int32 tensor")
+    if flags.dtype != torch.int32 or flags.dim() != 1 or not 0 <= it < flags.shape[0] - 1:
+        raise ValueError("flags must be an int32 vector with room for round it + 1")
+    if lab.device.type == "cpu":
+        if int(flags[it]) != 0:
+            out.copy_(label_prop_update_ref(lab, m, pos))
+            if bool((out != lab).any()):
+                flags[it + 1] = 1
+        return
+    stream = _cuda([lab, m, pos, out, flags], "label_prop_update")
+    err = _build.load("label_prop").label_prop_update_launch(
+        lab.data_ptr(), m.data_ptr(), pos.data_ptr(), cap, out.data_ptr(),
+        flags.data_ptr(), int(it), stream,
+    )
+    _build.check(err, "label_prop_update")
+    _metrics.counter(LAUNCHES["label_prop_update"]).inc()
+
+
+def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):
+    """Loop-invariant inputs of the fixpoint, all on the slab's device:
+    ``(rows int32, valid_r, counts, core_r, pos, init)`` — row validity,
+    exact neighbor counts (popcount), the tau core test per row, the
+    slab row of each core column (-1 elsewhere: the scatter target map)
+    and the initial labels (own index on core columns, INT32_MAX else)."""
+    dev = bitmap.device
+    r = bitmap.shape[0]
+    rows = rows.to(device=dev, dtype=torch.int32).contiguous()
+    valid_r = rows < n
+    counts = torch.where(valid_r, popcount32(bitmap).sum(dim=1, dtype=torch.int32), 0)
+    core_r = valid_r & (counts >= int(tau))
+    safe_rows = rows.clamp(max=cap - 1).long()
+    core_c = torch.zeros(cap, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, safe_rows, core_r.to(torch.int32), "amax") > 0
+    pos = torch.full((cap,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, safe_rows,
+        torch.where(core_r, torch.arange(r, dtype=torch.int32, device=dev), -1), "amax")
+    init = torch.where(core_c, torch.arange(cap, dtype=torch.int32, device=dev), BIG)
+    return rows, valid_r, counts, core_r, pos, init
+
+
+def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: int = 64):
+    """The cluster pass over an (R, W) slab with W*32 == cap whose bits
+    for columns >= n are clear.
+
+    ``rows`` (R,) holds the database index of each slab row (sentinel
+    >= n on padding rows); every core point must be a slab row, which is
+    what makes the gather + scatter round a full propagation round on
+    the core-core graph.  Returns device tensors ``(labels (cap,),
+    owner (cap,), col_sum (cap,), counts (R,), rounds ())``:
+    labels[j] = min core index of j's core component (INT32_MAX on
+    non-core columns), owner[j] = min executed core row adjacent to j,
+    col_sum[j] = number of valid rows adjacent to j, counts = exact
+    neighbor counts per slab row.
+    """
+    _check_slab(bitmap)
+    r, w = bitmap.shape
+    if w * 32 != cap:
+        raise ValueError(f"slab width {w} words does not cover cap={cap}")
+    dev = bitmap.device
+    rows, valid_r, counts, core_r, pos, init = fixpoint_inputs(bitmap, rows, tau, n=n, cap=cap)
+    bufs = (init, torch.empty(cap, dtype=torch.int32, device=dev))
+    big_rows = torch.full((r,), BIG, dtype=torch.int32, device=dev)
+    m = torch.empty(r, dtype=torch.int32, device=dev)
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
+    flags[0] = 1
+    for it in range(max_iters):
+        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
+        label_prop_rect(big_rows, lab, bitmap, out=m, flag=flags[it : it + 1])
+        label_prop_update(lab, m, pos, nxt, flags, it)
+    rounds = flags[:max_iters].sum(dtype=torch.int32)
+    labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
+    owner, col_sum = col_reduce(
+        bitmap, torch.where(core_r, rows, BIG), valid_r.to(torch.int32)
+    )
+    return labels, owner, col_sum, counts, rounds
+
+
+def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64):
+    """One-sync cluster pass over a packed sweep slab: ``bitmap`` is the
+    (R, W) int32 slab (W*32 >= n; bits past n are cleared here) and
+    ``rows`` the (R,) database indices of its rows.  Returns device
+    tensors ``(labels, owner, col_sum, counts, rounds)`` — see
+    :func:`packed_cluster_fixpoint`; nothing is read on the host."""
+    _check_slab(bitmap)
+    w = bitmap.shape[1]
+    if w * 32 < n:
+        raise ValueError(f"slab of {w} words cannot cover n={n} columns")
+    bitmap = bitmap & _tail_word_mask(w, n, bitmap.device)[None, :]
+    rows = torch.as_tensor(rows).to(device=bitmap.device, dtype=torch.int32)
+    return packed_cluster_fixpoint(bitmap, rows, tau, n=n, cap=w * 32, max_iters=max_iters)

@@ -1,0 +1,49 @@
+"""Plain PyTorch versions of the packed label-propagation kernels (the
+port's counterpart of ``repro.kernels.label_prop.ref``): unpack-based,
+blocked over rows so the unpacked tile stays bounded."""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.range_query import unpack_bitmap_t
+
+__all__ = ["BIG", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref"]
+
+BIG = torch.iinfo(torch.int32).max
+
+
+def label_prop_rect_ref(row_labels, col_labels, bitmap, *, block: int = 1024):
+    """out[i] = min(row_labels[i], min over set bits j of col_labels[j])."""
+    r, w = bitmap.shape
+    out = torch.empty(r, dtype=torch.int32, device=bitmap.device)
+    for s in range(0, r, block):
+        bits = unpack_bitmap_t(bitmap[s : s + block], w * 32)
+        neigh = torch.where(bits, col_labels[None, :], BIG).amin(dim=1)
+        out[s : s + block] = torch.minimum(row_labels[s : s + block], neigh)
+    return out
+
+
+def col_reduce_ref(bitmap, row_vals, row_weights, *, block: int = 1024):
+    """(col_min, col_sum), each (W*32,) int32: per column the min of
+    ``row_vals`` over rows with the bit set (BIG where none) and the sum
+    of ``row_weights`` over the same rows."""
+    r, w = bitmap.shape
+    cmin = torch.full((w * 32,), BIG, dtype=torch.int32, device=bitmap.device)
+    csum = torch.zeros(w * 32, dtype=torch.int32, device=bitmap.device)
+    for s in range(0, r, block):
+        bits = unpack_bitmap_t(bitmap[s : s + block], w * 32)
+        vals = row_vals[s : s + block, None]
+        cmin = torch.minimum(cmin, torch.where(bits, vals, BIG).amin(dim=0))
+        csum += torch.where(bits, row_weights[s : s + block, None], 0).sum(dim=0, dtype=torch.int32)
+    return cmin, csum
+
+
+def label_prop_update_ref(lab, m, pos):
+    """One round's scatter-min + pointer jump (see ``csrc/label_prop.cu``):
+    new[x] = min(lab[x], m[pos[x]]) on core columns (pos >= 0), then
+    out[j] = min(new[j], new[new[j]]) where new[j] indexes a column."""
+    cap = lab.shape[0]
+    new = torch.where(pos >= 0, torch.minimum(lab, m[pos.clamp(min=0).long()]), lab)
+    jump = torch.where(new < cap, new, 0).long()
+    return torch.where(new < cap, torch.minimum(new, new[jump]), new)

@@ -1,0 +1,153 @@
+"""Package rules of the port: ``repro_torch`` imports neither JAX nor
+the JAX package, its entry points run on ``cuda`` unless the caller
+asks for the CPU (and raise without a card), its wrappers validate what
+they launch, and the kernels agree with their plain versions on the card
+(``gpu`` tests: they skip inside the test when no card is present).
+"""
+
+import ast
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import resolve_device
+from repro_torch.core.cardinality.features import build_training_set
+from repro_torch.core.laf_dbscan import laf_dbscan
+from repro_torch.core.pipeline import LAFPipeline
+from repro_torch.index.random_projection import RandomProjectionBackend
+from repro_torch.index.signatures import make_projection, sign_signatures
+from repro_torch.kernels import _build
+from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
+from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
+from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update
+from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
+from repro_torch.obs import metrics
+
+PKG = Path(repro_torch.__file__).resolve().parent
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [
+        (f.relative_to(PKG), m) for f in files for m in _imports(f)
+        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert bad == []
+    script = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    assert [m for m in _imports(script) if m.split(".")[0] in ("jax", "repro")] == []
+
+
+def test_entry_points_default_to_cuda():
+    """Without a card every entry point raises unless told device='cpu';
+    with one, the default is cuda."""
+    x = np.random.default_rng(0).standard_normal((40, 8)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        assert RandomProjectionBackend().device.type == "cuda"
+        return
+    calls = [
+        resolve_device,
+        lambda: LAFPipeline(),
+        lambda: RandomProjectionBackend(),
+        lambda: sign_signatures(x, make_projection(8, 64)),
+        lambda: build_training_set(x, (0.5,)),
+        lambda: laf_dbscan(x, 0.5, 3, 1.0, np.full(40, 10.0)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_validate_operands():
+    q = torch.zeros((4, 8))
+    sig = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hamming_filter_bitmap(q.double(), q, sig, sig, 0.5, 10)
+    with pytest.raises(TypeError):
+        hamming_filter_bitmap(q, q, sig.long(), sig, 0.5, 10)
+    with pytest.raises(ValueError):
+        hamming_filter_bitmap(q, q[:, :4], sig, sig, 0.5, 10)
+    with pytest.raises(ValueError):
+        hamming_filter_bitmap(q, q, sig, torch.zeros((4, 33), dtype=torch.int32), 0.5, 10)
+    slab = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        label_prop_rect(torch.zeros(4, dtype=torch.int32), torch.zeros(32, dtype=torch.int32), slab)
+    with pytest.raises(ValueError):
+        col_reduce(slab.long(), torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32))
+
+
+def test_build_needs_nvcc():
+    """Kernels build only where the CUDA toolkit is: here the loader
+    says so instead of falling back to anything."""
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    assert all((_build.CSRC / f"{n}.cu").is_file() for n in _build.SOURCES)
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is installed here; the missing-toolkit error cannot be shown")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load("label_prop")
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,nd,eps,t_lo", [(70, 301, 0.5, -1), (33, 1000, 0.45, 40), (5, 40, 1.2, 20)])
+def test_gpu_hamming_filter_matches_plain(nq, nd, eps, t_lo):
+    dev = _card()
+    rng = np.random.default_rng(nq)
+    x = rng.standard_normal((nq + nd, 32)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    sig = sign_signatures(x, make_projection(32, 128, 0), device=dev)
+    q, db = torch.from_numpy(x[:nq]).to(dev), torch.from_numpy(x[nq:]).to(dev)
+    launches = metrics.counter("kernel.hamming_filter.launches")
+    before = launches.value
+    kc, kb = hamming_filter_bitmap(q, db, sig[:nq].contiguous(), sig[nq:].contiguous(), eps, 70, t_lo=t_lo)
+    torch.cuda.synchronize()
+    assert launches.value == before + 1
+    pc, pb = hamming_filter_ref(q, db, sig[:nq], sig[nq:], eps, t_lo, 70)
+    diff = (kb ^ pb).cpu().numpy().view(np.uint32)
+    flips = np.unpackbits(diff.view(np.uint8), bitorder="little").reshape(nq, -1)[:, :nd]
+    pi, pj = np.nonzero(flips)
+    dots = (x[:nq][pi].astype(np.float64) * x[nq:][pj].astype(np.float64)).sum(1)
+    assert (np.abs(dots - (1 - eps)) <= 2 * 31 * 2.0 ** -24).all()
+    if not len(pi):
+        assert torch.equal(kc, pc) and torch.equal(kb, pb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,w", [(300, 7), (64, 40), (1, 1)])
+def test_gpu_label_prop_kernels_match_plain(r, w):
+    dev = _card()
+    g = torch.Generator().manual_seed(r * w)
+    bitmap = torch.randint(-2**31, 2**31 - 1, (r, w), generator=g, dtype=torch.int32).to(dev)
+    col = torch.randint(0, 10**6, (w * 32,), generator=g, dtype=torch.int32).to(dev)
+    row = torch.randint(0, 10**6, (r,), generator=g, dtype=torch.int32).to(dev)
+    assert torch.equal(label_prop_rect(row, col, bitmap), label_prop_rect_ref(row, col, bitmap))
+    weights = torch.randint(0, 3, (r,), generator=g, dtype=torch.int32).to(dev)
+    for a, b in zip(col_reduce(bitmap, row, weights), col_reduce_ref(bitmap, row, weights)):
+        assert torch.equal(a, b)
+    cap = w * 32
+    pos = torch.where(torch.rand(cap, generator=g) < 0.5,
+                      torch.randint(0, r, (cap,), generator=g), -1).to(torch.int32).to(dev)
+    out, flags = torch.empty_like(col), torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    m = label_prop_rect(row, col, bitmap)
+    label_prop_update(col.clamp(max=cap - 1), m, pos, out, flags, 0)
+    assert torch.equal(out, label_prop_update_ref(col.clamp(max=cap - 1), m, pos))
