@@ -15,10 +15,21 @@ Phases (each prints one JSON line; any failure exits nonzero):
    just before and read just after;
 4. cluster-pass parity: the same sweep through the port's host
    union-find pass (``cluster_device=False``) gives identical labels;
-   quality: ARI of the LAF labels against exact DBSCAN of the test split
-   (exact fp32 adjacency through the same packed cluster pass);
-5. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with its time, the plain version's time and its bound.
+   ground truth: exact DBSCAN of the test split
+   (``dbscan_parallel(backend="exact")``, the ``range_count`` kernel),
+   held label for label to ``laf_dbscan`` with every point predicted
+   core through the device packed pass (``cluster_device=True``);
+   quality: ARI of the LAF labels against it (>= 0.99);
+5. exact path: ``cluster_dbscan``, ``cluster_laf_dbscan`` (alpha 1.5),
+   DBSCAN++ and LAF-DBSCAN++ (p = auto_sample_fraction(pred, 5, 1.5,
+   0.2), alpha 1.0) on the exact backend, each warmed up once and then
+   timed with the launch counts set to 0 just before and read just
+   after; exact LAF-DBSCAN must reach ARI >= 0.99;
+6. each kernel against its plain PyTorch version on the card at the main
+   path's shapes, with its time, the plain version's time and its bound;
+   ``range_count`` also at DBSCAN++'s gathered sampled-core columns.
+
+Every phase line carries its ``seconds``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the port's sources beside this file, it exits
@@ -48,7 +59,13 @@ KERNELS = {
                    "src/repro/kernels/label_prop/kernel.py:173"),
     "label_prop_update": ("src/repro_torch/csrc/label_prop.cu",
                           "src/repro/kernels/label_prop/ops.py:211 (jnp inside the fixpoint; no Pallas kernel)"),
+    "range_count": ("src/repro_torch/csrc/range_count.cu",
+                    "src/repro/kernels/range_count/kernel.py:75 (_count_kernel :29)"),
+    "range_count_bitmap": ("src/repro_torch/csrc/range_count.cu",
+                           "src/repro/kernels/range_count/kernel.py:75 (_count_bitmap_kernel :49)"),
 }
+RP_KERNELS = ("hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
+EXACT_KERNELS = ("range_count", "range_count_bitmap")
 
 
 def emit(obj) -> None:
@@ -58,19 +75,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
     return 1
-
-
-def ari(a: np.ndarray, b: np.ndarray) -> float:
-    """Adjusted Rand index (noise -1 is one label, as in the repo's metric)."""
-    _, ai = np.unique(a, return_inverse=True)
-    _, bi = np.unique(b, return_inverse=True)
-    m = np.zeros((ai.max() + 1, bi.max() + 1), np.int64)
-    np.add.at(m, (ai, bi), 1)
-    c2 = lambda x: (x * (x - 1) / 2.0).sum()
-    s, sa, sb = c2(m), c2(m.sum(1)), c2(m.sum(0))
-    exp = sa * sb / c2(np.array([len(a)]))
-    mx = 0.5 * (sa + sb)
-    return 1.0 if mx == exp else float((s - exp) / (mx - exp))
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -113,26 +117,28 @@ def device_busy(fn):
     return wall, (busy_us / 1e6 if busy_us > 0 else None)
 
 
-def exact_dbscan_labels(x, eps, tau, *, block=2048):
-    """Exact DBSCAN of ``x`` (all rows queried, fp32 dot > 1 - eps) through
-    the port's packed cluster pass: the ground truth LAF is scored on."""
+def flipped_pairs(kb, pb):
+    """(i, j) pairs whose hit bit differs between two packed slabs."""
     import torch
 
-    from repro_torch import exact_fp32
-    from repro_torch.core.laf_dbscan import labels_from_reps
-    from repro_torch.core.range_query import pack_bitmap_t
-    from repro_torch.kernels.label_prop import packed_cluster_labels
+    diff = kb ^ pb
+    wi, wj = torch.nonzero(diff, as_tuple=True)
+    pairs = []
+    for i, c, word in zip(wi.tolist(), wj.tolist(), diff[wi, wj].tolist()):
+        word &= 0xFFFFFFFF
+        pairs += [(i, 32 * c + b) for b in range(32) if word >> b & 1]
+    return pairs
 
-    exact_fp32()
-    n = x.shape[0]
-    slab = torch.empty((n, -(-n // 32)), dtype=torch.int32, device=x.device)
-    for s in range(0, n, block):
-        slab[s : s + block] = pack_bitmap_t(x[s : s + block] @ x.T > 1.0 - eps)
-    rows = torch.arange(n, dtype=torch.int32, device=x.device)
-    rep, owner, _, counts, _ = packed_cluster_labels(slab, rows, tau, n=n)
-    flat = torch.cat([rep[:n], owner[:n], counts]).cpu().numpy()
-    core = flat[2 * n :] >= tau
-    return labels_from_reps(flat[:n], flat[n : 2 * n], core)
+
+def pair_margin(pairs, q, db, eps) -> float:
+    """Largest |dot - (1 - eps)| over ``pairs``, dots in float64."""
+    import torch
+
+    if not pairs:
+        return 0.0
+    pi, pj = (torch.tensor(v, device=q.device) for v in zip(*pairs))
+    dots = (q[pi].double() * db[pj].double()).sum(dim=1)
+    return float((dots - (1.0 - eps)).abs().max())
 
 
 def check_hamming(bk, exec_idx, eps, k1_rows):
@@ -145,24 +151,15 @@ def check_hamming(bk, exec_idx, eps, k1_rows):
 
     t_lo, t_hi = bk.band(eps)
     q, qs = bk._gather(exec_idx[:k1_rows])
-    db, dbs = bk._data_dev, bk._sigs_dev
+    db, dbs = bk.data_device, bk._sigs_dev
     nq, d, nd, w = q.shape[0], q.shape[1], db.shape[0], qs.shape[1]
     kc, kb = hamming_filter_bitmap(q, db, qs, dbs, eps, t_hi, t_lo=t_lo)
     pc, pb = hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi)
     # flipped pairs must sit within the fp32 summation-order bound of the
     # threshold: |dot - (1-eps)| <= 2 (d-1) 2^-24 for unit vectors
     tol = 2 * (d - 1) * 2.0 ** -24
-    diff = kb ^ pb
-    wi, wj = torch.nonzero(diff, as_tuple=True)
-    pairs = []
-    for i, c, word in zip(wi.tolist(), wj.tolist(), diff[wi, wj].tolist()):
-        word &= 0xFFFFFFFF
-        pairs += [(i, 32 * c + b) for b in range(32) if word >> b & 1]
-    margin = 0.0
-    if pairs:
-        pi, pj = (torch.tensor(v, device=q.device) for v in zip(*pairs))
-        dots = (q[pi].double() * db[pj].double()).sum(dim=1)
-        margin = float((dots - (1.0 - eps)).abs().max())
+    pairs = flipped_pairs(kb, pb)
+    margin = pair_margin(pairs, q, db, eps)
     flips_per_row = popcount32(kb).sum(1) - popcount32(pb).sum(1)
     counts_ok = bool(torch.equal(kc - pc, flips_per_row))
     band = 0
@@ -173,16 +170,80 @@ def check_hamming(bk, exec_idx, eps, k1_rows):
     count_ms = time_ms(lambda: hamming_filter_count(q, db, qs, dbs, eps, t_hi, t_lo=t_lo))
     counts_only_ok = bool(torch.equal(hamming_filter_count(q, db, qs, dbs, eps, t_hi, t_lo=t_lo), kc))
     plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi), reps=2, warmup=1)
+    count_plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=False),
+                          reps=2, warmup=1)
     n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + -(-nd // 32)))
     b_ms, b_by = bound_ms(n_bytes, 2 * d * band)
+    count_b_ms, count_b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq), 2 * d * band)
     ok = counts_ok and counts_only_ok and margin <= tol
     return ok, {
         "name": "hamming_filter", "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
         "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
         "band_pairs": band, "popcount_ops": nq * nd * w,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "count_only_ms": count_ms,
+        "count_only_ms": count_ms, "count_only_plain_ms": count_plain,
+        "count_only_bound_ms": count_b_ms, "count_only_bound_by": count_b_by,
     }
+
+
+def compare_range_count(q, db, eps):
+    """Both bodies of the exact path's kernel vs the plain version on
+    ``q`` x ``db``: (ok, the comparison's numbers)."""
+    import torch
+
+    from repro_torch.index.signatures import popcount32
+    from repro_torch.kernels.range_count import range_count, range_count_bitmap, threshold
+    from repro_torch.kernels.range_count.ref import range_count_bitmap_ref
+
+    kc, kb = range_count_bitmap(q, db, eps)
+    kc_only = range_count(q, db, eps)
+    pc, pb = range_count_bitmap_ref(q, db, threshold(eps))
+    tol = 2 * (q.shape[1] - 1) * 2.0 ** -24
+    pairs = flipped_pairs(kb, pb)
+    margin = pair_margin(pairs, q, db, eps)
+    flips_per_row = popcount32(kb).sum(1) - popcount32(pb).sum(1)
+    counts_ok = bool(torch.equal(kc - pc, flips_per_row)) and bool(torch.equal(kc_only, kc))
+    return counts_ok and margin <= tol, {
+        "shape": [q.shape[0], db.shape[0], q.shape[1]], "max_abs_err": int((kc - pc).abs().max()),
+        "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
+        "counts_equal_plain_plus_flips": counts_ok}
+
+
+def check_range_count(x, rows, eps, sub_rows, sub_cols):
+    """The exact path's kernel, both bodies, vs the plain version:
+    ``len(rows)`` queries x every row of ``x`` (the timed shape, plus
+    the fp32 product alone, ``torch.matmul``, as a yardstick), and
+    ``sub_rows`` x ``sub_cols``, the gathered column subset that
+    DBSCAN++'s core-core unions launch on."""
+    import torch
+
+    from repro_torch import exact_fp32
+    from repro_torch.kernels.range_count import range_count, range_count_bitmap, threshold
+    from repro_torch.kernels.range_count.ref import range_count_bitmap_ref, range_count_ref
+
+    def gather(idx):
+        return x[torch.from_numpy(idx).to(x.device)].contiguous()
+
+    q = gather(rows)
+    nq, d, nd = q.shape[0], q.shape[1], x.shape[0]
+    n_words = -(-nd // 32)
+    thr = threshold(eps)
+    ok, common = compare_range_count(q, x, eps)
+    sub_ok, subset = compare_range_count(gather(sub_rows), gather(sub_cols), eps)
+    exact_fp32()
+    common["matmul_ms"] = time_ms(lambda: torch.matmul(q, x.T))
+    flops = 2.0 * nq * nd * d
+    b_ms, b_by = bound_ms(4 * (nq * d + nd * d + nq), flops)
+    count_row = {"name": "range_count", **common,
+                 "ms": time_ms(lambda: range_count(q, x, eps)),
+                 "plain_ms": time_ms(lambda: range_count_ref(q, x, thr), reps=2, warmup=1),
+                 "bound_ms": b_ms, "bound_by": b_by}
+    b_ms, b_by = bound_ms(4 * (nq * d + nd * d + nq * (1 + n_words)), flops)
+    bitmap_row = {"name": "range_count_bitmap", **common,
+                  "ms": time_ms(lambda: range_count_bitmap(q, x, eps)),
+                  "plain_ms": time_ms(lambda: range_count_bitmap_ref(q, x, thr), reps=2, warmup=1),
+                  "bound_ms": b_ms, "bound_by": b_by, "at_core_subset": subset}
+    return ok and sub_ok, [count_row, bitmap_row]
 
 
 def check_label_prop(bk, exec_idx, eps, tau):
@@ -254,7 +315,10 @@ def run(args) -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         return fail(f"the port's sources are not beside this script ({ROOT / 'src' / 'repro_torch'})")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.dbscan import dbscan_parallel
+    from repro_torch.core.dbscan_pp import auto_sample_fraction
     from repro_torch.core.laf_dbscan import laf_dbscan
+    from repro_torch.core.metrics import adjusted_mutual_info, adjusted_rand_index
     from repro_torch.core.pipeline import LAFPipeline
     from repro_torch.data.synthetic import make_angular_clusters
     from repro_torch.index.random_projection import RandomProjectionBackend
@@ -295,10 +359,11 @@ def run(args) -> int:
     test = pipe.fit_split(data)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    emit({"phase": "fit", "n": args.n, "n_test": len(test), "epochs": args.epochs,
+    emit({"phase": "fit", "seconds": gen_s + fit_s, "n": args.n, "n_test": len(test), "epochs": args.epochs,
           "data_s": gen_s, "fit_s": fit_s, "training_set_s": pipe.estimator.set_seconds,
           "final_loss_stage0": pipe.estimator.history["stage0"][-1]})
 
+    t_phase = time.perf_counter()
     warm = pipe.cluster_laf_dbscan(test, eps, tau, alpha)  # first use: lazy loads, allocator
     metrics.reset()
     torch.cuda.synchronize()
@@ -309,43 +374,99 @@ def run(args) -> int:
     host_syncs = counts["counters"].get("laf.cluster.host_syncs", 0)
     res = out.result
     g = counts["gauges"]
-    emit({"phase": "main_path", "warmup_elapsed_s": warm.elapsed_s, "elapsed_s": out.elapsed_s, "predict_s": out.predict_s,
+    emit({"phase": "main_path", "seconds": time.perf_counter() - t_phase,
+          "warmup_elapsed_s": warm.elapsed_s, "elapsed_s": out.elapsed_s, "predict_s": out.predict_s,
           "fit_index_s": g.get("laf.phase.fit_index_s"), "sweep_s": g.get("laf.phase.sweep_s"), "label_prop_s": g.get("laf.phase.label_prop_s"),
           "rescue_s": g.get("laf.phase.rescue_s"),
           "n_predicted_core": res.extras["n_predicted_core"], "n_rescued": res.extras["n_rescued"],
           "n_clusters": res.n_clusters, "noise_ratio": res.noise_ratio,
           "rounds": g.get("laf.cluster.last_rounds"), "launches": launches,
           "host_syncs": host_syncs, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    ok = all(v > 0 for v in launches.values()) and host_syncs == 1
+    ok = all(launches[k] > 0 for k in RP_KERNELS) and host_syncs == 1
     ok &= res.labels.shape == (len(test),) and int(res.labels.min()) >= -1
     ok &= bool(np.array_equal(warm.result.labels, res.labels))
 
-    # 4. cluster-pass parity (same sweep, host union-find) + quality
+    # 4. cluster-pass parity (same sweep, host union-find), exact DBSCAN
+    #    ground truth (held to the device packed pass) and quality
+    t_phase = time.perf_counter()
     pred = pipe.predict_counts(test, eps)
     bk = RandomProjectionBackend(device=dev).fit(test)
     host = laf_dbscan(test, eps, tau, alpha, pred, backend=bk, cluster_device=False)
     same = bool(np.array_equal(host.labels, res.labels) and np.array_equal(host.core, res.core)
                 and host.extras == res.extras)
-    x = torch.from_numpy(np.ascontiguousarray(test)).to(dev)
-    quality = ari(res.labels, exact_dbscan_labels(x, eps, tau))
-    emit({"phase": "parity", "host_union_find_identical": same, "ari_vs_exact_dbscan": quality})
+    truth = dbscan_parallel(test, eps, tau, backend="exact", device=dev)
+    every_core = laf_dbscan(test, eps, tau, alpha, np.full(len(test), np.inf), backend="exact",
+                            device=dev, cluster_device=True)
+    truth_same = bool(np.array_equal(truth.labels, every_core.labels)
+                      and np.array_equal(truth.core, every_core.core))
+    quality = adjusted_rand_index(res.labels, truth.labels)
+    emit({"phase": "parity", "seconds": time.perf_counter() - t_phase,
+          "host_union_find_identical": same, "exact_dbscan_equals_device_pass": truth_same,
+          "exact_dbscan_clusters": truth.n_clusters, "exact_dbscan_noise_ratio": truth.noise_ratio,
+          "ari_vs_exact_dbscan": quality})
     wall, busy = device_busy(lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha))
-    emit({"phase": "trace", "wall_s": wall, "device_busy_s": busy,
+    emit({"phase": "trace", "seconds": wall, "wall_s": wall, "device_busy_s": busy,
           "idle_share": None if busy is None else 1.0 - busy / wall})
-    ok &= same
+    ok &= same and truth_same and quality >= 0.99
 
-    # 5. kernels vs plain versions at main-path shapes
+    # 5. the exact path: the paper's four methods on the exact backend
+    t_phase = time.perf_counter()
+    p = auto_sample_fraction(pred, tau, alpha, 0.2)
+    methods = {
+        "DBSCAN": lambda: pipe.cluster_dbscan(test, eps, tau, backend="exact"),
+        "LAF-DBSCAN": lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha, backend="exact"),
+        "DBSCAN++": lambda: pipe.cluster_dbscan_pp(test, eps, tau, p=p, backend="exact"),
+        "LAF-DBSCAN++": lambda: pipe.cluster_laf_dbscan_pp(test, eps, tau, p=p, alpha=1.0, backend="exact"),
+    }
+    exact_launches = dict.fromkeys(EXACT_KERNELS, 0)
+    by_method = {}
+    for name, fn in methods.items():
+        warm = fn()
+        metrics.reset()
+        torch.cuda.synchronize()
+        o = fn()
+        snap = metrics.snapshot()
+        lc = {k: snap["counters"].get(f"kernel.{k}.launches", 0) for k in EXACT_KERNELS}
+        for k in EXACT_KERNELS:
+            exact_launches[k] += lc[k]
+        r = o.result
+        row = {"elapsed_s": o.elapsed_s, "warmup_elapsed_s": warm.elapsed_s, "predict_s": o.predict_s,
+               "phases_s": {k.split(".")[-1][:-2]: v for k, v in snap["gauges"].items()
+                            if k.endswith("_s") and ".phase." in k and v is not None},
+               "n_range_queries": r.n_range_queries, "n_clusters": r.n_clusters,
+               "noise_ratio": r.noise_ratio, "ari": adjusted_rand_index(r.labels, truth.labels),
+               "ami": adjusted_mutual_info(r.labels, truth.labels), "launches": lc,
+               "params": o.params}
+        by_method[name] = row
+        if name == "DBSCAN++":
+            pp_core = r.core  # the sampled cores: its core-core unions' rows and columns
+        emit({"phase": "exact_path", "method": name, **row})
+        ok &= sum(lc.values()) > 0
+        ok &= bool(np.array_equal(warm.result.labels, r.labels))
+    ok &= by_method["LAF-DBSCAN"]["ari"] >= 0.99
+    emit({"phase": "exact_path", "seconds": time.perf_counter() - t_phase, "p": p,
+          "launches": exact_launches})
+
+    # 6. kernels vs plain versions at main-path shapes
+    t_phase = time.perf_counter()
     exec_idx = np.nonzero(pred >= alpha * tau)[0]
     k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows)
     lp_ok, lp = check_label_prop(bk, exec_idx, eps, tau)
+    sampled_cores = np.nonzero(pp_core)[0]
+    rc_ok, rc = check_range_count(bk.data_device, exec_idx[: args.k1_rows], eps,
+                                  sampled_cores[: args.k1_rows // 2], sampled_cores)
+    for k in rc:
+        k["launches_by_method"] = {m: v["launches"][k["name"]] for m, v in by_method.items()}
+    launches.update(exact_launches)
     rows = []
-    for k in [k1, *lp]:
+    for k in [k1, *lp, *rc]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], **{a: b for a, b in k.items() if a != "name"},
                      "library_ms": None})
-    emit({"phase": "kernels", "hamming_filter_ok": k1_ok, "label_prop_ok": lp_ok})
-    ok &= k1_ok and lp_ok
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase, "hamming_filter_ok": k1_ok,
+          "label_prop_ok": lp_ok, "range_count_ok": rc_ok})
+    ok &= k1_ok and lp_ok and rc_ok and all(launches[k] > 0 for k in KERNELS)
     if not ok:
         emit({"kernels": rows})
         return fail("a check failed (see the phase lines above)")

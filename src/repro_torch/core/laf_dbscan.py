@@ -1,7 +1,8 @@
 """LAF-DBSCAN — Algorithm 1 of the paper (port of ``repro.core.laf_dbscan``).
 
 * ``laf_dbscan_sequential`` — the line-by-line transcription of the
-  pseudocode (numpy), used for validation.
+  pseudocode, used for validation: a host loop whose range queries run
+  one at a time on the exact backend.
 * ``laf_dbscan`` — the batch engine: every predicted-core point runs one
   range query (pass 1), cluster formation runs over the packed adjacency
   (pass 2), and the post-processing rescue (Algorithm 3) merges the
@@ -44,21 +45,26 @@ def laf_dbscan_sequential(
     card_est: Callable[[int], float],
     *,
     seed: int = 0,
+    device=None,
 ) -> DBSCANResult:
     """Algorithm 1, faithful transcription; ``card_est(i)`` returns the
-    predicted cardinality of point i."""
+    predicted cardinality of point i.  Each range query is one row of
+    the exact backend on ``device`` (``None`` = cuda): predicted-stop
+    points are never queried."""
+    from ..index import as_fitted
+
     data = np.asarray(data, dtype=np.float32)
     n = data.shape[0]
     labels = np.full(n, UNDEFINED, dtype=np.int64)
     core = np.zeros(n, dtype=bool)
     queries = 0
     emap = PartialNeighborMap()                        # LAF: map 𝓔 (line 2)
-    thresh = 1.0 - eps
+    bk = as_fitted("exact", data, device=device)
 
     def range_query(i: int) -> np.ndarray:
         nonlocal queries
         queries += 1
-        return np.nonzero(data[i] @ data.T > thresh)[0]
+        return np.nonzero(bk.query_hits(np.array([i]), eps)[0])[0]
 
     c = 0
     for p in range(n):
@@ -109,7 +115,7 @@ def laf_dbscan(
     *,
     block_size: int = 2048,
     seed: int = 0,
-    backend="random_projection",
+    backend="exact",
     device=None,
     cluster_device="auto",
 ) -> DBSCANResult:
@@ -124,16 +130,15 @@ def laf_dbscan(
         cuda, raising without a card; ``"cpu"`` runs the plain versions);
         a constructed instance keeps its own.
       cluster_device: ``"auto"`` runs the device cluster pass when the
-        backend packs natively, ``True`` forces it (host-packed blocks are
-        uploaded once), ``False`` runs the host union-find pass.
+        backend packs natively, ``True`` forces it (the backend's packed
+        blocks come from ``query_packed_device``), ``False`` runs the
+        host union-find pass.
     """
-    from .. import resolve_device
-    from ..index import RangeBackend, as_fitted
+    from ..index import as_fitted
 
     data = np.asarray(data, dtype=np.float32)
     n = data.shape[0]
-    clock = PhaseClock(backend.device if isinstance(backend, RangeBackend) else resolve_device(device))
-    clock.mark("start")
+    clock = PhaseClock.for_engine(backend, device)
     bk = as_fitted(backend, data, block_size=block_size, device=device)
     clock.mark("fit_index")
     predicted_core = np.asarray(predicted_counts) >= alpha * tau  # LAF skip rule
@@ -177,11 +182,9 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
         rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=bk.device)
         rows[:n_exec] = exec_t
     else:
-        blocks = [
-            pack_bitmap(bk.query_hits(exec_idx[s : s + block_size], eps))
-            for s in range(0, n_exec, block_size)
-        ]
-        slab = torch.from_numpy(np.concatenate(blocks).view(np.int32)).to(bk.device)
+        blocks = [bk.query_packed_device(exec_idx[s : s + block_size], eps)
+                  for s in range(0, n_exec, block_size)]
+        slab = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
         rows = exec_t
     clock.mark("sweep")
     labels_d, owner_d, col_sum_d, counts_d, rounds_d = packed_cluster_labels(slab, rows, tau, n=n)

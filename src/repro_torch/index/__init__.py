@@ -1,10 +1,12 @@
 """``repro_torch.index`` — eps-range-query backends (port of
 ``repro.index``): the backend protocol and registry, the signed-RP
-signatures, the sweep engine and the random-projection backend.
+signatures, the sweep engine, the exact backend and the
+random-projection backend.
 
-``RandomProjectionBackend`` loads lazily: its module imports the kernel
-package, which itself imports ``index.signatures``, so an eager import
-here would make ``import repro_torch.kernels...`` order-dependent.
+``ExactBackend`` and ``RandomProjectionBackend`` load lazily: their
+modules import the kernel packages, which themselves import
+``index.signatures`` / ``core.range_query``, so an eager import here
+would make ``import repro_torch.kernels...`` order-dependent.
 """
 
 from .base import BACKENDS, RangeBackend, as_fitted, make_backend, register_backend  # noqa: F401
@@ -16,4 +18,8 @@ def __getattr__(name):
         from .random_projection import RandomProjectionBackend
 
         return RandomProjectionBackend
+    if name == "ExactBackend":
+        from .exact import ExactBackend
+
+        return ExactBackend
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,9 +10,10 @@ registry name or a constructed instance; ``as_fitted`` normalizes both.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Type, Union
+from typing import Dict, List, Type, Union
 
 import numpy as np
+import torch
 
 from ..core.range_query import pack_bitmap
 
@@ -28,6 +29,7 @@ class RangeBackend:
     """
 
     name: str = "base"
+    device: torch.device = torch.device("cpu")  # the port's backends set their own
 
     def fit(self, data: np.ndarray) -> "RangeBackend":
         raise NotImplementedError
@@ -38,7 +40,7 @@ class RangeBackend:
 
     def query_hits_subset(self, rows: np.ndarray, cols: np.ndarray, eps: float) -> np.ndarray:
         """Boolean (len(rows), len(cols)) adjacency against db[cols]."""
-        raise NotImplementedError
+        return self.query_hits(rows, eps)[:, cols]
 
     @property
     def packs_natively(self) -> bool:
@@ -51,13 +53,50 @@ class RangeBackend:
         hit = self.query_hits(rows, eps)
         return hit.sum(axis=1, dtype=np.int64), pack_bitmap(hit)
 
+    def query_packed_device(self, rows: np.ndarray, eps: float) -> torch.Tensor:
+        """Packed hit rows as an int32 tensor (len(rows), ceil(n/32)) on
+        ``device``, the input of the device cluster pass.  The default
+        uploads ``query_hits_packed``'s words; a backend whose words are
+        made on the device hands them over without a host copy."""
+        words = self.query_hits_packed(rows, eps)[1]
+        return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(self.device)
+
     def query_counts(self, rows: np.ndarray, eps: float) -> np.ndarray:
-        """Neighbor counts |N_eps(db[i])| for i in rows (int64)."""
-        raise NotImplementedError
+        """Neighbor counts |N_eps(db[i])| for i in rows (int64), chunked
+        over rows so the hit matrix never exceeds (block, n)."""
+        rows = np.asarray(rows)
+        block = getattr(self, "block_size", 2048)
+        counts = np.zeros(len(rows), dtype=np.int64)
+        for start in range(0, len(rows), block):
+            sub = rows[start : start + block]
+            counts[start : start + len(sub)] = self.query_hits(sub, eps).sum(axis=1)
+        return counts
+
+    def neighbor_lists(self, eps: float, block_size: int = 2048) -> List[np.ndarray]:
+        """Per-point sorted neighbor index arrays for the whole database."""
+        n = self.n_points
+        out: List[np.ndarray] = []
+        for start in range(0, n, block_size):
+            hit = self.query_hits(np.arange(start, min(start + block_size, n)), eps)
+            out.extend(np.nonzero(row)[0] for row in hit)
+        return out
 
     @property
     def n_points(self) -> int:
         return self._data.shape[0]  # type: ignore[attr-defined]
+
+    @property
+    def data(self) -> np.ndarray:
+        """The fitted database rows (row i is query row i)."""
+        assert getattr(self, "_data", None) is not None, "call fit() first"
+        return self._data  # type: ignore[attr-defined]
+
+    @property
+    def data_device(self) -> torch.Tensor:
+        """The fitted rows as a float32 tensor on ``device``.  The
+        default uploads ``data`` on every call; the port's backends
+        return the copy they keep resident."""
+        return torch.from_numpy(np.ascontiguousarray(self.data, dtype=np.float32)).to(self.device)
 
 
 BACKENDS: Dict[str, Type[RangeBackend]] = {}

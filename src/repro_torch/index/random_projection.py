@@ -88,6 +88,11 @@ class RandomProjectionBackend(RangeBackend):
         return self
 
     @property
+    def data_device(self) -> torch.Tensor:
+        assert self._data_dev is not None, "call fit() first"
+        return self._data_dev
+
+    @property
     def signatures(self) -> np.ndarray:
         """Packed uint32 signatures on the host (copied once, lazily)."""
         assert self._sigs_dev is not None, "call fit() first"

@@ -23,7 +23,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hamming_filter", "label_prop")
+SOURCES = ("hamming_filter", "label_prop", "range_count")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +38,9 @@ _SIGNATURES = {
         "label_prop_rect_launch": [P, P, P, I, I, P, P, P],
         "col_reduce_launch": [P, P, P, I, I, P, P, P],
         "label_prop_update_launch": [P, P, P, I, P, P, I, P],
+    },
+    "range_count": {
+        "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],
     },
 }
 

@@ -54,10 +54,14 @@ def gauge(name: str) -> Gauge:
 
 
 def reset(prefix: str = "") -> None:
-    """Set every counter whose name starts with ``prefix`` to 0."""
+    """Set every counter whose name starts with ``prefix`` to 0 and
+    clear every such gauge."""
     for name, c in _COUNTERS.items():
         if name.startswith(prefix):
             c.value = 0
+    for name, g in _GAUGES.items():
+        if name.startswith(prefix):
+            g.value = None
 
 
 def snapshot() -> dict:
@@ -81,6 +85,18 @@ class PhaseClock:
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+
+    @classmethod
+    def for_engine(cls, backend, device) -> "PhaseClock":
+        """A started clock on the device an engine runs on: a constructed
+        backend's own, else ``device`` (``None`` = cuda, raising without
+        a card, as the backend built from it would)."""
+        from .. import resolve_device
+
+        dev = getattr(backend, "device", None)
+        clock = cls(dev if isinstance(dev, torch.device) else resolve_device(device))
+        clock.mark("start")
+        return clock
 
     def mark(self, name: str) -> None:
         if self.cuda:

@@ -138,7 +138,7 @@ def test_one_host_sync_per_device_clustering(split, jax_pred):
     _, test = split
     syncs = metrics.counter("laf.cluster.host_syncs")
     before = syncs.value
-    res = laf_dbscan(test, EPS, TAU, 1.0, jax_pred, device="cpu")
+    res = laf_dbscan(test, EPS, TAU, 1.0, jax_pred, backend="random_projection", device="cpu")
     assert syncs.value - before == 1
     assert res.n_clusters >= 1
 
@@ -180,6 +180,6 @@ def test_laf_dbscan_sequential_matches_jax():
     data, _ = jsyn.make_angular_clusters(150, 8, 3, kappa=40, noise_frac=0.2, seed=4)
     est = (np.arange(150) % 7).astype(float)
     want = jax_laf_sequential(data, 0.5, 3, 1.0, lambda i: est[i])
-    got = laf_dbscan_sequential(data, 0.5, 3, 1.0, lambda i: est[i])
+    got = laf_dbscan_sequential(data, 0.5, 3, 1.0, lambda i: est[i], device="cpu")
     np.testing.assert_array_equal(got.labels, want.labels)
     assert got.n_range_queries == want.n_range_queries

@@ -16,8 +16,12 @@ import torch
 import repro_torch
 from repro_torch import resolve_device
 from repro_torch.core.cardinality.features import build_training_set
-from repro_torch.core.laf_dbscan import laf_dbscan
+from repro_torch.core.dbscan import dbscan_parallel, dbscan_sequential
+from repro_torch.core.dbscan_pp import dbscan_pp
+from repro_torch.core.laf_dbscan import laf_dbscan, laf_dbscan_sequential
 from repro_torch.core.pipeline import LAFPipeline
+from repro_torch.core.range_query import range_counts
+from repro_torch.index.exact import ExactBackend
 from repro_torch.index.random_projection import RandomProjectionBackend
 from repro_torch.index.signatures import make_projection, sign_signatures
 from repro_torch.kernels import _build
@@ -58,6 +62,7 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert RandomProjectionBackend().device.type == "cuda"
+        assert ExactBackend().device.type == "cuda"
         return
     calls = [
         resolve_device,
@@ -66,6 +71,12 @@ def test_entry_points_default_to_cuda():
         lambda: sign_signatures(x, make_projection(8, 64)),
         lambda: build_training_set(x, (0.5,)),
         lambda: laf_dbscan(x, 0.5, 3, 1.0, np.full(40, 10.0)),
+        lambda: ExactBackend(),
+        lambda: range_counts(x, x, 0.5),
+        lambda: dbscan_parallel(x, 0.5, 3),
+        lambda: dbscan_pp(x, 0.5, 3, 0.5),
+        lambda: dbscan_sequential(x, 0.5, 3),
+        lambda: laf_dbscan_sequential(x, 0.5, 3, 1.0, lambda i: 10.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
