@@ -27,7 +27,18 @@ Phases (each prints one JSON line; any failure exits nonzero):
    after; exact LAF-DBSCAN must reach ARI >= 0.99;
 6. each kernel against its plain PyTorch version on the card at the main
    path's shapes, with its time, the plain version's time and its bound;
-   ``range_count`` also at DBSCAN++'s gathered sampled-core columns.
+   ``range_count`` also at DBSCAN++'s gathered sampled-core columns;
+7. observability: the main path once with everything off and once after
+   ``obs.enable(trace=True, metrics_on=True, telemetry=True)`` (same
+   labels, one host sync, per-round telemetry equal to the gauges, the
+   span tree exported to a Chrome trace, ``coverage`` printed); a count
+   sweep of the whole split with its per-chunk occupancy slab held to the
+   plain version; ``suggest_margin`` on the card against the host
+   Hamming table; both ``_stats`` bodies of the Hamming filter against
+   their plain versions and timed beside their twins.
+
+Metrics are off by default (as in the reference); the script turns them
+on before it drives a path, since the launch counts are counters.
 
 Every phase line carries its ``seconds``.
 
@@ -40,8 +51,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -63,9 +76,18 @@ KERNELS = {
                     "src/repro/kernels/range_count/kernel.py:75 (_count_kernel :29)"),
     "range_count_bitmap": ("src/repro_torch/csrc/range_count.cu",
                            "src/repro/kernels/range_count/kernel.py:75 (_count_bitmap_kernel :49)"),
+    "hamming_filter_count_stats": ("src/repro_torch/csrc/hamming_filter.cu",
+                                   "src/repro/kernels/hamming_filter/kernel.py:131 (_filter_count_stats_kernel)"),
+    "hamming_filter_bitmap_stats": ("src/repro_torch/csrc/hamming_filter.cu",
+                                    "src/repro/kernels/hamming_filter/kernel.py:150 (_filter_count_bitmap_stats_kernel)"),
 }
 RP_KERNELS = ("hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
 EXACT_KERNELS = ("range_count", "range_count_bitmap")
+# the observability path: every kernel of the main path, plus the count
+# stats body behind band()'s occupancy measurement; the bitmap stats body
+# is reached only by the mesh plane, which is not ported yet
+OBS_KERNELS = RP_KERNELS + ("hamming_filter_count_stats",)
+STATS_KERNELS = ("hamming_filter_count_stats", "hamming_filter_bitmap_stats")
 
 
 def emit(obj) -> None:
@@ -98,11 +120,13 @@ def bound_ms(n_bytes: float, flops: float = 0.0):
 
 
 def device_busy(fn):
-    """(wall s, device busy s) of one call under ``torch.profiler``: the
-    summed durations of the trace's device events, every kernel and copy
-    the call ran (one stream, so the intervals do not overlap).  The profiler's own cost
-    lengthens the wall time, so the idle share it gives is an upper
-    bound.  Busy is None when the trace holds no device time."""
+    """(wall s, device busy s, device busy union s) of one call under
+    ``torch.profiler``: the summed durations of the trace's device
+    events, every kernel and copy the call ran, and the length of the
+    union of their intervals (equal when no two overlap).  The
+    profiler's own cost lengthens the wall time, so the idle share it
+    gives is an upper bound.  Busy is None when the trace holds no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -112,9 +136,18 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return wall, (busy_us / 1e6 if busy_us > 0 else None)
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = sum(b - a for a, b in ranges)
+    union_us, end = 0, None
+    for a, b in ranges:
+        if end is None or a > end:
+            union_us, end = union_us + (b - a), b
+        elif b > end:
+            union_us, end = union_us + (b - end), b
+    if busy_us <= 0:
+        return wall, None, None
+    return wall, busy_us / 1e6, union_us / 1e6
 
 
 def flipped_pairs(kb, pb):
@@ -307,6 +340,214 @@ def check_label_prop(bk, exec_idx, eps, tau):
     return all(k["max_abs_err"] == 0 for k in out), out
 
 
+def check_stats_bodies(bk, exec_idx, eps, k1_rows):
+    """Both ``_stats`` bodies of K1 at its comparison shape (``k1_rows``
+    executed queries x the whole test db): counts and words equal to
+    the non-stats twin bit for bit, the whole-call real-pair triple equal
+    to the plain version's, counts against the plain version as the K1
+    check allows (fp32 boundary flips only).  Each body is timed beside
+    its twin (twin, body, body, twin)."""
+    import torch
+
+    from repro_torch.index.signatures import popcount32
+    from repro_torch.kernels.hamming_filter import hamming_filter_bitmap, hamming_filter_count, hamming_filter_into
+    from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
+
+    t_lo, t_hi = bk.band(eps)
+    q, qs = bk._gather(exec_idx[:k1_rows])
+    db, dbs = bk.data_device, bk._sigs_dev
+    nq, d, nd, w = q.shape[0], q.shape[1], db.shape[0], qs.shape[1]
+    n_words = -(-nd // 32)
+    tol = 2 * (d - 1) * 2.0 ** -24
+    pc, pb, ps = hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, stats_chunk=nq)
+    band = int(ps[0, 1])  # the band pairs: the verify work
+    rows, ok = [], True
+    for bitmap in (False, True):
+        def body():
+            counts = torch.zeros(nq, dtype=torch.int32, device=q.device)
+            words = torch.zeros((nq, n_words), dtype=torch.int32, device=q.device) if bitmap else None
+            stats = torch.zeros((1, 3), dtype=torch.int32, device=q.device)
+            hamming_filter_into(q, db, qs, dbs, eps, t_lo, t_hi, counts, words, stats=stats, chunk_rows=nq)
+            return counts, words, stats
+
+        def twin():
+            if bitmap:
+                return hamming_filter_bitmap(q, db, qs, dbs, eps, t_hi, t_lo=t_lo)
+            return hamming_filter_count(q, db, qs, dbs, eps, t_hi, t_lo=t_lo), None
+
+        kc, kw, ks = body()
+        tc, tw = twin()
+        twin_equal = bool(torch.equal(kc, tc)) and (not bitmap or bool(torch.equal(kw, tw)))
+        triple_equal = bool(torch.equal(ks, ps))
+        words = kw if bitmap else hamming_filter_bitmap(q, db, qs, dbs, eps, t_hi, t_lo=t_lo)[1]
+        pairs = flipped_pairs(words, pb)
+        margin = pair_margin(pairs, q, db, eps)
+        flips_ok = bool(torch.equal(kc - pc, popcount32(words).sum(1) - popcount32(pb).sum(1)))
+        t1 = time_ms(twin)
+        m1 = time_ms(body)
+        m2 = time_ms(body)
+        t2 = time_ms(twin)
+        plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=bitmap,
+                                                   stats_chunk=nq), reps=2, warmup=1)
+        n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + (n_words if bitmap else 0))) + 12
+        b_ms, b_by = bound_ms(n_bytes, 2 * d * band)
+        rows.append({
+            "name": "hamming_filter_bitmap_stats" if bitmap else "hamming_filter_count_stats",
+            "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
+            "triple": ks[0].tolist(), "triple_equals_plain": triple_equal, "equals_twin": twin_equal,
+            "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
+            "ms": (m1 + m2) / 2, "twin_ms": (t1 + t2) / 2, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        ok &= twin_equal and triple_equal and flips_ok and margin <= tol
+    return ok, rows
+
+
+def check_observability(pipe, test, eps, tau, alpha, main_labels, truth_labels, dev):
+    """Phase 7: the main path with everything off and on, the count
+    sweep's occupancy slab, the margin tables.  Returns (ok, phase line,
+    launch counts of the observability path)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.metrics import adjusted_rand_index
+    from repro_torch.index.random_projection import RandomProjectionBackend, record_occupancy, suggest_margin
+    from repro_torch.index.sweep import plan_sweep
+    from repro_torch.kernels.hamming_filter.ops import pad_grid_stats
+    from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
+    from repro_torch.obs import device as tele
+    from repro_torch.obs import metrics
+
+    warnings = []
+    catcher = logging.Handler(logging.WARNING)
+    catcher.emit = lambda rec: warnings.append(rec.getMessage())
+    obs.get_logger().addHandler(catcher)
+    fields = tele.CLUSTER_ROUND_FIELDS
+    line = {"phase": "observability"}
+    t_phase = time.perf_counter()
+    try:
+        # 1. the main path, obs off and everything on, in turns (off, on, on, off)
+        obs.disable()
+        off = [pipe.cluster_laf_dbscan(test, eps, tau, alpha)]
+        obs.enable(trace=True, metrics_on=True, telemetry=True)
+        obs.clear_trace()
+        metrics.reset()
+        torch.cuda.synchronize()
+        on = [pipe.cluster_laf_dbscan(test, eps, tau, alpha)]
+        snap = metrics.snapshot()
+        recs = obs.spans()
+        launches = {k: snap.get(f"kernel.{k}.launches", 0) for k in KERNELS}
+        on.append(pipe.cluster_laf_dbscan(test, eps, tau, alpha))
+        obs.disable()
+        off.append(pipe.cluster_laf_dbscan(test, eps, tau, alpha))
+        obs.enable(trace=True, metrics_on=True, telemetry=True)
+
+        by_id = {r.span_id: r for r in recs}
+
+        def ancestors(r):
+            names = []
+            while r.parent_id in by_id:
+                r = by_id[r.parent_id]
+                names.append(r.name)
+            return names
+
+        tree = {"laf.predict": "laf.run", "laf.fit_index": "laf.run", "laf.pass1": "laf.run",
+                "laf.sweep": "laf.pass1", "laf.label_prop": "laf.run",
+                "laf.cluster.round": "laf.label_prop"}
+        tree_ok = all(
+            any(r.name == name for r in recs)
+            and all(anc in ancestors(r) for r in recs if r.name == name)
+            for name, anc in tree.items())
+        run_rec = next(r for r in recs if r.name == "laf.run")
+        cluster_rec = next(r for r in recs if r.name == "laf.cluster")
+        rounds = int(snap.get("laf.cluster.last_rounds", -1))
+        per = sorted((r for r in recs if r.name == "laf.cluster.round"), key=lambda r: r.attrs["round"])
+        per_round = {f: [r.attrs[f] for r in per] for f in fields}
+        with tempfile.TemporaryDirectory() as td:
+            path = Path(td) / "laf_trace.json"
+            obs.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        names = {e["name"] for e in events}
+        band_counts = {k: snap.get(f"index.band.{k}", 0) for k in ("accept", "band", "reject")}
+        ari = adjusted_rand_index(on[0].result.labels, truth_labels)
+        checks = {
+            "labels_equal_obs_off": all(np.array_equal(o.result.labels, off[0].result.labels) for o in on + off[1:])
+            and bool(np.array_equal(off[0].result.labels, main_labels)),
+            "host_syncs_1": snap.get("laf.cluster.host_syncs") == 1,
+            "rounds_equal_gauge": len(per) == rounds >= 1
+            and all(snap.get(f"laf.telemetry.{f}") == sum(per_round[f]) for f in fields),
+            "frontier_equals_shard_wins": per_round["frontier"] == per_round["shard_wins"],
+            "ari_ge_0.99": ari >= 0.99,
+            "span_tree": tree_ok,
+            "chrome_trace": set(tree) | {"laf.run", "laf.cluster"} <= names,
+            "index_band_nonzero": sum(band_counts.values()) > 0,
+        }
+        line.update({
+            "elapsed_s_obs_off": [o.elapsed_s for o in off], "elapsed_s_obs_on": [o.elapsed_s for o in on],
+            "predict_s_obs_on": on[0].predict_s, "coverage_laf_run": obs.coverage(run_rec, recs),
+            "coverage_laf_cluster": obs.coverage(cluster_rec, recs),
+            "span_s": {n: sum(r.dur for r in recs if r.name == n)
+                       for n in ("laf.run", "laf.predict", "laf.cluster", "laf.fit_index", "laf.pass1",
+                                 "laf.sweep", "laf.label_prop", "laf.postprocess")},
+            "rounds": rounds, "per_round": per_round, "ari_vs_exact_dbscan": ari,
+            "index_band": band_counts, "trace_events": len(events), "launches": launches,
+        })
+
+        # 2. a count sweep of the whole split with its occupancy slab
+        bk = RandomProjectionBackend(device=dev).fit(test)
+        rows = np.arange(len(test))
+        bk.band(eps)  # its occupancy measurement, outside the sweep's counters
+        metrics.reset()
+        counts_on = bk.query_counts(rows, eps)
+        sweep_snap = metrics.snapshot("sweep.")
+        slab = tele.last_sweep_stats().copy()
+        tele.disable_device()
+        counts_off = bk.query_counts(rows, eps)
+        tele.enable_device()
+        plan = plan_sweep(len(rows), bk.chunk, bk.q_tile, bk.chunks_per_launch)
+        t_lo, t_hi = bk.band(eps)
+        q, qs = bk._gather(rows)
+        _, _, real = hamming_filter_ref(q, bk.data_device, qs, bk._sigs_dev, eps, t_lo, t_hi,
+                                        with_bitmap=False, stats_chunk=plan.chunk)
+        plain = pad_grid_stats(qs, bk._sigs_dev, t_lo, t_hi, chunk=plan.chunk,
+                               n_chunks=plan.n_launches * plan.cpl, db_tile=bk.db_tile)
+        plain[: real.shape[0]] += real
+        totals = slab.astype(np.int64).sum(axis=0)
+        checks.update({
+            "sweep_counts_unchanged": bool(np.array_equal(counts_on, counts_off)),
+            "sweep_slab_rows": slab.shape == (plan.n_launches * plan.cpl, 3),
+            "sweep_slab_equals_plain": bool(np.array_equal(slab, plain.cpu().numpy())),
+            "sweep_tele_equals_slab": all(sweep_snap.get(f"sweep.tele.{f}") == int(totals[i])
+                                          for i, f in enumerate(tele.SWEEP_STAT_FIELDS)),
+            "sweep_host_syncs_1": sweep_snap.get("sweep.host_syncs") == 1,
+        })
+        line.update({"sweep_chunks": slab.shape[0], "sweep_tele": dict(zip(tele.SWEEP_STAT_FIELDS, totals.tolist()))})
+
+        # 3. margin tables: the kernel's counters against the host Hamming sweep
+        m_dev, table_dev = suggest_margin(bk, eps, report=True)
+        host_bk = RandomProjectionBackend(device=dev, oracle=True).fit(test)
+        m_host, table_host = suggest_margin(host_bk, eps, report=True)
+        n = len(test)
+        n_rows = len(np.unique(np.linspace(0, n - 1, min(n, 4 * bk.q_tile)).astype(np.int64)))
+
+        def pairs(table):
+            return [(r["margin"], r["t_lo"], r["t_hi"], round(r["band_frac"] * n_rows * n),
+                     round(r["accept_frac"] * n_rows * n)) for r in table]
+
+        occupancy = record_occupancy(bk, eps)  # called directly: a kernel failure fails the run
+        checks.update({
+            "margin_tables_equal": m_dev == m_host and pairs(table_dev) == pairs(table_host),
+            "record_occupancy_row": occupancy == next(r for r in table_dev if r["margin"] == bk.margin),
+            "no_occupancy_warning": not any("occupancy_record_failed" in w for w in warnings),
+        })
+        line.update({"suggested_margin": m_dev, "margin_table": table_dev})
+    finally:
+        obs.get_logger().removeHandler(catcher)
+    line["checks"] = checks
+    line["seconds"] = time.perf_counter() - t_phase
+    return all(checks.values()), line, launches
+
+
 def run(args) -> int:
     import torch
 
@@ -322,8 +563,11 @@ def run(args) -> int:
     from repro_torch.core.pipeline import LAFPipeline
     from repro_torch.data.synthetic import make_angular_clusters
     from repro_torch.index.random_projection import RandomProjectionBackend
+    from repro_torch import obs
     from repro_torch.kernels import _build
     from repro_torch.obs import metrics
+
+    obs.enable(trace=False, metrics_on=True)  # the launch counts are counters
 
     dev = torch.device("cuda")
     # 1. device
@@ -369,11 +613,10 @@ def run(args) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = pipe.cluster_laf_dbscan(test, eps, tau, alpha)
-    counts = metrics.snapshot()
-    launches = {k: counts["counters"].get(f"kernel.{k}.launches", 0) for k in KERNELS}
-    host_syncs = counts["counters"].get("laf.cluster.host_syncs", 0)
+    g = metrics.snapshot()
+    launches = {k: g.get(f"kernel.{k}.launches", 0) for k in KERNELS}
+    host_syncs = g.get("laf.cluster.host_syncs", 0)
     res = out.result
-    g = counts["gauges"]
     emit({"phase": "main_path", "seconds": time.perf_counter() - t_phase,
           "warmup_elapsed_s": warm.elapsed_s, "elapsed_s": out.elapsed_s, "predict_s": out.predict_s,
           "fit_index_s": g.get("laf.phase.fit_index_s"), "sweep_s": g.get("laf.phase.sweep_s"), "label_prop_s": g.get("laf.phase.label_prop_s"),
@@ -404,9 +647,14 @@ def run(args) -> int:
           "host_union_find_identical": same, "exact_dbscan_equals_device_pass": truth_same,
           "exact_dbscan_clusters": truth.n_clusters, "exact_dbscan_noise_ratio": truth.noise_ratio,
           "ari_vs_exact_dbscan": quality})
-    wall, busy = device_busy(lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha))
+    wall, busy, union = device_busy(lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha))
+    # the same clustering without the profiler (metrics on, as here): the
+    # main path's elapsed_s; busy over it assumes the profiler leaves the
+    # device's own work as it is
     emit({"phase": "trace", "seconds": wall, "wall_s": wall, "device_busy_s": busy,
-          "idle_share": None if busy is None else 1.0 - busy / wall})
+          "device_busy_union_s": union, "idle_share": None if busy is None else 1.0 - busy / wall,
+          "unprofiled_elapsed_s": out.elapsed_s,
+          "idle_share_unprofiled": None if union is None else 1.0 - union / out.elapsed_s})
     ok &= same and truth_same and quality >= 0.99
 
     # 5. the exact path: the paper's four methods on the exact backend
@@ -426,13 +674,13 @@ def run(args) -> int:
         torch.cuda.synchronize()
         o = fn()
         snap = metrics.snapshot()
-        lc = {k: snap["counters"].get(f"kernel.{k}.launches", 0) for k in EXACT_KERNELS}
+        lc = {k: snap.get(f"kernel.{k}.launches", 0) for k in EXACT_KERNELS}
         for k in EXACT_KERNELS:
             exact_launches[k] += lc[k]
         r = o.result
         row = {"elapsed_s": o.elapsed_s, "warmup_elapsed_s": warm.elapsed_s, "predict_s": o.predict_s,
-               "phases_s": {k.split(".")[-1][:-2]: v for k, v in snap["gauges"].items()
-                            if k.endswith("_s") and ".phase." in k and v is not None},
+               "phases_s": {k.split(".")[-1][:-2]: v for k, v in snap.items()
+                            if k.endswith("_s") and ".phase." in k},
                "n_range_queries": r.n_range_queries, "n_clusters": r.n_clusters,
                "noise_ratio": r.noise_ratio, "ari": adjusted_rand_index(r.labels, truth.labels),
                "ami": adjusted_mutual_info(r.labels, truth.labels), "launches": lc,
@@ -458,15 +706,25 @@ def run(args) -> int:
     for k in rc:
         k["launches_by_method"] = {m: v["launches"][k["name"]] for m, v in by_method.items()}
     launches.update(exact_launches)
+    st_ok, st = check_stats_bodies(bk, exec_idx, eps, args.k1_rows)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase, "hamming_filter_ok": k1_ok,
+          "label_prop_ok": lp_ok, "range_count_ok": rc_ok, "stats_bodies_ok": st_ok})
+    ok &= k1_ok and lp_ok and rc_ok and st_ok
+    ok &= all(launches[k] > 0 for k in RP_KERNELS + EXACT_KERNELS)
+
+    # 7. observability, its launch counts read around its own path
+    obs_ok, obs_line, obs_launches = check_observability(
+        pipe, test, eps, tau, alpha, res.labels, truth.labels, dev)
+    emit(obs_line)
+    ok &= obs_ok and all(obs_launches[k] > 0 for k in OBS_KERNELS)
+    for k in STATS_KERNELS:
+        launches[k] = obs_launches[k]
     rows = []
-    for k in [k1, *lp, *rc]:
+    for k in [k1, *lp, *rc, *st]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], **{a: b for a, b in k.items() if a != "name"},
                      "library_ms": None})
-    emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase, "hamming_filter_ok": k1_ok,
-          "label_prop_ok": lp_ok, "range_count_ok": rc_ok})
-    ok &= k1_ok and lp_ok and rc_ok and all(launches[k] > 0 for k in KERNELS)
     if not ok:
         emit({"kernels": rows})
         return fail("a check failed (see the phase lines above)")

@@ -15,6 +15,14 @@ owners, partial counts, neighbor counts and rounds in ONE copy
 (``laf.cluster.host_syncs``).  ``cluster_device=False`` runs the host
 unpack -> union-find pass over the same hits, the parity oracle.  A
 device failure raises.
+
+Spans (``obs.enable(trace=True)``) follow the reference's:
+``laf.cluster`` around the engine, ``laf.fit_index``, ``laf.pass1`` ⊃
+``laf.sweep``, ``laf.label_prop`` (device pass; with device telemetry
+its per-round counts ride the pass's one host copy and become
+``laf.cluster.round`` child spans), ``laf.union_find`` ⊃ ``laf.unpack``
+(host pass) and ``laf.postprocess``.  No span syncs: each closes on the
+host clock, after whatever sync its work already makes.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..obs import device as _obs_device
 from ..obs import metrics as _metrics
+from ..obs import span as _span
 from ..obs.metrics import PhaseClock
 from .dbscan import NOISE, UNDEFINED, DBSCANResult
 from .postprocess import PartialNeighborMap, post_processing, update_partial_neighbors
@@ -134,16 +144,28 @@ def laf_dbscan(
         blocks come from ``query_packed_device``), ``False`` runs the
         host union-find pass.
     """
+    data = np.asarray(data, dtype=np.float32)
+    with _span("laf.cluster", n=data.shape[0], eps=float(eps), tau=int(tau)):
+        return _laf_dbscan_body(data, eps, tau, alpha, predicted_counts, block_size=block_size,
+                                seed=seed, backend=backend, device=device,
+                                cluster_device=cluster_device)
+
+
+def _laf_dbscan_body(data, eps, tau, alpha, predicted_counts, *, block_size, seed, backend,
+                     device, cluster_device):
     from ..index import as_fitted
 
-    data = np.asarray(data, dtype=np.float32)
     n = data.shape[0]
     clock = PhaseClock.for_engine(backend, device)
-    bk = as_fitted(backend, data, block_size=block_size, device=device)
+    with _span("laf.fit_index", backend=str(backend)):
+        bk = as_fitted(backend, data, block_size=block_size, device=device)
     clock.mark("fit_index")
     predicted_core = np.asarray(predicted_counts) >= alpha * tau  # LAF skip rule
     exec_idx = np.nonzero(predicted_core)[0]
     n_exec = len(exec_idx)
+    _metrics.counter("laf.runs").inc()
+    _metrics.counter("laf.predicted_core").inc(int(n_exec))
+    _metrics.counter("laf.skipped").inc(int(n - n_exec))
 
     native = bool(bk.packs_natively)
     use_device = native if cluster_device == "auto" else bool(cluster_device)
@@ -175,29 +197,44 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
     from ..kernels.label_prop import packed_cluster_labels
 
     n_exec = len(exec_idx)
-    # uploaded before the sweep: a host->device copy waits for the stream
-    exec_t = torch.from_numpy(exec_idx).to(device=bk.device, dtype=torch.int32)
-    if native:
-        slab, plan = bk.query_bitmap_device(exec_t, eps)
-        rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=bk.device)
-        rows[:n_exec] = exec_t
-    else:
-        blocks = [bk.query_packed_device(exec_idx[s : s + block_size], eps)
-                  for s in range(0, n_exec, block_size)]
-        slab = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
-        rows = exec_t
+    with _span("laf.pass1", n=n, n_exec=int(n_exec), block_size=block_size, device=True):
+        # uploaded before the sweep: a host->device copy waits for the stream
+        exec_t = torch.from_numpy(exec_idx).to(device=bk.device, dtype=torch.int32)
+        if native:
+            with _span("laf.sweep", rows=int(n_exec), synced=False):
+                slab, plan = bk.query_bitmap_device(exec_t, eps)
+            rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=bk.device)
+            rows[:n_exec] = exec_t
+        else:
+            blocks = []
+            for s in range(0, n_exec, block_size):
+                blk = exec_idx[s : s + block_size]
+                with _span("laf.sweep", block=s // block_size, rows=len(blk)):
+                    blocks.append(bk.query_packed_device(blk, eps))
+            slab = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
+            rows = exec_t
     clock.mark("sweep")
-    labels_d, owner_d, col_sum_d, counts_d, rounds_d = packed_cluster_labels(slab, rows, tau, n=n)
-    clock.mark("label_prop")
-    # THE host sync of the cluster pass: every result in one copy
-    flat = torch.cat(
-        [labels_d[:n], owner_d[:n], col_sum_d[:n], counts_d[:n_exec], rounds_d.view(1)]
-    ).cpu().numpy()
-    _metrics.counter("laf.cluster.host_syncs").inc()
+    telemetry = _obs_device.device_enabled()
+    lp_span = _span("laf.label_prop", rows=int(rows.shape[0]), n=n, telemetry=telemetry)
+    with lp_span:
+        outs = packed_cluster_labels(slab, rows, tau, n=n, telemetry=telemetry)
+        labels_d, owner_d, col_sum_d, counts_d, rounds_d = outs[:5]
+        clock.mark("label_prop")
+        parts = [labels_d[:n], owner_d[:n], col_sum_d[:n], counts_d[:n_exec], rounds_d.view(1)]
+        if telemetry:
+            parts.append(outs[5].view(-1))  # the per-round counts ride the same copy
+        # THE host sync of the cluster pass: every result in one copy
+        flat = torch.cat(parts).cpu().numpy()
+        _metrics.counter("laf.cluster.host_syncs").inc()
     rep, owner, col_sum = flat[:n], flat[n : 2 * n].astype(np.int64), flat[2 * n : 3 * n]
     counts = flat[3 * n : 3 * n + n_exec]
-    rounds = int(flat[-1])
+    rounds = int(flat[3 * n + n_exec])
     _metrics.gauge("laf.cluster.last_rounds").set(rounds)
+    _metrics.counter("laf.cluster.rounds").inc(rounds)
+    if telemetry:
+        tele = flat[3 * n + n_exec + 1 :].reshape(len(_obs_device.CLUSTER_ROUND_FIELDS), -1)
+        per_round = _obs_device.harvest_cluster_telemetry(tele, rounds)
+        _obs_device.emit_round_spans(getattr(lp_span, "_rec", None), per_round)
 
     core = np.zeros(n, dtype=bool)
     core[exec_idx] = counts >= tau
@@ -227,37 +264,41 @@ def _cluster_pass_host(bk, eps, tau, exec_idx, n, block_size, clock):
     exact_counts = np.zeros(n, dtype=np.int64)
     partial_counts = np.zeros(n, dtype=np.int64)  # |𝓔(q)| for predicted-stop q
     packed_blocks = []
-    for start in range(0, len(exec_idx), block_size):
-        rows = exec_idx[start : start + block_size]
-        hit = bk.query_hits(rows, eps)  # (b, n)
-        exact_counts[rows] = hit.sum(axis=1)
-        # Alg. 2 superset: every predicted-stop neighbor of an executed
-        # query gains one partial neighbor
-        partial_counts += hit.sum(axis=0)
-        packed_blocks.append((rows, pack_bitmap(hit)))
+    with _span("laf.pass1", n=n, n_exec=int(len(exec_idx)), block_size=block_size):
+        for start in range(0, len(exec_idx), block_size):
+            rows = exec_idx[start : start + block_size]
+            with _span("laf.sweep", block=start // block_size, rows=len(rows)):
+                hit = bk.query_hits(rows, eps)  # (b, n)
+            exact_counts[rows] = hit.sum(axis=1)
+            # Alg. 2 superset: every predicted-stop neighbor of an executed
+            # query gains one partial neighbor
+            partial_counts += hit.sum(axis=0)
+            packed_blocks.append((rows, pack_bitmap(hit)))
     clock.mark("sweep")
 
     core = np.zeros(n, dtype=bool)
     core[exec_idx] = exact_counts[exec_idx] >= tau
     parent = np.arange(n, dtype=np.int64)
     owner = np.full(n, -1, dtype=np.int64)
-    for rows, packed in packed_blocks:
-        hit = unpack_bitmap(packed, n)
-        row_is_core = core[rows]
-        hit_core = hit & core[None, :]
-        for bi in np.nonzero(row_is_core)[0]:
-            union_star(parent, np.nonzero(hit_core[bi])[0])
-        if row_is_core.any():
-            sub = hit[row_is_core]
-            subrows = rows[row_is_core]
-            claimed = sub.any(axis=0)
-            todo = claimed & (owner < 0) & ~core
-            if todo.any():
-                first = sub[:, todo].argmax(axis=0)
-                owner[todo] = subrows[first]
-    labels = compact_labels_from_parent(parent, core)
-    borders = np.nonzero(~core & (owner >= 0))[0]
-    labels[borders] = labels[owner[borders]]
+    with _span("laf.union_find", blocks=len(packed_blocks)):
+        for rows, packed in packed_blocks:
+            with _span("laf.unpack", rows=len(rows)):
+                hit = unpack_bitmap(packed, n)
+            row_is_core = core[rows]
+            hit_core = hit & core[None, :]
+            for bi in np.nonzero(row_is_core)[0]:
+                union_star(parent, np.nonzero(hit_core[bi])[0])
+            if row_is_core.any():
+                sub = hit[row_is_core]
+                subrows = rows[row_is_core]
+                claimed = sub.any(axis=0)
+                todo = claimed & (owner < 0) & ~core
+                if todo.any():
+                    first = sub[:, todo].argmax(axis=0)
+                    owner[todo] = subrows[first]
+        labels = compact_labels_from_parent(parent, core)
+        borders = np.nonzero(~core & (owner >= 0))[0]
+        labels[borders] = labels[owner[borders]]
     clock.mark("union_find")
     return labels, core, partial_counts
 
@@ -271,17 +312,19 @@ def _rescue_and_finish(
     n_exec = len(exec_idx)
     n_pre_clusters = int(labels.max()) + 1 if labels.max() >= 0 else 0
     rescue_idx = np.nonzero(~predicted_core & (partial_counts >= tau))[0]
-    emap = PartialNeighborMap()
-    if len(rescue_idx) > 0:
-        for start in range(0, n_exec, block_size):
-            rows = exec_idx[start : start + block_size]
-            hit = bk.query_hits_subset(rows, rescue_idx, eps)  # (b, n_rescue)
-            for ri in np.nonzero(hit.any(axis=0))[0]:
-                r = int(rescue_idx[ri])
-                emap.register(r)
-                emap[r].update(int(f) for f in rows[hit[:, ri]])
-    labels = post_processing(labels, emap, tau, rng=np.random.default_rng(seed))
-    labels = _compact(labels)
+    _metrics.counter("laf.rescued").inc(int(len(rescue_idx)))
+    with _span("laf.postprocess", n_rescue=int(len(rescue_idx))):
+        emap = PartialNeighborMap()
+        if len(rescue_idx) > 0:
+            for start in range(0, n_exec, block_size):
+                rows = exec_idx[start : start + block_size]
+                hit = bk.query_hits_subset(rows, rescue_idx, eps)  # (b, n_rescue)
+                for ri in np.nonzero(hit.any(axis=0))[0]:
+                    r = int(rescue_idx[ri])
+                    emap.register(r)
+                    emap[r].update(int(f) for f in rows[hit[:, ri]])
+        labels = post_processing(labels, emap, tau, rng=np.random.default_rng(seed))
+        labels = _compact(labels)
 
     extras = {
         "n_predicted_core": int(n_exec),

@@ -2,13 +2,15 @@
 estimator on the 80% split, cluster the 20% split with DBSCAN,
 LAF-DBSCAN, DBSCAN++ or LAF-DBSCAN++, with the paper's timing
 discipline — prediction time counts, training time does not (§3.1
-Metrics).  Every ``elapsed_s`` is a host clock reading that ends with
-the labels on the host, so it includes all device work.
+Metrics).  ``elapsed_s`` and ``predict_s`` are the durations of the
+reference's forced spans (``laf.run`` ⊃ ``laf.predict``, ``dbscan.run``,
+``dbscanpp.run``): measured whether or not tracing is on, recorded in the
+trace when it is, and each synced on its outputs before it closes, so
+they include all device work.
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -17,6 +19,7 @@ import numpy as np
 from .. import resolve_device
 from ..data.synthetic import train_test_split
 from ..obs import metrics as _metrics
+from ..obs import span as _span
 from .cardinality import TrainedEstimator, train_rmi
 from .dbscan import DBSCANResult, dbscan_parallel
 from .dbscan_pp import auto_sample_fraction, dbscan_pp, laf_dbscan_pp
@@ -99,26 +102,27 @@ class LAFPipeline:
         self, vectors: np.ndarray, eps: float, tau: int, alpha: float, **kw
     ) -> ClusterOutcome:
         """LAF-DBSCAN of ``vectors``; ``elapsed_s`` spans prediction and
-        clustering and ends with the labels on the host, so host clock
-        readings are synced ones."""
+        clustering (the ``laf.run`` span), ``predict_s`` the prediction
+        (``laf.predict``)."""
         kw = self._engine_kw(kw)
         kw.setdefault("cluster_device", self.cluster_device)
-        t0 = time.perf_counter()
-        pred = self.predict_counts(vectors, eps)  # host array: synced
-        t1 = time.perf_counter()
-        res = laf_dbscan(vectors, eps, tau, alpha, pred, seed=self.seed, **kw)
-        t2 = time.perf_counter()
-        _metrics.gauge("laf.phase.predict_s").set(t1 - t0)
-        return ClusterOutcome(res, t2 - t0, t1 - t0, "LAF-DBSCAN",
+        with _span("laf.run", n=len(vectors), eps=float(eps), tau=int(tau), force=True) as run:
+            with _span("laf.predict", n=len(vectors), force=True) as pre:
+                pred = self.predict_counts(vectors, eps)
+                pre.sync_on(pred)
+            res = laf_dbscan(vectors, eps, tau, alpha, pred, seed=self.seed, **kw)
+            run.sync_on((res.labels, res.core))
+        _metrics.gauge("laf.phase.predict_s").set(pre.dur)
+        return ClusterOutcome(res, run.dur, pre.dur, "LAF-DBSCAN",
                               {"eps": eps, "tau": tau, "alpha": alpha})
 
     def cluster_dbscan(self, vectors: np.ndarray, eps: float, tau: int, **kw) -> ClusterOutcome:
         """Exact DBSCAN (``dbscan_parallel``), the paper's ground truth."""
         kw = self._engine_kw(kw)
-        t0 = time.perf_counter()
-        res = dbscan_parallel(vectors, eps, tau, **kw)
-        return ClusterOutcome(res, time.perf_counter() - t0, 0.0, "DBSCAN",
-                              {"eps": eps, "tau": tau})
+        with _span("dbscan.run", n=len(vectors), force=True) as run:
+            res = dbscan_parallel(vectors, eps, tau, **kw)
+            run.sync_on((res.labels, res.core))
+        return ClusterOutcome(res, run.dur, 0.0, "DBSCAN", {"eps": eps, "tau": tau})
 
     def cluster_dbscan_pp(
         self, vectors: np.ndarray, eps: float, tau: int,
@@ -126,12 +130,12 @@ class LAFPipeline:
     ) -> ClusterOutcome:
         """DBSCAN++; without ``p`` the estimator sets it (p = delta + R_c)."""
         kw = self._engine_kw(kw)
-        t0 = time.perf_counter()
-        if p is None:
-            p = auto_sample_fraction(self.predict_counts(vectors, eps), tau, alpha, delta)
-        res = dbscan_pp(vectors, eps, tau, p, seed=self.seed, **kw)
-        return ClusterOutcome(res, time.perf_counter() - t0, 0.0, "DBSCAN++",
-                              {"eps": eps, "tau": tau, "p": p})
+        with _span("dbscanpp.run", n=len(vectors), force=True) as run:
+            if p is None:
+                p = auto_sample_fraction(self.predict_counts(vectors, eps), tau, alpha, delta)
+            res = dbscan_pp(vectors, eps, tau, p, seed=self.seed, **kw)
+            run.sync_on((res.labels, res.core))
+        return ClusterOutcome(res, run.dur, 0.0, "DBSCAN++", {"eps": eps, "tau": tau, "p": p})
 
     def cluster_laf_dbscan_pp(
         self, vectors: np.ndarray, eps: float, tau: int,
@@ -140,18 +144,20 @@ class LAFPipeline:
         """LAF-DBSCAN++ over a uniform sample drawn as ``dbscan_pp`` draws
         it; prediction and sampling count in ``predict_s``."""
         kw = self._engine_kw(kw)
-        t0 = time.perf_counter()
-        pred_all = self.predict_counts(vectors, eps)
-        if p is None:
-            p = auto_sample_fraction(pred_all, tau, alpha, delta)
-        n = vectors.shape[0]
-        m = max(1, int(round(p * n)))
-        rng = np.random.default_rng(self.seed)
-        sample_idx = np.sort(rng.choice(n, size=m, replace=False))
-        t1 = time.perf_counter()
-        res = laf_dbscan_pp(
-            vectors, eps, tau, p, pred_all[sample_idx],
-            alpha=alpha, seed=self.seed, sample_idx=sample_idx, **kw
-        )
-        return ClusterOutcome(res, time.perf_counter() - t0, t1 - t0, "LAF-DBSCAN++",
+        with _span("laf.run", n=len(vectors), force=True) as run:
+            with _span("laf.predict", n=len(vectors), force=True) as pre:
+                pred_all = self.predict_counts(vectors, eps)
+                if p is None:
+                    p = auto_sample_fraction(pred_all, tau, alpha, delta)
+                n = vectors.shape[0]
+                m = max(1, int(round(p * n)))
+                rng = np.random.default_rng(self.seed)
+                sample_idx = np.sort(rng.choice(n, size=m, replace=False))
+                pre.sync_on(pred_all)
+            res = laf_dbscan_pp(
+                vectors, eps, tau, p, pred_all[sample_idx],
+                alpha=alpha, seed=self.seed, sample_idx=sample_idx, **kw
+            )
+            run.sync_on((res.labels, res.core))
+        return ClusterOutcome(res, run.dur, pre.dur, "LAF-DBSCAN++",
                               {"eps": eps, "tau": tau, "p": p, "alpha": alpha})

@@ -1,8 +1,10 @@
 // Fused Hamming-filter + exact-verify range query, CUDA C++ for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/hamming_filter/kernel.py:179
-// `hamming_filter_pallas` (bodies `_filter_count_bitmap_kernel` :80 and
-// `_filter_count_kernel` :62).  For every (query i, db row j) pair:
+// `hamming_filter_pallas`, all four bodies: `_filter_count_kernel` :62,
+// `_filter_count_bitmap_kernel` :80, `_filter_count_stats_kernel` :131
+// and `_filter_count_bitmap_stats_kernel` :150.  For every (query i, db
+// row j) pair:
 //
 //   ham = popcount(q_sig[i] ^ db_sig[j])          (w = n_bits/32 words)
 //   hit = ham <= t_lo                              sure accept, no dot
@@ -36,7 +38,17 @@
 //     (__ballot_sync), and __popc of that word feeds the counts;
 //   * ragged nq/nd are masked in the kernel: no padding, no pad
 //     correction, and bits past nd are never set (the tail mask).
-//   * count-only mode is the same kernel with BITMAP = false.
+//   * count-only mode is the same kernel with BITMAP = false;
+//   * STATS = true adds the occupancy counters of the `_stats` bodies:
+//     per (row, warp) the __popc of the sure-accept and band ballots go
+//     into per-thread registers, a block sums them once through shared
+//     memory and adds them with three atomicAdds, [accept, band, reject], into
+//     int32 slab row `row0 / chunk_rows` (chunk_rows is a multiple of the
+//     block's 32 rows, or >= nq for one whole-call triple, so a block
+//     never straddles two rows).  Only real pairs are counted (the kernel
+//     never pads); the wrapper adds the reference's pad-grid pairs.  The
+//     counters read the classification the kernel already makes and
+//     change no count or word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,16 +58,18 @@ namespace {
 constexpr int kCols = 256;   // db columns per block (8 warps)
 constexpr int kRows = 32;    // query rows per block
 
-template <bool BITMAP>
+template <bool BITMAP, bool STATS>
 __global__ void __launch_bounds__(kCols) hamming_filter_kernel(
     const float* __restrict__ q, const float* __restrict__ db,
     const uint32_t* __restrict__ qs, const uint32_t* __restrict__ dbs,
     int nq, int nd, int d, int w, float thresh, int t_lo, int t_hi,
-    int* __restrict__ counts, uint32_t* __restrict__ bitmap, int ld_bitmap) {
+    int* __restrict__ counts, uint32_t* __restrict__ bitmap, int ld_bitmap,
+    int* __restrict__ stats, int chunk_rows) {
   extern __shared__ uint32_t smem[];
   uint32_t* db_sig = smem;                      // kCols x (w + 1)
   uint32_t* q_sig = smem + kCols * (w + 1);     // kRows x w
   __shared__ int row_hits[kRows];
+  __shared__ int occupancy[2];                  // [accept, band] of the block
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -74,7 +88,9 @@ __global__ void __launch_bounds__(kCols) hamming_filter_kernel(
   for (int t = tid; t < kRows * w; t += kCols)
     q_sig[t] = t < n_q ? qs[(size_t)row0 * w + t] : 0u;
   if (tid < kRows) row_hits[tid] = 0;
+  if (STATS && tid < 2) occupancy[tid] = 0;
   __syncthreads();
+  int n_accept = 0, n_band = 0;  // this warp's ballot popcounts (warp-uniform)
 
   const uint32_t* my_sig = db_sig + tid * (w + 1);
   const int rows = min(kRows, nq - row0);
@@ -85,6 +101,10 @@ __global__ void __launch_bounds__(kCols) hamming_filter_kernel(
     bool hit = col_ok && ham <= t_lo;
     const bool band = col_ok && !hit && ham <= t_hi;
     unsigned pending = __ballot_sync(0xffffffffu, band);
+    if (STATS) {
+      n_accept += __popc(__ballot_sync(0xffffffffu, hit));
+      n_band += __popc(pending);
+    }
     if (pending) {
       const float* qrow = q + (size_t)(row0 + r) * d;
       while (pending) {
@@ -106,8 +126,29 @@ __global__ void __launch_bounds__(kCols) hamming_filter_kernel(
         bitmap[(size_t)(row0 + r) * ld_bitmap + (j >> 5)] = word;
     }
   }
+  if (STATS && lane == 0) {
+    atomicAdd(&occupancy[0], n_accept);
+    atomicAdd(&occupancy[1], n_band);
+  }
   __syncthreads();
   if (tid < rows && row_hits[tid]) atomicAdd(&counts[row0 + tid], row_hits[tid]);
+  if (STATS && tid == 0) {
+    const int pairs = rows * min(kCols, nd - col0);
+    int* slot = stats + 3 * (row0 / chunk_rows);
+    atomicAdd(&slot[0], occupancy[0]);
+    atomicAdd(&slot[1], occupancy[1]);
+    atomicAdd(&slot[2], pairs - occupancy[0] - occupancy[1]);
+  }
+}
+
+template <bool BITMAP, bool STATS>
+void launch(dim3 grid, size_t shmem, cudaStream_t s, const float* q, const float* db,
+            const uint32_t* qs, const uint32_t* dbs, int nq, int nd, int d, int w,
+            float thresh, int t_lo, int t_hi, int* counts, uint32_t* bm, int ld_bitmap,
+            int* stats, int chunk_rows) {
+  hamming_filter_kernel<BITMAP, STATS><<<grid, kCols, shmem, s>>>(
+      q, db, qs, dbs, nq, nd, d, w, thresh, t_lo, t_hi, counts, bm, ld_bitmap,
+      stats, chunk_rows);
 }
 
 }  // namespace
@@ -115,7 +156,8 @@ __global__ void __launch_bounds__(kCols) hamming_filter_kernel(
 extern "C" int hamming_filter_launch(
     const float* q, const float* db, const int* q_sig, const int* db_sig,
     int nq, int nd, int d, int w, float thresh, int t_lo, int t_hi,
-    int* counts, int* bitmap, int ld_bitmap, int with_bitmap, void* stream) {
+    int* counts, int* bitmap, int ld_bitmap, int with_bitmap,
+    int* stats, int chunk_rows, void* stream) {
   if (nq <= 0 || nd <= 0) return 0;
   dim3 grid((nd + kCols - 1) / kCols, (nq + kRows - 1) / kRows);
   size_t shmem = sizeof(uint32_t) * (size_t)(kCols * (w + 1) + kRows * w);
@@ -123,11 +165,9 @@ extern "C" int hamming_filter_launch(
   const uint32_t* qs = reinterpret_cast<const uint32_t*>(q_sig);
   const uint32_t* dbs = reinterpret_cast<const uint32_t*>(db_sig);
   uint32_t* bm = reinterpret_cast<uint32_t*>(bitmap);
-  if (with_bitmap)
-    hamming_filter_kernel<true><<<grid, kCols, shmem, s>>>(
-        q, db, qs, dbs, nq, nd, d, w, thresh, t_lo, t_hi, counts, bm, ld_bitmap);
-  else
-    hamming_filter_kernel<false><<<grid, kCols, shmem, s>>>(
-        q, db, qs, dbs, nq, nd, d, w, thresh, t_lo, t_hi, counts, bm, ld_bitmap);
+  auto body = with_bitmap ? (stats ? &launch<true, true> : &launch<true, false>)
+                          : (stats ? &launch<false, true> : &launch<false, false>);
+  body(grid, shmem, s, q, db, qs, dbs, nq, nd, d, w, thresh, t_lo, t_hi, counts, bm,
+       ld_bitmap, stats, chunk_rows);
   return (int)cudaGetLastError();
 }

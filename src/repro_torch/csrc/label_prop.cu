@@ -36,6 +36,22 @@
 // The one-sync fixpoint: every round's kernels read flags[it] and return
 // at once when it is 0; the update writes flags[it+1] = 1 when a label
 // changed.  The host enqueues max_iters rounds and never reads a flag.
+//
+// Telemetry (repro/obs/device.py's per-round vectors, computed in jnp
+// inside the reference's while loop at ops.py:198-248): with a non-null
+// `tele` (int32, 4 rows of `tele_stride` rounds) the update kernel adds
+// round `it`'s counts into column `it`:
+//   frontier   = core columns whose gathered m[pos[j]] < lab[j]
+//   changed    = columns with jumped != lab[j]
+//   hops       = columns with jumped < new(j)
+//   shard_wins = frontier (one device: every gather win is a frontier row)
+// The reference counts frontier per core slab row; this counts it per
+// core column through pos, which is the same number when slab rows are
+// unique, as they are for every caller.  Each count is reduced in the
+// block (__syncthreads_count) and added with one atomicAdd per block and
+// field.  A round whose flag is 0 returns before counting, so the slots
+// after the fixpoint stay 0.  A null `tele` launches the TELE = false
+// instantiation, the kernel as it was without telemetry.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -104,17 +120,45 @@ __device__ __forceinline__ int scattered(const int* lab, const int* m,
   return p >= 0 ? min(lab[x], m[p]) : lab[x];
 }
 
+template <bool TELE>
 __global__ void label_prop_update_kernel(
     const int* __restrict__ lab, const int* __restrict__ m,
     const int* __restrict__ pos, int cap, int* __restrict__ out,
-    int* __restrict__ flags, int it) {
+    int* __restrict__ flags, int it, int* __restrict__ tele, int tele_stride) {
   if (flags[it] == 0) return;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cap) return;
-  const int nj = scattered(lab, m, pos, j);
-  const int jumped = nj < cap ? min(nj, scattered(lab, m, pos, nj)) : nj;
-  out[j] = jumped;
-  if (jumped != lab[j]) flags[it + 1] = 1;
+  if (!TELE) {
+    if (j >= cap) return;
+    const int nj = scattered(lab, m, pos, j);
+    const int jumped = nj < cap ? min(nj, scattered(lab, m, pos, nj)) : nj;
+    out[j] = jumped;
+    if (jumped != lab[j]) flags[it + 1] = 1;
+    return;
+  }
+  // every thread reaches the block reductions below
+  bool front = false, changed = false, hop = false;
+  if (j < cap) {
+    const int lj = lab[j];
+    const int nj = scattered(lab, m, pos, j);
+    const int jumped = nj < cap ? min(nj, scattered(lab, m, pos, nj)) : nj;
+    out[j] = jumped;
+    changed = jumped != lj;
+    if (changed) flags[it + 1] = 1;
+    const int p = pos[j];
+    front = p >= 0 && m[p] < lj;
+    hop = jumped < nj;
+  }
+  const int n_front = __syncthreads_count(front);
+  const int n_changed = __syncthreads_count(changed);
+  const int n_hops = __syncthreads_count(hop);
+  if (threadIdx.x == 0) {
+    if (n_front) {
+      atomicAdd(&tele[it], n_front);
+      atomicAdd(&tele[3 * tele_stride + it], n_front);
+    }
+    if (n_changed) atomicAdd(&tele[tele_stride + it], n_changed);
+    if (n_hops) atomicAdd(&tele[2 * tele_stride + it], n_hops);
+  }
 }
 
 }  // namespace
@@ -144,11 +188,16 @@ extern "C" int col_reduce_launch(
 
 extern "C" int label_prop_update_launch(
     const int* lab, const int* m, const int* pos, int cap, int* out,
-    int* flags, int it, void* stream) {
+    int* flags, int it, int* tele, int tele_stride, void* stream) {
   if (cap <= 0) return 0;
   const int threads = 256;
-  label_prop_update_kernel<<<(cap + threads - 1) / threads, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      lab, m, pos, cap, out, flags, it);
+  const int blocks = (cap + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tele != nullptr)
+    label_prop_update_kernel<true><<<blocks, threads, 0, s>>>(
+        lab, m, pos, cap, out, flags, it, tele, tele_stride);
+  else
+    label_prop_update_kernel<false><<<blocks, threads, 0, s>>>(
+        lab, m, pos, cap, out, flags, it, tele, tele_stride);
   return (int)cudaGetLastError();
 }

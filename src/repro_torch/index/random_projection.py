@@ -16,6 +16,13 @@ Two evaluators of that one contract:
   cluster pass (``packs_natively``);
 * ``oracle=True``: the host numpy path (``_tile_hits`` /
   ``_tile_counts``), the in-package parity oracle.
+
+``suggest_margin`` / ``record_occupancy`` price the Hamming band with
+the kernel's ``[accept, band, reject]`` occupancy counters (or one host
+Hamming sweep on the oracle); with metrics on, ``band()`` records its
+own band's occupancy once per eps into ``index.band.*``.
+``q_tile``/``db_tile`` are the reference kernel's tile grid, on which
+those counters and the sweep's occupancy slab are defined.
 """
 
 from __future__ import annotations
@@ -27,11 +34,14 @@ import torch
 
 from .. import resolve_device
 from ..core.range_query import unpack_bitmap
+from ..kernels.hamming_filter.ops import DEFAULT_DB_TILE, DEFAULT_Q_TILE, hamming_filter_count
+from ..obs import get_logger, rate_limited_warn
+from ..obs import metrics as _metrics
 from .base import RangeBackend, register_backend
 from .signatures import hamming_band, hamming_numpy, make_projection, sign_signatures
-from .sweep import sweep_bitmap, sweep_bitmap_device, sweep_counts
+from .sweep import DEFAULT_CHUNKS_PER_LAUNCH, sweep_bitmap, sweep_bitmap_device, sweep_counts
 
-__all__ = ["RandomProjectionBackend"]
+__all__ = ["RandomProjectionBackend", "suggest_margin", "record_occupancy"]
 
 
 @register_backend
@@ -48,6 +58,9 @@ class RandomProjectionBackend(RangeBackend):
         block_size: int = 2048,
         chunk: int = 256,
         max_band_frac: float = 0.05,
+        q_tile: int = DEFAULT_Q_TILE,
+        db_tile: int = DEFAULT_DB_TILE,
+        chunks_per_launch: int = DEFAULT_CHUNKS_PER_LAUNCH,
         oracle: bool = False,
         device=None,
     ):
@@ -60,6 +73,9 @@ class RandomProjectionBackend(RangeBackend):
         self.block_size = block_size
         self.chunk = chunk
         self.max_band_frac = max_band_frac
+        self.q_tile = q_tile
+        self.db_tile = db_tile
+        self.chunks_per_launch = int(chunks_per_launch)
         self.oracle = bool(oracle)
         self.device = resolve_device(device)
         self.projection: Optional[np.ndarray] = None
@@ -67,6 +83,9 @@ class RandomProjectionBackend(RangeBackend):
         self._data_dev: Optional[torch.Tensor] = None
         self._sigs_dev: Optional[torch.Tensor] = None
         self._sigs_host: Optional[np.ndarray] = None
+        # eps values whose band occupancy was already measured into the
+        # index.band.* metrics (one sampled pass per (backend, eps))
+        self._occ_recorded: set = set()
 
     # -- index build -------------------------------------------------------
     def fit(self, data: np.ndarray) -> "RandomProjectionBackend":
@@ -105,6 +124,16 @@ class RandomProjectionBackend(RangeBackend):
         t_lo, t_hi = hamming_band(eps, self.n_bits, self.margin)
         if self.verify == "full":
             t_lo = -1
+        if _metrics.enabled() and self._data is not None and float(eps) not in self._occ_recorded:
+            # one sampled occupancy pass per (backend, eps) feeds index.band.*
+            self._occ_recorded.add(float(eps))
+            try:
+                record_occupancy(self, eps)
+            except Exception as e:  # instrumentation must not break queries
+                rate_limited_warn(
+                    get_logger("index"), "occupancy", "occupancy_record_failed",
+                    error=type(e).__name__,
+                )
         return t_lo, t_hi
 
     # -- host oracle -------------------------------------------------------
@@ -187,7 +216,7 @@ class RandomProjectionBackend(RangeBackend):
         return self._data_dev[t], self._sigs_dev[t]
 
     def _sweep_kw(self):
-        return dict(chunk=self.chunk)
+        return dict(chunk=self.chunk, chunks_per_launch=self.chunks_per_launch, q_tile=self.q_tile)
 
     def query_bitmap_device(self, rows, eps: float):
         """Packed adjacency slab for ``rows`` (host or device indices) as
@@ -254,5 +283,135 @@ class RandomProjectionBackend(RangeBackend):
         q, q_sig = self._gather(rows)
         return sweep_counts(
             q, q_sig, self._data_dev, self._sigs_dev, self.n_points, eps, t_lo, t_hi,
-            **self._sweep_kw(),
+            db_tile=self.db_tile, **self._sweep_kw(),
         )
+
+
+# ---------------------------------------------------------------------------
+# margin auto-tune: price candidate Hamming bands with the kernel's
+# occupancy counters (or the host Hamming sweep) and pick the widest
+# band — best recall, ~Phi(margin) — the verify budget affords
+# ---------------------------------------------------------------------------
+
+
+def suggest_margin(
+    backend: RandomProjectionBackend,
+    eps: float,
+    rows: Optional[np.ndarray] = None,
+    *,
+    margins=(4.0, 3.5, 3.0, 2.5, 2.0, 1.5, 1.0),
+    max_band_frac: Optional[float] = None,
+    report: bool = False,
+):
+    """Suggest an ``index_margin`` for a fitted backend at one eps.
+
+    Recall of the dual-threshold contract is set by the band's upper
+    edge, its cost by the exact-verify work on band pairs, so the
+    question is the widest band whose band-pair fraction stays under
+    ``max_band_frac`` (default: the backend's own).  Occupancy is
+    measured on a deterministic row sample: through
+    ``hamming_filter_count(..., return_stats=True)`` (the kernel's
+    ``[accept, band, reject]`` counters) on the backend's device, through
+    one host Hamming sweep on the oracle.
+
+    Returns the chosen margin, or ``(margin, rows)`` with the per-margin
+    ``{margin, t_lo, t_hi, band_frac, accept_frac}`` table when
+    ``report=True``.  If no candidate fits the budget the narrowest
+    (cheapest) one is returned.
+    """
+    assert backend._data is not None, "call fit() first"
+    if max_band_frac is None:
+        max_band_frac = backend.max_band_frac
+    n = backend._data.shape[0]
+    if rows is None:
+        rows = np.unique(np.linspace(0, n - 1, min(n, 4 * backend.q_tile)).astype(np.int64))
+    rows = np.asarray(rows, dtype=np.int64)
+    sigs = backend.signatures
+
+    dev = not backend.oracle
+    if dev:
+        q, q_sig = backend._gather(rows)
+        db, db_sig = backend._data_dev, backend._sigs_dev
+        # the counters run on the reference's *padded* tile grid; pad rows
+        # and cols are zero-signature pairs whose Hamming distance to a
+        # real row is that row's popcount: classify and subtract them, so
+        # the table prices real pairs only and agrees with the host table
+        zero = np.zeros((1, sigs.shape[1]), np.uint32)
+        q_pop = hamming_numpy(sigs[rows], zero)[:, 0].astype(np.int64)
+        db_pop = hamming_numpy(sigs, zero)[:, 0].astype(np.int64)
+        q_pad = (-len(rows)) % backend.q_tile
+        db_pad = (-n) % backend.db_tile
+    else:
+        ham = hamming_numpy(sigs[rows], sigs)
+
+    table = []
+    for m in sorted(margins, reverse=True):
+        t_lo, t_hi = hamming_band(eps, backend.n_bits, m)
+        if backend.verify == "full":
+            t_lo = -1
+        if dev:
+            _, stats = hamming_filter_count(
+                q, db, q_sig, db_sig, eps, t_hi, t_lo=t_lo,
+                q_tile=backend.q_tile, db_tile=backend.db_tile, return_stats=True,
+            )
+            stats = stats.cpu().numpy().astype(np.int64).reshape(-1, 3).sum(axis=0)
+            acc, bnd = int(stats[0]), int(stats[1])
+            if q_pad or db_pad:
+                # real q rows vs zero-padded db cols
+                acc -= db_pad * int((q_pop <= t_lo).sum())
+                bnd -= db_pad * int(((q_pop > t_lo) & (q_pop <= t_hi)).sum())
+                # zero-padded q rows vs real db rows
+                acc -= q_pad * int((db_pop <= t_lo).sum())
+                bnd -= q_pad * int(((db_pop > t_lo) & (db_pop <= t_hi)).sum())
+                # pad-vs-pad corner: Hamming distance 0
+                if t_lo >= 0:
+                    acc -= q_pad * db_pad
+                else:
+                    bnd -= q_pad * db_pad
+            total = len(rows) * n
+            acc_frac, band_frac = acc / total, bnd / total
+        else:
+            accept = ham <= t_lo
+            band = (ham <= t_hi) & ~accept
+            acc_frac = accept.mean()
+            band_frac = band.mean()
+        table.append(dict(margin=m, t_lo=t_lo, t_hi=t_hi,
+                          band_frac=float(band_frac), accept_frac=float(acc_frac)))
+
+    fits = [r for r in table if r["band_frac"] <= max_band_frac]
+    chosen = fits[0]["margin"] if fits else table[-1]["margin"]
+    chosen_row = next(r for r in table if r["margin"] == chosen)
+    _feed_occupancy(chosen_row, len(rows), n)
+    return (chosen, table) if report else chosen
+
+
+def _feed_occupancy(row: dict, nq: int, n: int) -> None:
+    """Write one occupancy measurement into the index.band.* metrics:
+    raw pair counts (counters, accumulated over measurements) and the
+    latest fractions (gauges)."""
+    total = nq * n
+    acc = int(round(row["accept_frac"] * total))
+    bnd = int(round(row["band_frac"] * total))
+    _metrics.counter("index.band.accept").inc(acc)
+    _metrics.counter("index.band.band").inc(bnd)
+    _metrics.counter("index.band.reject").inc(total - acc - bnd)
+    _metrics.gauge("index.band.accept_frac").set(row["accept_frac"])
+    _metrics.gauge("index.band.band_frac").set(row["band_frac"])
+    _metrics.gauge("index.band.reject_frac").set(1.0 - row["accept_frac"] - row["band_frac"])
+
+
+def record_occupancy(
+    backend: RandomProjectionBackend, eps: float, rows: Optional[np.ndarray] = None
+) -> dict:
+    """Measure the dual-threshold occupancy of the backend's own band at
+    one eps and feed the ``index.band.*`` metrics: :func:`suggest_margin`
+    with the backend's configured margin as the single candidate.
+    Returns the ``{margin, t_lo, t_hi, band_frac, accept_frac}`` row."""
+    n = backend._data.shape[0]
+    if rows is None:
+        rows = np.unique(np.linspace(0, n - 1, min(n, 4 * backend.q_tile)).astype(np.int64))
+    _, table = suggest_margin(
+        backend, eps, rows, margins=(backend.margin,),
+        max_band_frac=backend.max_band_frac, report=True,
+    )
+    return table[0]

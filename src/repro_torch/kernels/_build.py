@@ -32,12 +32,12 @@ NVCC_FLAGS = (
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "hamming_filter": {
-        "hamming_filter_launch": [P, P, P, P, I, I, I, I, F, I, I, P, P, I, I, P],
+        "hamming_filter_launch": [P, P, P, P, I, I, I, I, F, I, I, P, P, I, I, P, I, P],
     },
     "label_prop": {
         "label_prop_rect_launch": [P, P, P, I, I, P, P, P],
         "col_reduce_launch": [P, P, P, I, I, P, P, P],
-        "label_prop_update_launch": [P, P, P, I, P, P, I, P],
+        "label_prop_update_launch": [P, P, P, I, P, P, I, P, I, P],
     },
     "range_count": {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],

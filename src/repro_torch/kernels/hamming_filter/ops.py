@@ -11,6 +11,13 @@ plain version (``ref.py``); a CUDA tensor launches the CUDA kernel
 itself, so no tile padding is needed; ``_pad_col_hits`` and
 ``_tail_word_mask`` serve callers whose db carries zero rows past the
 live ``n`` (capacity slack), exactly as in the reference.
+
+``return_stats=True`` runs the ``_stats`` bodies: the occupancy triple
+``[accept, band, reject]`` of the reference's ``(1, 3)`` whole-call
+output, on the reference's padded ``q_tile x db_tile`` grid.  The
+kernel counts real pairs only; :func:`pad_grid_stats` adds the pairs of
+the zero pad rows the reference's grid holds, so every triple equals
+the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -28,11 +35,22 @@ __all__ = [
     "hamming_filter_bitmap",
     "hamming_filter_count",
     "hamming_filter_into",
+    "pad_grid_stats",
     "LAUNCHES",
+    "STATS_LAUNCHES",
+    "DEFAULT_Q_TILE",
+    "DEFAULT_DB_TILE",
 ]
 
 LAUNCHES = "kernel.hamming_filter.launches"
+# the `_stats` bodies, keyed by bitmap mode
+STATS_LAUNCHES = {False: "kernel.hamming_filter_count_stats.launches",
+                  True: "kernel.hamming_filter_bitmap_stats.launches"}
 MAX_WORDS = 32  # n_bits <= 1024: the signature tiles' shared-memory budget
+ROWS_PER_BLOCK = 32  # the kernel's query rows per block (kRows)
+# the reference kernel's tile grid, on which its occupancy triples are defined
+DEFAULT_Q_TILE = 128
+DEFAULT_DB_TILE = 256
 
 
 def _tail_word_mask(n_words: int, n: int, device) -> torch.Tensor:
@@ -51,6 +69,41 @@ def _pad_col_hits(q_sig: torch.Tensor, eps, t_lo, t_hi, n_pad: int) -> torch.Ten
     band_ok = bool(0.0 > float(one_minus))
     passes = (pop <= int(t_lo)) | ((pop <= int(t_hi)) & band_ok)
     return torch.where(passes, n_pad, 0).to(torch.int32)
+
+
+def pad_grid_stats(q_sig, db_sig, t_lo: int, t_hi: int, *, chunk: int, n_chunks: int,
+                   db_tile: int) -> torch.Tensor:
+    """(n_chunks, 3) int32 ``[accept, band, reject]`` of the pad pairs the
+    reference's tile grid adds to each chunk of ``chunk`` query rows: the
+    query rows are zero-padded to ``n_chunks * chunk`` and the db rows to
+    a multiple of ``db_tile``.  A zero-signature pad row has Hamming
+    distance popcount(signature) to a real row and 0 to another pad row;
+    the occupancy split reads the Hamming distance alone.  This is the
+    inverse of the correction ``suggest_margin`` applies, and the only
+    definition of those pairs.  Device tensors in, device tensor out; no
+    sync."""
+    nq, nd = q_sig.shape[0], db_sig.shape[0]
+    dev = q_sig.device
+    if nq > n_chunks * chunk:
+        raise ValueError(f"{nq} query rows do not fit {n_chunks} chunks of {chunk}")
+    db_pad = (-nd) % db_tile
+
+    def split(pop):
+        accept = pop <= t_lo
+        return accept.to(torch.int64), ((pop <= t_hi) & ~accept).to(torch.int64)
+
+    qa, qb = split(popcount32(q_sig).sum(dim=1))
+    da, dband = split(popcount32(db_sig).sum(dim=1))
+    rows_pad = n_chunks * chunk - nq
+    qa = torch.nn.functional.pad(qa, (0, rows_pad)).view(n_chunks, chunk).sum(dim=1)
+    qb = torch.nn.functional.pad(qb, (0, rows_pad)).view(n_chunks, chunk).sum(dim=1)
+    real = (nq - chunk * torch.arange(n_chunks, device=dev)).clamp(0, chunk)
+    q_pad = chunk - real
+    corner = q_pad * db_pad  # pad vs pad: Hamming distance 0
+    acc = db_pad * qa + q_pad * da.sum() + (corner if t_lo >= 0 else 0)
+    band = db_pad * qb + q_pad * dband.sum() + (corner if t_lo < 0 <= t_hi else 0)
+    total = db_pad * real + q_pad * nd + corner
+    return torch.stack([acc, band, total - acc - band], dim=1).to(torch.int32)
 
 
 def _check_operands(q, db, q_sig, db_sig):
@@ -72,12 +125,18 @@ def _check_operands(q, db, q_sig, db_sig):
             raise ValueError("hamming_filter operands must be contiguous")
 
 
-def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=None) -> None:
+def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=None,
+                        *, stats=None, chunk_rows=None) -> None:
     """Write counts (and hit words) of q against db into preallocated
     outputs: ``counts`` (nq,) int32 and ``bitmap`` (nq, ld >= ceil(nd/32))
     int32 with unit column stride, both ZERO on entry (the kernel adds
     counts and stores only nonzero words).  ``bitmap=None`` is the
-    count-only mode."""
+    count-only mode.
+
+    ``stats`` (the ``_stats`` bodies): a contiguous (ceil(nq/chunk_rows),
+    3) int32 tensor the real pairs' ``[accept, band, reject]`` of each
+    chunk of ``chunk_rows`` query rows are ADDED into; ``chunk_rows`` is a
+    multiple of 32 or at least nq (one whole-call triple)."""
     _check_operands(q, db, q_sig, db_sig)
     nq, nd = q.shape[0], db.shape[0]
     n_words = -(-nd // 32)
@@ -88,20 +147,31 @@ def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=No
         or bitmap.shape[1] < n_words or bitmap.stride(1) != 1
     ):
         raise ValueError("bitmap must be (nq, >= ceil(nd/32)) int32 with unit column stride")
+    if stats is not None:
+        if chunk_rows is None or chunk_rows <= 0 or (
+            chunk_rows % ROWS_PER_BLOCK and chunk_rows < nq
+        ):
+            raise ValueError(f"chunk_rows must be a multiple of {ROWS_PER_BLOCK} or >= nq")
+        if (stats.dtype != torch.int32 or stats.shape != (-(-nq // chunk_rows), 3)
+                or not stats.is_contiguous()):
+            raise ValueError("stats must be a contiguous (ceil(nq/chunk_rows), 3) int32 tensor")
     if q.device.type == "cpu":
-        c, b = hamming_filter_ref(q, db, q_sig, db_sig, eps, t_lo, t_hi,
-                                  with_bitmap=bitmap is not None)
-        counts += c
+        out = hamming_filter_ref(q, db, q_sig, db_sig, eps, t_lo, t_hi,
+                                 with_bitmap=bitmap is not None,
+                                 stats_chunk=chunk_rows if stats is not None else None)
+        counts += out[0]
         if bitmap is not None:
-            bitmap[:, :n_words] = b
+            bitmap[:, :n_words] = out[1]
+        if stats is not None:
+            stats += out[2]
         return
-    if q.device.type != "cuda" or counts.device != q.device or (
-        bitmap is not None and bitmap.device != q.device
+    if q.device.type != "cuda" or any(
+        t is not None and t.device != q.device for t in (counts, bitmap, stats)
     ):
         raise ValueError("hamming_filter outputs must be on the operands' CUDA device")
     if nq == 0 or nd == 0:
         return
-    if -(-nq // 32) > 65535:
+    if -(-nq // ROWS_PER_BLOCK) > 65535:
         raise ValueError("too many query rows for one launch")
     lib = _build.load("hamming_filter")
     err = lib.hamming_filter_launch(
@@ -110,23 +180,50 @@ def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=No
         int(t_lo), int(t_hi), counts.data_ptr(),
         bitmap.data_ptr() if bitmap is not None else None,
         bitmap.stride(0) if bitmap is not None else 0,
-        int(bitmap is not None), torch.cuda.current_stream(q.device).cuda_stream,
+        int(bitmap is not None),
+        stats.data_ptr() if stats is not None else None,
+        int(chunk_rows) if stats is not None else 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "hamming_filter")
-    _metrics.counter(LAUNCHES).inc()
+    _metrics.counter(LAUNCHES if stats is None else STATS_LAUNCHES[bitmap is not None]).inc()
 
 
-def hamming_filter_count(q, db, q_sig, db_sig, eps, t_hi, *, t_lo=-1) -> torch.Tensor:
-    """Band-contract neighbor counts, (nq,) int32."""
+def _whole_call_stats(q_sig, db_sig, t_lo, t_hi, q_tile, db_tile):
+    """A zeroed (1, 3) triple for the kernel and its pad-grid complement
+    on the reference's ``q_tile x db_tile`` grid."""
+    chunk = -(-max(q_sig.shape[0], 1) // q_tile) * q_tile
+    pad = pad_grid_stats(q_sig, db_sig, t_lo, t_hi, chunk=chunk, n_chunks=1, db_tile=db_tile)
+    return torch.zeros((1, 3), dtype=torch.int32, device=q_sig.device), pad
+
+
+def hamming_filter_count(q, db, q_sig, db_sig, eps, t_hi, *, t_lo=-1, return_stats: bool = False,
+                         q_tile: int = DEFAULT_Q_TILE, db_tile: int = DEFAULT_DB_TILE):
+    """Band-contract neighbor counts, (nq,) int32; with ``return_stats``
+    ``(counts, stats)``, stats the reference's (1, 3) int32 whole-call
+    occupancy on the padded ``q_tile x db_tile`` grid."""
     counts = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
-    hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts)
-    return counts
+    if not return_stats:
+        hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts)
+        return counts
+    stats, pad = _whole_call_stats(q_sig, db_sig, int(t_lo), int(t_hi), q_tile, db_tile)
+    hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts,
+                        stats=stats, chunk_rows=max(q.shape[0], 1))
+    return counts, stats + pad
 
 
-def hamming_filter_bitmap(q, db, q_sig, db_sig, eps, t_hi, *, t_lo=-1):
-    """(counts (nq,) int32, packed hits (nq, ceil(nd/32)) int32)."""
+def hamming_filter_bitmap(q, db, q_sig, db_sig, eps, t_hi, *, t_lo=-1, return_stats: bool = False,
+                          q_tile: int = DEFAULT_Q_TILE, db_tile: int = DEFAULT_DB_TILE):
+    """(counts (nq,) int32, packed hits (nq, ceil(nd/32)) int32), and the
+    (1, 3) occupancy triple with ``return_stats`` (see
+    ``hamming_filter_count``)."""
     nq, nd = q.shape[0], db.shape[0]
     counts = torch.zeros(nq, dtype=torch.int32, device=q.device)
     bitmap = torch.zeros((nq, -(-nd // 32)), dtype=torch.int32, device=q.device)
-    hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap)
-    return counts, bitmap
+    if not return_stats:
+        hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap)
+        return counts, bitmap
+    stats, pad = _whole_call_stats(q_sig, db_sig, int(t_lo), int(t_hi), q_tile, db_tile)
+    hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap,
+                        stats=stats, chunk_rows=max(nq, 1))
+    return counts, bitmap, stats + pad

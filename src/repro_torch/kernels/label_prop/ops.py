@@ -16,6 +16,11 @@ clear, and the update kernel sets ``flags[it + 1]`` when a label
 changed.  Round ``it`` reads one label buffer and writes the other, so
 after ``rounds = sum(flags[:max_iters])`` rounds the labels sit in
 buffer ``rounds % 2``, chosen on the device.  Nothing syncs.
+
+``telemetry=True`` (default: the ``obs`` device switch) adds the
+reference's four per-round counts, ``obs.device.CLUSTER_ROUND_FIELDS``,
+into an int32 ``(4, max_iters)`` device tensor from inside the update
+kernel, returned as a sixth output for the caller's one host copy.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ...index.signatures import popcount32
+from ...obs import device as _obs_device
 from ...obs import metrics as _metrics
 from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
@@ -111,10 +117,12 @@ def col_reduce(bitmap, row_vals, row_weights):
     return col_min, col_sum
 
 
-def label_prop_update(lab, m, pos, out, flags, it: int) -> None:
+def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
     """Round ``it``'s scatter-min + pointer jump from ``lab`` into
     ``out`` (see ``csrc/label_prop.cu``); a no-op when ``flags[it]`` is
-    0, sets ``flags[it + 1]`` when a label changed."""
+    0, sets ``flags[it + 1]`` when a label changed.  ``tele`` (a
+    contiguous int32 (4, T) tensor, T > it) gets the round's four
+    telemetry counts added into column ``it``."""
     cap = lab.shape[0]
     _int32_vec(lab, cap, "lab")
     _int32_vec(pos, cap, "pos")
@@ -123,16 +131,28 @@ def label_prop_update(lab, m, pos, out, flags, it: int) -> None:
         raise ValueError("m must be a contiguous 1-d int32 tensor")
     if flags.dtype != torch.int32 or flags.dim() != 1 or not 0 <= it < flags.shape[0] - 1:
         raise ValueError("flags must be an int32 vector with room for round it + 1")
+    if tele is not None and (
+        tele.dtype != torch.int32 or tele.dim() != 2 or tele.shape[0] != 4
+        or not it < tele.shape[1] or not tele.is_contiguous()
+    ):
+        raise ValueError("tele must be a contiguous (4, > it) int32 tensor")
     if lab.device.type == "cpu":
         if int(flags[it]) != 0:
-            out.copy_(label_prop_update_ref(lab, m, pos))
+            if tele is None:
+                out.copy_(label_prop_update_ref(lab, m, pos))
+            else:
+                nxt, counts = label_prop_update_ref(lab, m, pos, with_counts=True)
+                out.copy_(nxt)
+                tele[:, it] += counts
             if bool((out != lab).any()):
                 flags[it + 1] = 1
         return
-    stream = _cuda([lab, m, pos, out, flags], "label_prop_update")
+    stream = _cuda([lab, m, pos, out, flags] + ([tele] if tele is not None else []),
+                   "label_prop_update")
     err = _build.load("label_prop").label_prop_update_launch(
         lab.data_ptr(), m.data_ptr(), pos.data_ptr(), cap, out.data_ptr(),
-        flags.data_ptr(), int(it), stream,
+        flags.data_ptr(), int(it), tele.data_ptr() if tele is not None else None,
+        tele.shape[1] if tele is not None else 0, stream,
     )
     _build.check(err, "label_prop_update")
     _metrics.counter(LAUNCHES["label_prop_update"]).inc()
@@ -160,7 +180,8 @@ def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):
     return rows, valid_r, counts, core_r, pos, init
 
 
-def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: int = 64):
+def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: int = 64,
+                            telemetry=None):
     """The cluster pass over an (R, W) slab with W*32 == cap whose bits
     for columns >= n are clear.
 
@@ -172,12 +193,16 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     labels[j] = min core index of j's core component (INT32_MAX on
     non-core columns), owner[j] = min executed core row adjacent to j,
     col_sum[j] = number of valid rows adjacent to j, counts = exact
-    neighbor counts per slab row.
+    neighbor counts per slab row.  ``telemetry`` (default: the obs
+    device switch) appends the int32 ``(4, max_iters)`` per-round
+    counts, zero past the executed rounds.
     """
     _check_slab(bitmap)
     r, w = bitmap.shape
     if w * 32 != cap:
         raise ValueError(f"slab width {w} words does not cover cap={cap}")
+    if telemetry is None:
+        telemetry = _obs_device.device_enabled()
     dev = bitmap.device
     rows, valid_r, counts, core_r, pos, init = fixpoint_inputs(bitmap, rows, tau, n=n, cap=cap)
     bufs = (init, torch.empty(cap, dtype=torch.int32, device=dev))
@@ -185,23 +210,26 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     m = torch.empty(r, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
     flags[0] = 1
+    tele = _obs_device.cluster_telemetry_init(max_iters, dev) if telemetry else None
     for it in range(max_iters):
         lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
         label_prop_rect(big_rows, lab, bitmap, out=m, flag=flags[it : it + 1])
-        label_prop_update(lab, m, pos, nxt, flags, it)
+        label_prop_update(lab, m, pos, nxt, flags, it, tele=tele)
     rounds = flags[:max_iters].sum(dtype=torch.int32)
     labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
     owner, col_sum = col_reduce(
         bitmap, torch.where(core_r, rows, BIG), valid_r.to(torch.int32)
     )
-    return labels, owner, col_sum, counts, rounds
+    outs = (labels, owner, col_sum, counts, rounds)
+    return outs + (tele,) if telemetry else outs
 
 
-def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64):
+def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64, telemetry=None):
     """One-sync cluster pass over a packed sweep slab: ``bitmap`` is the
     (R, W) int32 slab (W*32 >= n; bits past n are cleared here) and
     ``rows`` the (R,) database indices of its rows.  Returns device
-    tensors ``(labels, owner, col_sum, counts, rounds)`` — see
+    tensors ``(labels, owner, col_sum, counts, rounds)``, plus the
+    per-round telemetry with ``telemetry`` — see
     :func:`packed_cluster_fixpoint`; nothing is read on the host."""
     _check_slab(bitmap)
     w = bitmap.shape[1]
@@ -209,4 +237,5 @@ def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64):
         raise ValueError(f"slab of {w} words cannot cover n={n} columns")
     bitmap = bitmap & _tail_word_mask(w, n, bitmap.device)[None, :]
     rows = torch.as_tensor(rows).to(device=bitmap.device, dtype=torch.int32)
-    return packed_cluster_fixpoint(bitmap, rows, tau, n=n, cap=w * 32, max_iters=max_iters)
+    return packed_cluster_fixpoint(bitmap, rows, tau, n=n, cap=w * 32, max_iters=max_iters,
+                                   telemetry=telemetry)

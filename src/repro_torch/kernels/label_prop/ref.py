@@ -39,11 +39,19 @@ def col_reduce_ref(bitmap, row_vals, row_weights, *, block: int = 1024):
     return cmin, csum
 
 
-def label_prop_update_ref(lab, m, pos):
+def label_prop_update_ref(lab, m, pos, *, with_counts: bool = False):
     """One round's scatter-min + pointer jump (see ``csrc/label_prop.cu``):
     new[x] = min(lab[x], m[pos[x]]) on core columns (pos >= 0), then
-    out[j] = min(new[j], new[new[j]]) where new[j] indexes a column."""
+    out[j] = min(new[j], new[new[j]]) where new[j] indexes a column.
+    ``with_counts`` also returns the round's int32 telemetry
+    ``[frontier, changed, hops, shard_wins]`` (``obs.device``)."""
     cap = lab.shape[0]
-    new = torch.where(pos >= 0, torch.minimum(lab, m[pos.clamp(min=0).long()]), lab)
+    gathered = m[pos.clamp(min=0).long()]
+    new = torch.where(pos >= 0, torch.minimum(lab, gathered), lab)
     jump = torch.where(new < cap, new, 0).long()
-    return torch.where(new < cap, torch.minimum(new, new[jump]), new)
+    out = torch.where(new < cap, torch.minimum(new, new[jump]), new)
+    if not with_counts:
+        return out
+    frontier = ((pos >= 0) & (gathered < lab)).sum()
+    counts = torch.stack([frontier, (out != lab).sum(), (out < new).sum(), frontier])
+    return out, counts.to(torch.int32)

@@ -42,6 +42,17 @@ from repro_torch.obs import metrics
 EPS, TAU, ALPHA = 0.35, 4, 1.2
 
 
+@pytest.fixture
+def metrics_on():
+    """Counters record only while metrics are on (off by default, as in
+    the reference); the switch is process-global, so it is put back."""
+    was = metrics.enabled()
+    metrics.enable()
+    yield metrics
+    if not was:
+        metrics.disable()
+
+
 @pytest.fixture(scope="module")
 def data():
     x, _ = jsyn.make_angular_clusters(500, 16, 6, kappa=60, noise_frac=0.25, seed=7)
@@ -93,12 +104,12 @@ def test_dbscan_sequential_matches_jax():
     assert given.n_range_queries == want.n_range_queries == len(x)
 
 
-def test_dbscan_parallel_matches_jax(data, n_boundary):
+def test_dbscan_parallel_matches_jax(data, n_boundary, metrics_on):
     want = jdb.dbscan_parallel(data, EPS, TAU)
     got = tdb.dbscan_parallel(data, EPS, TAU, device="cpu", block_size=128)
     assert want.n_clusters >= 2
     _same(got, want, n_boundary)
-    gauges = metrics.snapshot()["gauges"]
+    gauges = metrics.snapshot("dbscan.phase.")
     assert all(gauges[f"dbscan.phase.{k}_s"] >= 0 for k in ("fit_index", "core_counts", "components"))
 
 
@@ -128,7 +139,7 @@ def test_laf_dbscan_pp_matches_jax(data, n_boundary):
 
 
 @pytest.mark.parametrize("cluster_device", ["auto", True])
-def test_laf_dbscan_exact_matches_jax(data, n_boundary, cluster_device):
+def test_laf_dbscan_exact_matches_jax(data, n_boundary, cluster_device, metrics_on):
     pred = np.random.default_rng(1).uniform(0, 3 * ALPHA * TAU, len(data))
     want = jax_laf_dbscan(data, EPS, TAU, ALPHA, pred, backend="exact", cluster_device=cluster_device)
     syncs = metrics.counter("laf.cluster.host_syncs")

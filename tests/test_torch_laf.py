@@ -42,6 +42,17 @@ from repro_torch.obs import metrics
 EPS, TAU, ALPHA = 0.45, 4, 1.2
 
 
+@pytest.fixture
+def metrics_on():
+    """Counters record only while metrics are on (off by default, as in
+    the reference); the switch is process-global, so it is put back."""
+    was = metrics.enabled()
+    metrics.enable()
+    yield metrics
+    if not was:
+        metrics.disable()
+
+
 @pytest.fixture(scope="module")
 def split():
     data, _ = jsyn.make_angular_clusters(600, 16, 6, kappa=60, noise_frac=0.25, seed=7)
@@ -134,7 +145,7 @@ def test_cluster_pass_device_vs_host_identical(split, jax_pred):
         assert dev.extras == other.extras
 
 
-def test_one_host_sync_per_device_clustering(split, jax_pred):
+def test_one_host_sync_per_device_clustering(split, jax_pred, metrics_on):
     _, test = split
     syncs = metrics.counter("laf.cluster.host_syncs")
     before = syncs.value

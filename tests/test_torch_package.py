@@ -113,6 +113,17 @@ def test_build_needs_nvcc():
         _build.load("label_prop")
 
 
+@pytest.fixture
+def metrics_on():
+    """Counters record only while metrics are on (off by default, as in
+    the reference); the switch is process-global, so it is put back."""
+    was = metrics.enabled()
+    metrics.enable()
+    yield metrics
+    if not was:
+        metrics.disable()
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -121,7 +132,7 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,nd,eps,t_lo", [(70, 301, 0.5, -1), (33, 1000, 0.45, 40), (5, 40, 1.2, 20)])
-def test_gpu_hamming_filter_matches_plain(nq, nd, eps, t_lo):
+def test_gpu_hamming_filter_matches_plain(nq, nd, eps, t_lo, metrics_on):
     dev = _card()
     rng = np.random.default_rng(nq)
     x = rng.standard_normal((nq + nd, 32)).astype(np.float32)

@@ -311,6 +311,17 @@ def test_data_device_is_the_resident_copy():
         np.testing.assert_array_equal(bk.data_device.numpy(), x)
 
 
+@pytest.fixture
+def metrics_on():
+    """Counters record only while metrics are on (off by default, as in
+    the reference); the switch is process-global, so it is put back."""
+    was = metrics.enabled()
+    metrics.enable()
+    yield metrics
+    if not was:
+        metrics.disable()
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -319,7 +330,7 @@ def _card():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("nq,nd,d,eps", [(70, 301, 32, 0.5), (200, 1000, 768, 0.45), (5, 40, 33, 1.2), (129, 129, 7, 0.3)])
-def test_gpu_range_count_matches_plain(nq, nd, d, eps):
+def test_gpu_range_count_matches_plain(nq, nd, d, eps, metrics_on):
     dev = _card()
     x = _clustered(nq + d, nq + nd, d)
     q, db = torch.from_numpy(x[:nq]).to(dev), torch.from_numpy(x[nq:]).to(dev)
@@ -339,7 +350,7 @@ def test_gpu_range_count_matches_plain(nq, nd, d, eps):
 
 
 @pytest.mark.gpu
-def test_gpu_range_query_engine_launches_once():
+def test_gpu_range_query_engine_launches_once(metrics_on):
     """On the card ``block_size`` does not split the queries: one launch
     of each body takes them all, with the CPU's blocked results."""
     dev = _card()
