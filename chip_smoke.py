@@ -24,11 +24,26 @@ Phases (each prints one JSON line; any failure exits nonzero):
    DBSCAN++ and LAF-DBSCAN++ (p = auto_sample_fraction(pred, 5, 1.5,
    0.2), alpha 1.0) on the exact backend, each warmed up once and then
    timed with the launch counts set to 0 just before and read just
-   after; exact LAF-DBSCAN must reach ARI >= 0.99;
-6. each kernel against its plain PyTorch version on the card at the main
+   after; exact LAF-DBSCAN must reach ARI >= 0.99; each LAF method's
+   predict is 3 ``rmi_mlp`` launches (one a stage), as on the main path;
+6. components: the exact square adjacency of the test split
+   (``range_bitmap``, 30,437 x 952 words) masked to exact DBSCAN's core
+   points, through ``label_propagation_pallas`` (its rounds are
+   ``label_prop_round`` and update launches behind device flags, counts
+   set to 0 just before and read just after): labels equal to exact
+   DBSCAN's clusters on the cores and to plain ``label_propagation``;
+7. each kernel against its plain PyTorch version on the card at the main
    path's shapes, with its time, the plain version's time and its bound;
    ``range_count`` also at DBSCAN++'s gathered sampled-core columns;
-7. observability: the main path once with everything off and once after
+   ``rmi_mlp`` at the predict shape (every stage on all test rows) with
+   the route and core-test flips it causes counted, and the fp32
+   ``F.linear`` chain (five calls an expert) as its library yardstick;
+   ``label_prop_round`` and the square update on the components slab;
+   the update rows also queued behind a sleep (the kernels' own time),
+   the main path's one also before phase 6 ran; ``predict_ab``:
+   ``laf.predict``'s work with the fused forward and with the
+   ``nn.Linear`` modules it replaced, in alternating turns, and its parts;
+8. observability: the main path once with everything off and once after
    ``obs.enable(trace=True, metrics_on=True, telemetry=True)`` (same
    labels, one host sync, per-round telemetry equal to the gauges, the
    span tree exported to a Chrome trace, ``coverage`` printed); a count
@@ -80,8 +95,18 @@ KERNELS = {
                                    "src/repro/kernels/hamming_filter/kernel.py:131 (_filter_count_stats_kernel)"),
     "hamming_filter_bitmap_stats": ("src/repro_torch/csrc/hamming_filter.cu",
                                     "src/repro/kernels/hamming_filter/kernel.py:150 (_filter_count_bitmap_stats_kernel)"),
+    "rmi_mlp": ("src/repro_torch/csrc/rmi_mlp.cu",
+                "src/repro/kernels/rmi_mlp/kernel.py:48 (rmi_mlp_pallas -> :69, _mlp_kernel :26)"),
+    "label_prop_round": ("src/repro_torch/csrc/label_prop.cu",
+                         "src/repro/kernels/label_prop/kernel.py:68 (label_prop_round_pallas -> :91, "
+                         "_label_prop_kernel :41)"),
+    "label_prop_update_square": ("src/repro_torch/csrc/label_prop.cu",
+                                 "src/repro/kernels/label_prop/ops.py:109-111 (jnp inside "
+                                 "label_propagation_pallas's loop; no Pallas kernel)"),
 }
-RP_KERNELS = ("hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
+RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
+RMI_LAUNCHES_PER_PREDICT = 3  # one launch a stage (1, 2, 4 experts)
+TOL_RMI = 2e-5
 EXACT_KERNELS = ("range_count", "range_count_bitmap")
 # the observability path: every kernel of the main path, plus the count
 # stats body behind band()'s occupancy measurement; the bitmap stats body
@@ -106,6 +131,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int = 20, sleep_cycles: int = 4_000_000) -> float:
+    """Device time of ``fn``'s launches: the stream first sleeps (~2 ms)
+    while the host enqueues all ``reps`` calls, so the events time the
+    kernels back to back, not the host's cost of issuing them."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -279,26 +322,66 @@ def check_range_count(x, rows, eps, sub_rows, sub_cols):
     return ok and sub_ok, [count_row, bitmap_row]
 
 
-def check_label_prop(bk, exec_idx, eps, tau):
-    """K2, the update step and K3 vs their plain versions on the main
-    path's full slab (exact equality: integer results)."""
+def label_prop_inputs(bk, exec_idx, eps, tau):
+    """The main path's packed slab and the fixpoint's inputs on it."""
     import torch
 
-    from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update
     from repro_torch.kernels.label_prop.ops import fixpoint_inputs
-    from repro_torch.kernels.label_prop.ref import (
-        BIG, col_reduce_ref, label_prop_rect_ref, label_prop_update_ref,
-    )
+    from repro_torch.kernels.label_prop.ref import BIG
 
     n = bk.n_points
     slab, plan = bk.query_bitmap_device(exec_idx, eps)
     rows = np.full(plan.nq_padded, n, dtype=np.int64)
     rows[: len(exec_idx)] = exec_idx
     r, w = slab.shape
-    cap = w * 32
     rows_t, valid_r, _, core_r, pos, init = fixpoint_inputs(
-        slab, torch.from_numpy(rows), tau, n=n, cap=cap)
+        slab, torch.from_numpy(rows), tau, n=n, cap=w * 32)
     big_rows = torch.full((r,), BIG, dtype=torch.int32, device=slab.device)
+    return {"slab": slab, "rows_t": rows_t, "valid_r": valid_r, "core_r": core_r, "pos": pos,
+            "init": init, "big_rows": big_rows}
+
+
+def make_update(inp, m):
+    """(round 0's update launch on the main path's slab, its output)."""
+    import torch
+
+    from repro_torch.kernels.label_prop import label_prop_update
+
+    flags = torch.tensor([1, 0], dtype=torch.int32, device=m.device)
+    u = torch.empty_like(inp["init"])
+
+    def update():  # round 0 reads flags[0] == 1 and only ever sets flags[1]
+        label_prop_update(inp["init"], m, inp["pos"], u, flags, 0)
+
+    return update, u
+
+
+def update_ms(inp):
+    """The update kernel's time on the main path's slab: back to back
+    (``time_ms``, as its row reports it) and queued behind a sleep (the
+    kernels alone)."""
+    from repro_torch.kernels.label_prop import label_prop_rect
+
+    update, _ = make_update(inp, label_prop_rect(inp["big_rows"], inp["init"], inp["slab"]))
+    return time_ms(update), queued_ms(update)
+
+
+def check_label_prop(inp, before_components):
+    """K2, the update step and K3 vs their plain versions on the main
+    path's full slab (exact equality: integer results).
+    ``before_components`` is ``update_ms`` read before the components
+    phase ran."""
+    import torch
+
+    from repro_torch.kernels.label_prop import col_reduce, label_prop_rect
+    from repro_torch.kernels.label_prop.ref import (
+        BIG, col_reduce_ref, label_prop_rect_ref, label_prop_update_ref,
+    )
+
+    slab, rows_t, valid_r, core_r = inp["slab"], inp["rows_t"], inp["valid_r"], inp["core_r"]
+    pos, init, big_rows = inp["pos"], inp["init"], inp["big_rows"]
+    r, w = slab.shape
+    cap = w * 32
     vals, weights = torch.where(core_r, rows_t, BIG), valid_r.to(torch.int32)
     out = []
 
@@ -312,18 +395,15 @@ def check_label_prop(bk, exec_idx, eps, tau):
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
-    flags = torch.tensor([1, 0], dtype=torch.int32, device=slab.device)
-    u = torch.empty_like(init)
-
-    def update():  # round 0 reads flags[0] == 1 and only ever sets flags[1]
-        label_prop_update(init, m, pos, u, flags, 0)
-
+    update, u = make_update(inp, m)
     update()
     u_ref = label_prop_update_ref(init, m, pos)
     b_ms, b_by = bound_ms(4 * (3 * cap + r))
     out.append({
         "name": "label_prop_update", "shape": [cap], "max_abs_err": int((u.long() - u_ref.long()).abs().max()),
-        "ms": time_ms(update), "plain_ms": time_ms(lambda: label_prop_update_ref(init, m, pos)),
+        "ms": time_ms(update), "device_ms": queued_ms(update),
+        "ms_before_components": before_components[0], "device_ms_before_components": before_components[1],
+        "plain_ms": time_ms(lambda: label_prop_update_ref(init, m, pos)),
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
@@ -338,6 +418,244 @@ def check_label_prop(bk, exec_idx, eps, tau):
         "bound_ms": b_ms, "bound_by": b_by,
     })
     return all(k["max_abs_err"] == 0 for k in out), out
+
+
+def check_rmi_mlp(pipe, test, eps, tau, alpha):
+    """The estimator's fused forward at the predict shape: each stage's
+    one launch (1, 2 and 4 experts on every test row) against the plain
+    version on the card; the rows whose route or core test
+    (pred >= alpha * tau) differs between the two are counted, not
+    avoided.  Times: one predict's three launches, the plain version's,
+    and the fp32 ``F.linear`` chain with TF32 off as the library
+    yardstick (five calls an expert, not one call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import exact_fp32
+    from repro_torch.core.cardinality import featurize, rmi_route
+    from repro_torch.kernels.rmi_mlp import rmi_stage_forward
+    from repro_torch.kernels.rmi_mlp.ops import stage_params
+    from repro_torch.kernels.rmi_mlp.ref import stage_forward_ref
+
+    est = pipe.estimator
+    stages, cfg = list(est.model.stages), est.cfg
+    x = featurize(torch.from_numpy(np.asarray(test, np.float32)).to(est.device), eps)
+    n, d_in = x.shape
+    packs = [stage_params(experts, x.device) for experts in stages]
+    kern = [rmi_stage_forward(experts, x) for experts in stages]
+    plain = [stage_forward_ref(x, ws, bs) for ws, bs in packs]
+    err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
+    # the reference's own kernel tolerance, rtol = atol = 2e-5: the two
+    # sum each layer's products in different orders
+    within = all(bool(((k - p).abs() <= TOL_RMI * (1.0 + p.abs())).all()) for k, p in zip(kern, plain))
+
+    def walk(outs):
+        pred, routes = outs[0][0], []
+        for o in outs[1:]:
+            routes.append(rmi_route(pred, o.shape[0], cfg.target_max))
+            pred = o.gather(0, routes[-1][None, :])[0]
+        return pred, routes
+
+    (zk, rk), (zp, rp) = walk(kern), walk(plain)
+    moved = torch.zeros(n, dtype=torch.bool, device=x.device)
+    for a, b in zip(rk, rp):
+        moved |= a != b
+    thr = alpha * tau
+    core_k = torch.clamp(torch.exp2(zk) - 1.0, min=0.0) >= thr
+    core_p = torch.clamp(torch.exp2(zp) - 1.0, min=0.0) >= thr
+
+    pairs = [list(zip(ws, bs)) for ws, bs in packs]  # packed once: the row times the launches
+
+    def predict():
+        for p in pairs:
+            rmi_stage_forward(p, x)
+
+    def library():
+        with torch.no_grad():
+            for experts in stages:
+                for m in experts:
+                    h = x
+                    for layer in m.layers[:-1]:
+                        h = torch.relu(F.linear(h, layer.weight, layer.bias))
+                    F.linear(h, m.layers[-1].weight, m.layers[-1].bias)
+
+    exact_fp32()
+    n_experts = sum(len(experts) for experts in stages)
+    per_expert = sum(w.shape[1] * w.shape[2] for w in packs[0][0])
+    n_params = sum(int(t.numel()) for ws, bs in packs for t in ws + bs)
+    b_ms, b_by = bound_ms(4 * (len(stages) * n * d_in + n_params + n * n_experts), 2.0 * n * per_expert * n_experts)
+    t1 = time_ms(predict, reps=5)
+    plain_ms = time_ms(lambda: [stage_forward_ref(x, ws, bs) for ws, bs in packs], reps=5)
+    library_ms = time_ms(library, reps=5)
+    t2 = time_ms(predict, reps=5)
+    row = {
+        "name": "rmi_mlp", "shape": [n, d_in, [len(e) for e in stages]], "max_abs_err": err,
+        "tolerance": f"|z - plain| <= {TOL_RMI} (1 + |plain|)",
+        "z_max_abs": max(float(p.abs().max()) for p in plain), "pred_max_abs_err": float((zk - zp).abs().max()),
+        "route_flips": int(moved.sum()), "core_test_flips": int((core_k != core_p).sum()),
+        "n_core_predicted": int(core_k.sum()),
+        "ms": (t1 + t2) / 2, "ms_turns": [t1, t2],
+        "stage_ms": [time_ms(lambda p=p: rmi_stage_forward(p, x), reps=5) for p in pairs],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "library": "fp32 F.linear + relu chain, TF32 off: 5 linear calls an expert, 35 a predict",
+        "ms_is": "one predict: 3 launches on packed buffers (packing: the predict_ab line's pack_ms)",
+    }
+    return within, row
+
+
+def predict_ab(pipe, test, eps, turns: int = 6, reps: int = 5):
+    """``laf.predict``'s work (``predict_counts``: upload, features,
+    forward, copy back) with the fused forward (``rmi_predict``, as the
+    pipeline runs it) and with the ``nn.Linear`` modules (``model(x)``,
+    the forward it replaced), in alternating turns (ABBA...), host clock,
+    the median of ``reps`` runs a turn; and each part of it timed alone,
+    packing the modules' buffers (part of every fused forward) too."""
+    import torch
+
+    from repro_torch.core.cardinality import rmi_predict
+    from repro_torch.kernels.rmi_mlp.ops import pack_modules
+
+    est = pipe.estimator
+
+    def fused():
+        return est.predict_counts(test, eps)
+
+    def linear():
+        with torch.no_grad():
+            z = est.model(est._features(test, eps))
+        return torch.clamp(torch.exp2(z) - 1.0, min=0.0).cpu().numpy()
+
+    def host_s(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+
+    fused(), linear()
+    by = {"fused": [], "linear": []}
+    for t in range(turns):
+        name = ("fused", "linear")[(t + t // 2) % 2]  # fused, linear, linear, fused, ...
+        by[name].append(host_s(fused if name == "fused" else linear))
+    feats = est._features(test, eps)
+    z = rmi_predict(est.model, feats)
+    with torch.no_grad():
+        z_linear = est.model(feats)
+    parts = {
+        "upload_and_features_s": host_s(lambda: est._features(test, eps)),
+        "upload_s": host_s(lambda: torch.as_tensor(np.asarray(test, np.float32)).to(est.device)),
+        "forward_fused_ms": time_ms(lambda: rmi_predict(est.model, feats), reps=5),
+        "pack_ms": time_ms(lambda: [pack_modules(list(e)) for e in est.model.stages], reps=5),
+        "forward_linear_ms": time_ms(lambda: est.model(feats).detach(), reps=5),
+        "counts_and_copy_back_s": host_s(lambda: torch.clamp(torch.exp2(z) - 1.0, min=0.0).cpu().numpy()),
+    }
+    return {"phase": "predict_ab", "fused_s": by["fused"], "linear_s": by["linear"],
+            "fused_median_s": float(np.median(by["fused"])), "linear_median_s": float(np.median(by["linear"])),
+            "z_fused_vs_linear_max_abs": float((z - z_linear).abs().max()), **parts}
+
+
+def first_occurrence(labels):
+    """Labels renumbered 0..k-1 in order of their first appearance."""
+    _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    return rank[inv]
+
+
+def check_components(test, eps, truth, dev):
+    """Phase 6: connected components of exact DBSCAN's core graph over
+    the packed square adjacency, the fixpoint against the truth and the
+    plain version, and the square round's two kernels against their plain
+    versions.  Returns (ok, phase line, kernel rows, launch counts)."""
+    import torch
+
+    from repro_torch.core.range_query import pack_bitmap_t, range_bitmap
+    from repro_torch.core.union_find import compact_labels, label_propagation
+    from repro_torch.index.signatures import popcount32
+    from repro_torch.kernels.label_prop import label_prop_round, label_prop_update, label_propagation_pallas
+    from repro_torch.kernels.label_prop.ref import BIG, label_prop_round_ref, label_prop_update_ref
+    from repro_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(np.asarray(test, np.float32)).to(dev)
+    n = x.shape[0]
+    core = torch.from_numpy(truth.core).to(dev)
+    t0 = time.perf_counter()
+    adj = range_bitmap(x, x, eps)
+    bitmap = torch.where(core[:, None], adj & pack_bitmap_t(core[None, :]), 0)
+    del adj
+    torch.cuda.synchronize()
+    adjacency_s = time.perf_counter() - t0
+    w = bitmap.shape[1]
+    label_propagation_pallas(bitmap, core)  # first use
+    metrics.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, rounds = label_propagation_pallas(bitmap, core, with_rounds=True)
+    torch.cuda.synchronize()
+    fixpoint_s = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    launches = {"label_prop_round": snap.get("kernel.label_prop_round.launches", 0),
+                "label_prop_update_square": snap.get("kernel.label_prop_update.launches", 0)}
+    t0 = time.perf_counter()
+    plain = label_propagation(bitmap, core)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    fixpoint_ms = time_ms(lambda: label_propagation_pallas(bitmap, core), reps=3, warmup=1)
+    lab = labels.cpu().numpy()
+    cores = truth.core
+    got = compact_labels(np.where(cores, lab, -1))[cores]  # min-index labels, in first-member order
+    rounds = int(rounds)
+    checks = {
+        "equals_exact_dbscan_on_cores": bool(np.array_equal(got, first_occurrence(truth.labels[cores]))),
+        "equals_plain_label_propagation": bool(torch.equal(labels, plain)),
+        "sentinel_on_non_cores": bool((lab[~cores] == n).all()),
+        "rounds_within_64": 1 <= rounds < 64,
+        "launches_64_each": launches == {"label_prop_round": 64, "label_prop_update_square": 64},
+    }
+    line = {"phase": "components", "n": n, "words": w, "slab_bytes": 4 * n * w, "n_cores": int(cores.sum()),
+            "set_bits": int(popcount32(bitmap).sum(dtype=torch.int64)), "n_components": int(got.max()) + 1 if len(got) else 0,
+            "exact_dbscan_clusters": truth.n_clusters, "rounds": rounds, "launches": launches,
+            "adjacency_s": adjacency_s, "fixpoint_s": fixpoint_s, "fixpoint_ms": fixpoint_ms,
+            "plain_label_propagation_s": plain_s, "checks": checks}
+
+    # the square round's kernels against their plain versions on the slab
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    lab0 = torch.where(core, idx, BIG)
+    k = label_prop_round(lab0, bitmap)
+    b_ms, b_by = bound_ms(4 * (n * w + 2 * n))
+    rows = [{
+        "name": "label_prop_round", "shape": [n, w],
+        "max_abs_err": int((k.long() - label_prop_round_ref(lab0, bitmap).long()).abs().max()),
+        "ms": time_ms(lambda: label_prop_round(lab0, bitmap)),
+        "plain_ms": time_ms(lambda: label_prop_round_ref(lab0, bitmap), reps=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }]
+    cap = w * 32
+    act = torch.zeros(cap, dtype=torch.bool, device=dev)
+    act[:n] = core
+    cidx = torch.arange(cap, dtype=torch.int32, device=dev)
+    init, pos = torch.where(act, cidx, BIG), torch.where(act, cidx, -1)
+    flags = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    u = torch.empty_like(init)
+
+    def update():  # round 0 reads flags[0] == 1 and only ever sets flags[1]
+        label_prop_update(init, k, pos, u, flags, 0)
+
+    update()
+    b_ms, b_by = bound_ms(4 * (3 * cap + n))
+    rows.append({
+        "name": "label_prop_update_square", "shape": [cap],
+        "max_abs_err": int((u.long() - label_prop_update_ref(init, k, pos).long()).abs().max()),
+        "ms": time_ms(update), "device_ms": queued_ms(update), "plain_ms": time_ms(lambda: label_prop_update_ref(init, k, pos)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    checks["kernels_equal_plain"] = all(r["max_abs_err"] == 0 for r in rows)
+    line["seconds"] = time.perf_counter() - t_phase
+    return all(checks.values()), line, rows, launches
 
 
 def check_stats_bodies(bk, exec_idx, eps, k1_rows):
@@ -626,6 +944,7 @@ def run(args) -> int:
           "rounds": g.get("laf.cluster.last_rounds"), "launches": launches,
           "host_syncs": host_syncs, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     ok = all(launches[k] > 0 for k in RP_KERNELS) and host_syncs == 1
+    ok &= launches["rmi_mlp"] == RMI_LAUNCHES_PER_PREDICT
     ok &= res.labels.shape == (len(test),) and int(res.labels.min()) >= -1
     ok &= bool(np.array_equal(warm.result.labels, res.labels))
 
@@ -677,6 +996,7 @@ def run(args) -> int:
         lc = {k: snap.get(f"kernel.{k}.launches", 0) for k in EXACT_KERNELS}
         for k in EXACT_KERNELS:
             exact_launches[k] += lc[k]
+        rmi_launches = snap.get("kernel.rmi_mlp.launches", 0)
         r = o.result
         row = {"elapsed_s": o.elapsed_s, "warmup_elapsed_s": warm.elapsed_s, "predict_s": o.predict_s,
                "phases_s": {k.split(".")[-1][:-2]: v for k, v in snap.items()
@@ -684,22 +1004,33 @@ def run(args) -> int:
                "n_range_queries": r.n_range_queries, "n_clusters": r.n_clusters,
                "noise_ratio": r.noise_ratio, "ari": adjusted_rand_index(r.labels, truth.labels),
                "ami": adjusted_mutual_info(r.labels, truth.labels), "launches": lc,
-               "params": o.params}
+               "rmi_mlp_launches": rmi_launches, "params": o.params}
         by_method[name] = row
         if name == "DBSCAN++":
             pp_core = r.core  # the sampled cores: its core-core unions' rows and columns
         emit({"phase": "exact_path", "method": name, **row})
         ok &= sum(lc.values()) > 0
+        ok &= rmi_launches == (RMI_LAUNCHES_PER_PREDICT if name.startswith("LAF") else 0)
         ok &= bool(np.array_equal(warm.result.labels, r.labels))
     ok &= by_method["LAF-DBSCAN"]["ari"] >= 0.99
     emit({"phase": "exact_path", "seconds": time.perf_counter() - t_phase, "p": p,
           "launches": exact_launches})
 
-    # 6. kernels vs plain versions at main-path shapes
-    t_phase = time.perf_counter()
+    # 6. components of the exact core graph over the packed square adjacency;
+    #    the main path's update row is also timed before it runs
     exec_idx = np.nonzero(pred >= alpha * tau)[0]
+    lp_inputs = label_prop_inputs(bk, exec_idx, eps, tau)
+    update_before = update_ms(lp_inputs)
+    comp_ok, comp_line, comp_rows, comp_launches = check_components(test, eps, truth, dev)
+    emit(comp_line)
+    ok &= comp_ok
+    launches.update(comp_launches)
+
+    # 7. kernels vs plain versions at main-path shapes
+    t_phase = time.perf_counter()
     k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows)
-    lp_ok, lp = check_label_prop(bk, exec_idx, eps, tau)
+    lp_ok, lp = check_label_prop(lp_inputs, update_before)
+    del lp_inputs
     sampled_cores = np.nonzero(pp_core)[0]
     rc_ok, rc = check_range_count(bk.data_device, exec_idx[: args.k1_rows], eps,
                                   sampled_cores[: args.k1_rows // 2], sampled_cores)
@@ -707,12 +1038,16 @@ def run(args) -> int:
         k["launches_by_method"] = {m: v["launches"][k["name"]] for m, v in by_method.items()}
     launches.update(exact_launches)
     st_ok, st = check_stats_bodies(bk, exec_idx, eps, args.k1_rows)
+    rmi_ok, rmi = check_rmi_mlp(pipe, test, eps, tau, alpha)
+    emit(predict_ab(pipe, test, eps))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase, "hamming_filter_ok": k1_ok,
-          "label_prop_ok": lp_ok, "range_count_ok": rc_ok, "stats_bodies_ok": st_ok})
-    ok &= k1_ok and lp_ok and rc_ok and st_ok
+          "label_prop_ok": lp_ok, "range_count_ok": rc_ok, "stats_bodies_ok": st_ok, "rmi_mlp_ok": rmi_ok,
+          "rmi_mlp": {k: rmi[k] for k in ("max_abs_err", "route_flips", "core_test_flips", "ms", "plain_ms",
+                                         "library_ms", "bound_ms")}})
+    ok &= k1_ok and lp_ok and rc_ok and st_ok and rmi_ok
     ok &= all(launches[k] > 0 for k in RP_KERNELS + EXACT_KERNELS)
 
-    # 7. observability, its launch counts read around its own path
+    # 8. observability, its launch counts read around its own path
     obs_ok, obs_line, obs_launches = check_observability(
         pipe, test, eps, tau, alpha, res.labels, truth.labels, dev)
     emit(obs_line)
@@ -720,11 +1055,11 @@ def run(args) -> int:
     for k in STATS_KERNELS:
         launches[k] = obs_launches[k]
     rows = []
-    for k in [k1, *lp, *rc, *st]:
+    for k in [k1, *lp, *rc, *st, rmi, *comp_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[k["name"]], **{a: b for a, b in k.items() if a != "name"},
-                     "library_ms": None})
+                     "launches": launches[k["name"]], "library_ms": None,
+                     **{a: b for a, b in k.items() if a != "name"}})
     if not ok:
         emit({"kernels": rows})
         return fail("a check failed (see the phase lines above)")

@@ -8,6 +8,10 @@ count), inverted at prediction time.  The stage-k prediction, scaled by
 the training-set maximum target, picks which stage-(k+1) expert refines
 it; every expert of a stage runs on the whole batch and the route
 selects one output per row (branchless, as in the reference).
+
+``RMI.forward`` is the autograd path (``nn.Linear``) that training
+uses; ``rmi_predict`` runs each stage as one launch of the fused kernel
+(``kernels.rmi_mlp``) on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from ...kernels.rmi_mlp import rmi_stage_forward
 
 __all__ = [
     "RMIConfig",
@@ -90,8 +96,15 @@ class RMI(nn.Module):
 
 
 def rmi_predict(model: RMI, x: torch.Tensor) -> torch.Tensor:
+    """z for featurized inputs (batch, d+1): each stage's experts in one
+    ``rmi_stage_forward`` (E, batch), routed and gathered as in
+    ``RMI.forward``."""
     with torch.no_grad():
-        return model(x)
+        pred = rmi_stage_forward(model.stages[0], x)[0]
+        for experts in model.stages[1:]:
+            idx = rmi_route(pred, len(experts), model.cfg.target_max)
+            pred = rmi_stage_forward(experts, x).gather(0, idx[None, :])[0]
+    return pred
 
 
 def rmi_predict_counts(model: RMI, x: torch.Tensor) -> torch.Tensor:
@@ -123,3 +136,4 @@ def rmi_from_jax(params_np, cfg: RMIConfig, *, device=None) -> RMI:
         for e, mlp in enumerate(experts):
             _load_mlp(mlp, [(w[e], b[e]) for w, b in layers])
     return model.to(resolve_device(device))
+

@@ -23,7 +23,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hamming_filter", "label_prop", "range_count")
+SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +41,9 @@ _SIGNATURES = {
     },
     "range_count": {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],
+    },
+    "rmi_mlp": {
+        "rmi_mlp_launch": [P, I, I, *[P] * 10, I, I, I, I, I, P, P],
     },
 }
 

@@ -1,6 +1,12 @@
 """Kernel wrappers and the one-sync cluster fixpoint over a packed sweep
 slab (port of ``repro.kernels.label_prop.ops``).
 
+``label_prop_round`` / ``label_propagation_pallas`` are the square
+connected-components pair over a packed symmetric (N, W) adjacency: one
+round is K2 (``label_prop_rect``'s kernel) with the labels as both its
+row and its column labels, counted as ``kernel.label_prop_round``, and
+the fixpoint runs its rounds behind device flags as below.
+
 ``packed_cluster_labels`` takes the sweep engine's rectangular packed
 slab (R executed rows x W words of database columns) and computes,
 without unpacking and without reading anything on the host: the exact
@@ -32,9 +38,11 @@ from ...obs import device as _obs_device
 from ...obs import metrics as _metrics
 from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
-from .ref import BIG, col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
+from .ref import BIG, col_reduce_ref, label_prop_rect_ref, label_prop_round_ref, label_prop_update_ref
 
 __all__ = [
+    "label_prop_round",
+    "label_propagation_pallas",
     "label_prop_rect",
     "col_reduce",
     "label_prop_update",
@@ -45,6 +53,7 @@ __all__ = [
 ]
 
 LAUNCHES = {
+    "label_prop_round": "kernel.label_prop_round.launches",
     "label_prop_rect": "kernel.label_prop_rect.launches",
     "col_reduce": "kernel.col_reduce.launches",
     "label_prop_update": "kernel.label_prop_update.launches",
@@ -84,15 +93,55 @@ def label_prop_rect(row_labels, col_labels, bitmap, *, out=None, flag=None):
         if flag is None or int(flag[0]) != 0:
             out.copy_(label_prop_rect_ref(row_labels, col_labels, bitmap))
         return out
+    return _launch_rect(row_labels, col_labels, bitmap, out, flag, "label_prop_rect")
+
+
+def _launch_rect(row_labels, col_labels, bitmap, out, flag, name):
+    r, w = bitmap.shape
     operands = [bitmap, row_labels, col_labels, out] + ([flag] if flag is not None else [])
-    stream = _cuda(operands, "label_prop_rect")
+    stream = _cuda(operands, name)
     err = _build.load("label_prop").label_prop_rect_launch(
         row_labels.data_ptr(), col_labels.data_ptr(), bitmap.data_ptr(), r, w,
         out.data_ptr(), flag.data_ptr() if flag is not None else None, stream,
     )
-    _build.check(err, "label_prop_rect")
-    _metrics.counter(LAUNCHES["label_prop_rect"]).inc()
+    _build.check(err, name)
+    _metrics.counter(LAUNCHES[name]).inc()
     return out
+
+
+def _square(bitmap, n):
+    _check_slab(bitmap)
+    if bitmap.shape[0] != n:
+        raise ValueError(f"a square adjacency needs {n} rows, got {bitmap.shape[0]}")
+    if bitmap.shape[1] * 32 < n:
+        raise ValueError(f"{bitmap.shape[1]} words cannot cover {n} columns")
+
+
+def _round_into(col_labels, bitmap, out, flag=None):
+    """One square round from the (W*32,) labels padded with INT32_MAX
+    past N (so bits of columns >= N meet INT32_MAX and change nothing,
+    as the reference's ``_pad`` makes them) into ``out`` (N,); rows read
+    ``col_labels[:N]``.  A no-op when ``flag`` holds 0."""
+    n = bitmap.shape[0]
+    if bitmap.device.type == "cpu":
+        if flag is None or int(flag[0]) != 0:
+            out.copy_(label_prop_round_ref(col_labels[:n], bitmap))
+        return out
+    return _launch_rect(col_labels, col_labels, bitmap, out, flag, "label_prop_round")
+
+
+def label_prop_round(labels, bitmap):
+    """One min-propagation round over a square packed adjacency:
+    ``out[i] = min(labels[i], min over set bits j < N of row i of
+    labels[j])`` for (N,) int32 labels and an (N, W) int32 slab with
+    W*32 >= N; bits of columns >= N are never read (their labels are
+    padded with INT32_MAX, as the reference pads them)."""
+    n = labels.shape[0]
+    _square(bitmap, n)
+    _int32_vec(labels, n, "labels")
+    col = torch.full((bitmap.shape[1] * 32,), BIG, dtype=torch.int32, device=bitmap.device)
+    col[:n] = labels
+    return _round_into(col, bitmap, torch.empty(n, dtype=torch.int32, device=bitmap.device))
 
 
 def col_reduce(bitmap, row_vals, row_weights):
@@ -156,6 +205,50 @@ def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
     )
     _build.check(err, "label_prop_update")
     _metrics.counter(LAUNCHES["label_prop_update"]).inc()
+
+
+def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds: bool = False, device=None):
+    """Connected components over a packed symmetric (N, W) adjacency,
+    the contract of ``core.union_find.label_propagation``: (N,) int32,
+    the min active index of each node's component, ``N`` on inactive
+    nodes.  Each round is ``new = where(active, min(labels, neigh), N)``
+    then the pointer jump ``min(new, new[new])`` over the round's whole
+    ``new``; it stops when nothing changed, or after ``max_iters``.
+
+    The rounds run as ``packed_cluster_fixpoint``'s do: ``max_iters``
+    rounds are enqueued, each a ``label_prop_round`` launch and an
+    update launch that return at once when ``flags[it]`` is 0, reading
+    one label buffer and writing the other, so nothing is read on the
+    host.  The buffers hold the masked labels (INT32_MAX on inactive
+    nodes and past N); ``pos`` maps each active column to its own row,
+    so the update kernel computes ``new`` at both ends of the jump.
+    ``with_rounds`` also returns the executed rounds, a device scalar.
+    An array ``bitmap`` goes to ``device`` (default cuda); a tensor
+    stays on its device."""
+    from ...core.union_find import as_device_operands
+
+    if not torch.is_tensor(bitmap):
+        bitmap, active = as_device_operands(bitmap, active, torch.int32, device)
+    n = int(active.shape[0])
+    _square(bitmap, n)
+    dev = bitmap.device
+    cap = bitmap.shape[1] * 32
+    act = torch.zeros(cap, dtype=torch.bool, device=dev)
+    act[:n] = torch.as_tensor(active).to(device=dev, dtype=torch.bool)
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    bufs = (torch.where(act, idx, BIG), torch.empty(cap, dtype=torch.int32, device=dev))
+    pos = torch.where(act, idx, -1)
+    m = torch.empty(n, dtype=torch.int32, device=dev)
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
+    flags[0] = 1
+    for it in range(max_iters):
+        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
+        _round_into(lab, bitmap, m, flags[it : it + 1])
+        label_prop_update(lab, m, pos, nxt, flags, it)
+    rounds = flags[:max_iters].sum(dtype=torch.int32)
+    labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])[:n]
+    labels = torch.where(act[:n], labels, n)
+    return (labels, rounds) if with_rounds else labels
 
 
 def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):

@@ -8,18 +8,30 @@ import torch
 
 from ...core.range_query import unpack_bitmap_t
 
-__all__ = ["BIG", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref"]
+__all__ = ["BIG", "label_prop_round_ref", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref"]
 
 BIG = torch.iinfo(torch.int32).max
 
 
-def label_prop_rect_ref(row_labels, col_labels, bitmap, *, block: int = 1024):
-    """out[i] = min(row_labels[i], min over set bits j of col_labels[j])."""
+def label_prop_round_ref(labels, bitmap, big=BIG, *, block: int = 1024):
+    """new_labels[i] = min(labels[i], min_{j < N: bit ij set} labels[j])
+    for (N,) labels and an (N, W) slab: ``label_prop_rect_ref`` with the
+    labels as the column labels, padded with ``big`` past N (so bits of
+    columns >= N change nothing while ``big`` bounds the labels)."""
+    n = labels.shape[0]
+    padded = torch.full((bitmap.shape[1] * 32,), big, dtype=labels.dtype, device=labels.device)
+    padded[:n] = labels
+    return label_prop_rect_ref(labels, padded, bitmap, big, block=block)
+
+
+def label_prop_rect_ref(row_labels, col_labels, bitmap, big=BIG, *, block: int = 1024):
+    """out[i] = min(row_labels[i], min over set bits j of col_labels[j])
+    (``big`` where no bit is set)."""
     r, w = bitmap.shape
     out = torch.empty(r, dtype=torch.int32, device=bitmap.device)
     for s in range(0, r, block):
         bits = unpack_bitmap_t(bitmap[s : s + block], w * 32)
-        neigh = torch.where(bits, col_labels[None, :], BIG).amin(dim=1)
+        neigh = torch.where(bits, col_labels[None, :], big).amin(dim=1)
         out[s : s + block] = torch.minimum(row_labels[s : s + block], neigh)
     return out
 

@@ -21,13 +21,14 @@ from repro_torch.core.dbscan_pp import dbscan_pp
 from repro_torch.core.laf_dbscan import laf_dbscan, laf_dbscan_sequential
 from repro_torch.core.pipeline import LAFPipeline
 from repro_torch.core.range_query import range_counts
+from repro_torch.core.union_find import label_propagation, label_propagation_dense
 from repro_torch.index.exact import ExactBackend
 from repro_torch.index.random_projection import RandomProjectionBackend
 from repro_torch.index.signatures import make_projection, sign_signatures
 from repro_torch.kernels import _build
 from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
 from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
-from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update
+from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update, label_propagation_pallas
 from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
 from repro_torch.obs import metrics
 
@@ -59,6 +60,7 @@ def test_entry_points_default_to_cuda():
     with one, the default is cuda."""
     x = np.random.default_rng(0).standard_normal((40, 8)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
+    words, active, adj = np.zeros((40, 2), np.uint32), np.ones(40, bool), np.eye(40, dtype=bool)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert RandomProjectionBackend().device.type == "cuda"
@@ -77,11 +79,18 @@ def test_entry_points_default_to_cuda():
         lambda: dbscan_pp(x, 0.5, 3, 0.5),
         lambda: dbscan_sequential(x, 0.5, 3),
         lambda: laf_dbscan_sequential(x, 0.5, 3, 1.0, lambda i: 10.0),
+        lambda: label_propagation(words, active),
+        lambda: label_propagation_dense(adj, active),
+        lambda: label_propagation_pallas(words, active),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu").type == "cpu"
+    want = torch.arange(40, dtype=torch.int32)
+    assert torch.equal(label_propagation(words, active, device="cpu"), want)
+    assert torch.equal(label_propagation_dense(adj, active, device="cpu"), want)
+    assert torch.equal(label_propagation_pallas(words, active, device="cpu"), want)
 
 
 def test_wrappers_validate_operands():
