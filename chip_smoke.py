@@ -50,10 +50,31 @@ Phases (each prints one JSON line; any failure exits nonzero):
    sweep of the whole split with its per-chunk occupancy slab held to the
    plain version; ``suggest_margin`` on the card against the host
    Hamming table; both ``_stats`` bodies of the Hamming filter against
-   their plain versions and timed beside their twins.
+   their plain versions and timed beside their twins;
+9. lm_serve: llama3-8b at full width and depth (8,030,261,248
+   parameters, bf16, weights from ``transformer_init(0, cfg)``): 4 x 4096
+   tokens through ``transformer_prefill`` (warmed, then timed; 32
+   ``flash_attention`` launches), then the first 1024 tokens of each
+   request fed one by one through ``transformer_decode_step`` into a
+   1088-slot cache and 64 greedy tokens (median step time; 32 launches a
+   step); decode against ``transformer_prefill`` at the last prompt
+   position and against ``transformer_forward`` at 16 prompt positions,
+   within ``LM_REL_L2`` / ``LM_MAX_ABS``; greedy tokens that forward
+   would pick otherwise are counted; the decode mapping held to the
+   plain version on the filled cache's own prefix views (layers 0 and
+   31, 1 to 1088 keys, as ``_gqa_decode_layer`` passes them); the
+   weights are freed.  Then ``flash_attention`` against its plain
+   version in bf16 at the prefill row (B 4, Hq 32, Hkv 8, S 4096, D 128,
+   causal) and the decode row (B 16, Sq 1, Sk 32768), timed beside the
+   plain version and ``scaled_dot_product_attention``, and at a windowed
+   case (window 1024, S 2048) for correctness only.  Every such
+   comparison holds the kernel within one bf16 step of the plain
+   value (``FLASH_TOL``).
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+is left at PyTorch's default (on) for the model's bf16 GEMMs.
 
 Every phase line carries its ``seconds``.
 
@@ -78,6 +99,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 KERNELS = {
     "hamming_filter": ("src/repro_torch/csrc/hamming_filter.cu",
                        "src/repro/kernels/hamming_filter/kernel.py:179"),
@@ -103,6 +125,12 @@ KERNELS = {
     "label_prop_update_square": ("src/repro_torch/csrc/label_prop.cu",
                                  "src/repro/kernels/label_prop/ops.py:109-111 (jnp inside "
                                  "label_propagation_pallas's loop; no Pallas kernel)"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                        "_make_kernel :30)"),
+    "flash_attention_decode": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                               "_make_kernel :30; the Sq = 1 mapping)"),
 }
 RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
 RMI_LAUNCHES_PER_PREDICT = 3  # one launch a stage (1, 2, 4 experts)
@@ -113,6 +141,13 @@ EXACT_KERNELS = ("range_count", "range_count_bitmap")
 # is reached only by the mesh plane, which is not ported yet
 OBS_KERNELS = RP_KERNELS + ("hamming_filter_count_stats",)
 STATS_KERNELS = ("hamming_filter_count_stats", "hamming_filter_bitmap_stats")
+# decode == prefill / forward at full width in bf16, compared in fp32:
+# relative L2 error of the logits and their largest absolute difference
+LM_REL_L2 = 0.05
+LM_MAX_ABS = 1.0
+LM_PREFILL = (4, 4096)          # requests x tokens through transformer_prefill
+LM_PROMPT, LM_NEW = 1024, 64    # decode: prompt tokens fed one by one, then greedy tokens
+FLASH_TOL = "|kernel - plain| <= 2^-7 |plain| + 1e-5, bf16 out (one bf16 step of the value)"
 
 
 def emit(obj) -> None:
@@ -157,16 +192,17 @@ def queued_ms(fn, reps: int = 20, sleep_cycles: int = 4_000_000) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float = 0.0):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = FP32_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def device_busy(fn):
-    """(wall s, device busy s, device busy union s) of one call under
-    ``torch.profiler``: the summed durations of the trace's device
-    events, every kernel and copy the call ran, and the length of the
-    union of their intervals (equal when no two overlap).  The
+def device_busy(fn, top: int = 8):
+    """(wall s, device busy s, device busy union s, top kernels) of one
+    call under ``torch.profiler``: the summed durations of the trace's
+    device events, every kernel and copy the call ran, the length of the
+    union of their intervals (equal when no two overlap), and the ``top``
+    device kernels by summed time, [name, ms, count] each.  The
     profiler's own cost lengthens the wall time, so the idle share it
     gives is an upper bound.  Busy is None when the trace holds no
     device time."""
@@ -179,8 +215,13 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ranges = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {}
+    for e in events:
+        ms, n = by.get(e.name, (0.0, 0))
+        by[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    kernels = [[name[:80], ms, n] for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]]
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us = sum(b - a for a, b in ranges)
     union_us, end = 0, None
     for a, b in ranges:
@@ -189,8 +230,8 @@ def device_busy(fn):
         elif b > end:
             union_us, end = union_us + (b - end), b
     if busy_us <= 0:
-        return wall, None, None
-    return wall, busy_us / 1e6, union_us / 1e6
+        return wall, None, None, kernels
+    return wall, busy_us / 1e6, union_us / 1e6, kernels
 
 
 def flipped_pairs(kb, pb):
@@ -866,6 +907,254 @@ def check_observability(pipe, test, eps, tau, alpha, main_labels, truth_labels, 
     return all(checks.values()), line, launches
 
 
+def logit_gap(got, want):
+    """(relative L2 error, largest absolute difference) in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm()), float((got - want).abs().max())
+
+
+def lm_serve(dev):
+    """Phase 9: llama3-8b at full width and depth in bf16 on the card,
+    weights from ``transformer_init(0, cfg)``: prefill of 4 x 4096
+    tokens, then the first 1024 tokens of each request fed one by one
+    through ``transformer_decode_step`` and 64 greedy tokens, each path
+    with the launch count set to 0 just before it and read just after;
+    decode against prefill and forward, and the decode kernel on the
+    filled cache against the plain version.  The weights are freed
+    before it returns.  Returns (ok, phase line, launches by row)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import blockwise_attention
+    from repro_torch.models.transformer import (
+        make_cache, transformer_decode_step, transformer_forward, transformer_init, transformer_prefill,
+    )
+    from repro_torch.obs import metrics
+
+    counter = "kernel.flash_attention.launches"
+    t_phase = time.perf_counter()
+    cfg = get_arch("llama3-8b").make_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = transformer_init(0, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {"phase": "lm_serve", "arch": "llama3-8b", "dtype": str(cfg.dtype), "init_s": init_s,
+            "params": n_params, "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "bf16_reduced_precision_reduction": torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+    toks, _ = token_stream(np.random.default_rng(0), *LM_PREFILL, cfg.vocab)
+    toks = torch.from_numpy(toks).to(dev)
+
+    # prefill: warm once, then one timed call
+    transformer_prefill(model, cfg, toks)
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pre = transformer_prefill(model, cfg, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = metrics.snapshot().get(counter, 0)
+    line.update({"prefill_shape": list(LM_PREFILL), "prefill_s": prefill_s,
+                 "prefill_tokens_per_s": LM_PREFILL[0] * LM_PREFILL[1] / prefill_s,
+                 "prefill_launches": prefill_launches, "prefill_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                 "prefill_logits_shape": list(pre.shape)})
+    finite = bool(torch.isfinite(pre).all())
+    del pre
+    wall, busy, union, top = device_busy(lambda: transformer_prefill(model, cfg, toks))
+    line["prefill_trace"] = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                             "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top}
+
+    # decode: the prompts token by token (teacher-forced), then greedy
+    b = LM_PREFILL[0]
+    prompt = toks[:, :LM_PROMPT].contiguous()
+    del toks
+    cache = make_cache(cfg, b, LM_PROMPT + LM_NEW)
+    check_at = list(range(LM_PROMPT // 16 - 1, LM_PROMPT, LM_PROMPT // 16))  # 16 positions, the last among them
+    saved, step_s, step_launches, generated, chunk_s = {}, [], [], [], []
+    metrics.reset()
+    torch.cuda.synchronize()
+    t0 = t_chunk = time.perf_counter()
+    for t in range(LM_PROMPT):
+        logits, cache = transformer_decode_step(model, cfg, prompt[:, t : t + 1], cache, t)
+        if t in check_at:
+            saved[t] = logits.float()
+        if (t + 1) % (LM_PROMPT // 8) == 0:  # the prompt's steps in 8 synced chunks
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t_chunk)
+            t_chunk = time.perf_counter()
+    prompt_s = time.perf_counter() - t0
+    tok = logits.argmax(-1, keepdim=True)
+    for t in range(LM_PROMPT, LM_PROMPT + LM_NEW):
+        generated.append(tok)
+        before = metrics.snapshot().get(counter, 0)
+        t0 = time.perf_counter()
+        logits, cache = transformer_decode_step(model, cfg, tok, cache, t)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        step_launches.append(metrics.snapshot().get(counter, 0) - before)
+    decode_launches = metrics.snapshot().get(counter, 0)
+    finite &= bool(torch.isfinite(logits).all())
+    step_ms = 1e3 * float(np.median(step_s))
+    line.update({"decode_batch": b, "cache_len": LM_PROMPT + LM_NEW, "prompt_steps": LM_PROMPT,
+                 "prompt_s": prompt_s, "prompt_chunk_ms_per_step": [1e3 * c / (LM_PROMPT // 8) for c in chunk_s],
+                 "greedy_steps": LM_NEW, "step_ms_median": step_ms,
+                 "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
+                 "decode_tokens_per_s": b / (step_ms / 1e3), "decode_launches": decode_launches,
+                 "launches_per_step": sorted(set(step_launches))})
+
+    # checks: decode == prefill at the last prompt position, decode ==
+    # forward at 16 prompt positions, the greedy tokens against forward
+    with torch.inference_mode():
+        pre = transformer_prefill(model, cfg, prompt)
+        gen = torch.cat(generated, dim=1)
+        fwd = transformer_forward(model, cfg, torch.cat([prompt, gen[:, :-1]], dim=1))
+    rel_a, abs_a = logit_gap(saved[LM_PROMPT - 1], pre)
+    fwd_at = fwd[:, check_at].float()
+    dec_at = torch.stack([saved[t] for t in check_at], dim=1)
+    rel_b, abs_b = logit_gap(dec_at, fwd_at)
+    greedy_fwd = fwd[:, LM_PROMPT - 1 :].argmax(-1)
+    finite &= bool(torch.isfinite(pre).all()) and bool(torch.isfinite(fwd).all())
+    # the decode mapping on the path's own operands, after the counts were
+    # read: the filled cache's prefix views, passed as _gqa_decode_layer
+    # passes them, against the plain version on the same views
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, cfg.n_heads, 1, cfg.d_head), generator=g, device=dev).to(cfg.dtype)
+    on_cache, on_cache_ok = [], True
+    for layer in (0, cfg.n_layers - 1):
+        kc, vc = cache["k"][layer], cache["v"][layer]
+        for n in (1, 77, LM_PROMPT, LM_PROMPT + LM_NEW):
+            out = blockwise_attention(q, kc, vc, causal=True, window=None, q_offset=n - 1,
+                                      kv_block=cfg.kv_block, valid_len=n)
+            ok_n, gap = flash_gap(out, attention_ref(q, kc[:, :, :n], vc[:, :, :n], causal=True))
+            on_cache_ok &= ok_n
+            gap.pop("tolerance")
+            on_cache.append({"layer": layer, "keys": n, **gap})
+    del q, out
+    checks = {
+        "params_8030261248": n_params == 8_030_261_248 == cfg.param_count(),
+        "prefill_launches_32": prefill_launches == cfg.n_layers,
+        "launches_32_per_step": set(step_launches) == {cfg.n_layers},
+        "decode_launches": decode_launches == cfg.n_layers * (LM_PROMPT + LM_NEW),
+        "decode_equals_prefill": rel_a <= LM_REL_L2 and abs_a <= LM_MAX_ABS,
+        "decode_equals_forward": rel_b <= LM_REL_L2 and abs_b <= LM_MAX_ABS,
+        "decode_kernel_on_cache": on_cache_ok,
+        "finite": finite,
+    }
+    line.update({
+        "tolerance": f"rel L2 <= {LM_REL_L2} and max |diff| <= {LM_MAX_ABS} (fp32 compare of bf16 logits)",
+        "decode_vs_prefill": {"rel_l2": rel_a, "max_abs": abs_a, "logit_max_abs": float(pre.float().abs().max())},
+        "decode_vs_forward": {"positions": check_at, "rel_l2": rel_b, "max_abs": abs_b},
+        "argmax_differs_vs_prefill": int((saved[LM_PROMPT - 1].argmax(-1) != pre.argmax(-1)).sum()),
+        "argmax_differs_vs_forward": int((dec_at.argmax(-1) != fwd_at.argmax(-1)).sum()),
+        "greedy_tokens_differ_vs_forward": int((greedy_fwd != gen).sum()),
+        "greedy_tokens": gen.numel(),
+        "decode_kernel_on_cache": {"shape": {"B": b, "Hq": cfg.n_heads, "Hkv": cfg.kv_heads, "D": cfg.d_head,
+                                             "slots": LM_PROMPT + LM_NEW}, "tolerance": FLASH_TOL,
+                                   "rows": on_cache},
+        "checks": checks,
+    })
+    # one more step (slot LM_PROMPT + LM_NEW - 1 written again) under the profiler
+    wall, busy, union, top = device_busy(
+        lambda: transformer_decode_step(model, cfg, tok, cache, LM_PROMPT + LM_NEW - 1))
+    line["decode_step_trace"] = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                                 "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top}
+    del model, cache, pre, fwd, fwd_at, dec_at, saved, logits
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_phase
+    return all(checks.values()), line, {"flash_attention": prefill_launches, "flash_attention_decode": decode_launches}
+
+
+def flash_gap(out, ref):
+    """(ok, fields) of the kernel's bf16 output against the plain
+    version's: both sum in fp32 and round once to bf16, so they may
+    differ by one bf16 step of the value, 2^-7 |plain|, and the fp32
+    sums by far less than 1e-5.  The fields give the largest error, the
+    typical |plain| beside it and the error over the plain output's RMS."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    ok = bool((err <= 2.0 ** -7 * ref.abs() + 1e-5).all()) and bool(out.isfinite().all())
+    return ok, {"max_abs_err": float(err.max()), "mean_abs_plain": float(ref.abs().mean()),
+                "max_err_over_rms": float(err.max() / ref.pow(2).mean().sqrt().clamp_min(1e-30)),
+                "tolerance": FLASH_TOL}
+
+
+def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
+    """The kernel against its plain version on the card in bf16 (the
+    working type) at one shape, within ``flash_gap``'s one bf16 step,
+    and, when ``time_it``, its time, the plain version's, the library's
+    (``scaled_dot_product_attention`` with ``enable_gqa``) and the bound
+    over bf16 tensor cores (the fp32 CUDA-core bound beside it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, d)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    ok, gap = flash_gap(out, ref)
+    row = {"name": name, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": causal,
+                                   "window": window, "dtype": "bfloat16"}, **gap}
+    del out, ref
+    if not time_it:
+        return ok, row
+    # unmasked (query, key) pairs of this shape: what the work needs
+    qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device="cuda")[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    pairs = int(keep.sum())
+    flops = 4.0 * b * hq * pairs * d
+    n_bytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    fp32_ms, _ = bound_ms(n_bytes, flops, FP32_FLOPS)
+
+    def library():
+        if window is None and (causal and sq == sk or sq == 1):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal and sq > 1, enable_gqa=True)
+        raise ValueError("no single library call for this mask")
+
+    t1 = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps=5)
+    plain = time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window), reps=2, warmup=1)
+    lib = time_ms(library, reps=5)
+    t2 = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps=5)
+    row.update({"flops": flops, "bytes": n_bytes, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "plain_ms": plain,
+                "library_ms": lib, "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16",
+                "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_cuda_cores_ms": fp32_ms,
+                "tflops": flops / ((t1 + t2) / 2) / 1e9})
+    return ok, row
+
+
+def check_flash_attention(lm_launches):
+    """The flash-attention rows: the prefill row (B 4, Hq 32, Hkv 8, S
+    4096, D 128, causal), the decode row (B 16, Sq 1, Sk 32768, the
+    registry's decode_32k length) and a windowed case (window 1024, S
+    2048) for correctness only.  Returns (ok, rows, phase line)."""
+    t_phase = time.perf_counter()
+    ok_p, pre = flash_row("flash_attention", 4, 32, 8, 4096, 4096, 128, True, None, seed=1)
+    ok_d, dec = flash_row("flash_attention_decode", 16, 32, 8, 1, 32768, 128, True, None, seed=2)
+    ok_w, win = flash_row("flash_attention_window", 2, 32, 8, 2048, 2048, 128, True, 1024, seed=3, time_it=False)
+    pre["launches"], dec["launches"] = lm_launches["flash_attention"], lm_launches["flash_attention_decode"]
+    line = {"phase": "flash_attention", "seconds": time.perf_counter() - t_phase, "prefill_ok": ok_p,
+            "decode_ok": ok_d, "window_ok": ok_w, "window_case": win}
+    return ok_p and ok_d and ok_w, [pre, dec], line
+
+
 def run(args) -> int:
     import torch
 
@@ -966,7 +1255,7 @@ def run(args) -> int:
           "host_union_find_identical": same, "exact_dbscan_equals_device_pass": truth_same,
           "exact_dbscan_clusters": truth.n_clusters, "exact_dbscan_noise_ratio": truth.noise_ratio,
           "ari_vs_exact_dbscan": quality})
-    wall, busy, union = device_busy(lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha))
+    wall, busy, union, _ = device_busy(lambda: pipe.cluster_laf_dbscan(test, eps, tau, alpha))
     # the same clustering without the profiler (metrics on, as here): the
     # main path's elapsed_s; busy over it assumes the profiler leaves the
     # device's own work as it is
@@ -1054,8 +1343,17 @@ def run(args) -> int:
     ok &= obs_ok and all(obs_launches[k] > 0 for k in OBS_KERNELS)
     for k in STATS_KERNELS:
         launches[k] = obs_launches[k]
+
+    # 9. llama3-8b serving, its launch counts read around its own paths,
+    #    then the flash-attention rows once its weights are freed
+    lm_ok, lm_line, lm_launches = lm_serve(dev)
+    emit(lm_line)
+    fa_ok, fa_rows, fa_line = check_flash_attention(lm_launches)
+    emit(fa_line)
+    ok &= lm_ok and fa_ok and all(n > 0 for n in lm_launches.values())
+    launches.update(lm_launches)
     rows = []
-    for k in [k1, *lp, *rc, *st, rmi, *comp_rows]:
+    for k in [k1, *lp, *rc, *st, rmi, *comp_rows, *fa_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

@@ -1,12 +1,13 @@
-"""``repro_torch`` — the LAF-DBSCAN system on PyTorch and CUDA.
+"""``repro_torch`` — the LAF-DBSCAN system and its model zoo on PyTorch
+and CUDA.
 
 A second package beside the JAX/Pallas reference (``repro``), with the
 same layout (``core/``, ``core/cardinality/``, ``index/``,
-``kernels/<name>/``, ``data/``, ``obs/``) so each module's counterpart
-is found under the same path.  The three TPU kernels of the batch
-LAF-DBSCAN path are hand-written CUDA C++ for Hopper (``csrc/*.cu``),
-built by ``nvcc`` at first use into ``build/repro_torch/`` and bound
-with ``ctypes`` (``repro_torch.kernels._build``).
+``kernels/<name>/``, ``data/``, ``obs/``, ``models/``, ``configs/``) so
+each module's counterpart is found under the same path.  The TPU
+kernels are hand-written CUDA C++ for Hopper (``csrc/*.cu``), built by
+``nvcc`` at first use into ``build/repro_torch/`` and bound with
+``ctypes`` (``repro_torch.kernels._build``).
 
 Device policy: every entry point takes ``device=``.  ``None`` (the
 default) means ``cuda`` and raises when no card is present;

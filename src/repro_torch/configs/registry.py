@@ -1,0 +1,82 @@
+"""Architecture registry (port of ``repro.configs.registry``).
+
+Each arch module registers an ``ArchSpec`` carrying its full config, a
+reduced same-family config for CPU tests, its shape table and its
+documented skips.  ``_ensure_loaded`` imports only the configs the port
+can run: ``llama3_8b`` (the dense GQA decoder).  The reference's other
+configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the recsys and
+GNN models, laf_dbscan's launch config) are queued in ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Mapping
+
+__all__ = [
+    "ShapeSpec", "ArchSpec", "register", "get_arch", "list_archs", "REGISTRY",
+    "LM_SHAPES", "FULL_ATTENTION_SKIP",
+]
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode | forward | retrieval
+    meta: Mapping[str, int]
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str          # lm | gnn | recsys
+    make_config: Callable[[], Any]
+    make_reduced_config: Callable[[], Any]
+    shapes: Mapping[str, ShapeSpec]
+    skips: Mapping[str, str] = field(default_factory=dict)
+    notes: str = ""
+
+    def runnable_shapes(self):
+        return {k: v for k, v in self.shapes.items() if k not in self.skips}
+
+
+REGISTRY: Dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get_arch(name: str) -> ArchSpec:
+    _ensure_loaded()
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def list_archs():
+    _ensure_loaded()
+    return sorted(REGISTRY)
+
+
+def _ensure_loaded():
+    from . import llama3_8b  # noqa: F401  (registers on first import)
+
+
+# ---------------------------------------------------------------------------
+# shared shape tables
+# ---------------------------------------------------------------------------
+
+LM_SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    "decode_32k": ShapeSpec("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    "long_500k": ShapeSpec("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+}
+
+FULL_ATTENTION_SKIP = (
+    "long_500k skipped: pure full-attention arch; the 500k-token decode "
+    "regime is reserved for sub-quadratic/hybrid archs per the assignment "
+    "(DESIGN.md §4)."
+)

@@ -1,5 +1,6 @@
 """Synthetic dataset generators (numpy copy of the LAF-DBSCAN part of
-``repro.data.synthetic``: same draws from the same seeds).
+``repro.data.synthetic`` and of its ``token_stream``: same draws from
+the same seeds).
 
 The paper evaluates on normalized high-dimensional neural embeddings
 (NYT bag-of-words 256-d, Glove 200-d, MS-MARCO passage embeddings
@@ -21,6 +22,7 @@ __all__ = [
     "sample_vmf",
     "make_angular_clusters",
     "train_test_split",
+    "token_stream",
 ]
 
 
@@ -113,3 +115,10 @@ def train_test_split(
     perm = rng.permutation(n)
     k = int(round(n * frac_train))
     return data[perm[:k]], data[perm[k:]]
+
+
+def token_stream(rng: np.random.Generator, batch: int, seq_len: int, vocab: int):
+    """Zipf-ish token batch + next-token labels."""
+    z = rng.zipf(1.3, size=(batch, seq_len + 1))
+    toks = np.minimum(z - 1, vocab - 1).astype(np.int32)
+    return toks[:, :-1], toks[:, 1:]

@@ -23,13 +23,13 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp")
+SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "hamming_filter": {
         "hamming_filter_launch": [P, P, P, P, I, I, I, I, F, I, I, P, P, I, I, P, I, P],
@@ -44,6 +44,9 @@ _SIGNATURES = {
     },
     "rmi_mlp": {
         "rmi_mlp_launch": [P, I, I, *[P] * 10, I, I, I, I, I, P, P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [P, P, P, P, I, *[I] * 6, *[L] * 9, I, I, F, P],
     },
 }
 

@@ -1,0 +1,95 @@
+"""Wrapper for the flash-attention kernel (port of
+``repro.kernels.flash_attention.ops``).
+
+``flash_attention(q, k, v, *, causal, window, scale)`` takes the
+reference's (B, H, S, D) layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D),
+Hq a multiple of Hkv, queries right-aligned against the keys.  A CPU
+``q`` runs the plain version (``ref.py``); a CUDA ``q`` launches
+``csrc/flash_attention.cu`` or raises.
+
+The reference wrapper's ``jnp.repeat`` of the kv heads and its halving
+of the blocks until they divide S exist for the TPU's tiling and are
+left out: the kernel reads kv head ``h // (Hq // Hkv)`` in place and
+masks the ragged edges itself.  It takes element strides for B, H and S
+(unit stride on D), so a head-major view of a (B, S, H, D) projection,
+or the prefix ``k_cache[:, :, :n]`` of a decode cache, goes in without
+a copy; an operand with another layout is copied to a contiguous one.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...obs import metrics as _metrics
+from .. import _build
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "LAUNCHES", "HEAD_DIMS"]
+
+LAUNCHES = {"flash_attention": "kernel.flash_attention.launches"}
+HEAD_DIMS = (16, 32, 128)  # head widths the kernel is instantiated for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if k.shape[1] == 0 or hq % k.shape[1]:
+        raise ValueError(f"query heads {hq} are not a multiple of kv heads {k.shape[1]}")
+    if k.shape[2] == 0:
+        raise ValueError("no keys: Sk must be at least 1")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(_DTYPES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
+
+
+def _operand(t):
+    """``t`` as the kernel reads it: unit stride on D, 16-byte aligned
+    rows (strides a multiple of the 16-byte vector); else a copy."""
+    vec = 16 // t.element_size()
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(t.stride(i) % vec == 0 for i in range(3)):
+        return t
+    return t.contiguous()
+
+
+def _launch(q, k, v, causal, window, scale):
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d}: the kernel takes each of {HEAD_DIMS}")
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    if b == 0 or sq == 0:
+        return out
+    # a window at least Sk wide masks nothing (q_pos <= Sk - 1)
+    w = -1 if window is None or window >= sk else int(window)
+    err = _build.load("flash_attention").flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        b, hq, hkv, sq, sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(bool(causal)), w, scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention")
+    _metrics.counter(LAUNCHES["flash_attention"]).inc()
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None) -> torch.Tensor:
+    """Exact softmax attention, q (B, Hq, Sq, D) against k/v (B, Hkv, Sk,
+    D) -> (B, Hq, Sq, D) in ``q.dtype``; scores, softmax and P·V in fp32,
+    ``scale`` = 1/sqrt(D) unless given."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _launch(q, k, v, causal, window, scale)

@@ -1,0 +1,210 @@
+"""Shared layers (port of ``repro.models.layers``): norms, rotary
+embeddings, GQA attention, gated MLPs, cross-entropy.
+
+Parameters keep the reference's layout and names: a dense weight is
+(in, out) and ``dense(w, x) = x @ w``; a norm is a mapping with
+``"scale"`` (and ``"bias"``), an MLP tower a list of ``{"w", "b"}``
+mappings.  Init helpers draw from a ``torch.Generator``; they give other
+numbers than ``jax.random`` from the same seed, so the tests carry the
+reference's weights across instead.
+
+``blockwise_attention`` is the reference's exact attention; in the port
+it runs ``kernels.flash_attention`` (the hand-written kernel on a CUDA
+tensor, its plain version on a CPU one), which the reference names as
+its TPU-executed twin.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+
+__all__ = [
+    "dense_init", "dense", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
+    "rope_frequencies", "apply_rope", "blockwise_attention", "swiglu_init", "swiglu",
+    "geglu_init", "geglu", "mlp_init", "mlp_apply", "cross_entropy_loss",
+    "chunked_cross_entropy",
+]
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: Optional[torch.Generator], d_in, d_out, dtype=torch.float32, scale=None, device=None):
+    """normal / sqrt(d_in), drawn in fp32 and stored in ``dtype``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def dense(w, x):
+    return x @ w.to(x.dtype)
+
+
+def rmsnorm_init(d, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_init(d, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-6):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"] + p["bias"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (rotate-half: the head splits into halves)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """x (..., S, D); positions (..., S) integer.  Computed in fp32."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)            # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs         # (..., S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (exact; the flash_attention kernel)
+# ---------------------------------------------------------------------------
+
+
+def blockwise_attention(
+    q: torch.Tensor,        # (B, Hq, Sq, D)
+    k: torch.Tensor,        # (B, Hkv, Sk, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,             # None or int: kpos > qpos - window
+    q_offset=None,           # absolute position of q[0] (decode); default Sk-Sq
+    kv_block: int = 1024,
+    valid_len=None,          # number of valid kv entries (decode with a cache)
+):
+    """Exact attention -> (B, Hq, Sq, D) in ``q.dtype``.
+
+    The kernel aligns the queries to the right of the keys, so the
+    reference's ``q_offset`` and ``valid_len`` map onto the prefix view
+    ``k[:, :, :valid_len]`` when ``q_offset == valid_len - Sq`` (what a
+    decode step passes); any other combination raises.  ``kv_block``
+    is the reference's scan chunk and is ignored: the kernel tiles the
+    keys itself.  Unlike the reference's jnp body, the probabilities
+    stay fp32 in P·V (as in the TPU kernel), so bf16 results differ by
+    that rounding."""
+    del kv_block
+    sq, sk = q.shape[2], k.shape[2]
+    if q_offset is not None or valid_len is not None:
+        n = sk if valid_len is None else int(valid_len)
+        offset = sk - sq if q_offset is None else int(q_offset)
+        if not 0 < n <= sk or offset != n - sq:
+            raise ValueError(
+                f"q_offset {q_offset} with valid_len {valid_len} (Sq {sq}, Sk {sk}): the kernel "
+                "takes queries right-aligned against a key prefix, q_offset == valid_len - Sq")
+        k, v = k[:, :, :n], v[:, :, :n]
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# gated MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu_init(gen, d_model, d_ff, dtype=torch.float32, device=None):
+    return {
+        "wi_gate": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wi_up": dense_init(gen, d_model, d_ff, dtype, device=device),
+        "wo": dense_init(gen, d_ff, d_model, dtype, device=device),
+    }
+
+
+def swiglu(p, x):
+    g = F.silu(dense(p["wi_gate"], x).to(torch.float32)).to(x.dtype)
+    return dense(p["wo"], g * dense(p["wi_up"], x))
+
+
+def geglu_init(gen, d_model, d_ff, dtype=torch.float32, device=None):
+    return swiglu_init(gen, d_model, d_ff, dtype, device)
+
+
+def geglu(p, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    g = F.gelu(dense(p["wi_gate"], x).to(torch.float32), approximate="tanh").to(x.dtype)
+    return dense(p["wo"], g * dense(p["wi_up"], x))
+
+
+def mlp_init(gen, dims, dtype=torch.float32, bias=True, device=None):
+    """Plain ReLU MLP tower (recsys towers): dims = [in, h1, ..., out]."""
+    params = []
+    for i in range(len(dims) - 1):
+        layer = {"w": dense_init(gen, dims[i], dims[i + 1], dtype, device=device)}
+        if bias:
+            layer["b"] = torch.zeros((dims[i + 1],), dtype=dtype, device=device)
+        params.append(layer)
+    return params
+
+
+def mlp_apply(params, x, final_activation=False):
+    for i, layer in enumerate(params):
+        x = x @ layer["w"].to(x.dtype)
+        if "b" in layer:
+            x = x + layer["b"].to(x.dtype)
+        if i < len(params) - 1 or final_activation:
+            x = torch.relu(x)
+    return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), labels (...) integer."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def chunked_cross_entropy(
+    w_head: torch.Tensor,     # (D, V)
+    h: torch.Tensor,          # (B, S, D) final hidden states
+    labels: torch.Tensor,     # (B, S)
+    *,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """LM loss without the full (B, S, V) fp32 logits: a loop over
+    sequence chunks, each chunk's logits alive only inside its turn.
+    (The reference's ``shard_logits`` hook pins a sharding; the port
+    runs on one device and has none.)"""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, s, chunk):
+        lf = (h[:, c : c + chunk] @ w_head.to(h.dtype)).to(torch.float32)
+        gold = torch.gather(lf, -1, labels[:, c : c + chunk, None].long())[..., 0]
+        total = total + torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+    return total / (b * s)

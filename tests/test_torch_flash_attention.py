@@ -1,0 +1,171 @@
+"""Port parity for blocked online-softmax attention
+(``repro_torch.kernels.flash_attention``) against the JAX package: its
+wrapper ``flash_attention`` (the Pallas kernel in interpret mode) and its
+oracle ``attention_ref``, on the same numpy inputs.
+
+* fp32: rtol = atol = 2e-5, the reference's own tolerance for its kernel
+  against the oracle (``tests/test_kernels.py``): the frameworks sum the
+  score and P·V products in different orders.
+* bf16 inputs: both compute in fp32 and round the output to bf16 once,
+  so they differ by at most one bf16 step where the fp32 sums land on
+  either side of a rounding boundary: 2^-7 = 7.8e-3 for outputs below 2
+  in magnitude, so rtol = atol = 8e-3.
+
+On the CPU the port's wrapper runs its plain version (``ref.py``); the
+``gpu`` test holds the CUDA kernel to it on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import LAUNCHES
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.obs import metrics
+
+TOL = 2e-5
+TOL_BF16 = 8e-3
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window)
+CASES = [
+    (2, 2, 2, 64, 64, 32, True, None),     # causal
+    (2, 2, 2, 64, 64, 16, False, None),    # non-causal
+    (1, 4, 4, 64, 64, 32, True, 16),       # sliding window 16
+    (1, 8, 2, 48, 48, 16, True, None),     # GQA 8/2
+    (2, 4, 1, 32, 32, 16, True, None),     # MQA
+    (2, 4, 2, 8, 40, 16, True, None),      # Sq < Sk, right-aligned
+    (2, 8, 2, 1, 77, 32, True, None),      # decode, ragged Sk
+    (2, 4, 1, 1, 77, 16, True, 16),        # decode with a window
+]
+
+
+def _qkv(case, seed, dtype=np.float32):
+    b, hq, hkv, sq, sk, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, sq, d)).astype(dtype),
+            rng.standard_normal((b, hkv, sk, d)).astype(dtype),
+            rng.standard_normal((b, hkv, sk, d)).astype(dtype))
+
+
+def _jax_both(q, k, v, causal, window, dtype=jnp.float32):
+    """The JAX wrapper (interpret mode) and the oracle (kv heads repeated,
+    as the wrapper does)."""
+    rep = q.shape[1] // k.shape[1]
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    kern = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=window, interpret=True), np.float32)
+    oracle = np.asarray(jax_ref(jq, jnp.repeat(jk, rep, 1), jnp.repeat(jv, rep, 1), causal=causal, window=window),
+                        np.float32)
+    return kern, oracle
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_matches_jax(case):
+    causal, window = case[6], case[7]
+    q, k, v = _qkv(case, seed=sum(case[:6]))
+    kern, oracle = _jax_both(q, k, v, causal, window)
+    np.testing.assert_allclose(kern, oracle, rtol=TOL, atol=TOL)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          causal=causal, window=window)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), kern, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=TOL, atol=TOL)
+
+
+def test_flash_attention_bf16_matches_jax():
+    case = (1, 4, 2, 64, 64, 32, True, None)
+    q, k, v = _qkv(case, seed=5)
+    kern, _ = _jax_both(q, k, v, True, None, jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), kern, rtol=TOL_BF16, atol=TOL_BF16)
+
+
+def test_flash_attention_scale_and_strided_views():
+    """An explicit scale, and q/k/v as head-major views of (B, S, H, D)
+    projections (the model's layout), equal the contiguous call."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 3, 4, 16)).astype(np.float32))
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    got = flash_attention(q, k, v, causal=True, scale=0.3)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, scale=0.3)
+    assert torch.equal(got, want)
+    oracle = np.asarray(jax_ref(*(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True, scale=0.3))
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=TOL, atol=TOL)
+
+
+def test_fully_masked_rows_are_zero():
+    """More queries than keys, causal: the first Sq - Sk queries see no
+    key; the kernel's clamped normalizer gives 0 there (the oracle's -inf
+    gives NaN), every other row matches the oracle."""
+    q, k, v = _qkv((1, 2, 2, 12, 8, 16), seed=7)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True).numpy()
+    oracle = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    assert (got[:, :, :4] == 0).all() and np.isnan(oracle[:, :, :4]).all()
+    np.testing.assert_allclose(got[:, :, 4:], oracle[:, :, 4:], rtol=TOL, atol=TOL)
+
+
+def test_flash_attention_validates_operands():
+    q = torch.zeros((1, 4, 8, 16))
+    kv = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 3, 8, 16)), torch.zeros((1, 3, 8, 16)))
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, torch.zeros((1, 2, 8, 32)))
+    with pytest.raises(ValueError):
+        flash_attention(q, kv[:, :, :0], kv[:, :, :0])
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv, window=0)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), kv.double(), kv.double())
+    with pytest.raises(TypeError):
+        flash_attention(q, kv.to(torch.bfloat16), kv)
+
+
+@pytest.fixture
+def metrics_on():
+    was = metrics.enabled()
+    metrics.enable()
+    yield metrics
+    if not was:
+        metrics.disable()
+
+
+GPU_CASES = CASES + [
+    (2, 32, 8, 200, 200, 128, True, None),   # llama3-8b heads, ragged tiles
+    (3, 32, 8, 1, 1000, 128, True, None),    # its decode shape
+    (1, 8, 8, 130, 300, 128, True, 100),     # window across tiles
+    (1, 6, 2, 1, 50, 128, False, None),      # decode, 3 heads a group
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_attention_matches_plain(dtype, metrics_on):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    launches = metrics.counter(LAUNCHES["flash_attention"])
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    for case in GPU_CASES:
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(case, seed=sum(case[:6])))
+        before = launches.value
+        got = flash_attention(q, k, v, causal=case[6], window=case[7])
+        torch.cuda.synchronize()
+        assert launches.value == before + 1
+        want = attention_ref(q, k, v, causal=case[6], window=case[7])
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=str(case))
+    # a decode cache prefix (strided, no copy) and a head-major view
+    cache = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 2, 2, 64, 32), np.float32)).to(dev, dtype)
+    q = torch.randn((2, 1, 8, 32), device=dev).to(dtype).transpose(1, 2)
+    got = flash_attention(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
+    want = attention_ref(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)

@@ -314,9 +314,14 @@ def test_enable_from_env_matches_reference(val, want):
 
 
 def test_slo_evaluate_matches_reference():
+    # metric names of their own: registrations outlive ``reset()`` in both
+    # process-global registries, and the reference's own SLO test
+    # (tests/test_device_telemetry.py) expects ``t.lat``/``t.runs`` unregistered
     def rules(mod):
-        return [mod.SLO("lat-p99", "t.lat:p99", "<=", 1.0), mod.SLO("runs-floor", "t.runs", ">=", 1.0),
-                mod.SLO("derived-ari", "run.ari", ">=", 0.99), mod.SLO("lat-p50", "t.lat:p50", "<", 1e-3)]
+        return [mod.SLO("lat-p99", "port_slo.lat:p99", "<=", 1.0),
+                mod.SLO("runs-floor", "port_slo.runs", ">=", 1.0),
+                mod.SLO("derived-ari", "run.ari", ">=", 0.99),
+                mod.SLO("lat-p50", "port_slo.lat:p50", "<", 1e-3)]
 
     def view(res):
         return [(r.slo.name, r.value, r.ok, r.violated) for r in res]
@@ -324,8 +329,8 @@ def test_slo_evaluate_matches_reference():
     assert view(slo.evaluate(rules(slo))) == view(jslo.evaluate(rules(jslo)))
     assert all(r.ok is None for r in slo.evaluate(rules(slo)))
     for m in (metrics, jmetrics):
-        m.counter("t.runs").inc(3)
-        h = m.histogram("t.lat")
+        m.counter("port_slo.runs").inc(3)
+        h = m.histogram("port_slo.lat")
         for v in (0.01,) * 90 + (2.0,) * 10:
             h.observe(v)
     for vals in ({"run.ari": 0.995}, {"run.ari": 0.5}):

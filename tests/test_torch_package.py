@@ -30,6 +30,7 @@ from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
 from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
 from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update, label_propagation_pallas
 from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
+from repro_torch.models.transformer import TransformerConfig, make_cache, transformer_from_jax, transformer_init
 from repro_torch.obs import metrics
 
 PKG = Path(repro_torch.__file__).resolve().parent
@@ -46,6 +47,9 @@ def _imports(path: Path):
 def test_no_jax_or_reference_imports():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    checked = {str(f.relative_to(PKG)) for f in files}
+    assert {"configs/registry.py", "configs/llama3_8b.py", "models/layers.py", "models/transformer.py",
+            "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py"} <= checked
     bad = [
         (f.relative_to(PKG), m) for f in files for m in _imports(f)
         if m.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -61,10 +65,13 @@ def test_entry_points_default_to_cuda():
     x = np.random.default_rng(0).standard_normal((40, 8)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     words, active, adj = np.zeros((40, 2), np.uint32), np.ones(40, bool), np.eye(40, dtype=bool)
+    lm = TransformerConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, kv_heads=1, d_head=8, d_ff=32)
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert RandomProjectionBackend().device.type == "cuda"
         assert ExactBackend().device.type == "cuda"
+        assert transformer_init(0, lm).embed.device.type == "cuda"
+        assert make_cache(lm, 1, 4)["k"].device.type == "cuda"
         return
     calls = [
         resolve_device,
@@ -82,6 +89,9 @@ def test_entry_points_default_to_cuda():
         lambda: label_propagation(words, active),
         lambda: label_propagation_dense(adj, active),
         lambda: label_propagation_pallas(words, active),
+        lambda: transformer_init(0, lm),
+        lambda: make_cache(lm, 1, 4),
+        lambda: transformer_from_jax({}, lm),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -91,6 +101,12 @@ def test_entry_points_default_to_cuda():
     assert torch.equal(label_propagation(words, active, device="cpu"), want)
     assert torch.equal(label_propagation_dense(adj, active, device="cpu"), want)
     assert torch.equal(label_propagation_pallas(words, active, device="cpu"), want)
+    model = transformer_init(0, lm, device="cpu")
+    assert model.embed.device.type == "cpu" and make_cache(lm, 1, 4, device="cpu")["v"].device.type == "cpu"
+    params = {"embed": model.embed.float().numpy(), "lm_head": model.lm_head.float().numpy(),
+              "ln_f": {"scale": np.ones(16, np.float32)},
+              "layers": {g: {n: p.float().numpy()[None] for n, p in d.items()} for g, d in model.layers[0].items()}}
+    assert torch.equal(transformer_from_jax(params, lm, device="cpu").lm_head, model.lm_head)
 
 
 def test_wrappers_validate_operands():
