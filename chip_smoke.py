@@ -69,7 +69,28 @@ Phases (each prints one JSON line; any failure exits nonzero):
    plain version and ``scaled_dot_product_attention``, and at a windowed
    case (window 1024, S 2048) for correctness only.  Every such
    comparison holds the kernel within one bf16 step of the plain
-   value (``FLASH_TOL``).
+   value (``FLASH_TOL``);
+10. recsys: bst at full width (a 5,000,000 x 32 fp32 item table, weights
+   from ``bst_init(0, cfg)``, batches from ``ctr_batch`` with the target
+   the first field's id): ``serve_p99`` (batch 512,
+   ``sigmoid(bst_forward)``, median request ms, ids from the host and
+   probabilities back to it), ``serve_bulk`` (batch 262,144, median ms
+   and rows/s), a bulk ``bst_user_embedding`` of those 262,144 users and
+   ``retrieval_cand`` (one user's ``bst_user_embedding`` against
+   1,000,000 x 32 seeded fp32 candidates), with the launch counts set to
+   0 before and read after (``embedding_bag``: one launch a
+   ``bst_user_embedding`` call); then DeepFM, AutoInt and DIEN at full
+   width at ``serve_p99``, each model's tables freed before the next.
+   Every model's logits (the first 512 rows; bst's first 4,096 of
+   ``serve_bulk`` and the retrieval scores too) are held to the same
+   module copied to the host and run on the CPU (``RECSYS_TOL``).  The
+   ``embedding_bag`` rows, against the plain version and timed beside it
+   and ``F.embedding_bag``: bst's user tower at the ``serve_bulk`` batch
+   (``mean``), ``benchmarks/kernel_bench.py:67``'s 8,192 bags of 32 from
+   a 1M x 64 fp32 table (``sum``, ~10% padding) and a bf16 table (other
+   negative ids, ids past V) for correctness only (``EB_TOL``).  Their
+   byte bound reads each distinct row once; the kernel's and the
+   library's device times are taken queued behind a sleep too.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -86,6 +107,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import logging
 import subprocess
@@ -131,6 +153,12 @@ KERNELS = {
     "flash_attention_decode": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
                                "_make_kernel :30; the Sq = 1 mapping)"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/kernel.py:52 (embedding_bag_pallas -> :68, "
+                      "_make_kernel :31)"),
+    "embedding_bag_sum": ("src/repro_torch/csrc/embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag/kernel.py:52 (embedding_bag_pallas -> :68, "
+                          "_make_kernel :31)"),
 }
 RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
 RMI_LAUNCHES_PER_PREDICT = 3  # one launch a stage (1, 2, 4 experts)
@@ -148,6 +176,11 @@ LM_MAX_ABS = 1.0
 LM_PREFILL = (4, 4096)          # requests x tokens through transformer_prefill
 LM_PROMPT, LM_NEW = 1024, 64    # decode: prompt tokens fed one by one, then greedy tokens
 FLASH_TOL = "|kernel - plain| <= 2^-7 |plain| + 1e-5, bf16 out (one bf16 step of the value)"
+RECSYS_P99, RECSYS_BULK = 512, 262144     # the registry's serve_p99 / serve_bulk batches
+N_CANDIDATES = 1_000_000                  # retrieval_cand
+BULK_CHECK_ROWS = 4096                    # serve_bulk rows held to the CPU
+RECSYS_TOL = "|card - cpu| <= 1e-5 (1 + |cpu|), fp32 logits and scores, TF32 off on both"
+EB_TOL = "|kernel - plain| <= 2 L 2^-24 sum_l |row| + 2^-23 |plain| (two fp32 summation orders)"
 
 
 def emit(obj) -> None:
@@ -1155,6 +1188,249 @@ def check_flash_attention(lm_launches):
     return ok_p and ok_d and ok_w, [pre, dec], line
 
 
+def host_ms(fn, reps: int, warmup: int = 2):
+    """(median ms, all ms) of ``fn()`` on the host clock, each call ended
+    by a sync: a request's latency, uploads and copies back included."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), times
+
+
+def recsys_gap(card, cpu):
+    """(ok, fields) of the card's fp32 output against the CPU's."""
+    card, cpu = card.float().cpu(), cpu.float()
+    err = (card - cpu).abs()
+    ok = bool((err <= 1e-5 * (1 + cpu.abs())).all()) and bool(card.isfinite().all())
+    return ok, {"max_abs_err": float(err.max()), "max_abs_cpu": float(cpu.abs().max()), "rows": int(cpu.shape[0])}
+
+
+def eb_row(name, table, ids, combiner, time_it=True, library=None):
+    """The embedding_bag kernel against its plain version on the card,
+    within ``EB_TOL``; when ``time_it``, its time (two turns around the
+    plain version and the library call, and queued behind a sleep: the
+    kernel alone), the library call's and the byte bound over what these
+    ids need: each distinct row read once (padding reads none, an id past
+    V reads row V - 1), the ids read and the bags written once."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    (b, length), (v, d) = ids.shape, table.shape
+    out = embedding_bag(table, ids, combiner=combiner)
+    ref = embedding_bag_ref(table, ids, combiner=combiner)
+    scale = embedding_bag_ref(table.abs(), ids, combiner=combiner)
+    err = (out - ref).abs()
+    ok = bool((err <= 2 * length * 2.0 ** -24 * scale + 2.0 ** -23 * ref.abs()).all()) and bool(out.isfinite().all())
+    valid = int((ids >= 0).sum())
+    row = {"name": name, "shape": {"B": b, "L": length, "V": v, "D": d, "dtype": str(table.dtype).split(".")[-1],
+                                   "combiner": combiner, "valid_ids": valid, "ids_past_V": int((ids >= v).sum())},
+           "max_abs_err": float(err.max()), "mean_abs_plain": float(ref.abs().mean()), "tolerance": EB_TOL}
+    del out, ref, scale, err
+    if not time_it:
+        return ok, row
+    distinct = int(torch.unique(ids[ids >= 0].clamp(max=v - 1)).numel())
+    n_bytes = distinct * d * table.element_size() + 4 * (b * length + b * d)
+    gathered_bytes = valid * d * table.element_size() + 4 * (b * length + b * d)
+    b_ms, b_by = bound_ms(n_bytes)
+
+    def kernel():
+        return embedding_bag(table, ids, combiner=combiner)
+
+    lib_fn, lib_what = library
+    t1 = time_ms(kernel, reps=20)
+    plain = time_ms(lambda: embedding_bag_ref(table, ids, combiner=combiner), reps=3, warmup=1)
+    lib = time_ms(lib_fn, reps=20)
+    t2 = time_ms(kernel, reps=20)
+    row["shape"]["distinct_rows"] = distinct
+    row.update({"bytes": n_bytes, "gathered_bytes": gathered_bytes, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2],
+                "device_ms": queued_ms(kernel), "plain_ms": plain, "library_ms": lib,
+                "library_device_ms": queued_ms(lib_fn), "library": lib_what, "bound_ms": b_ms, "bound_by": b_by,
+                "gathered_bound_ms": bound_ms(gathered_bytes)[0], "gb_per_s": n_bytes / ((t1 + t2) / 2) / 1e6})
+    return ok, row
+
+
+def check_embedding_bag(table, hist, dev):
+    """The embedding_bag rows: bst's user tower at the serve_bulk batch
+    (its item table and users, ``mean``), kernel_bench's 8,192 bags of 32
+    from a 1M x 64 fp32 table (``sum``, ~10% padding) and a bf16 copy of
+    the bst table (other negative ids, ids past V: correctness only).
+    Returns (ok, timed rows, the bf16 case)."""
+    import torch
+    import torch.nn.functional as F
+
+    ok_a, tower = eb_row("embedding_bag", table, hist, "mean",
+                         library=(lambda: F.embedding_bag(hist, table, mode="mean"),
+                                  "F.embedding_bag(ids, table, mode='mean'): no padding in these bags"))
+    g = torch.Generator(device=dev).manual_seed(5)
+    t64 = torch.randn((1_000_000, 64), generator=g, device=dev)
+    ids = torch.randint(0, 1_000_000, (8192, 32), generator=g, device=dev, dtype=torch.int32)
+    ids.masked_fill_(torch.rand(ids.shape, generator=g, device=dev) < 0.1, -1)
+    safe, weights = ids.clamp(min=0), (ids >= 0).float()
+    ok_b, bench = eb_row("embedding_bag_sum", t64, ids, "sum",
+                         library=(lambda: F.embedding_bag(safe, t64, mode="sum", per_sample_weights=weights),
+                                  "F.embedding_bag(ids with padding set to 0, table, mode='sum', "
+                                  "per_sample_weights = the valid mask)"))
+    del t64, ids, safe, weights
+    t16 = table.to(torch.bfloat16)
+    ids = hist[:65536].clone()
+    r = torch.rand(ids.shape, generator=g, device=dev)
+    ids[r < 0.05] = -3
+    ids[(r >= 0.05) & (r < 0.07)] = -1
+    ids[(r >= 0.07) & (r < 0.08)] += table.shape[0]  # past V: reads row V - 1
+    ok_c, bf16 = eb_row("embedding_bag_bf16", t16, ids, "mean", time_it=False)
+    del t16, ids
+    return ok_a and ok_b and ok_c, [tower, bench], bf16
+
+
+def recsys_serve(dev):
+    """Phase 10: bst at full width (serve_p99, serve_bulk, a bulk user
+    embedding, retrieval_cand), with the launch counts set to 0 just
+    before and read just after; each model held to its CPU copy; the
+    embedding_bag rows on bst's table; then DeepFM, AutoInt and DIEN at
+    full width at serve_p99.  Every model is freed before the next.
+    Returns (ok, phase line, embedding_bag rows, launches by row)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import ctr_batch
+    from repro_torch.models import recsys
+    from repro_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    line, checks = {"phase": "recsys", "tolerance": RECSYS_TOL}, {}
+    rng = np.random.default_rng(0)
+
+    # bst at full width
+    cfg = get_arch("bst").make_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = recsys.bst_init(0, cfg)
+    torch.cuda.synchronize()
+    bst = {"init_s": time.perf_counter() - t0, "params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+    p99 = ctr_batch(rng, RECSYS_P99, 1, np.asarray([cfg.item_vocab]), seq_len=cfg.seq_len)
+    bulk = ctr_batch(rng, RECSYS_BULK, 1, np.asarray([cfg.item_vocab]), seq_len=cfg.seq_len)
+    user = ctr_batch(rng, 1, 1, np.asarray([cfg.item_vocab]), seq_len=cfg.seq_len)["hist"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    cands = torch.randn((N_CANDIDATES, cfg.embed_dim), generator=g, device=dev)
+    hist_bulk = torch.from_numpy(bulk["hist"]).to(dev)
+
+    def serve(batch):
+        return torch.sigmoid(recsys.bst_forward(model, cfg, batch["hist"], batch["ids"][:, 0])).cpu()
+
+    user_calls = 0
+
+    def user_embedding(hist):
+        nonlocal user_calls
+        user_calls += 1
+        return recsys.bst_user_embedding(model, cfg, hist)
+
+    def retrieve():
+        return recsys.retrieval_scores(user_embedding(user), cands)
+
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    p99_ms, p99_all = host_ms(lambda: serve(p99), reps=50, warmup=3)
+    bulk_ms, bulk_all = host_ms(lambda: serve(bulk), reps=5, warmup=1)
+    bulk_prob = serve(bulk)
+    ub_ms, _ = host_ms(lambda: user_embedding(hist_bulk), reps=5, warmup=1)
+    ret_ms, ret_all = host_ms(retrieve, reps=50, warmup=3)
+    scores = retrieve()
+    torch.cuda.synchronize()
+    snap = metrics.snapshot()
+    eb_launches = snap.get("kernel.embedding_bag.launches", 0)
+    bst.update({
+        "serve_p99": {"batch": RECSYS_P99, "ms_median": p99_ms, "ms_min": min(p99_all), "ms_max": max(p99_all),
+                      "requests": len(p99_all)},
+        "serve_bulk": {"batch": RECSYS_BULK, "ms_median": bulk_ms, "ms_all": bulk_all,
+                       "rows_per_s": RECSYS_BULK / (bulk_ms / 1e3)},
+        "user_bulk": {"batch": RECSYS_BULK, "ms_median": ub_ms, "users_per_s": RECSYS_BULK / (ub_ms / 1e3)},
+        "retrieval_cand": {"n_candidates": N_CANDIDATES, "ms_median": ret_ms, "ms_min": min(ret_all),
+                           "ms_max": max(ret_all), "requests": len(ret_all), "scores_shape": list(scores.shape)},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {k.split(".")[1]: v for k, v in snap.items() if k.startswith("kernel.") and v},
+        "user_embedding_calls": user_calls,
+    })
+    checks["bst_embedding_bag_launches_equal_calls"] = eb_launches == user_calls
+    for name, batch in (("serve_p99", p99), ("serve_bulk", bulk)):
+        wall, busy, union, top = device_busy(lambda: serve(batch))
+        bst[name]["trace"] = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                              "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top}
+
+    # the card against the same module on the host
+    host = copy.deepcopy(model).cpu()
+    p99_card = serve(p99)
+    p99_cpu = torch.sigmoid(recsys.bst_forward(host, cfg, p99["hist"], p99["ids"][:, 0]))
+    n = BULK_CHECK_ROWS
+    bulk_cpu = torch.sigmoid(recsys.bst_forward(host, cfg, bulk["hist"][:n], bulk["ids"][:n, 0]))
+    ret_cpu = recsys.retrieval_scores(recsys.bst_user_embedding(host, cfg, user), cands.cpu())
+    for name, (card, cpu) in {"serve_p99": (p99_card, p99_cpu), "serve_bulk": (bulk_prob[:n], bulk_cpu),
+                              "retrieval_cand": (scores, ret_cpu)}.items():
+        ok_c, gap = recsys_gap(card, cpu)
+        checks[f"bst_{name}_equals_cpu"] = ok_c
+        bst[name]["vs_cpu"] = gap
+    del host, p99_cpu, bulk_cpu, ret_cpu, scores, bulk_prob, cands
+    eb_ok, eb_rows, eb_bf16 = check_embedding_bag(model["item_table"], hist_bulk, dev)
+    checks["embedding_bag_rows"] = eb_ok
+    line.update({"bst": bst, "embedding_bag_bf16": eb_bf16})
+    del model, hist_bulk
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # DeepFM, AutoInt, DIEN at full width, serve_p99
+    for name in ("deepfm", "autoint", "dien"):
+        cfg = get_arch(name).make_config()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = getattr(recsys, f"{name}_init")(0, cfg)
+        torch.cuda.synchronize()
+        row = {"init_s": time.perf_counter() - t0, "params": sum(p.numel() for p in model.parameters()),
+               "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters())}
+        if name == "dien":
+            batch = ctr_batch(rng, RECSYS_P99, 1, np.asarray([cfg.item_vocab]), seq_len=cfg.seq_len)
+            inputs = (batch["hist"], batch["ids"][:, 0])
+        else:
+            inputs = (ctr_batch(rng, RECSYS_P99, cfg.n_fields, np.asarray(cfg.vocab_sizes))["ids"],)
+        fwd = getattr(recsys, f"{name}_forward")
+
+        def serve_one():
+            return torch.sigmoid(fwd(model, cfg, *inputs)).cpu()
+
+        metrics.reset()
+        ms, every = host_ms(serve_one, reps=30, warmup=3)
+        row["serve_p99"] = {"batch": RECSYS_P99, "ms_median": ms, "ms_min": min(every), "ms_max": max(every),
+                            "requests": len(every)}
+        wall, busy, union, top = device_busy(serve_one)
+        row["serve_p99"]["trace"] = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                                     "idle_share": None if union is None else 1.0 - union / wall,
+                                     "top_kernels": top}
+        card = serve_one()
+        host = copy.deepcopy(model).cpu()
+        ok_c, gap = recsys_gap(card, torch.sigmoid(fwd(host, cfg, *inputs)))
+        checks[f"{name}_serve_p99_equals_cpu"] = ok_c
+        row["serve_p99"]["vs_cpu"] = gap
+        line[name] = row
+        del model, host
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    line["checks"] = checks
+    line["seconds"] = time.perf_counter() - t_phase
+    launches = {"embedding_bag": eb_launches, "embedding_bag_sum": eb_launches}
+    eb_rows[1]["launches_note"] = ("a shape row of the same kernel, never launched on a path of its own: "
+                                   "launches are the kernel's on the recsys path, as on the embedding_bag row")
+    return all(checks.values()), line, eb_rows, launches
+
+
 def run(args) -> int:
     import torch
 
@@ -1352,8 +1628,15 @@ def run(args) -> int:
     emit(fa_line)
     ok &= lm_ok and fa_ok and all(n > 0 for n in lm_launches.values())
     launches.update(lm_launches)
+
+    # 10. recsys serving and retrieval, its launch counts read around its
+    #     own path, and the embedding_bag rows on bst's table
+    rs_ok, rs_line, eb_rows, rs_launches = recsys_serve(dev)
+    emit(rs_line)
+    ok &= rs_ok and all(n > 0 for n in rs_launches.values())
+    launches.update(rs_launches)
     rows = []
-    for k in [k1, *lp, *rc, *st, rmi, *comp_rows, *fa_rows]:
+    for k in [k1, *lp, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

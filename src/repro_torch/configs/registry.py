@@ -3,9 +3,10 @@
 Each arch module registers an ``ArchSpec`` carrying its full config, a
 reduced same-family config for CPU tests, its shape table and its
 documented skips.  ``_ensure_loaded`` imports only the configs the port
-can run: ``llama3_8b`` (the dense GQA decoder).  The reference's other
-configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the recsys and
-GNN models, laf_dbscan's launch config) are queued in ROADMAP A11.
+can run: ``llama3_8b`` (the dense GQA decoder) and the four recsys
+rankers ``bst``, ``deepfm``, ``dien`` and ``autoint``.  The reference's
+other configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the GNN
+model, laf_dbscan's launch config) are queued in ROADMAP A11.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Callable, Dict, Mapping
 
 __all__ = [
     "ShapeSpec", "ArchSpec", "register", "get_arch", "list_archs", "REGISTRY",
-    "LM_SHAPES", "FULL_ATTENTION_SKIP",
+    "LM_SHAPES", "FULL_ATTENTION_SKIP", "RECSYS_SHAPES",
 ]
 
 
@@ -61,7 +62,7 @@ def list_archs():
 
 
 def _ensure_loaded():
-    from . import llama3_8b  # noqa: F401  (registers on first import)
+    from . import autoint, bst, deepfm, dien, llama3_8b  # noqa: F401  (each registers on first import)
 
 
 # ---------------------------------------------------------------------------
@@ -80,3 +81,12 @@ FULL_ATTENTION_SKIP = (
     "regime is reserved for sub-quadratic/hybrid archs per the assignment "
     "(DESIGN.md §4)."
 )
+
+RECSYS_SHAPES: Dict[str, ShapeSpec] = {
+    "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),
+    "serve_p99": ShapeSpec("serve_p99", "forward", {"batch": 512}),
+    "serve_bulk": ShapeSpec("serve_bulk", "forward", {"batch": 262144}),
+    "retrieval_cand": ShapeSpec(
+        "retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1000000}
+    ),
+}

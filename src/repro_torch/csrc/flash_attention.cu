@@ -7,8 +7,10 @@
 //   their p is set to 0 explicitly; online softmax with an fp32 running
 //   max m, normalizer l and accumulator acc; P.V in fp32 (p is never
 //   rounded to bf16); out = acc / max(l, 1e-30), stored in q's type.
-// Queries are right-aligned: q_pos = i + Sk - Sq.  causal keeps
-// k_pos <= q_pos, window (-1: none) keeps k_pos > q_pos - window.  GQA:
+// Query i sits at q_pos = q_offset + i (the wrapper passes Sk - Sq
+// unless the caller gives another offset).  causal keeps k_pos <= q_pos,
+// window (-1: none) keeps k_pos > q_pos - window; a query with no key
+// left gives 0.  GQA:
 // query head h reads kv head h / (Hq / Hkv) in place, never repeated.
 // Operands are addressed by element strides for B, H and S (unit stride
 // on D, rows 16-byte aligned), so a decode cache prefix goes in without
@@ -57,7 +59,7 @@ struct Params {
   const void* q; const void* k; const void* v; void* out;
   int B, Hq, Hkv, Sq, Sk;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
-  int causal, window;
+  int causal, window, q_offset;
   float scale;
 };
 
@@ -130,7 +132,7 @@ __global__ void __launch_bounds__(NT) prefill_kernel(Params p) {
   const T* qb = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
   const T* kb = static_cast<const T*>(p.k) + b * p.ksb + g * p.ksh;
   const T* vb = static_cast<const T*>(p.v) + b * p.vsb + g * p.vsh;
-  const int off = p.Sk - p.Sq;
+  const int off = p.q_offset;
 
   load_rows<T, D>(Qs, LD, qb, p.qss, q0, BQ, p.Sq);
 
@@ -278,7 +280,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.vsb + g * p.vsh;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int r = tid / BK, kk = tid % BK;   // the (head, key) pair this thread scores
-  const int qp = p.Sk - 1;                 // the one query's position
+  const int qp = p.q_offset;               // the one query's position
 
   // q rows of the group's heads (row stride: the head stride)
   load_rows<T, D>(Qs, D, static_cast<const T*>(p.q) + b * p.qsb + (long long)h0 * p.qsh, p.qsh, 0, RG, n_heads);
@@ -287,10 +289,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
 #pragma unroll
   for (int e = 0; e < NE; ++e) acc[e] = 0.f;
 
-  const int n_tiles = (p.Sk + BK - 1) / BK;
+  // the kv tiles that hold an unmasked key for the query
+  int t_hi = (p.Sk + BK - 1) / BK - 1;
+  if (p.causal) t_hi = qp < 0 ? -1 : min(t_hi, qp / BK);
   int t_lo = 0;
   if (p.window >= 0 && qp - p.window + 1 > 0) t_lo = (qp - p.window + 1) / BK;
-  for (int t = t_lo; t < n_tiles; ++t) {
+  for (int t = t_lo; t <= t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's P.V is done, m_s and l_s are set
     load_rows<T, D>(Ks, LD, kb, p.kss, k0, BK, p.Sk);
@@ -389,9 +393,9 @@ extern "C" int flash_attention_launch(
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, int q_offset, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, B, Hq, Hkv, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, causal, window, scale};
+  Params p{q, k, v, out, B, Hq, Hkv, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, causal, window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = dtype == 0 ? dispatch<float>(p, D, s)
                 : dtype == 1 ? dispatch<__nv_bfloat16>(p, D, s)

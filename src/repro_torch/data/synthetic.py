@@ -1,6 +1,6 @@
 """Synthetic dataset generators (numpy copy of the LAF-DBSCAN part of
-``repro.data.synthetic`` and of its ``token_stream``: same draws from
-the same seeds).
+``repro.data.synthetic`` and of its ``token_stream`` and ``ctr_batch``:
+same draws from the same seeds).
 
 The paper evaluates on normalized high-dimensional neural embeddings
 (NYT bag-of-words 256-d, Glove 200-d, MS-MARCO passage embeddings
@@ -23,6 +23,7 @@ __all__ = [
     "make_angular_clusters",
     "train_test_split",
     "token_stream",
+    "ctr_batch",
 ]
 
 
@@ -122,3 +123,20 @@ def token_stream(rng: np.random.Generator, batch: int, seq_len: int, vocab: int)
     z = rng.zipf(1.3, size=(batch, seq_len + 1))
     toks = np.minimum(z - 1, vocab - 1).astype(np.int32)
     return toks[:, :-1], toks[:, 1:]
+
+
+def ctr_batch(
+    rng: np.random.Generator,
+    batch: int,
+    n_fields: int,
+    vocab_sizes: np.ndarray,
+    seq_len: int = 0,
+):
+    """Criteo-style CTR batch: sparse ids per field (+ optional behavior seq)."""
+    ids = np.stack(
+        [rng.integers(0, v, size=batch) for v in vocab_sizes], axis=1
+    ).astype(np.int32)
+    out = {"ids": ids, "label": rng.integers(0, 2, size=batch).astype(np.float32)}
+    if seq_len:
+        out["hist"] = rng.integers(0, vocab_sizes[0], size=(batch, seq_len)).astype(np.int32)
+    return out

@@ -1,9 +1,10 @@
 """Wrapper for the flash-attention kernel (port of
 ``repro.kernels.flash_attention.ops``).
 
-``flash_attention(q, k, v, *, causal, window, scale)`` takes the
-reference's (B, H, S, D) layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D),
-Hq a multiple of Hkv, queries right-aligned against the keys.  A CPU
+``flash_attention(q, k, v, *, causal, window, scale, q_offset)`` takes
+the reference's (B, H, S, D) layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk,
+D), Hq a multiple of Hkv; query ``i`` sits at position ``q_offset + i``
+(default ``Sk - Sq``: right-aligned against the keys).  A CPU
 ``q`` runs the plain version (``ref.py``); a CUDA ``q`` launches
 ``csrc/flash_attention.cu`` or raises.
 
@@ -60,7 +61,7 @@ def _operand(t):
     return t.contiguous()
 
 
-def _launch(q, k, v, causal, window, scale):
+def _launch(q, k, v, causal, window, scale, q_offset):
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
@@ -69,27 +70,30 @@ def _launch(q, k, v, causal, window, scale):
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
-    # a window at least Sk wide masks nothing (q_pos <= Sk - 1)
-    w = -1 if window is None or window >= sk else int(window)
+    # a window wider than the last query's position masks nothing
+    w = -1 if window is None or window > q_offset + sq - 1 else int(window)
     err = _build.load("flash_attention").flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         b, hq, hkv, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), w, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), w, q_offset, scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")
     _metrics.counter(LAUNCHES["flash_attention"]).inc()
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q_offset=None) -> torch.Tensor:
     """Exact softmax attention, q (B, Hq, Sq, D) against k/v (B, Hkv, Sk,
     D) -> (B, Hq, Sq, D) in ``q.dtype``; scores, softmax and P·V in fp32,
-    ``scale`` = 1/sqrt(D) unless given."""
+    ``scale`` = 1/sqrt(D) unless given, query ``i`` at position
+    ``q_offset + i`` (``Sk - Sq`` unless given).  A query with no key
+    left by the mask gives 0."""
     _check(q, k, v, window)
+    q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    return _launch(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale, q_offset)

@@ -2,7 +2,8 @@
 counterpart of ``repro.kernels.flash_attention.ref``): exact fp32
 softmax over the whole score matrix.
 
-Queries are right-aligned (``q_pos = i + Sk - Sq``); ``causal`` keeps
+Query ``i`` sits at ``q_pos = q_offset + i`` (default ``Sk - Sq``: the
+queries right-aligned against the keys); ``causal`` keeps
 ``k_pos <= q_pos`` and ``window`` keeps ``k_pos > q_pos - window``.  GQA
 kv heads are read in place: query head ``h`` attends kv head
 ``h // (Hq // Hkv)``.  Masked scores are ``-1e30`` and their
@@ -23,8 +24,9 @@ __all__ = ["attention_ref", "NEG_INF"]
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal=False, window=None, scale=None):
-    """q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q.dtype."""
+def attention_ref(q, k, v, *, causal=False, window=None, scale=None, q_offset=None):
+    """q (B, Hq, Sq, D); k (B, Hkv, Sk, D); v (B, Hkv, Sk, Dv) -> (B, Hq,
+    Sq, Dv) in q.dtype."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -32,7 +34,7 @@ def attention_ref(q, k, v, *, causal=False, window=None, scale=None):
     qf = q.to(torch.float32).reshape(b, hkv, rep, sq, d)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf).mul_(scale)
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq if q_offset is None else int(q_offset))
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -43,4 +45,4 @@ def attention_ref(q, k, v, *, causal=False, window=None, scale=None):
     s.sub_(s.amax(dim=-1, keepdim=True)).exp_().masked_fill_(~mask, 0.0)
     l = s.sum(dim=-1, keepdim=True).clamp_(min=1e-30)
     out = torch.einsum("bgrqk,bgkd->bgrqd", s, vf).div_(l)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)

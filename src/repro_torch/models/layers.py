@@ -4,9 +4,11 @@ embeddings, GQA attention, gated MLPs, cross-entropy.
 Parameters keep the reference's layout and names: a dense weight is
 (in, out) and ``dense(w, x) = x @ w``; a norm is a mapping with
 ``"scale"`` (and ``"bias"``), an MLP tower a list of ``{"w", "b"}``
-mappings.  Init helpers draw from a ``torch.Generator``; they give other
-numbers than ``jax.random`` from the same seed, so the tests carry the
-reference's weights across instead.
+mappings.  Init helpers allocate on ``device`` (``cuda`` unless the
+caller passes ``"cpu"``, as every entry point of the package) and draw
+from a ``torch.Generator`` of that device; they give other numbers than
+``jax.random`` from the same seed, so the tests carry the reference's
+weights across instead.
 
 ``blockwise_attention`` is the reference's exact attention; in the port
 it runs ``kernels.flash_attention`` (the hand-written kernel on a CUDA
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
 
 __all__ = [
@@ -36,10 +39,22 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 
+def _device_and_generator(gen: Optional[torch.Generator], device) -> torch.device:
+    """The device an init helper draws on (``resolve_device``: ``cuda``
+    unless the caller passes ``"cpu"``); a generator passed in must live
+    there, since ``torch.randn`` draws only from a generator of its own
+    device."""
+    dev = resolve_device(device)
+    if gen is not None and gen.device.type != dev.type:
+        raise ValueError(f"the generator lives on {gen.device}, the parameters on {dev}")
+    return dev
+
+
 def dense_init(gen: Optional[torch.Generator], d_in, d_out, dtype=torch.float32, scale=None, device=None):
     """normal / sqrt(d_in), drawn in fp32 and stored in ``dtype``."""
+    dev = _device_and_generator(gen, device)
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=device)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=dev)
     return w.mul_(scale).to(dtype)
 
 
@@ -48,7 +63,7 @@ def dense(w, x):
 
 
 def rmsnorm_init(d, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=resolve_device(device))}
 
 
 def rmsnorm(p, x, eps=1e-6):
@@ -59,8 +74,9 @@ def rmsnorm(p, x, eps=1e-6):
 
 
 def layernorm_init(d, dtype=torch.float32, device=None):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device),
-            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    dev = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=dtype, device=dev),
+            "bias": torch.zeros((d,), dtype=dtype, device=dev)}
 
 
 def layernorm(p, x, eps=1e-6):
@@ -99,7 +115,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 def blockwise_attention(
     q: torch.Tensor,        # (B, Hq, Sq, D)
     k: torch.Tensor,        # (B, Hkv, Sk, D)
-    v: torch.Tensor,
+    v: torch.Tensor,        # (B, Hkv, Sk, Dv): Dv may differ from D (MLA)
     *,
     causal: bool = True,
     window=None,             # None or int: kpos > qpos - window
@@ -107,27 +123,35 @@ def blockwise_attention(
     kv_block: int = 1024,
     valid_len=None,          # number of valid kv entries (decode with a cache)
 ):
-    """Exact attention -> (B, Hq, Sq, D) in ``q.dtype``.
+    """Exact attention -> (B, Hq, Sq, Dv) in ``q.dtype``, for every input
+    the reference takes.
 
-    The kernel aligns the queries to the right of the keys, so the
-    reference's ``q_offset`` and ``valid_len`` map onto the prefix view
-    ``k[:, :, :valid_len]`` when ``q_offset == valid_len - Sq`` (what a
-    decode step passes); any other combination raises.  ``kv_block``
-    is the reference's scan chunk and is ignored: the kernel tiles the
-    keys itself.  Unlike the reference's jnp body, the probabilities
-    stay fp32 in P·V (as in the TPU kernel), so bf16 results differ by
-    that rounding."""
+    Query ``i`` sits at position ``q_offset + i`` and attends the keys
+    ``k[:, :, :valid_len]`` (the prefix view: the keys past it are masked
+    in the reference); no valid key gives 0, as the reference's clamped
+    normalizer does.  Where ``Dv != D`` the narrower of ``v`` and
+    ``q``/``k`` is zero-padded along D to the wider width and the output
+    cut back to ``Dv``: zero columns of ``v`` add nothing, zero columns
+    of ``q`` and ``k`` leave ``q·k`` unchanged, and the scale stays
+    1/sqrt(D).  ``kv_block`` is the reference's scan chunk and is
+    ignored: the kernel tiles the keys itself.  Unlike the reference's
+    jnp body, the probabilities stay fp32 in P·V (as in the TPU kernel),
+    so bf16 results differ by that rounding."""
     del kv_block
-    sq, sk = q.shape[2], k.shape[2]
-    if q_offset is not None or valid_len is not None:
-        n = sk if valid_len is None else int(valid_len)
-        offset = sk - sq if q_offset is None else int(q_offset)
-        if not 0 < n <= sk or offset != n - sq:
-            raise ValueError(
-                f"q_offset {q_offset} with valid_len {valid_len} (Sq {sq}, Sk {sk}): the kernel "
-                "takes queries right-aligned against a key prefix, q_offset == valid_len - Sq")
-        k, v = k[:, :, :n], v[:, :, :n]
-    return flash_attention(q, k, v, causal=causal, window=window)
+    b, hq, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    offset = sk - sq if q_offset is None else int(q_offset)
+    n = sk if valid_len is None else min(int(valid_len), sk)
+    if n <= 0:
+        return torch.zeros((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    k, v = k[:, :, :n], v[:, :, :n]
+    width = max(d, dv)
+    if d < width:
+        q, k = F.pad(q, (0, width - d)), F.pad(k, (0, width - d))
+    if dv < width:
+        v = F.pad(v, (0, width - dv))
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(d), q_offset=offset)
+    return out if dv == width else out[..., :dv]
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +160,7 @@ def blockwise_attention(
 
 
 def swiglu_init(gen, d_model, d_ff, dtype=torch.float32, device=None):
+    device = _device_and_generator(gen, device)
     return {
         "wi_gate": dense_init(gen, d_model, d_ff, dtype, device=device),
         "wi_up": dense_init(gen, d_model, d_ff, dtype, device=device),
@@ -160,6 +185,7 @@ def geglu(p, x):
 
 def mlp_init(gen, dims, dtype=torch.float32, bias=True, device=None):
     """Plain ReLU MLP tower (recsys towers): dims = [in, h1, ..., out]."""
+    device = _device_and_generator(gen, device)
     params = []
     for i in range(len(dims) - 1):
         layer = {"w": dense_init(gen, dims[i], dims[i + 1], dtype, device=device)}

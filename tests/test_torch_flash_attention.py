@@ -6,6 +6,10 @@ oracle ``attention_ref``, on the same numpy inputs.
 * fp32: rtol = atol = 2e-5, the reference's own tolerance for its kernel
   against the oracle (``tests/test_kernels.py``): the frameworks sum the
   score and P·V products in different orders.
+* ``blockwise_attention`` against the reference's (its jnp scan over
+  kv blocks): the same 2e-5, for a v narrower than q/k (MLA's reduced
+  widths, d 24 and dv 16) and query offsets off the right-aligned
+  prefix view (``q_offset`` below and above ``valid_len - Sq``).
 * bf16 inputs: both compute in fp32 and round the output to bf16 once,
   so they differ by at most one bf16 step where the fp32 sums land on
   either side of a rounding boundary: 2^-7 = 7.8e-3 for outputs below 2
@@ -24,10 +28,12 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.layers import blockwise_attention as jax_blockwise
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import LAUNCHES
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.layers import blockwise_attention
 from repro_torch.obs import metrics
 
 TOL = 2e-5
@@ -129,6 +135,41 @@ def test_flash_attention_validates_operands():
         flash_attention(q, kv.to(torch.bfloat16), kv)
 
 
+# (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_offset, valid_len)
+OFFSET_CASES = [
+    (2, 4, 4, 16, 40, 24, 16, True, None, None, None),     # MLA's reduced widths, right-aligned
+    (1, 4, 2, 1, 40, 24, 16, True, None, 20, 21),          # MLA widths, a decode step into a cache
+    (2, 4, 2, 8, 40, 16, 32, True, None, 3, 30),           # dv > d; q_offset < valid_len - Sq
+    (2, 4, 2, 6, 40, 16, 16, True, None, 5, 30),           # q_offset < valid_len - Sq
+    (2, 4, 2, 6, 40, 16, 16, False, None, 5, 30),
+    (2, 4, 2, 6, 40, 16, 16, True, None, 27, 30),          # q_offset + Sq > valid_len
+    (2, 4, 2, 6, 40, 16, 16, False, None, 27, 30),
+    (1, 2, 1, 12, 24, 32, 32, True, 4, 40, None),          # every query past the keys, windowed: no key left
+    (2, 2, 2, 4, 24, 16, 16, True, None, -3, 10),          # queries before the first key: none left
+    (2, 2, 1, 5, 24, 16, 16, True, None, 2, 30),           # valid_len past Sk
+]
+
+
+def _offset_inputs(case):
+    b, hq, hkv, sq, sk, d, dv = case[:7]
+    rng = np.random.default_rng(sum(case[:7]))
+    return (rng.standard_normal((b, hq, sq, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, d)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, dv)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_blockwise_attention_general_offsets_match_jax(case):
+    causal, window, q_offset, valid_len = case[7:]
+    q, k, v = _offset_inputs(case)
+    want = np.asarray(jax_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+                                    q_offset=q_offset, kv_block=8, valid_len=valid_len))
+    got = blockwise_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                              window=window, q_offset=q_offset, kv_block=8, valid_len=valid_len)
+    assert got.shape == q.shape[:3] + (v.shape[-1],) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 @pytest.fixture
 def metrics_on():
     was = metrics.enabled()
@@ -169,3 +210,29 @@ def test_gpu_flash_attention_matches_plain(dtype, metrics_on):
     got = flash_attention(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
     want = attention_ref(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_blockwise_attention_offsets_match_plain(dtype, metrics_on):
+    """D 32 with dv 16 (v padded to the kernel's width) and shifted query
+    offsets, prefill and decode mappings: kernel against plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    launches = metrics.counter(LAUNCHES["flash_attention"])
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    for case in [(2, 8, 2, 70, 200, 32, 16, True, None, 11, 150), (2, 8, 2, 70, 200, 32, 16, False, 40, 120, 150),
+                 (3, 8, 2, 1, 200, 32, 16, True, None, 63, 190), (2, 4, 4, 33, 100, 32, 32, True, 16, 90, 64)]:
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _offset_inputs(case))
+        causal, window, q_offset, valid_len = case[7:]
+        before = launches.value
+        got = blockwise_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, valid_len=valid_len)
+        torch.cuda.synchronize()
+        assert launches.value == before + 1
+        n = valid_len
+        want = attention_ref(q, k[:, :, :n], v[:, :, :n], causal=causal, window=window, q_offset=q_offset,
+                             scale=1 / np.sqrt(q.shape[-1]))
+        assert got.shape == want.shape == q.shape[:3] + (v.shape[-1],)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=str(case))

@@ -59,7 +59,7 @@ def _close(got, want, tol):
 
 
 def test_registry_and_llama3_configs_match_jax():
-    assert list_archs() == ["llama3-8b"]
+    assert list_archs() == ["autoint", "bst", "deepfm", "dien", "llama3-8b"]
     spec, jspec = get_arch("llama3-8b"), jax_get_arch("llama3-8b")
     assert spec.family == jspec.family and dict(spec.skips) == dict(jspec.skips)
     assert {k: (s.kind, dict(s.meta)) for k, s in spec.shapes.items()} == \
@@ -146,12 +146,14 @@ def test_norms_rope_and_mlps_match_jax():
 
 def test_init_helpers_shapes_and_scale():
     gen = torch.Generator().manual_seed(0)
-    w = tl.dense_init(gen, 256, 64, torch.bfloat16)
+    w = tl.dense_init(gen, 256, 64, torch.bfloat16, device="cpu")
     assert w.shape == (256, 64) and w.dtype == torch.bfloat16
     assert abs(float(w.float().std()) - 1 / 16) < 0.01
-    assert tl.rmsnorm_init(8)["scale"].eq(1).all() and tl.layernorm_init(8)["bias"].eq(0).all()
-    assert set(tl.swiglu_init(gen, 8, 16)) == set(tl.geglu_init(gen, 8, 16)) == {"wi_gate", "wi_up", "wo"}
-    tower = tl.mlp_init(gen, [8, 4, 2], bias=True)
+    assert tl.rmsnorm_init(8, device="cpu")["scale"].eq(1).all()
+    assert tl.layernorm_init(8, device="cpu")["bias"].eq(0).all()
+    assert set(tl.swiglu_init(gen, 8, 16, device="cpu")) == set(tl.geglu_init(gen, 8, 16, device="cpu")) == \
+        {"wi_gate", "wi_up", "wo"}
+    tower = tl.mlp_init(gen, [8, 4, 2], bias=True, device="cpu")
     assert [tuple(p["w"].shape) for p in tower] == [(8, 4), (4, 2)] and "b" in tower[0]
 
 
@@ -194,11 +196,15 @@ def test_blockwise_attention_matches_jax(case):
 
 
 def test_blockwise_attention_refuses_unaligned_offsets():
-    q, kv = torch.zeros((1, 2, 1, 16)), torch.zeros((1, 2, 24, 16))
-    with pytest.raises(ValueError, match="q_offset"):
-        tl.blockwise_attention(q, kv, kv, q_offset=5, valid_len=10)
-    with pytest.raises(ValueError, match="q_offset"):
-        tl.blockwise_attention(q, kv, kv, valid_len=30)
+    """Offsets off the right-aligned prefix view (one query at q_offset 5
+    against valid_len 10 of 24 keys; valid_len past Sk) are taken as the
+    reference takes them, with its result."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((1, 2, 1, 16)).astype(np.float32)
+    kv = rng.standard_normal((1, 2, 24, 16)).astype(np.float32)
+    for kw in (dict(q_offset=5, valid_len=10), dict(valid_len=30)):
+        want = jl.blockwise_attention(jnp.asarray(q), jnp.asarray(kv), jnp.asarray(kv), kv_block=8, **kw)
+        _close(tl.blockwise_attention(_t(q), _t(kv), _t(kv), kv_block=8, **kw), want, TOL_ATTN)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,7 @@ they launch, and the kernels agree with their plain versions on the card
 """
 
 import ast
+import copy
 import shutil
 from pathlib import Path
 
@@ -25,11 +26,15 @@ from repro_torch.core.union_find import label_propagation, label_propagation_den
 from repro_torch.index.exact import ExactBackend
 from repro_torch.index.random_projection import RandomProjectionBackend
 from repro_torch.index.signatures import make_projection, sign_signatures
+from repro_torch.configs import get_arch
+from repro_torch.data.synthetic import ctr_batch
 from repro_torch.kernels import _build
+from repro_torch.kernels.embedding_bag.ops import LAUNCHES as EB_LAUNCHES
 from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
 from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
 from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update, label_propagation_pallas
 from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
+from repro_torch.models import layers, recsys
 from repro_torch.models.transformer import TransformerConfig, make_cache, transformer_from_jax, transformer_init
 from repro_torch.obs import metrics
 
@@ -49,7 +54,9 @@ def test_no_jax_or_reference_imports():
     assert len(files) > 20
     checked = {str(f.relative_to(PKG)) for f in files}
     assert {"configs/registry.py", "configs/llama3_8b.py", "models/layers.py", "models/transformer.py",
-            "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py"} <= checked
+            "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py", "models/recsys.py",
+            "configs/bst.py", "configs/deepfm.py", "configs/dien.py", "configs/autoint.py",
+            "kernels/embedding_bag/ops.py", "kernels/embedding_bag/ref.py"} <= checked
     bad = [
         (f.relative_to(PKG), m) for f in files for m in _imports(f)
         if m.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -66,8 +73,24 @@ def test_entry_points_default_to_cuda():
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     words, active, adj = np.zeros((40, 2), np.uint32), np.ones(40, bool), np.eye(40, dtype=bool)
     lm = TransformerConfig(vocab=32, d_model=16, n_layers=1, n_heads=2, kv_heads=1, d_head=8, d_ff=32)
+    rec = {name: get_arch(name).make_reduced_config() for name in ("bst", "deepfm", "dien", "autoint")}
+    rec_inits = [getattr(recsys, f"{name}_init") for name in rec]
+    helpers = [
+        lambda **kw: layers.dense_init(None, 4, 2, **kw),
+        lambda **kw: layers.rmsnorm_init(4, **kw)["scale"],
+        lambda **kw: layers.layernorm_init(4, **kw)["bias"],
+        lambda **kw: layers.swiglu_init(None, 4, 8, **kw)["wo"],
+        lambda **kw: layers.geglu_init(None, 4, 8, **kw)["wi_up"],
+        lambda **kw: layers.mlp_init(None, [4, 3, 1], **kw)[1]["b"],
+    ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
+        assert all(h().device.type == "cuda" for h in helpers)
+        assert all(next(init(0, cfg).parameters()).device.type == "cuda" for init, cfg in zip(rec_inits, rec.values()))
+        with pytest.raises(ValueError, match="generator"):  # a generator must live where the weights go
+            layers.dense_init(torch.Generator(), 4, 2)
+        with pytest.raises(ValueError, match="generator"):
+            recsys.bst_init(torch.Generator(), rec["bst"])
         assert RandomProjectionBackend().device.type == "cuda"
         assert ExactBackend().device.type == "cuda"
         assert transformer_init(0, lm).embed.device.type == "cuda"
@@ -92,6 +115,9 @@ def test_entry_points_default_to_cuda():
         lambda: transformer_init(0, lm),
         lambda: make_cache(lm, 1, 4),
         lambda: transformer_from_jax({}, lm),
+        *helpers,
+        *[lambda init=init, cfg=cfg: init(0, cfg) for init, cfg in zip(rec_inits, rec.values())],
+        lambda: recsys.recsys_from_jax({}, rec["bst"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -107,6 +133,9 @@ def test_entry_points_default_to_cuda():
               "ln_f": {"scale": np.ones(16, np.float32)},
               "layers": {g: {n: p.float().numpy()[None] for n, p in d.items()} for g, d in model.layers[0].items()}}
     assert torch.equal(transformer_from_jax(params, lm, device="cpu").lm_head, model.lm_head)
+    assert all(h(device="cpu").device.type == "cpu" for h in helpers)
+    assert all(next(init(0, cfg, device="cpu").parameters()).device.type == "cpu"
+               for init, cfg in zip(rec_inits, rec.values()))
 
 
 def test_wrappers_validate_operands():
@@ -198,3 +227,32 @@ def test_gpu_label_prop_kernels_match_plain(r, w):
     m = label_prop_rect(row, col, bitmap)
     label_prop_update(col.clamp(max=cap - 1), m, pos, out, flags, 0)
     assert torch.equal(out, label_prop_update_ref(col.clamp(max=cap - 1), m, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["autoint", "bst", "deepfm", "dien"])
+def test_gpu_recsys_matches_cpu(name, metrics_on):
+    """A reduced recsys config on the card against the same parameters on
+    the CPU (fp32, TF32 off on both: rtol 1e-5, atol 1e-6 for the logits,
+    1e-6 for the user embeddings); ``bst_user_embedding`` launches the
+    ``embedding_bag`` kernel once a call."""
+    dev = _card()
+    cfg = get_arch(name).make_reduced_config()
+    host = getattr(recsys, f"{name}_init")(0, cfg, device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(7)
+    if name in ("deepfm", "autoint"):
+        inputs = [ctr_batch(rng, 600, cfg.n_fields, np.asarray(cfg.vocab_sizes))["ids"]]
+    else:
+        batch = ctr_batch(rng, 600, 1, np.asarray([cfg.item_vocab]), seq_len=cfg.seq_len)
+        inputs = [batch["hist"], batch["ids"][:, 0]]
+    fwd = getattr(recsys, f"{name}_forward")
+    np.testing.assert_allclose(fwd(card, cfg, *inputs).cpu().numpy(), fwd(host, cfg, *inputs).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    launches = metrics.counter(EB_LAUNCHES["embedding_bag"])
+    before = launches.value
+    user = getattr(recsys, f"{name}_user_embedding")
+    got = user(card, cfg, inputs[0])
+    torch.cuda.synchronize()
+    assert launches.value == before + (1 if name == "bst" else 0)
+    np.testing.assert_allclose(got.cpu().numpy(), user(host, cfg, inputs[0]).numpy(), rtol=1e-6, atol=1e-6)
