@@ -65,9 +65,11 @@ Phases (each prints one JSON line; any failure exits nonzero):
    31, 1 to 1088 keys, as ``_gqa_decode_layer`` passes them); the
    weights are freed.  Then ``flash_attention`` against its plain
    version in bf16 at the prefill row (B 4, Hq 32, Hkv 8, S 4096, D 128,
-   causal) and the decode row (B 16, Sq 1, Sk 32768), timed beside the
-   plain version and ``scaled_dot_product_attention``, and at a windowed
-   case (window 1024, S 2048) for correctness only.  Every such
+   causal), the decode row (B 16, Sq 1, Sk 32768) and the decode path's
+   own shape (B 4, Sk 1088), timed beside the plain version and
+   ``scaled_dot_product_attention`` (the decode rows also queued behind
+   a sleep: the kernels' own time), and at a windowed case (window
+   1024, S 2048) for correctness only.  Every such
    comparison holds the kernel within one bf16 step of the plain
    value (``FLASH_TOL``);
 10. recsys: bst at full width (a 5,000,000 x 32 fp32 item table, weights
@@ -153,6 +155,9 @@ KERNELS = {
     "flash_attention_decode": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
                                "_make_kernel :30; the Sq = 1 mapping)"),
+    "flash_attention_decode_path": ("src/repro_torch/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                                    "_make_kernel :30; the Sq = 1 mapping at the decode path's shape)"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/kernel.py:52 (embedding_bag_pallas -> :68, "
                       "_make_kernel :31)"),
@@ -1100,7 +1105,8 @@ def lm_serve(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     line["seconds"] = time.perf_counter() - t_phase
-    return all(checks.values()), line, {"flash_attention": prefill_launches, "flash_attention_decode": decode_launches}
+    return all(checks.values()), line, {"flash_attention": prefill_launches, "flash_attention_decode": decode_launches,
+                                        "flash_attention_decode_path": decode_launches}
 
 
 def flash_gap(out, ref):
@@ -1122,7 +1128,9 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
     working type) at one shape, within ``flash_gap``'s one bf16 step,
     and, when ``time_it``, its time, the plain version's, the library's
     (``scaled_dot_product_attention`` with ``enable_gqa``) and the bound
-    over bf16 tensor cores (the fp32 CUDA-core bound beside it)."""
+    over bf16 tensor cores (the fp32 CUDA-core bound beside it); a decode
+    row (Sq 1) also gives both calls' time queued behind a sleep, which
+    leaves out the host's cost of issuing them."""
     import torch
     import torch.nn.functional as F
 
@@ -1166,6 +1174,9 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
     plain = time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window), reps=2, warmup=1)
     lib = time_ms(library, reps=5)
     t2 = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps=5)
+    if sq == 1:
+        row.update({"queued_ms": queued_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)),
+                    "library_queued_ms": queued_ms(library)})
     row.update({"flops": flops, "bytes": n_bytes, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "plain_ms": plain,
                 "library_ms": lib, "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16",
                 "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_cuda_cores_ms": fp32_ms,
@@ -1176,16 +1187,20 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
 def check_flash_attention(lm_launches):
     """The flash-attention rows: the prefill row (B 4, Hq 32, Hkv 8, S
     4096, D 128, causal), the decode row (B 16, Sq 1, Sk 32768, the
-    registry's decode_32k length) and a windowed case (window 1024, S
+    registry's decode_32k length), the decode path's own shape (B 4, Sk
+    1088: ``lm_serve``'s full cache) and a windowed case (window 1024, S
     2048) for correctness only.  Returns (ok, rows, phase line)."""
     t_phase = time.perf_counter()
     ok_p, pre = flash_row("flash_attention", 4, 32, 8, 4096, 4096, 128, True, None, seed=1)
     ok_d, dec = flash_row("flash_attention_decode", 16, 32, 8, 1, 32768, 128, True, None, seed=2)
+    ok_dp, dec_path = flash_row("flash_attention_decode_path", LM_PREFILL[0], 32, 8, 1, LM_PROMPT + LM_NEW, 128,
+                                True, None, seed=4)
     ok_w, win = flash_row("flash_attention_window", 2, 32, 8, 2048, 2048, 128, True, 1024, seed=3, time_it=False)
-    pre["launches"], dec["launches"] = lm_launches["flash_attention"], lm_launches["flash_attention_decode"]
+    for row in (pre, dec, dec_path):
+        row["launches"] = lm_launches[row["name"]]
     line = {"phase": "flash_attention", "seconds": time.perf_counter() - t_phase, "prefill_ok": ok_p,
-            "decode_ok": ok_d, "window_ok": ok_w, "window_case": win}
-    return ok_p and ok_d and ok_w, [pre, dec], line
+            "decode_ok": ok_d, "decode_path_ok": ok_dp, "window_ok": ok_w, "window_case": win}
+    return ok_p and ok_d and ok_dp and ok_w, [pre, dec, dec_path], line
 
 
 def host_ms(fn, reps: int, warmup: int = 2):

@@ -46,7 +46,7 @@ _SIGNATURES = {
         "rmi_mlp_launch": [P, I, I, *[P] * 10, I, I, I, I, I, P, P],
     },
     "flash_attention": {
-        "flash_attention_launch": [P, P, P, P, I, *[I] * 6, *[L] * 9, I, I, I, F, P],
+        "flash_attention_launch": [P, P, P, P, I, *[I] * 6, *[L] * 9, I, I, I, F, I, I, P, P, P],
     },
     "embedding_bag": {
         "embedding_bag_launch": [P, P, P, I, I, I, I, I, I, P],

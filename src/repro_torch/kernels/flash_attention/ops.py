@@ -15,6 +15,12 @@ masks the ragged edges itself.  It takes element strides for B, H and S
 (unit stride on D), so a head-major view of a (B, S, H, D) projection,
 or the prefix ``k_cache[:, :, :n]`` of a decode cache, goes in without
 a copy; an operand with another layout is copied to a contiguous one.
+
+The mapping is chosen statically: bf16 with Sq > 1 runs the tensor-core
+prefill (P·V as two bf16 products, P_hi·V + P_lo·V), fp32 with Sq > 1
+the CUDA-core prefill, and Sq == 1 the decode mapping, split over Sk by
+``decode_splits`` and merged by a second kernel that the same call
+enqueues (one wrapper call, one count, two launches when split).
 """
 
 from __future__ import annotations
@@ -27,11 +33,29 @@ from ...obs import metrics as _metrics
 from .. import _build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "LAUNCHES", "HEAD_DIMS"]
+__all__ = ["flash_attention", "decode_splits", "LAUNCHES", "HEAD_DIMS", "DECODE_TILE", "DECODE_GROUP", "SMS"]
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches"}
 HEAD_DIMS = (16, 32, 128)  # head widths the kernel is instantiated for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DECODE_TILE = 64   # keys per decode tile (csrc/flash_attention.cu DBK)
+DECODE_GROUP = 4   # query heads per decode block (csrc/flash_attention.cu RG)
+SMS = 132          # streaming multiprocessors of an H100 SXM
+
+
+def decode_splits(b: int, hkv: int, rep: int, sk: int):
+    """(n_split, split_tiles) of the decode mapping: split ``i`` owns the
+    keys ``[i * split_tiles * DECODE_TILE, (i + 1) * split_tiles *
+    DECODE_TILE)`` cut at ``sk``, whole tiles, every split at least one.
+    The grid has ``b * hkv * ceil(rep / DECODE_GROUP)`` blocks a split; it
+    is split until it reaches about two blocks an SM, and not at all
+    where it already does."""
+    blocks = b * hkv * -(-rep // DECODE_GROUP)
+    n_tiles = -(-sk // DECODE_TILE)
+    if blocks >= 2 * SMS:
+        return 1, n_tiles
+    per = -(-n_tiles // min(n_tiles, -(-2 * SMS // blocks)))
+    return -(-n_tiles // per), per
 
 
 def _check(q, k, v, window):
@@ -72,11 +96,19 @@ def _launch(q, k, v, causal, window, scale, q_offset):
         return out
     # a window wider than the last query's position masks nothing
     w = -1 if window is None or window > q_offset + sq - 1 else int(window)
+    n_split, split_tiles, part_ml, part_acc = 1, 1, None, None
+    if sq == 1:
+        n_split, split_tiles = decode_splits(b, hkv, hq // hkv, sk)
+        if n_split > 1:  # the splits' (m, l) and acc, merged by the second kernel
+            part_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32, device=q.device)
+            part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)
     err = _build.load("flash_attention").flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         b, hq, hkv, sq, sk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(bool(causal)), w, q_offset, scale, torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), w, q_offset, scale, n_split, split_tiles,
+        None if part_ml is None else part_ml.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "flash_attention")
     _metrics.counter(LAUNCHES["flash_attention"]).inc()
@@ -85,10 +117,11 @@ def _launch(q, k, v, causal, window, scale, q_offset):
 
 def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q_offset=None) -> torch.Tensor:
     """Exact softmax attention, q (B, Hq, Sq, D) against k/v (B, Hkv, Sk,
-    D) -> (B, Hq, Sq, D) in ``q.dtype``; scores, softmax and P·V in fp32,
-    ``scale`` = 1/sqrt(D) unless given, query ``i`` at position
-    ``q_offset + i`` (``Sk - Sq`` unless given).  A query with no key
-    left by the mask gives 0."""
+    D) -> (B, Hq, Sq, D) in ``q.dtype``; scores, softmax and P·V in fp32
+    (on the card, bf16 prefill's P·V is P_hi·V + P_lo·V on the tensor
+    cores: P to about 16 bits), ``scale`` = 1/sqrt(D) unless given,
+    query ``i`` at position ``q_offset + i`` (``Sk - Sq`` unless given).
+    A query with no key left by the mask gives 0."""
     _check(q, k, v, window)
     q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
     if q.device.type == "cpu":

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "NEG_INF"]
+__all__ = ["attention_ref", "merge_partials_ref", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -46,3 +46,17 @@ def attention_ref(q, k, v, *, causal=False, window=None, scale=None, q_offset=No
     l = s.sum(dim=-1, keepdim=True).clamp_(min=1e-30)
     out = torch.einsum("bgrqk,bgkd->bgrqd", s, vf).div_(l)
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
+
+
+def merge_partials_ref(m, l, acc):
+    """Merge softmax partials over key chunks (the plain version of the
+    decode mapping's merge kernel): chunk ``i`` holds its running max
+    ``m[..., i]``, normalizer ``l[..., i]`` and unnormalized P·V
+    ``acc[..., i, :]``, all fp32.  Returns ``sum_i e^(m_i - M) acc_i /
+    max(sum_i e^(m_i - M) l_i, 1e-30)`` with ``M = max_i m_i``: a wholly
+    masked chunk (``m = -1e30``, ``l = 0``, ``acc = 0``) adds exactly 0,
+    and a query whose every chunk is masked gives 0."""
+    mm = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - mm)
+    l_all = (w * l).sum(dim=-1, keepdim=True).clamp_(min=1e-30)
+    return (w[..., None] * acc).sum(dim=-2) / l_all

@@ -135,8 +135,10 @@ def blockwise_attention(
     of ``q`` and ``k`` leave ``q·k`` unchanged, and the scale stays
     1/sqrt(D).  ``kv_block`` is the reference's scan chunk and is
     ignored: the kernel tiles the keys itself.  Unlike the reference's
-    jnp body, the probabilities stay fp32 in P·V (as in the TPU kernel),
-    so bf16 results differ by that rounding."""
+    jnp body, the probabilities are not rounded to the inputs' type in
+    P·V: fp32 (as in the TPU kernel), or on the card's bf16 prefill two
+    bf16 terms, P_hi·V + P_lo·V (P to about 16 bits), so bf16 results
+    differ by that rounding."""
     del kv_block
     b, hq, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]

@@ -15,9 +15,20 @@ oracle ``attention_ref``, on the same numpy inputs.
   either side of a rounding boundary: 2^-7 = 7.8e-3 for outputs below 2
   in magnitude, so rtol = atol = 8e-3.
 
+* the decode mapping's merge (``merge_partials_ref``): softmax partials
+  (m, l, acc) taken chunk by chunk over the keys and merged equal the
+  JAX kernel within the same 2e-5, for uneven chunks, chunks that the
+  causal mask or the window masks wholly, an empty chunk and rows that
+  no chunk reaches (0, no NaN).
+* the bf16 prefill's two-term P·V, emulated in plain torch, holds the
+  card's gate (one bf16 step of the fp32-P value, ``flash_gap`` in
+  ``chip_smoke.py``); P rounded once to bf16 does not.
+
 On the CPU the port's wrapper runs its plain version (``ref.py``); the
 ``gpu`` test holds the CUDA kernel to it on the card.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -31,8 +42,8 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.layers import blockwise_attention as jax_blockwise
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import LAUNCHES
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import DECODE_GROUP, DECODE_TILE, LAUNCHES, SMS, decode_splits
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, merge_partials_ref
 from repro_torch.models.layers import blockwise_attention
 from repro_torch.obs import metrics
 
@@ -170,6 +181,110 @@ def test_blockwise_attention_general_offsets_match_jax(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+def _chunk_partials(q, k, v, bounds, causal, window):
+    """``attention_ref``'s arithmetic over each key chunk [lo, hi), queries
+    right-aligned: (m, l, acc) in fp32, an empty chunk (-1e30, 0, 0)."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    ms, ls, accs = [], [], []
+    for lo, hi in bounds:
+        if hi == lo:
+            ms.append(torch.full((b, h, sq), NEG_INF))
+            ls.append(torch.zeros((b, h, sq)))
+            accs.append(torch.zeros((b, h, sq, d)))
+            continue
+        kpos = torch.arange(lo, hi)[None, :]
+        mask = torch.ones((sq, hi - lo), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, lo:hi]).mul_(1 / math.sqrt(d)).masked_fill_(~mask, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None]).masked_fill_(~mask, 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(p @ v[:, :, lo:hi])
+    return torch.stack(ms, dim=-1), torch.stack(ls, dim=-1), torch.stack(accs, dim=-2)
+
+
+# (B, H, Sq, Sk, D, causal, window, chunk bounds)
+MERGE_CASES = {
+    "uneven": (1, 2, 16, 40, 16, False, None, [(0, 7), (7, 20), (20, 40)]),
+    "causal_masks_a_chunk": (2, 2, 16, 24, 16, True, None, [(0, 8), (8, 16), (16, 24)]),
+    "window_masks_a_chunk": (1, 2, 32, 32, 32, True, 8, [(0, 8), (8, 16), (16, 24), (24, 32)]),
+    "trailing_empty_chunk": (1, 2, 8, 24, 16, False, None, [(0, 10), (10, 24), (24, 24)]),
+    "no_key_left": (1, 2, 12, 8, 16, True, None, [(0, 3), (3, 8)]),
+}
+
+
+@pytest.mark.parametrize("name", list(MERGE_CASES))
+def test_merge_partials_matches_jax(name):
+    b, h, sq, sk, d, causal, window, bounds = MERGE_CASES[name]
+    q, k, v = _qkv((b, h, h, sq, sk, d), seed=sq + sk + d)
+    m, l, acc = _chunk_partials(q, k, v, bounds, causal, window)
+    got = merge_partials_ref(m, l, acc).numpy()
+    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal, window=window, interpret=True))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    if name == "causal_masks_a_chunk":  # rows 0..7 (positions 8..15) see nothing of the last chunk
+        assert (m[:, :, :8, 2] == NEG_INF).all() and (l[:, :, :8, 2] == 0).all()
+    if name == "window_masks_a_chunk":  # rows 16.. see nothing of the first chunk
+        assert (m[:, :, 16:, 0] == NEG_INF).all() and (l[:, :, 16:, 0] == 0).all()
+    if name == "no_key_left":  # the first Sq - Sk queries: every chunk masked, output 0
+        assert (got[:, :, : sq - sk] == 0).all()
+
+
+@pytest.mark.parametrize("b, hkv, rep, sk", [(4, 8, 4, 1088), (16, 8, 4, 32768), (4, 8, 4, 1), (4, 8, 4, 385),
+                                             (1, 1, 1, 77), (2, 8, 8, 4097), (64, 8, 4, 4096), (33, 8, 1, 500)])
+def test_decode_splits_cover_the_keys_in_whole_tiles(b, hkv, rep, sk):
+    n_split, per = decode_splits(b, hkv, rep, sk)
+    blocks = b * hkv * -(-rep // DECODE_GROUP)
+    starts = [i * per * DECODE_TILE for i in range(n_split)]
+    ends = [min(x + per * DECODE_TILE, sk) for x in starts]
+    assert starts[0] == 0 and ends[-1] == sk and ends[:-1] == starts[1:]
+    assert all(lo < hi for lo, hi in zip(starts, ends))  # every split holds a key
+    if blocks >= 2 * SMS:  # the grid already fills the card
+        assert n_split == 1
+    elif -(-sk // DECODE_TILE) >= -(-2 * SMS // blocks):  # keys enough for two blocks an SM
+        assert n_split * blocks >= 2 * SMS
+
+
+def test_decode_splits_at_the_decode_path():
+    """B 4, Hkv 8, Sk 1088: 32 blocks become at least two an SM; B 64
+    fills the card unsplit."""
+    n_split, per = decode_splits(4, 8, 4, 1088)
+    assert 4 * 8 * n_split >= 2 * SMS and per >= 1
+    assert decode_splits(64, 8, 4, 1088)[0] == 1
+
+
+def test_two_term_bf16_p_holds_the_card_gate():
+    """P·V with P = bf16(p) + bf16(p - bf16(p)) (the tensor-core prefill)
+    against fp32 p, at B 1, H 4, S 512, D 128, causal, bf16 inputs: l
+    from the fp32 p, sums in fp64 so that only P's rounding differs,
+    both outputs rounded to bf16.  Every output is within one bf16 step
+    of the plain value (2^-7 |plain| + 1e-5); P rounded once is not."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).double() for a in _qkv((1, 4, 4, 512, 512, 128), seed=17))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(128)
+    mask = torch.ones((512, 512), dtype=torch.bool).tril_()
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill_(~mask, 0.0)  # fp32 probabilities
+    l = p.double().sum(dim=-1, keepdim=True)
+
+    def out(pp):
+        return ((pp.double() @ v) / l).to(torch.bfloat16).double()
+
+    plain = out(p)
+    hi = p.to(torch.bfloat16).float()
+    two_term = out(hi.double() + (p - hi).to(torch.bfloat16).double())
+    one_term = out(hi)
+    gate = 2.0 ** -7 * plain.abs() + 1e-5
+    assert ((two_term - plain).abs() <= gate).all()
+    assert ((one_term - plain).abs() > gate).any()
+
+
 @pytest.fixture
 def metrics_on():
     was = metrics.enabled()
@@ -184,6 +299,14 @@ GPU_CASES = CASES + [
     (3, 32, 8, 1, 1000, 128, True, None),    # its decode shape
     (1, 8, 8, 130, 300, 128, True, 100),     # window across tiles
     (1, 6, 2, 1, 50, 128, False, None),      # decode, 3 heads a group
+    (2, 4, 2, 70, 70, 16, True, None),       # prefill at each head width, S not a multiple of 128
+    (2, 4, 2, 200, 200, 32, True, None),
+    (2, 4, 4, 70, 70, 128, False, None),     # Hq/Hkv 1
+    (2, 16, 2, 200, 200, 128, True, None),   # Hq/Hkv 8
+    (2, 16, 2, 1, 300, 128, True, None),     # decode, Hq/Hkv 8: two groups of 4
+    (2, 4, 4, 1, 300, 32, True, None),       # decode, Hq/Hkv 1
+    (4, 32, 8, 1, 385, 128, True, None),     # decode, 7 splits: the last holds 1 key
+    (4, 32, 8, 1, 1088, 128, True, None),    # the decode path's full cache: 9 splits
 ]
 
 
@@ -204,26 +327,35 @@ def test_gpu_flash_attention_matches_plain(dtype, metrics_on):
         want = attention_ref(q, k, v, causal=case[6], window=case[7])
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
                                    err_msg=str(case))
-    # a decode cache prefix (strided, no copy) and a head-major view
-    cache = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 2, 2, 64, 32), np.float32)).to(dev, dtype)
-    q = torch.randn((2, 1, 8, 32), device=dev).to(dtype).transpose(1, 2)
-    got = flash_attention(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
-    want = attention_ref(q, cache[0][:, :, :37], cache[1][:, :, :37], causal=True)
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol)
+    # decode cache prefixes (strided, no copy) and head-major views, one
+    # split and several
+    rng = np.random.default_rng(1)
+    for shape, n in [((2, 2, 2, 64, 32), 37), ((2, 4, 8, 1200, 128), 1089)]:
+        cache = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev, dtype)
+        q = torch.from_numpy(rng.standard_normal((shape[1], 1, 4 * shape[2], shape[4]), np.float32))
+        q = q.to(dev, dtype).transpose(1, 2)
+        got = flash_attention(q, cache[0][:, :, :n], cache[1][:, :, :n], causal=True)
+        want = attention_ref(q, cache[0][:, :, :n], cache[1][:, :, :n], causal=True)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=str(shape))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_blockwise_attention_offsets_match_plain(dtype, metrics_on):
-    """D 32 with dv 16 (v padded to the kernel's width) and shifted query
-    offsets, prefill and decode mappings: kernel against plain."""
+    """D 32 with dv 16 (v padded to the kernel's width), shifted query
+    offsets and windows with offsets, prefill and decode mappings, D 16,
+    32 and 128: kernel against plain."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     launches = metrics.counter(LAUNCHES["flash_attention"])
     tol = TOL if dtype == torch.float32 else TOL_BF16
     for case in [(2, 8, 2, 70, 200, 32, 16, True, None, 11, 150), (2, 8, 2, 70, 200, 32, 16, False, 40, 120, 150),
-                 (3, 8, 2, 1, 200, 32, 16, True, None, 63, 190), (2, 4, 4, 33, 100, 32, 32, True, 16, 90, 64)]:
+                 (3, 8, 2, 1, 200, 32, 16, True, None, 63, 190), (2, 4, 4, 33, 100, 32, 32, True, 16, 90, 64),
+                 (2, 8, 2, 150, 300, 128, 128, True, 64, 100, 280),   # window and offset, prefill at D 128
+                 (2, 8, 2, 1, 300, 32, 32, True, 40, 250, 280),       # window and offset, decode
+                 (2, 8, 2, 200, 300, 16, 16, True, 48, 30, 300)]:     # window and offset, prefill at D 16
         q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _offset_inputs(case))
         causal, window, q_offset, valid_len = case[7:]
         before = launches.value
