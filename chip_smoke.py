@@ -42,7 +42,14 @@ Phases (each prints one JSON line; any failure exits nonzero):
    the update rows also queued behind a sleep (the kernels' own time),
    the main path's one also before phase 6 ran; ``predict_ab``:
    ``laf.predict``'s work with the fused forward and with the
-   ``nn.Linear`` modules it replaced, in alternating turns, and its parts;
+   ``nn.Linear`` modules it replaced, in alternating turns, and its parts.
+   The Hamming-filter rows are bound by max(bytes / 3.35 TB/s, 2 nq nd
+   n_bits / 1,979 TOPS: the distances as int8 tensor-core products),
+   with the CUDA cores' POPC time (nq nd w / (132 x 16 x the card's max
+   SM clock)) beside it; the ``rmi_mlp`` row by the fp32 FMA rate, with
+   the 3xTF32 tensor-core floor (3 x FLOP / 494.7 TFLOP/s) beside it.
+   These rows also carry ptxas's registers, spill bytes and ``wgmma``
+   notes for their kernels and the ``*GMMA`` opcodes in their SASS;
 8. observability: the main path once with everything off and once after
    ``obs.enable(trace=True, metrics_on=True, telemetry=True)`` (same
    labels, one host sync, per-round telemetry equal to the gauges, the
@@ -124,6 +131,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA data sheet)
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 494.7e12       # H100 SXM tf32 tensor cores, dense
+INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
+SMS, POPC_PER_CLOCK = 132, 16  # H100 SXM: SMs, 32-bit POPC results an SM and clock (CUDA cores)
 KERNELS = {
     "hamming_filter": ("src/repro_torch/csrc/hamming_filter.cu",
                        "src/repro/kernels/hamming_filter/kernel.py:179"),
@@ -235,6 +245,38 @@ def bound_ms(n_bytes: float, flops: float = 0.0, peak: float = FP32_FLOPS):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def build_notes(name: str) -> dict:
+    """What ptxas said of ``csrc/<name>.cu`` in this run's build (each
+    kernel's registers and spill bytes, its C75xx notes: serialized wgmma)
+    and the tensor-core opcodes (``*GMMA``) in its SASS, where
+    ``cuobjdump`` is on the machine."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    log = _build.BUILD_LOG.get(name, "")
+    notes = {
+        "ptxas_registers": [int(m) for m in re.findall(r"Used (\d+) registers", log)],
+        "ptxas_spill_bytes": [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)],
+        "ptxas_wgmma_notes": sorted(set(re.findall(r"\((C75\d\d)\)", log))),
+    }
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                              capture_output=True, text=True).stdout
+        ops = re.findall(r"\b([A-Z]*GMMA)\b", sass)
+        notes["sass_gmma"] = {op: ops.count(op) for op in sorted(set(ops))}
+    else:
+        notes["sass_gmma"] = None
+    return notes
+
+
+def popc_ms(nq: int, nd: int, w: int, clock_hz: float) -> float:
+    """The CUDA cores' floor for the Hamming distances as 32-bit POPCs:
+    nq nd w of them at 16 an SM and clock on 132 SMs."""
+    return 1e3 * nq * nd * w / (SMS * POPC_PER_CLOCK * clock_hz)
+
+
 def device_busy(fn, top: int = 8):
     """(wall s, device busy s, device busy union s, top kernels) of one
     call under ``torch.profiler``: the summed durations of the trace's
@@ -296,8 +338,11 @@ def pair_margin(pairs, q, db, eps) -> float:
     return float((dots - (1.0 - eps)).abs().max())
 
 
-def check_hamming(bk, exec_idx, eps, k1_rows):
-    """K1 vs its plain version: 4096 executed queries x the whole test db."""
+def check_hamming(bk, exec_idx, eps, k1_rows, clock_hz):
+    """K1 vs its plain version: 4096 executed queries x the whole test db.
+    Bound: max(bytes / 3.35 TB/s, 2 nq nd n_bits / 1,979 TOPS), the
+    Hamming distances as +-1 int8 products on the tensor cores;
+    ``popc_ms`` beside it, the CUDA cores' POPC floor."""
     import torch
 
     from repro_torch.index.signatures import hamming_words, popcount32
@@ -328,16 +373,18 @@ def check_hamming(bk, exec_idx, eps, k1_rows):
     count_plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=False),
                           reps=2, warmup=1)
     n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + -(-nd // 32)))
-    b_ms, b_by = bound_ms(n_bytes, 2 * d * band)
-    count_b_ms, count_b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq), 2 * d * band)
+    b_ms, b_by = bound_ms(n_bytes, 2 * nq * nd * 32 * w, INT8_OPS)
+    count_b_ms, count_b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq), 2 * nq * nd * 32 * w, INT8_OPS)
     ok = counts_ok and counts_only_ok and margin <= tol
     return ok, {
         "name": "hamming_filter", "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
         "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
-        "band_pairs": band, "popcount_ops": nq * nd * w,
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "band_pairs": band, "popcount_ops": nq * nd * w, "int8_ops": 2 * nq * nd * 32 * w,
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by + " (int8 tensor cores)",
+        "popc_ms": popc_ms(nq, nd, w, clock_hz),
         "count_only_ms": count_ms, "count_only_plain_ms": count_plain,
-        "count_only_bound_ms": count_b_ms, "count_only_bound_by": count_b_by,
+        "count_only_bound_ms": count_b_ms, "count_only_bound_by": count_b_by + " (int8 tensor cores)",
+        **build_notes("hamming_filter"),
     }
 
 
@@ -513,7 +560,7 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
     from repro_torch import exact_fp32
     from repro_torch.core.cardinality import featurize, rmi_route
     from repro_torch.kernels.rmi_mlp import rmi_stage_forward
-    from repro_torch.kernels.rmi_mlp.ops import stage_params
+    from repro_torch.kernels.rmi_mlp.ops import pack_stage, stage_launch, stage_params, tma_rows
     from repro_torch.kernels.rmi_mlp.ref import stage_forward_ref
 
     est = pipe.estimator
@@ -525,7 +572,8 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
     plain = [stage_forward_ref(x, ws, bs) for ws, bs in packs]
     err = max(float((k - p).abs().max()) for k, p in zip(kern, plain))
     # the reference's own kernel tolerance, rtol = atol = 2e-5: the two
-    # sum each layer's products in different orders
+    # sum each layer's products in different orders (and the kernel's
+    # are three tf32 products)
     within = all(bool(((k - p).abs() <= TOL_RMI * (1.0 + p.abs())).all()) for k, p in zip(kern, plain))
 
     def walk(outs):
@@ -543,11 +591,12 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
     core_k = torch.clamp(torch.exp2(zk) - 1.0, min=0.0) >= thr
     core_p = torch.clamp(torch.exp2(zp) - 1.0, min=0.0) >= thr
 
-    pairs = [list(zip(ws, bs)) for ws, bs in packs]  # packed once: the row times the launches
+    kpacks = [pack_stage(experts, x.device) for experts in stages]  # packed once: the row times the launches
+    xk = tma_rows(x)  # x as rmi_predict hands it to the kernel
 
     def predict():
-        for p in pairs:
-            rmi_stage_forward(p, x)
+        for kp in kpacks:
+            stage_launch(kp, xk)
 
     def library():
         with torch.no_grad():
@@ -562,7 +611,8 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
     n_experts = sum(len(experts) for experts in stages)
     per_expert = sum(w.shape[1] * w.shape[2] for w in packs[0][0])
     n_params = sum(int(t.numel()) for ws, bs in packs for t in ws + bs)
-    b_ms, b_by = bound_ms(4 * (len(stages) * n * d_in + n_params + n * n_experts), 2.0 * n * per_expert * n_experts)
+    flops = 2.0 * n * per_expert * n_experts
+    b_ms, b_by = bound_ms(4 * (len(stages) * n * d_in + n_params + n * n_experts), flops)
     t1 = time_ms(predict, reps=5)
     plain_ms = time_ms(lambda: [stage_forward_ref(x, ws, bs) for ws, bs in packs], reps=5)
     library_ms = time_ms(library, reps=5)
@@ -574,10 +624,13 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
         "route_flips": int(moved.sum()), "core_test_flips": int((core_k != core_p).sum()),
         "n_core_predicted": int(core_k.sum()),
         "ms": (t1 + t2) / 2, "ms_turns": [t1, t2],
-        "stage_ms": [time_ms(lambda p=p: rmi_stage_forward(p, x), reps=5) for p in pairs],
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "stage_ms": [time_ms(lambda kp=kp: stage_launch(kp, xk), reps=5) for kp in kpacks],
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by + " (fp32 FMA, CUDA cores)",
+        "tf32x3_floor_ms": 1e3 * 3 * flops / TF32_FLOPS, "library_ms": library_ms,
+        "beats_library": (t1 + t2) / 2 < library_ms,
         "library": "fp32 F.linear + relu chain, TF32 off: 5 linear calls an expert, 35 a predict",
         "ms_is": "one predict: 3 launches on packed buffers (packing: the predict_ab line's pack_ms)",
+        **build_notes("rmi_mlp"),
     }
     return within, row
 
@@ -592,7 +645,7 @@ def predict_ab(pipe, test, eps, turns: int = 6, reps: int = 5):
     import torch
 
     from repro_torch.core.cardinality import rmi_predict
-    from repro_torch.kernels.rmi_mlp.ops import pack_modules
+    from repro_torch.kernels.rmi_mlp.ops import pack_stage
 
     est = pipe.estimator
 
@@ -627,7 +680,7 @@ def predict_ab(pipe, test, eps, turns: int = 6, reps: int = 5):
         "upload_and_features_s": host_s(lambda: est._features(test, eps)),
         "upload_s": host_s(lambda: torch.as_tensor(np.asarray(test, np.float32)).to(est.device)),
         "forward_fused_ms": time_ms(lambda: rmi_predict(est.model, feats), reps=5),
-        "pack_ms": time_ms(lambda: [pack_modules(list(e)) for e in est.model.stages], reps=5),
+        "pack_ms": time_ms(lambda: [pack_stage(e, feats.device) for e in est.model.stages], reps=5),
         "forward_linear_ms": time_ms(lambda: est.model(feats).detach(), reps=5),
         "counts_and_copy_back_s": host_s(lambda: torch.clamp(torch.exp2(z) - 1.0, min=0.0).cpu().numpy()),
     }
@@ -737,7 +790,7 @@ def check_components(test, eps, truth, dev):
     return all(checks.values()), line, rows, launches
 
 
-def check_stats_bodies(bk, exec_idx, eps, k1_rows):
+def check_stats_bodies(bk, exec_idx, eps, k1_rows, clock_hz):
     """Both ``_stats`` bodies of K1 at its comparison shape (``k1_rows``
     executed queries x the whole test db): counts and words equal to
     the non-stats twin bit for bit, the whole-call real-pair triple equal
@@ -787,14 +840,15 @@ def check_stats_bodies(bk, exec_idx, eps, k1_rows):
         plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=bitmap,
                                                    stats_chunk=nq), reps=2, warmup=1)
         n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + (n_words if bitmap else 0))) + 12
-        b_ms, b_by = bound_ms(n_bytes, 2 * d * band)
+        b_ms, b_by = bound_ms(n_bytes, 2 * nq * nd * 32 * w, INT8_OPS)
         rows.append({
             "name": "hamming_filter_bitmap_stats" if bitmap else "hamming_filter_count_stats",
             "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
             "triple": ks[0].tolist(), "triple_equals_plain": triple_equal, "equals_twin": twin_equal,
             "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
             "ms": (m1 + m2) / 2, "twin_ms": (t1 + t2) / 2, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by + " (int8 tensor cores)", "popc_ms": popc_ms(nq, nd, w, clock_hz),
+            **build_notes("hamming_filter"),
         })
         ok &= twin_equal and triple_equal and flips_ok and margin <= tol
     return ok, rows
@@ -1475,7 +1529,11 @@ def run(args) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind, "max_sm_clock_hz": clock_hz,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build (one nvcc per source, all at once)
@@ -1485,7 +1543,7 @@ def run(args) -> int:
         _build.load(name)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "(C75" in line:
                 print(f"ptxas[{name}]: {line.strip()}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(ROOT)) for p in libs.values()]})
@@ -1608,7 +1666,7 @@ def run(args) -> int:
 
     # 7. kernels vs plain versions at main-path shapes
     t_phase = time.perf_counter()
-    k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows)
+    k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows, clock_hz)
     lp_ok, lp = check_label_prop(lp_inputs, update_before)
     del lp_inputs
     sampled_cores = np.nonzero(pp_core)[0]
@@ -1617,7 +1675,7 @@ def run(args) -> int:
     for k in rc:
         k["launches_by_method"] = {m: v["launches"][k["name"]] for m, v in by_method.items()}
     launches.update(exact_launches)
-    st_ok, st = check_stats_bodies(bk, exec_idx, eps, args.k1_rows)
+    st_ok, st = check_stats_bodies(bk, exec_idx, eps, args.k1_rows, clock_hz)
     rmi_ok, rmi = check_rmi_mlp(pipe, test, eps, tau, alpha)
     emit(predict_ab(pipe, test, eps))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t_phase, "hamming_filter_ok": k1_ok,

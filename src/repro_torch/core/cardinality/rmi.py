@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ...kernels.rmi_mlp import rmi_stage_forward
+from ...kernels.rmi_mlp.ops import tma_rows
 
 __all__ = [
     "RMIConfig",
@@ -98,8 +99,10 @@ class RMI(nn.Module):
 def rmi_predict(model: RMI, x: torch.Tensor) -> torch.Tensor:
     """z for featurized inputs (batch, d+1): each stage's experts in one
     ``rmi_stage_forward`` (E, batch), routed and gathered as in
-    ``RMI.forward``."""
+    ``RMI.forward``.  On the card x is laid out for the kernel's TMA once
+    (``tma_rows``), not once a stage."""
     with torch.no_grad():
+        x = tma_rows(x)
         pred = rmi_stage_forward(model.stages[0], x)[0]
         for experts in model.stages[1:]:
             idx = rmi_route(pred, len(experts), model.cfg.target_max)

@@ -43,7 +43,7 @@ _SIGNATURES = {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],
     },
     "rmi_mlp": {
-        "rmi_mlp_launch": [P, I, I, *[P] * 10, I, I, I, I, I, P, P],
+        "rmi_mlp_launch": [P, I, I, I, *[P] * 10, I, I, I, I, I, P, P],
     },
     "flash_attention": {
         "flash_attention_launch": [P, P, P, P, I, *[I] * 6, *[L] * 9, I, I, I, F, I, I, P, P, P],

@@ -8,7 +8,9 @@ full-verify mode), and return per-query int32 counts (and the packed
 LSB-first hit words, (nq, ceil(nd/32)) int32).  A CPU tensor runs the
 plain version (``ref.py``); a CUDA tensor launches the CUDA kernel
 (``csrc/hamming_filter.cu``) or raises.  The kernel masks ragged nq/nd
-itself, so no tile padding is needed; ``_pad_col_hits`` and
+itself, so no tile padding is needed (the Hamming distances run on the
+tensor cores as +-1 int8 products: ``csrc/hamming_filter.cu``);
+``_pad_col_hits`` and
 ``_tail_word_mask`` serve callers whose db carries zero rows past the
 live ``n`` (capacity slack), exactly as in the reference.
 
@@ -46,8 +48,12 @@ LAUNCHES = "kernel.hamming_filter.launches"
 # the `_stats` bodies, keyed by bitmap mode
 STATS_LAUNCHES = {False: "kernel.hamming_filter_count_stats.launches",
                   True: "kernel.hamming_filter_bitmap_stats.launches"}
-MAX_WORDS = 32  # n_bits <= 1024: the signature tiles' shared-memory budget
-ROWS_PER_BLOCK = 32  # the kernel's query rows per block (kRows)
+MAX_WORDS = 32  # n_bits <= 1024
+ROWS_PER_BLOCK = 128  # the kernel's query rows per block (kRows): grid rows = ceil(nq / 128)
+# a block splits its occupancy triple per 32-row group (its warps' rows
+# never straddle one), so a chunk of ``chunk_rows`` rows may be any
+# multiple of 32
+CHUNK_GRAIN = 32
 # the reference kernel's tile grid, on which its occupancy triples are defined
 DEFAULT_Q_TILE = 128
 DEFAULT_DB_TILE = 256
@@ -136,7 +142,8 @@ def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=No
     ``stats`` (the ``_stats`` bodies): a contiguous (ceil(nq/chunk_rows),
     3) int32 tensor the real pairs' ``[accept, band, reject]`` of each
     chunk of ``chunk_rows`` query rows are ADDED into; ``chunk_rows`` is a
-    multiple of 32 or at least nq (one whole-call triple)."""
+    multiple of ``CHUNK_GRAIN`` (32) or at least nq (one whole-call
+    triple)."""
     _check_operands(q, db, q_sig, db_sig)
     nq, nd = q.shape[0], db.shape[0]
     n_words = -(-nd // 32)
@@ -149,9 +156,9 @@ def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=No
         raise ValueError("bitmap must be (nq, >= ceil(nd/32)) int32 with unit column stride")
     if stats is not None:
         if chunk_rows is None or chunk_rows <= 0 or (
-            chunk_rows % ROWS_PER_BLOCK and chunk_rows < nq
+            chunk_rows % CHUNK_GRAIN and chunk_rows < nq
         ):
-            raise ValueError(f"chunk_rows must be a multiple of {ROWS_PER_BLOCK} or >= nq")
+            raise ValueError(f"chunk_rows must be a multiple of {CHUNK_GRAIN} or >= nq")
         if (stats.dtype != torch.int32 or stats.shape != (-(-nq // chunk_rows), 3)
                 or not stats.is_contiguous()):
             raise ValueError("stats must be a contiguous (ceil(nq/chunk_rows), 3) int32 tensor")

@@ -8,18 +8,30 @@ kernel, where the reference ``vmap``s).  Parameters come in the
 reference's layout, a sequence of ``(W, b)`` pairs with W (in, out)
 (stacked: (E, in, out) and (E, out)), as tensors or numpy arrays, or as
 the port's ``MLP`` modules (one module, or a sequence of them for a
-stage).  Modules are packed into contiguous (E, in, out) fp32 buffers
-on every call, so the buffers always hold the modules' current weights
-and nothing is cached: packing all three stages costs about 0.8-1.0 ms
-a predict at the MS-150k width, and a cache keyed on the parameters'
-versions saved about 0.6 ms of it, below the predict's run-to-run
-spread (NVIDIA H100 80GB HBM3, 700 W; ``chip_smoke.py``'s
-``predict_ab`` line).  bf16 parameters are cast to
-fp32 here, before the launch (the reference casts inside its kernel).
+stage).
+
+The kernel (``csrc/rmi_mlp.cu``, tf32 ``wgmma`` in three terms) reads
+every weight K-major, in ``nn.Linear``'s own (out, in) layout, through
+TMA: ``pack_stage`` stacks the modules' weights as they are (the
+reference's pairs are transposed), splits each into its two tf32 parts
+(hi + lo, rounded to nearest: the kernel's three-term product reads
+both) and stores them K-major in blocks of 8 k, (2, E, ceil(in/8), out, 8)
+fp32: one k-step of the kernel is one contiguous (out, 8) tile, a
+single TMA box.  Modules are packed on every call, so the buffers always hold the
+modules' current weights and nothing is cached (2.1-2.4 ms of enqueued
+work a predict at the MS-150k width, most of it hidden behind the
+launches it feeds: NVIDIA H100 80GB HBM3, 700 W, ``chip_smoke.py``'s
+``predict_ab`` line, ``pack_ms`` beside ``forward_fused_ms``).  bf16
+parameters are cast to fp32 here, before the launch (the reference
+casts inside its kernel).  x reaches the kernel through TMA too:
+``tma_rows`` gives it a row stride that is a multiple of 4 floats
+(featurize's 769 columns are copied into rows of 772; ``rmi_predict``
+does it once for its three stages).
 
 A CPU ``x`` runs the plain version (``ref.py``); a CUDA ``x`` launches
-``csrc/rmi_mlp.cu`` or raises.  The kernel masks the ragged batch and
-the input-dim tail itself, so nothing is padded.
+the kernel or raises.  The kernel masks the ragged batch and the
+input-dim tail itself (TMA's zero fill), so nothing is padded into the
+answer.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from ...obs import metrics as _metrics
 from .. import _build
 from .ref import mlp_forward_ref, stage_forward_ref
 
-__all__ = ["rmi_mlp_forward", "rmi_stage_forward", "stage_params", "pack_modules", "LAUNCHES"]
+__all__ = ["rmi_mlp_forward", "rmi_stage_forward", "stage_params", "pack_stage", "stage_launch",
+           "tma_rows", "LAUNCHES"]
 
 LAUNCHES = {"rmi_mlp": "kernel.rmi_mlp.launches"}
 KERNEL_WIDTHS = (128, 256, 512)  # hidden widths the kernel holds (4 layers)
@@ -46,15 +59,66 @@ def _modules(stacked):
     return stacked if stacked and all(isinstance(m, nn.Module) for m in stacked) else None
 
 
-def pack_modules(experts):
-    """The experts' (weights (E, in, out), biases (E, out)) fp32 stacks,
-    built anew."""
+def _rna_tf32_(bits: torch.Tensor) -> torch.Tensor:
+    """In place on fp32 bit patterns (int32): round to tf32 (10 mantissa
+    bits; to nearest, ties away from zero, as ``cvt.rna.tf32.f32``), so
+    that |w - hi - lo| <= 2^-22 |w| for hi = tf32(w), lo = tf32(w - hi)."""
+    return bits.add_(0x1000).bitwise_and_(-0x2000)
+
+
+def _kernel_layer(w: torch.Tensor) -> torch.Tensor:
+    """(E, out, in) weights -> (2, E, ceil(in/8), out, 8) fp32: [hi, lo]
+    of each weight, K-major in blocks of 8 k (one k-step of the kernel: a
+    contiguous (out, 8) tile for TMA), k >= in zero."""
+    e, n, k = w.shape
+    kb = -(-k // 8)
+    if k % 8:
+        w = torch.nn.functional.pad(w, (0, kb * 8 - k))
+    blocked = w.float().view(e, n, kb, 8).transpose(1, 2)
+    out = torch.empty((2, e, kb, n, 8), dtype=torch.float32, device=w.device)
+    hi, lo = out[0], out[1]
+    hi.copy_(blocked)
+    _rna_tf32_(hi.view(torch.int32))
+    torch.sub(blocked, hi, out=lo)
+    _rna_tf32_(lo.view(torch.int32))
+    return out
+
+
+def pack_stage(stacked, device):
+    """The kernel's operands for one stage, built anew: ``(weights,
+    biases)``; weights[l] of the four hidden layers is (2, E,
+    ceil(in/8), out, 8) fp32, the tf32 parts [hi, lo] of each weight,
+    K-major in blocks of 8 k (``nn.Linear``'s (out, in) rows; the
+    reference's (in, out) pairs are transposed); weights[4] is the head's
+    (E, 1, h4) in fp32, and biases[l] (E, out) fp32."""
+    device = _canon(device)
+    experts = _modules(stacked)
     with torch.no_grad():
-        layers = [m.layers for m in experts]
-        return (
-            [torch.stack([ls[i].weight.T for ls in layers]).float().contiguous() for i in range(len(layers[0]))],
-            [torch.stack([ls[i].bias for ls in layers]).float().contiguous() for i in range(len(layers[0]))],
-        )
+        if experts is not None:
+            layers = [m.layers for m in experts]
+            ws = [torch.stack([ls[i].weight for ls in layers]) for i in range(len(layers[0]))]
+            bs = [torch.stack([ls[i].bias for ls in layers]).float().contiguous() for i in range(len(layers[0]))]
+            if ws[0].device != device:
+                raise ValueError(f"rmi_mlp: the experts lie on {ws[0].device}, x on {device}")
+        else:
+            pairs = list(stacked)
+            ws = [_as_fp32(w, device).transpose(-1, -2) for w, _ in pairs]
+            bs = [_as_fp32(b, device) for _, b in pairs]
+        return [_kernel_layer(w) for w in ws[:-1]] + [ws[-1].float().contiguous()], bs
+
+
+def tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (batch, d) fp32 as the kernel reads it: unit column stride,
+    a row stride that is a multiple of 4 floats and a 16-byte aligned
+    base; copied into padded rows when it is not so already.  A CPU
+    tensor comes back as it is."""
+    x = x.detach().to(torch.float32)
+    if x.device.type != "cuda" or (x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0):
+        return x
+    n, d = x.shape
+    buf = torch.empty((n, -(-d // 4) * 4), dtype=torch.float32, device=x.device)
+    buf[:, :d] = x
+    return buf[:, :d]
 
 
 def _canon(device) -> torch.device:
@@ -76,11 +140,15 @@ def _as_fp32(a, device):
 
 def stage_params(stacked, device):
     """``(weights, biases)`` of one stage as contiguous fp32 tensors on
-    ``device``: weights[l] (E, in, out), biases[l] (E, out)."""
+    ``device`` in the reference's layout (the plain version's operands):
+    weights[l] (E, in, out), biases[l] (E, out)."""
     device = _canon(device)
     experts = _modules(stacked)
     if experts is not None:
-        ws, bs = pack_modules(experts)
+        with torch.no_grad():
+            layers = [m.layers for m in experts]
+            ws = [torch.stack([ls[i].weight.T for ls in layers]).float().contiguous() for i in range(len(layers[0]))]
+            bs = [torch.stack([ls[i].bias for ls in layers]).float().contiguous() for i in range(len(layers[0]))]
         if ws[0].device != device:
             raise ValueError(f"rmi_mlp: the experts lie on {ws[0].device}, x on {device}")
         return ws, bs
@@ -89,34 +157,43 @@ def stage_params(stacked, device):
 
 
 def _check_shapes(ws, bs, x):
+    """The kernel's shapes (``pack_stage``'s): ``ws[l]`` (2, E, ceil(in/8),
+    out, 8) for the hidden layers, the head (E, 1, h4)."""
     if x.dim() != 2:
         raise ValueError(f"x must be (batch, d_in), got {tuple(x.shape)}")
     if len(ws) != 5 or len(bs) != 5:
         raise ValueError(f"the fused kernel runs 4 hidden layers and a head, got {len(ws)} layers")
-    e, k = ws[0].shape[0], x.shape[1]
-    for w, b in zip(ws, bs):
-        if w.dim() != 3 or w.shape[0] != e or w.shape[1] != k or b.shape != (e, w.shape[2]):
+    e, k = ws[-1].shape[0], x.shape[1]
+    for w, b in zip(ws[:-1], bs[:-1]):
+        if w.dim() != 5 or w.shape[:3] != (2, e, -(-k // 8)) or w.shape[4] != 8 or b.shape != (e, w.shape[3]):
             raise ValueError(f"layer shapes do not chain: W {tuple(w.shape)}, b {tuple(b.shape)} after width {k}")
-        k = w.shape[2]
-    widths = [w.shape[2] for w in ws[:-1]]
+        k = w.shape[3]
+    widths = [w.shape[3] for w in ws[:-1]]
     if any(h not in KERNEL_WIDTHS for h in widths):
         raise ValueError(f"hidden widths {widths}: the kernel takes each of {KERNEL_WIDTHS}")
+    if ws[-1].shape != (e, 1, k) or bs[-1].shape != (e, 1):
+        raise ValueError(f"the head must be (E, 1, {k}), got {tuple(ws[-1].shape)}")
 
 
-def _launch(ws, bs, x):
+def stage_launch(packed, x) -> torch.Tensor:
+    """One launch on ``pack_stage``'s operands: x (batch, d_in) on the
+    card -> (E, batch) fp32."""
+    ws, bs = packed
+    x = tma_rows(x)
     _check_shapes(ws, bs, x)
-    e, (n, d_in) = ws[0].shape[0], x.shape
-    head_w, head_b = ws[-1][..., 0].contiguous(), bs[-1][..., :1].contiguous()
-    operands = [x, *ws[:-1], *bs[:-1], head_w, head_b]
-    if any(t.data_ptr() % 16 for t in operands[1:]):
-        raise ValueError("rmi_mlp: parameter buffers must be 16-byte aligned")
+    e, (n, d_in) = ws[-1].shape[0], x.shape
+    head_w, head_b = ws[-1][:, 0, :], bs[-1]
+    if any(t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous() for t in ws + bs):
+        raise ValueError("rmi_mlp: packed operands must be contiguous fp32 on x's device")
+    if any(t.data_ptr() % 16 for t in ws):
+        raise ValueError("rmi_mlp: weight buffers must be 16-byte aligned")
     out = torch.empty((e, n), dtype=torch.float32, device=x.device)
     if n == 0 or e == 0:
         return out
-    h = [w.shape[2] for w in ws[:-1]]
+    h = [w.shape[3] for w in ws[:-1]]
     layer_ptrs = [t.data_ptr() for pair in zip(ws[:-1], bs[:-1]) for t in pair]
     err = _build.load("rmi_mlp").rmi_mlp_launch(
-        x.data_ptr(), n, d_in, *layer_ptrs, head_w.data_ptr(), head_b.data_ptr(),
+        x.data_ptr(), n, d_in, x.stride(0), *layer_ptrs, head_w.data_ptr(), head_b.data_ptr(),
         *h, e, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "rmi_mlp")
@@ -129,11 +206,10 @@ def rmi_stage_forward(stacked, x) -> torch.Tensor:
     (E, batch) fp32, one launch on a CUDA ``x``."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    x = x.detach().to(torch.float32).contiguous()
-    ws, bs = stage_params(stacked, x.device)
     if x.device.type == "cpu":
-        return stage_forward_ref(x, ws, bs)
-    return _launch(ws, bs, x)
+        x = x.detach().to(torch.float32).contiguous()
+        return stage_forward_ref(x, *stage_params(stacked, x.device))
+    return stage_launch(pack_stage(stacked, x.device), x)
 
 
 def rmi_mlp_forward(params, x) -> torch.Tensor:

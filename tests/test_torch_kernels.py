@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from repro.core.range_query import pack_bitmap
 from repro.index.signatures import make_projection as jax_make_projection
+from repro.index.signatures import hamming_words as jax_hamming_words
 from repro.index.signatures import sign_signatures as jax_sign_signatures
 from repro.index import sweep as jsweep
 from repro.kernels.hamming_filter import ops as jhf
@@ -28,6 +29,7 @@ from repro.kernels.label_prop.ref import col_reduce_ref as jax_col_reduce_ref
 from repro.kernels.label_prop.ref import label_prop_rect_ref as jax_rect_ref
 
 from repro_torch.index import sweep as tsweep
+from repro_torch.index.signatures import hamming_words
 from repro_torch.kernels.hamming_filter import ops as thf
 from repro_torch.kernels.label_prop import (
     col_reduce,
@@ -119,6 +121,37 @@ def test_hamming_filter_count_matches_bitmap_and_jax(nq, nd, d, n_bits, eps, t_l
     tcb, _ = thf.hamming_filter_bitmap(_t(q), _t(db), _t(qs), _t(dbs), eps, t_hi, t_lo=t_lo)
     np.testing.assert_array_equal(tc.numpy(), tcb.numpy())
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+
+
+def _plus_minus_one(words: np.ndarray) -> torch.Tensor:
+    """The card's expansion of packed LSB-first words (``csrc/
+    hamming_filter.cu`` ``plus_minus_one``): bit l of word c becomes the
+    int8 1 - 2 bit at column 32 c + l, a nibble at a time,
+    (n * 0x204081) & 0x01010101 then * 0xFE + 0x01010101."""
+    w = torch.from_numpy(words.astype(np.int64))
+    nib = (w[..., None] >> (4 * torch.arange(8))) & 0xF
+    four = ((nib * 0x00204081) & 0x01010101) * 0xFE + 0x01010101
+    b = (four[..., None] >> (8 * torch.arange(4))) & 0xFF
+    return b.to(torch.uint8).view(torch.int8).reshape(words.shape[0], -1)
+
+
+@pytest.mark.parametrize("n_bits", [32, 64, 512, 1024])
+def test_plus_minus_one_dot_is_the_hamming_distance(n_bits):
+    """The card's Hamming distances: the int32 dot of the +-1 int8 rows is
+    n_bits - 2 ham, exactly the reference's popcount (and the port's), for
+    every width the kernel takes; column 32 c + l carries bit l of word c."""
+    rng = np.random.default_rng(n_bits)
+    words = rng.integers(0, 2**32, (40, n_bits // 32), dtype=np.uint32)
+    words[0], words[1] = 0, 0xFFFFFFFF  # all +1, all -1
+    pm = _plus_minus_one(words)
+    assert pm.shape == (40, n_bits)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little").reshape(40, n_bits)
+    np.testing.assert_array_equal(pm.numpy(), 1 - 2 * bits.astype(np.int8))
+    dot = pm[:17].to(torch.int32) @ pm[17:].to(torch.int32).T
+    ham = (n_bits - dot) // 2
+    assert ((n_bits - dot) % 2 == 0).all()
+    np.testing.assert_array_equal(ham.numpy(), np.asarray(jax_hamming_words(jnp.asarray(words[:17]), jnp.asarray(words[17:]))))
+    np.testing.assert_array_equal(ham.numpy(), hamming_words(_t(words[:17]), _t(words[17:])).numpy())
 
 
 @pytest.mark.parametrize("eps,t_lo,t_hi", [(0.5, -1, 30), (0.5, 40, 60), (1.2, 10, 40), (1.0, 64, 128)])

@@ -30,7 +30,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data.synthetic import ctr_batch
 from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag.ops import LAUNCHES as EB_LAUNCHES
-from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
+from repro_torch.kernels.hamming_filter import hamming_filter_bitmap, hamming_filter_count, hamming_filter_into
 from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
 from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_prop_update, label_propagation_pallas
 from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
@@ -184,28 +184,57 @@ def _card():
     return torch.device("cuda")
 
 
+# (nq, nd, n_bits, eps, t_lo, t_hi): ragged against the kernel's 128 x 128
+# tiles (1, 63, 129 query rows; 1, 31, 257 db rows), 64 to 1024 bits,
+# full-verify mode (t_lo = -1) and saturated bands (t_hi >= n_bits,
+# eps > 1: every pair is a band pair)
+GPU_HAMMING_CASES = [
+    (70, 301, 128, 0.5, -1, 70), (33, 1000, 128, 0.45, 40, 70), (5, 40, 128, 1.2, 20, 70),
+    (1, 1, 64, 0.5, -1, 40), (63, 31, 512, 0.5, 200, 260), (129, 257, 1024, 0.5, 420, 540),
+    (129, 31, 64, 0.5, -1, 64), (63, 257, 512, 1.2, 100, 512), (1, 257, 1024, 0.5, -1, 1024),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nd,eps,t_lo", [(70, 301, 0.5, -1), (33, 1000, 0.45, 40), (5, 40, 1.2, 20)])
-def test_gpu_hamming_filter_matches_plain(nq, nd, eps, t_lo, metrics_on):
+@pytest.mark.parametrize("nq,nd,n_bits,eps,t_lo,t_hi", GPU_HAMMING_CASES)
+def test_gpu_hamming_filter_matches_plain(nq, nd, n_bits, eps, t_lo, t_hi, metrics_on):
+    """Every body (count, bitmap, and both with stats at chunk_rows 128
+    and >= nq) against the plain version: bits may differ only at the fp32
+    boundary, counts by those bits, triples not at all."""
     dev = _card()
-    rng = np.random.default_rng(nq)
+    rng = np.random.default_rng(nq + nd + n_bits)
     x = rng.standard_normal((nq + nd, 32)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
-    sig = sign_signatures(x, make_projection(32, 128, 0), device=dev)
+    sig = sign_signatures(x, make_projection(32, n_bits, 0), device=dev)
     q, db = torch.from_numpy(x[:nq]).to(dev), torch.from_numpy(x[nq:]).to(dev)
+    qs, dbs = sig[:nq].contiguous(), sig[nq:].contiguous()
     launches = metrics.counter("kernel.hamming_filter.launches")
     before = launches.value
-    kc, kb = hamming_filter_bitmap(q, db, sig[:nq].contiguous(), sig[nq:].contiguous(), eps, 70, t_lo=t_lo)
+    kc, kb = hamming_filter_bitmap(q, db, qs, dbs, eps, t_hi, t_lo=t_lo)
     torch.cuda.synchronize()
     assert launches.value == before + 1
-    pc, pb = hamming_filter_ref(q, db, sig[:nq], sig[nq:], eps, t_lo, 70)
+    pc, pb = hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi)
     diff = (kb ^ pb).cpu().numpy().view(np.uint32)
     flips = np.unpackbits(diff.view(np.uint8), bitorder="little").reshape(nq, -1)[:, :nd]
     pi, pj = np.nonzero(flips)
     dots = (x[:nq][pi].astype(np.float64) * x[nq:][pj].astype(np.float64)).sum(1)
     assert (np.abs(dots - (1 - eps)) <= 2 * 31 * 2.0 ** -24).all()
+    flips_per_row = torch.from_numpy(flips.sum(1).astype(np.int32)).to(dev)
+    assert ((kc - pc).abs() <= flips_per_row).all()
     if not len(pi):
         assert torch.equal(kc, pc) and torch.equal(kb, pb)
+    assert torch.equal(hamming_filter_count(q, db, qs, dbs, eps, t_hi, t_lo=t_lo), kc)
+    for chunk in (128, max(nq, 129)):
+        plain = hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, stats_chunk=chunk)[2]
+        for bitmap in (False, True):
+            counts = torch.zeros(nq, dtype=torch.int32, device=dev)
+            words = torch.zeros_like(kb) if bitmap else None
+            stats = torch.zeros((-(-nq // chunk), 3), dtype=torch.int32, device=dev)
+            hamming_filter_into(q, db, qs, dbs, eps, t_lo, t_hi, counts, words, stats=stats, chunk_rows=chunk)
+            torch.cuda.synchronize()
+            assert torch.equal(stats, plain) and torch.equal(counts, kc)
+            if bitmap:
+                assert torch.equal(words, kb)
 
 
 @pytest.mark.gpu

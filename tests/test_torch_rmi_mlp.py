@@ -9,6 +9,10 @@ and the estimator's predict path through it, against the JAX package
 * ``rmi_predict``: each stage's route must agree except where the
   routing quantity lies within that tolerance of an integer boundary;
   such rows are counted and printed, never avoided by choice of data.
+* the card's arithmetic (three tf32 products, ``csrc/rmi_mlp.cu``),
+  emulated here: within the same 2e-5 of the reference at the MS-150k
+  widths, where a single tf32 pass misses it or moves a route; its
+  packing (tf32 parts, K-major blocks of 8) gives the weights back.
 
 On the CPU the port's wrappers run the plain version (``ref.py``); the
 ``gpu`` test holds the CUDA kernel to it on the card.
@@ -170,10 +174,87 @@ def test_packed_modules_follow_training():
 def test_kernel_shape_checks(hidden, match):
     """Shapes the CUDA kernel does not hold raise before any launch (the
     plain version on the CPU takes them)."""
-    ws, bs = tops.stage_params([_module(_mlp_np(np.random.default_rng(1), 9, hidden))], torch.device("cpu"))
+    experts = [_module(_mlp_np(np.random.default_rng(1), 9, hidden))]
     with pytest.raises(ValueError, match=match):
-        tops._check_shapes(ws, bs, torch.zeros(3, 9))
+        tops._check_shapes(*tops.pack_stage(experts, torch.device("cpu")), torch.zeros(3, 9))
+    ws, bs = tops.stage_params(experts, torch.device("cpu"))
     assert tops.rmi_stage_forward([(w, b) for w, b in zip(ws, bs)], torch.zeros(3, 9)).shape == (1, 3)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 by bit masking: 10 mantissa bits, to nearest
+    with ties away from zero (``cvt.rna.tf32.f32``)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _emulate_tf32(params, x, terms: int) -> np.ndarray:
+    """The card's forward on the CPU: each hidden layer's product from
+    tf32 parts of both operands, ``terms`` 3 (a_hi b_hi + a_hi b_lo +
+    a_lo b_hi, the kernel's) or 1 (a_hi b_hi: one tf32 pass), each a
+    product of exact tf32 values summed in fp32 (TF32 off); the head in
+    fp32, as the kernel's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h = torch.from_numpy(x)
+    for w, b in params[:-1]:
+        w = torch.from_numpy(w)
+        ah, bh = _tf32(h), _tf32(w)
+        y = ah @ bh
+        if terms == 3:
+            y = y + ah @ _tf32(w - bh) + _tf32(h - ah) @ bh
+        h = torch.relu(y + torch.from_numpy(b))
+    w, b = params[-1]
+    return (h @ torch.from_numpy(w) + torch.from_numpy(b))[:, 0].numpy()
+
+
+def test_three_tf32_products_hold_the_card_gate():
+    """Three tf32 products a layer stay within the card's gate, 2e-5
+    (1 + |z|), of the reference's Pallas kernel at the MS-150k widths
+    (d_in 769, 512-512-256-128); one tf32 pass misses the gate or routes
+    a row to another expert."""
+    rng = np.random.default_rng(18)
+    d_in = 769
+    params = _mlp_np(rng, d_in)
+    x = np.concatenate([rng.standard_normal((192, d_in - 1)), rng.uniform(0.3, 0.6, (192, 1))], axis=1)
+    x = x.astype(np.float32)
+    want = np.asarray(jops.rmi_mlp_forward(_jax(params), jnp.asarray(x), batch_tile=64))
+    gaps = {t: float((np.abs(_emulate_tf32(params, x, t) - want) / (1 + np.abs(want))).max()) for t in (3, 1)}
+    target_max = float(2.0 * np.abs(want).max())
+
+    def routes(z):
+        return np.clip(np.floor(z / target_max * 4), 0, 3)
+
+    moved = int((routes(_emulate_tf32(params, x, 1)) != routes(want)).sum())
+    print(f"3xTF32 gap {gaps[3]:.2e}, one tf32 pass gap {gaps[1]:.2e}, {moved} routes moved by one pass")
+    assert gaps[3] <= TOL
+    assert gaps[1] > TOL or moved > 0
+
+
+def test_kernel_packing_reconstructs_weights():
+    """``pack_stage`` (modules or the reference's pairs): each hidden
+    layer as tf32 parts (13 low bits zero) in K-major blocks of 8 k, the
+    blocks inverted exactly, hi + lo within 2^-22 of each weight; the
+    head and the biases as they are."""
+    torch.manual_seed(3)
+    experts = [trmi.MLP(33, (256, 512, 128, 256)) for _ in range(3)]
+    ws, bs = tops.pack_stage(experts, torch.device("cpu"))
+    pairs = [(w.numpy(), b.numpy()) for w, b in zip(*tops.stage_params(experts, torch.device("cpu")))]
+    ws2, bs2 = tops.pack_stage(pairs, torch.device("cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(ws + bs, ws2 + bs2))
+    with torch.no_grad():
+        for l, (w, k) in enumerate(zip(ws[:-1], (33, 256, 512, 128))):
+            want = torch.stack([m.layers[l].weight for m in experts])
+            e, n, kb = want.shape[0], want.shape[1], -(-k // 8)
+            assert w.shape == (2, e, kb, n, 8)
+            assert not (w.view(torch.int32) & 0x1FFF).any()
+            padded = torch.nn.functional.pad(want, (0, 8 * kb - k))
+            hi = _tf32(padded)
+            assert torch.equal(w[0], hi.view(e, n, kb, 8).transpose(1, 2))
+            assert torch.equal(w[1], _tf32(padded - hi).view(e, n, kb, 8).transpose(1, 2))
+            got = (w[0] + w[1]).transpose(1, 2).reshape(e, n, 8 * kb)[..., :k]
+            assert ((got - want).abs() <= 2.0 ** -22 * want.abs()).all()
+            assert torch.equal(bs[l], torch.stack([m.layers[l].bias for m in experts]))
+        assert torch.equal(ws[-1], torch.stack([m.layers[-1].weight for m in experts]))
 
 
 @pytest.fixture
@@ -191,13 +272,24 @@ def _card():
     return torch.device("cuda")
 
 
+# (d_in, batch, experts, hidden): the d_in tail (9, 33, 769 = 96 x 8 + 1),
+# ragged 64-row tiles (1, 63, 65, 1000), 1-4 experts, each width in each
+# place (a 512-wide layer runs in two passes)
+GPU_CASES = [
+    (769, 1000, 4, HIDDEN), (33, 1, 1, HIDDEN), (769, 77, 2, HIDDEN),
+    (9, 1, 1, (128, 128, 128, 128)), (9, 65, 4, (512, 128, 256, 512)),
+    (33, 63, 2, (256, 512, 128, 256)), (33, 1000, 3, (512, 256, 512, 128)),
+    (769, 63, 3, HIDDEN), (769, 65, 1, (128, 512, 512, 256)),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d_in,batch,experts", [(769, 1000, 4), (33, 1, 1), (769, 77, 2)])
-def test_gpu_rmi_mlp_matches_plain(d_in, batch, experts, metrics_on):
+@pytest.mark.parametrize("d_in,batch,experts,hidden", GPU_CASES)
+def test_gpu_rmi_mlp_matches_plain(d_in, batch, experts, hidden, metrics_on):
     dev = _card()
     rng = np.random.default_rng(d_in + batch)
     params = [(torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev))
-              for w, b in _mlp_np(rng, d_in, experts=experts)]
+              for w, b in _mlp_np(rng, d_in, hidden, experts=experts)]
     x = torch.from_numpy(rng.standard_normal((batch, d_in)).astype(np.float32)).to(dev)
     launches = metrics.counter("kernel.rmi_mlp.launches")
     before = launches.value

@@ -335,7 +335,12 @@ def test_one_copy_with_everything_on():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,nd,chunk,t_lo", [(70, 301, 64, -1), (333, 1000, 128, 40), (5, 40, 5, 20)])
+@pytest.mark.parametrize("nq,nd,chunk,t_lo", [
+    (70, 301, 64, -1), (333, 1000, 128, 40), (5, 40, 5, 20),
+    # the kernel's blocks are 128 query rows: chunks of 32, 96 and 160
+    # split a block's triple, and 129 or 257 rows leave a ragged block
+    (257, 129, 32, 30), (129, 257, 96, -1), (300, 31, 160, 45), (129, 1, 129, 40),
+])
 def test_gpu_stats_bodies_match_plain(nq, nd, chunk, t_lo):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
