@@ -39,8 +39,11 @@ Phases (each prints one JSON line; any failure exits nonzero):
    the route and core-test flips it causes counted, and the fp32
    ``F.linear`` chain (five calls an expert) as its library yardstick;
    ``label_prop_round`` and the square update on the components slab;
-   the update rows also queued behind a sleep (the kernels' own time),
-   the main path's one also before phase 6 ran; ``predict_ab``:
+   the update rows, K2, K3 and ``label_prop_round`` also queued behind a
+   sleep (the kernels' own time), the main path's update also before
+   phase 6 ran; K2, K3 and ``label_prop_round`` with their slab's set
+   bits, nonzero words and bits a row, and ptxas's registers and spill
+   bytes; ``predict_ab``:
    ``laf.predict``'s work with the fused forward and with the
    ``nn.Linear`` modules it replaced, in alternating turns, and its parts.
    The Hamming-filter rows are bound by max(bytes / 3.35 TB/s, 2 nq nd
@@ -271,6 +274,44 @@ def build_notes(name: str) -> dict:
     return notes
 
 
+def ptxas_entries(name: str, kernel: str) -> dict:
+    """Registers and spill-store bytes that ptxas reported in this run's
+    build of ``csrc/<name>.cu`` for each instantiation of ``kernel``,
+    keyed ``kernel<flags>`` by its bool template arguments as 0/1."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    out = {}
+    for chunk in _build.BUILD_LOG.get(name, "").split("Compiling entry function '")[1:]:
+        entry = chunk.split("'", 1)[0]
+        m = re.search(rf"\d{kernel}(?:I((?:Lb[01]E)+)E)?", entry)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        if m and regs:
+            flags = ",".join(re.findall(r"Lb([01])E", m.group(1) or ""))
+            out[f"{kernel}<{flags}>" if flags else kernel] = {
+                "registers": int(regs.group(1)), "spill_bytes": int(spill.group(1)) if spill else None}
+    return out
+
+
+def slab_stats(bitmap) -> dict:
+    """What sets a packed slab's per-bit work: its set bits, the share
+    of its words that are nonzero, the bits of a nonzero word, and the
+    set bits of a row at the median, the 90th percentile and the most."""
+    import torch
+
+    from repro_torch.index.signatures import popcount32
+
+    pc = popcount32(bitmap)
+    rows = pc.sum(dim=1, dtype=torch.int32).float()
+    set_bits = int(pc.sum(dtype=torch.int64))
+    nonzero = int((pc > 0).sum(dtype=torch.int64))
+    return {"set_bits": set_bits, "nonzero_word_share": nonzero / max(1, pc.numel()),
+            "bits_per_nonzero_word": set_bits / max(1, nonzero),
+            "row_bits_p50_p90_max": [float(rows.quantile(0.5)), float(rows.quantile(0.9)), float(rows.max())]}
+
+
 def popc_ms(nq: int, nd: int, w: int, clock_hz: float) -> float:
     """The CUDA cores' floor for the Hamming distances as 32-bit POPCs:
     nq nd w of them at 16 an SM and clock on 132 SMs."""
@@ -496,7 +537,10 @@ def check_label_prop(inp, before_components):
     """K2, the update step and K3 vs their plain versions on the main
     path's full slab (exact equality: integer results).
     ``before_components`` is ``update_ms`` read before the components
-    phase ran."""
+    phase ran.  K2 and K3 also report their time queued behind a sleep
+    (``device_ms``: back to back, the host's ~16 us ``ctypes`` enqueue
+    is the floor), the slab's ``slab_stats`` and ptxas's registers and
+    spill bytes for each of their instantiations."""
     import torch
 
     from repro_torch.kernels.label_prop import col_reduce, label_prop_rect
@@ -509,16 +553,20 @@ def check_label_prop(inp, before_components):
     r, w = slab.shape
     cap = w * 32
     vals, weights = torch.where(core_r, rows_t, BIG), valid_r.to(torch.int32)
+    stats = slab_stats(slab)
     out = []
 
     m = label_prop_rect(big_rows, init, slab)
     m_ref = label_prop_rect_ref(big_rows, init, slab)
+    m_out = torch.empty_like(m)
     b_ms, b_by = bound_ms(4 * (r * w + 32 * w + 2 * r))
     out.append({
-        "name": "label_prop_rect", "shape": [r, w], "max_abs_err": int((m.long() - m_ref.long()).abs().max()),
-        "ms": time_ms(lambda: label_prop_rect(big_rows, init, slab)),
+        "name": "label_prop_rect", "shape": [r, w], **stats,
+        "max_abs_err": int((m.long() - m_ref.long()).abs().max()),
+        "ms": time_ms(lambda: label_prop_rect(big_rows, init, slab, out=m_out)),
+        "device_ms": queued_ms(lambda: label_prop_rect(big_rows, init, slab, out=m_out)),
         "plain_ms": time_ms(lambda: label_prop_rect_ref(big_rows, init, slab), reps=2, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptxas_entries("label_prop", "label_prop_rect_kernel"),
     })
 
     update, u = make_update(inp, m)
@@ -538,10 +586,11 @@ def check_label_prop(inp, before_components):
     err = max(int((cmin.long() - rmin.long()).abs().max()), int((csum - rsum).abs().max()))
     b_ms, b_by = bound_ms(4 * (r * w + 2 * r + 64 * w))
     out.append({
-        "name": "col_reduce", "shape": [r, w], "max_abs_err": err,
+        "name": "col_reduce", "shape": [r, w], **stats, "max_abs_err": err,
         "ms": time_ms(lambda: col_reduce(slab, vals, weights)),
+        "device_ms": queued_ms(lambda: col_reduce(slab, vals, weights)),  # with its two output fills
         "plain_ms": time_ms(lambda: col_reduce_ref(slab, vals, weights), reps=2, warmup=1),
-        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptxas_entries("label_prop", "col_reduce_kernel"),
     })
     return all(k["max_abs_err"] == 0 for k in out), out
 
@@ -706,8 +755,8 @@ def check_components(test, eps, truth, dev):
 
     from repro_torch.core.range_query import pack_bitmap_t, range_bitmap
     from repro_torch.core.union_find import compact_labels, label_propagation
-    from repro_torch.index.signatures import popcount32
     from repro_torch.kernels.label_prop import label_prop_round, label_prop_update, label_propagation_pallas
+    from repro_torch.kernels.label_prop.ops import _round_into
     from repro_torch.kernels.label_prop.ref import BIG, label_prop_round_ref, label_prop_update_ref
     from repro_torch.obs import metrics
 
@@ -748,8 +797,9 @@ def check_components(test, eps, truth, dev):
         "rounds_within_64": 1 <= rounds < 64,
         "launches_64_each": launches == {"label_prop_round": 64, "label_prop_update_square": 64},
     }
+    stats = slab_stats(bitmap)
     line = {"phase": "components", "n": n, "words": w, "slab_bytes": 4 * n * w, "n_cores": int(cores.sum()),
-            "set_bits": int(popcount32(bitmap).sum(dtype=torch.int64)), "n_components": int(got.max()) + 1 if len(got) else 0,
+            "set_bits": stats["set_bits"], "n_components": int(got.max()) + 1 if len(got) else 0,
             "exact_dbscan_clusters": truth.n_clusters, "rounds": rounds, "launches": launches,
             "adjacency_s": adjacency_s, "fixpoint_s": fixpoint_s, "fixpoint_ms": fixpoint_ms,
             "plain_label_propagation_s": plain_s, "checks": checks}
@@ -758,13 +808,19 @@ def check_components(test, eps, truth, dev):
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     lab0 = torch.where(core, idx, BIG)
     k = label_prop_round(lab0, bitmap)
+    col0 = torch.full((w * 32,), BIG, dtype=torch.int32, device=dev)
+    col0[:n] = lab0
+    k_out = torch.empty_like(k)
     b_ms, b_by = bound_ms(4 * (n * w + 2 * n))
     rows = [{
-        "name": "label_prop_round", "shape": [n, w],
+        "name": "label_prop_round", "shape": [n, w], **stats,
         "max_abs_err": int((k.long() - label_prop_round_ref(lab0, bitmap).long()).abs().max()),
         "ms": time_ms(lambda: label_prop_round(lab0, bitmap)),
+        # the kernel alone, as the fixpoint launches it (no label fill)
+        "device_ms": queued_ms(lambda: _round_into(col0, bitmap, k_out)),
         "plain_ms": time_ms(lambda: label_prop_round_ref(lab0, bitmap), reps=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": ptxas_entries("label_prop", "label_prop_rect_kernel"),
     }]
     cap = w * 32
     act = torch.zeros(cap, dtype=torch.bool, device=dev)

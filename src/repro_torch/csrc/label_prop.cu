@@ -6,22 +6,53 @@
 //   `label_prop_rect_pallas` (body `_label_prop_kernel` :41):
 //     out[i] = min(row_labels[i], min over set bits j of row i of col_labels[j])
 //   Bound: bytes — each round reads the slab once (4*R*W) plus the
-//   label vectors; the work per set bit is one gather from a label
-//   vector that stays in L2.  Design: one warp per row, lanes stride
-//   over the row's words (coalesced), walk the set bits with __ffs, and
-//   a shuffle tree takes the warp's min.  The TPU grid's sequential
-//   word-tile axis becomes the lanes' loop.
+//   label vectors.  Beside them, one label gather per set bit: the main
+//   path's slab is ~2% dense, 11.0 M gathers a round.
+//   Design: persistent blocks, one an SM (1,024 threads), read the
+//   flag before anything else, so an idle round is 132 blocks that exit.
+//   A block stages col_labels in shared memory (122 KB at W = 952;
+//   where 4*32*W bytes do not fit, the gathers go to global memory
+//   through L1 instead), with its first slab loads already in flight.
+//   Its rows are blockIdx.x + i*gridDim.x, so the slab's dense rows
+//   (on the main path a tenth of the rows hold ~1,976 bits, the median
+//   295) spread over the blocks.  The work unit is 256 words of a row,
+//   two 16-byte loads a lane; a warp claims its next unit from a
+//   shared counter one unit ahead and issues its loads before walking
+//   the current one, so no warp is left with a run of dense rows.  A
+//   lane walks its 8 words' set bits, each gather's min taken one bit
+//   later so that the shared-memory load is not waited on at once; a
+//   shuffle tree takes the warp's min and one shared atomicMin folds it
+//   into the row's; out[i] is written once the block's rows are done.
+//   The TPU grid's sequential word-tile axis becomes the units of a row.
 //
 // col_reduce — replaces repro/kernels/label_prop/kernel.py:173
 //   `col_reduce_pallas` (body `_col_reduce_kernel` :140):
 //     col_min[j] = min of row_vals[i] over rows i with bit (i, j) set
 //                  (INT32_MAX if none)
 //     col_sum[j] = sum of row_weights[i] over the same rows
-//   Bound: bytes — one read of the slab.  Design: a block owns 8 words
-//   (256 columns, one per thread) and a chunk of rows; each warp reads
-//   its word of every row as a broadcast, skips zero words, and the
-//   chunks meet in atomicMin / atomicAdd (integer, so exact in any
-//   order) in place of the TPU's sequential row-tile accumulation.
+//   Bound: bytes — one read of the slab; beside it, a min and an add per
+//   set bit.  Design: a block (32 warps) owns a tile of 128 words (4,096
+//   columns) over a tall chunk of rows, sized so that two blocks an SM
+//   (the most threads an SM holds) cover the slab, and keeps the tile's
+//   min and sum in shared memory (a word's 32 columns at stride 33,
+//   which spreads the lanes' banks).  A warp reads a row of the tile at
+//   a time, one 16-byte load a lane (the next row's load issued before
+//   the current one is worked), lists the nonzero words in shared memory
+//   by a warp prefix sum (branch-free: a lane's 4 words are known at
+//   compile time) and deals them to its lanes, which walk each word's
+//   set bits into the accumulators with shared atomicMin / atomicAdd.
+//   So the work follows the set bits and no lane's dense words set the
+//   warp's pace.  On probe builds, walking each lane's own words,
+//   claiming rows dynamically as K2 does, and fewer warps an SM were all
+//   slower: the walk is bound by latency, which more warps hide.
+//   Rows whose value is INT32_MAX and whose weight is 0 change nothing
+//   and are skipped.  Each block then adds its tile into col_min /
+//   col_sum with one atomicMin and one atomicAdd per touched column
+//   (integers, so exact in any order) in place of the TPU's sequential
+//   row-tile accumulation.
+//
+// Both kernels take 16-byte loads where W % 4 == 0 and the slab is
+// 16-byte aligned, 4-byte loads of the same words otherwise.
 //
 // label_prop_update — the per-round scatter-min + pointer jump of
 //   repro/kernels/label_prop/ops.py:211-214 (jnp inside the reference's
@@ -53,6 +84,7 @@
 // after the fixpoint stay 0.  A null `tele` launches the TELE = false
 // instantiation, the kernel as it was without telemetry.
 
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,52 +98,198 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-__global__ void label_prop_rect_kernel(
+// Words w .. w+3 of a slab row (0 past W): one 16-byte load where VEC
+// (W % 4 == 0 and an aligned slab, so the four are in or out together).
+template <bool VEC>
+__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ row, int w, int W) {
+  if (VEC)
+    return w < W ? __ldcs(reinterpret_cast<const uint4*>(row + w)) : make_uint4(0u, 0u, 0u, 0u);
+  uint4 q;
+  q.x = w < W ? __ldcs(row + w) : 0u;
+  q.y = w + 1 < W ? __ldcs(row + w + 1) : 0u;
+  q.z = w + 2 < W ? __ldcs(row + w + 2) : 0u;
+  q.w = w + 3 < W ? __ldcs(row + w + 3) : 0u;
+  return q;
+}
+
+__device__ __forceinline__ uint32_t nonzero4(const uint4& q) {
+  return (uint32_t)(q.x != 0u) | (uint32_t)(q.y != 0u) << 1 | (uint32_t)(q.z != 0u) << 2 |
+         (uint32_t)(q.w != 0u) << 3;
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint4& q, int k) {
+  const uint32_t lo = (k & 1) ? q.y : q.x, hi = (k & 1) ? q.w : q.z;
+  return (k & 2) ? hi : lo;
+}
+
+constexpr int kRectThreads = 1024;   // one block an SM
+constexpr int kRectStage = 256;      // words of a work unit: 2 uint4 a lane
+constexpr int kRectBatch = 1024;     // rows a block takes at a time
+
+template <bool VEC, bool SMEM>
+__global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
     const int* __restrict__ row_labels, const int* __restrict__ col_labels,
     const uint32_t* __restrict__ bitmap, int R, int W, int* __restrict__ out,
     const int* __restrict__ flag) {
   if (flag != nullptr && *flag == 0) return;
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;
-  const uint32_t* words = bitmap + (size_t)row * W;
-  int m = INT_MAX;
-  for (int c = lane; c < W; c += 32) {
-    uint32_t word = words[c];
-    while (word) {
-      const int b = __ffs(word) - 1;
-      word &= word - 1;
-      m = min(m, col_labels[c * 32 + b]);
+  extern __shared__ int4 s_lab4[];
+  __shared__ int s_rowmin[kRectBatch];
+  __shared__ int s_next;
+  const int* s_lab = reinterpret_cast<const int*>(s_lab4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kWarps = kRectThreads / 32;
+  const int G = gridDim.x;
+  const int S = max(1, (W + kRectStage - 1) / kRectStage);   // units a row
+  // the block's rows are blockIdx.x + i G: dense rows spread over blocks
+  const int rows_b = (int)blockIdx.x < R ? (R - 1 - (int)blockIdx.x) / G + 1 : 0;
+  uint4 nxt[2];
+  auto fetch = [&](int b0, int u) {
+    const uint32_t* words = bitmap + (size_t)(blockIdx.x + (size_t)(b0 + u / S) * G) * W;
+    const int w0 = (u % S) * kRectStage + lane * 4;
+    nxt[0] = load4<VEC>(words, w0, W);
+    nxt[1] = load4<VEC>(words, w0 + 128, W);
+  };
+  for (int b0 = 0; b0 < rows_b; b0 += kRectBatch) {
+    const int nb = min(kRectBatch, rows_b - b0), units = nb * S;
+    int u = warp;  // a warp's first unit; later ones are claimed from s_next
+    if (u < units) fetch(b0, u);
+    if (SMEM && b0 == 0) {  // the first units' loads are in flight meanwhile
+      int4* dst = s_lab4;
+      const int n4 = W * 8;  // W * 32 labels, four a load
+      if ((reinterpret_cast<uintptr_t>(col_labels) & 15) == 0) {
+        const int4* src = reinterpret_cast<const int4*>(col_labels);
+        for (int i = threadIdx.x; i < n4; i += kRectThreads) dst[i] = __ldg(src + i);
+      } else {
+        int* d = reinterpret_cast<int*>(dst);
+        for (int i = threadIdx.x; i < 4 * n4; i += kRectThreads) d[i] = __ldg(col_labels + i);
+      }
     }
+    for (int i = threadIdx.x; i < nb; i += kRectThreads) s_rowmin[i] = INT_MAX;
+    if (threadIdx.x == 0) s_next = kWarps;
+    __syncthreads();
+    int claimed = 0;  // lane 0's claim of the unit after next, read one unit later
+    if (lane == 0) claimed = atomicAdd(&s_next, 1);
+    while (u < units) {
+      const uint4 cur[2] = {nxt[0], nxt[1]};
+      const int cu = u;
+      u = __shfl_sync(0xffffffffu, claimed, 0);
+      if (u < units) fetch(b0, u);
+      if (lane == 0) claimed = atomicAdd(&s_next, 1);
+      const int cw0 = (cu % S) * kRectStage;
+      int m = INT_MAX, last = INT_MAX;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        uint32_t word = pick4(cur[k >> 2], k & 3);
+        const int base = (cw0 + lane * 4 + (k & 3) + 128 * (k >> 2)) * 32;
+        while (word) {
+          const int j = base + __ffs(word) - 1;
+          word &= word - 1;
+          m = min(m, last);
+          last = SMEM ? s_lab[j] : __ldg(col_labels + j);
+        }
+      }
+      m = warp_min(min(m, last));
+      if (lane == 0 && m != INT_MAX) atomicMin(&s_rowmin[cu / S], m);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nb; i += kRectThreads) {
+      const int r = blockIdx.x + (b0 + i) * G;
+      out[r] = min(row_labels[r], s_rowmin[i]);
+    }
+    __syncthreads();
   }
-  m = warp_min(m);
-  if (lane == 0) out[row] = min(row_labels[row], m);
 }
 
-constexpr int kColWords = 8;     // words (x32 columns) per block
-constexpr int kRowChunk = 256;   // rows per block
+constexpr int kTileWords = 128;   // a col_reduce block's column tile: one uint4 a lane
+constexpr int kColThreads = 1024;
+constexpr int kColWarps = kColThreads / 32;  // rows a block steps by
+constexpr int kColBlocksPerSM = 2;
+constexpr int kStride = 33;       // shared accumulator slots a word
+constexpr int kAccSlots = kTileWords * kStride;
+constexpr int kColSmem = (int)sizeof(int) * (2 * kAccSlots + 2 * kColWarps * kTileWords);
 
-__global__ void __launch_bounds__(kColWords * 32) col_reduce_kernel(
-    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
-    const int* __restrict__ row_weights, int R, int W,
-    int* __restrict__ col_min, int* __restrict__ col_sum) {
-  const int wcol = blockIdx.x * kColWords + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (wcol >= W) return;
-  const int r0 = blockIdx.y * kRowChunk;
-  const int r1 = min(R, r0 + kRowChunk);
-  int mn = INT_MAX, sm = 0;
-  for (int i = r0; i < r1; ++i) {
-    const uint32_t word = bitmap[(size_t)i * W + wcol];
-    if (word == 0u) continue;
-    if ((word >> lane) & 1u) {
-      mn = min(mn, row_vals[i]);
-      sm += row_weights[i];
-    }
+// The lane's exclusive prefix of v over the warp, and the warp's total.
+__device__ __forceinline__ int warp_exclusive_sum(int v, int lane, int& total) {
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
   }
-  const int col = wcol * 32 + lane;
-  if (mn != INT_MAX) atomicMin(&col_min[col], mn);
-  if (sm != 0) atomicAdd(&col_sum[col], sm);
+  total = __shfl_sync(0xffffffffu, x, 31);
+  return x - v;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kernel(
+    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
+    const int* __restrict__ row_weights, int R, int W, int chunk_rows,
+    int* __restrict__ col_min, int* __restrict__ col_sum) {
+  extern __shared__ int4 s_col4[];
+  int* s_min = reinterpret_cast<int*>(s_col4);
+  int* s_sum = s_min + kAccSlots;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the warp's list of its row's nonzero words, and where each goes
+  uint32_t* s_word = reinterpret_cast<uint32_t*>(s_sum + kAccSlots) + warp * kTileWords;
+  int* s_base = s_sum + kAccSlots + (kColWarps + warp) * kTileWords;
+  for (int i = threadIdx.x; i < kAccSlots; i += kColThreads) {
+    s_min[i] = INT_MAX;
+    s_sum[i] = 0;
+  }
+  __syncthreads();
+  const int t0 = blockIdx.x * kTileWords;         // the tile's first word
+  const int wl = t0 + lane * 4;                    // the lane's first word
+  const int r0 = blockIdx.y * chunk_rows;
+  const int r1 = min(R, r0 + chunk_rows);
+  int r = r0 + warp;                               // the warp's next row
+  uint4 nxt;
+  int nv, nw;
+  auto fetch = [&](int i) {
+    nv = __ldg(row_vals + i);
+    nw = __ldg(row_weights + i);
+    nxt = load4<VEC>(bitmap + (size_t)i * W, wl, W);
+  };
+  if (r < r1) fetch(r);
+  while (r < r1) {
+    const uint4 cur = nxt;
+    const int v = nv, wt = nw;  // the same in every lane
+    r += kColWarps;
+    if (r < r1) fetch(r);
+    if (v == INT_MAX && wt == 0) continue;  // the row changes nothing
+    // list the nonzero words (branch-free: k is known at compile time) ...
+    const uint32_t nz = nonzero4(cur);
+    int total;
+    int pos = warp_exclusive_sum(__popc(nz), lane, total);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if ((nz >> k) & 1u) {
+        s_word[pos] = pick4(cur, k);
+        s_base[pos] = (lane * 4 + k) * kStride;
+        ++pos;
+      }
+    __syncwarp();
+    // ... and deal them to the lanes, so the densest lane does not set the pace
+    for (int e = lane; e < total; e += 32) {
+      uint32_t word = s_word[e];
+      const int base = s_base[e];
+      do {
+        const int j = base + __ffs(word) - 1;
+        word &= word - 1;
+        if (v != INT_MAX) atomicMin(&s_min[j], v);
+        if (wt != 0) atomicAdd(&s_sum[j], wt);
+      } while (word);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < kTileWords * 32; c += kColThreads) {
+    const int word = t0 + (c >> 5);
+    if (word >= W) break;
+    const int j = (c >> 5) * kStride + (c & 31);
+    const int mn = s_min[j], sm = s_sum[j];
+    if (mn != INT_MAX) atomicMin(&col_min[word * 32 + (c & 31)], mn);
+    if (sm != 0) atomicAdd(&col_sum[word * 32 + (c & 31)], sm);
+  }
 }
 
 __device__ __forceinline__ int scattered(const int* lab, const int* m,
@@ -161,17 +339,57 @@ __global__ void label_prop_update_kernel(
   }
 }
 
+// The card's SM count and the shared memory a K2 block may stage labels
+// in (the opt-in limit less K2's static arrays), read once a device; the
+// kernels that take dynamic shared memory are allowed it then.
+struct Card {
+  int sms = 0, smem_optin = 0;
+};
+
+Card card() {
+  static Card cards[64];
+  int d = 0;
+  cudaGetDevice(&d);
+  Card& c = cards[d & 63];
+  if (c.sms == 0) {
+    cudaDeviceGetAttribute(&c.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, d);
+    cudaFuncAttributes fa;
+    cudaFuncGetAttributes(&fa, label_prop_rect_kernel<true, true>);
+    c.smem_optin -= (int)fa.sharedSizeBytes;  // what is left for the staged labels
+    cudaFuncSetAttribute(label_prop_rect_kernel<true, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_optin);
+    cudaFuncSetAttribute(label_prop_rect_kernel<false, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_optin);
+    cudaFuncSetAttribute(col_reduce_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
+    cudaFuncSetAttribute(col_reduce_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
+    cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, d);
+  }
+  return c;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
 
 extern "C" int label_prop_rect_launch(
     const int* row_labels, const int* col_labels, const int* bitmap, int R,
     int W, int* out, const int* flag, void* stream) {
   if (R <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (int)(((long long)R * 32 + threads - 1) / threads);
-  label_prop_rect_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      row_labels, col_labels, reinterpret_cast<const uint32_t*>(bitmap), R, W,
-      out, flag);
+  const Card c = card();
+  const int blocks = (int)std::min<long long>(c.sms, ((long long)R + 31) / 32);
+  const size_t smem = (size_t)W * 32 * sizeof(int);
+  const bool vec = W % 4 == 0 && aligned16(bitmap);
+  const bool staged = smem <= (size_t)c.smem_optin;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(bitmap);
+  if (staged && vec)
+    label_prop_rect_kernel<true, true><<<blocks, kRectThreads, smem, s>>>(row_labels, col_labels, bits, R, W, out, flag);
+  else if (staged)
+    label_prop_rect_kernel<false, true><<<blocks, kRectThreads, smem, s>>>(row_labels, col_labels, bits, R, W, out, flag);
+  else if (vec)
+    label_prop_rect_kernel<true, false><<<blocks, kRectThreads, 0, s>>>(row_labels, col_labels, bits, R, W, out, flag);
+  else
+    label_prop_rect_kernel<false, false><<<blocks, kRectThreads, 0, s>>>(row_labels, col_labels, bits, R, W, out, flag);
   return (int)cudaGetLastError();
 }
 
@@ -179,10 +397,18 @@ extern "C" int col_reduce_launch(
     const int* bitmap, const int* row_vals, const int* row_weights, int R,
     int W, int* col_min, int* col_sum, void* stream) {
   if (R <= 0 || W <= 0) return 0;
-  dim3 grid((W + kColWords - 1) / kColWords, (R + kRowChunk - 1) / kRowChunk);
-  col_reduce_kernel<<<grid, kColWords * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const uint32_t*>(bitmap), row_vals, row_weights, R, W,
-      col_min, col_sum);
+  // a block per slot of the card: tiles x row chunks, chunks a multiple of a block step
+  const int tiles = (W + kTileWords - 1) / kTileWords;
+  const int want = std::max(1, (kColBlocksPerSM * card().sms + tiles - 1) / tiles);
+  int chunk = (R + want - 1) / want;
+  chunk = (chunk + kColWarps - 1) / kColWarps * kColWarps;
+  const dim3 grid(tiles, (R + chunk - 1) / chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(bitmap);
+  if (W % 4 == 0 && aligned16(bitmap))
+    col_reduce_kernel<true><<<grid, kColThreads, kColSmem, s>>>(bits, row_vals, row_weights, R, W, chunk, col_min, col_sum);
+  else
+    col_reduce_kernel<false><<<grid, kColThreads, kColSmem, s>>>(bits, row_vals, row_weights, R, W, chunk, col_min, col_sum);
   return (int)cudaGetLastError();
 }
 

@@ -136,7 +136,8 @@ def _card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,p,active_frac", [(515, 0.004, 0.9), (2000, 0.001, 0.8), (1, 1.0, 1.0)])
+@pytest.mark.parametrize("n,p,active_frac", [(515, 0.004, 0.9), (2000, 0.001, 0.8), (1, 1.0, 1.0),
+                                             (4421, 0.0015, 0.85)])  # more rows than an H100's K2 warps
 def test_gpu_components_match_plain(n, p, active_frac, metrics_on):
     dev = _card()
     adj, active = _graph(n, p, n, active_frac)

@@ -203,17 +203,32 @@ def test_plan_sweep_matches_jax():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("r,w,ragged", [(64, 4, False), (128, 8, False), (77, 3, True), (5, 1, True)])
+def _fill(bitmap, case):
+    """The random slab, or an all-zero / all-ones one of its shape."""
+    if case == "zeros":
+        return np.zeros_like(bitmap)
+    if case == "ones":
+        return np.full_like(bitmap, 0xFFFFFFFF)
+    return bitmap
+
+
+# case: False = a random slab against the Pallas kernel in interpret mode;
+# True = a random slab of any shape against its jnp oracle; "zeros" /
+# "ones" = that slab against the Pallas kernel.  (8, 2048): labels of
+# 256 KB, past what the card's kernel stages in shared memory.
+@pytest.mark.parametrize("r,w,ragged", [(64, 4, False), (128, 8, False), (77, 3, True), (5, 1, True),
+                                        (64, 4, "zeros"), (64, 4, "ones"), (8, 2048, True)])
 def test_label_prop_rect_matches_jax(r, w, ragged):
     rng = np.random.default_rng(r * w)
     bitmap = rng.integers(0, 2**32, (r, w), dtype=np.uint32)
     bitmap &= rng.integers(0, 2**32, (r, w), dtype=np.uint32)  # sparser rows
+    bitmap = _fill(bitmap, ragged)
     col = rng.permutation(w * 32).astype(np.int32)
     col[rng.random(w * 32) < 0.3] = BIG
     row = np.full(r, BIG, np.int32)
     active = rng.random(r) < 0.5
     row[active] = rng.integers(0, w * 32, active.sum())
-    if ragged:  # any shape: the jnp oracle of the Pallas kernel
+    if ragged is True:  # any shape: the jnp oracle of the Pallas kernel
         ref = jax_rect_ref(jnp.asarray(row), jnp.asarray(col), jnp.asarray(bitmap), BIG)
     else:
         ref = label_prop_rect_pallas(jnp.asarray(row), jnp.asarray(col), jnp.asarray(bitmap),
@@ -222,13 +237,14 @@ def test_label_prop_rect_matches_jax(r, w, ragged):
     np.testing.assert_array_equal(np.asarray(ref), got.numpy())
 
 
-@pytest.mark.parametrize("r,w,ragged", [(64, 4, False), (96, 6, False), (45, 3, True)])
+@pytest.mark.parametrize("r,w,ragged", [(64, 4, False), (96, 6, False), (45, 3, True),
+                                        (64, 4, "zeros"), (64, 4, "ones"), (8, 2048, True)])
 def test_col_reduce_matches_jax(r, w, ragged):
     rng = np.random.default_rng(r + w)
-    bitmap = rng.integers(0, 2**32, (r, w), dtype=np.uint32)
+    bitmap = _fill(rng.integers(0, 2**32, (r, w), dtype=np.uint32), ragged)
     vals = np.where(rng.random(r) < 0.4, BIG, rng.integers(0, 10_000, r)).astype(np.int32)
     weights = (rng.random(r) < 0.8).astype(np.int32)
-    if ragged:
+    if ragged is True:
         jmin, jsum = jax_col_reduce_ref(jnp.asarray(bitmap), jnp.asarray(vals), jnp.asarray(weights), BIG)
     else:
         jmin, jsum = col_reduce_pallas(jnp.asarray(bitmap), jnp.asarray(vals), jnp.asarray(weights),

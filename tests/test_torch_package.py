@@ -237,15 +237,56 @@ def test_gpu_hamming_filter_matches_plain(nq, nd, n_bits, eps, t_lo, t_hi, metri
                 assert torch.equal(words, kb)
 
 
+def _clustered_slab(r, w, g, density=0.01, clusters=10):
+    """An (r, w) int32 slab ~``density`` dense whose bits cluster: row i
+    sets bits only in the column span of its cluster, as a row of the
+    sweep's slab sets them near its own points."""
+    ncol = w * 32
+    span = -(-ncol // clusters)
+    lo = torch.randint(0, clusters, (r, 1), generator=g) * span
+    cols = torch.arange(ncol)[None, :]
+    inside = (cols >= lo) & (cols < lo + span)
+    bits = inside & (torch.rand(r, ncol, generator=g) < density * ncol / span)
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64)
+    words = (bits.view(r, w, 32).to(torch.int64) * weights).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+# fill: "random" dense words; "zeros"; "ones"; "clustered" ~1% dense;
+# "extremes" clustered with INT32_MAX on most labels and values.  Shapes
+# reach the kernels' edges: W % 4 != 0 (7, 13, 1: 4-byte loads), W = 2048
+# (labels of 256 KB, past shared memory: K2 gathers from global memory),
+# R past and not a multiple of a block's row chunk (4133).
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,w", [(300, 7), (64, 40), (1, 1)])
-def test_gpu_label_prop_kernels_match_plain(r, w):
+@pytest.mark.parametrize("r,w,fill", [
+    (300, 7, "random"), (64, 40, "random"), (1, 1, "random"), (96, 952, "zeros"), (96, 952, "ones"),
+    (1000, 952, "clustered"), (77, 13, "clustered"), (37, 2048, "clustered"), (4133, 64, "clustered"),
+    (130, 952, "extremes"),
+])
+def test_gpu_label_prop_kernels_match_plain(r, w, fill):
     dev = _card()
     g = torch.Generator().manual_seed(r * w)
-    bitmap = torch.randint(-2**31, 2**31 - 1, (r, w), generator=g, dtype=torch.int32).to(dev)
-    col = torch.randint(0, 10**6, (w * 32,), generator=g, dtype=torch.int32).to(dev)
-    row = torch.randint(0, 10**6, (r,), generator=g, dtype=torch.int32).to(dev)
-    assert torch.equal(label_prop_rect(row, col, bitmap), label_prop_rect_ref(row, col, bitmap))
+    if fill == "random":
+        bitmap = torch.randint(-2**31, 2**31 - 1, (r, w), generator=g, dtype=torch.int32)
+    elif fill in ("zeros", "ones"):
+        bitmap = torch.full((r, w), 0 if fill == "zeros" else -1, dtype=torch.int32)
+    else:
+        bitmap = _clustered_slab(r, w, g)
+    bitmap = bitmap.to(dev)
+    col = torch.randint(0, 10**6, (w * 32,), generator=g, dtype=torch.int32)
+    row = torch.randint(0, 10**6, (r,), generator=g, dtype=torch.int32)
+    if fill == "extremes":
+        big = torch.iinfo(torch.int32).max
+        col = torch.where(torch.rand(w * 32, generator=g) < 0.9, big, col)
+        row = torch.where(torch.rand(r, generator=g) < 0.7, big, row)
+    col, row = col.to(dev), row.to(dev)
+    want = label_prop_rect_ref(row, col, bitmap)
+    assert torch.equal(label_prop_rect(row, col, bitmap), want)
+    kept = torch.full((r,), -5, dtype=torch.int32, device=dev)
+    label_prop_rect(row, col, bitmap, out=kept, flag=torch.zeros(1, dtype=torch.int32, device=dev))
+    assert bool((kept == -5).all())  # flag 0: out untouched
+    label_prop_rect(row, col, bitmap, out=kept, flag=torch.ones(1, dtype=torch.int32, device=dev))
+    assert torch.equal(kept, want)
     weights = torch.randint(0, 3, (r,), generator=g, dtype=torch.int32).to(dev)
     for a, b in zip(col_reduce(bitmap, row, weights), col_reduce_ref(bitmap, row, weights)):
         assert torch.equal(a, b)
