@@ -12,7 +12,9 @@ Phases (each prints one JSON line; any failure exits nonzero):
    .fit_split`` (estimator epochs cut to ``--epochs``), then
    ``cluster_laf_dbscan(test, eps=0.55, tau=5, alpha=1.5)`` on the
    30,437-row test split, with every kernel's launch count set to 0
-   just before and read just after;
+   just before and read just after (pass 2's fixpoint: one
+   ``label_prop_fixpoint`` launch, no ``label_prop_rect`` or
+   ``label_prop_update`` launch);
 4. cluster-pass parity: the same sweep through the port's host
    union-find pass (``cluster_device=False``) gives identical labels;
    ground truth: exact DBSCAN of the test split
@@ -28,20 +30,28 @@ Phases (each prints one JSON line; any failure exits nonzero):
    predict is 3 ``rmi_mlp`` launches (one a stage), as on the main path;
 6. components: the exact square adjacency of the test split
    (``range_bitmap``, 30,437 x 952 words) masked to exact DBSCAN's core
-   points, through ``label_propagation_pallas`` (its rounds are
-   ``label_prop_round`` and update launches behind device flags, counts
-   set to 0 just before and read just after): labels equal to exact
-   DBSCAN's clusters on the cores and to plain ``label_propagation``;
+   points, through ``label_propagation_pallas`` (its rounds run in one
+   ``label_prop_fixpoint`` launch and no ``label_prop_round`` or update
+   launch, counts set to 0 just before and read just after): labels
+   equal to exact DBSCAN's clusters on the cores and to plain
+   ``label_propagation``;
 7. each kernel against its plain PyTorch version on the card at the main
    path's shapes, with its time, the plain version's time and its bound;
    ``range_count`` also at DBSCAN++'s gathered sampled-core columns;
    ``rmi_mlp`` at the predict shape (every stage on all test rows) with
    the route and core-test flips it causes counted, and the fp32
    ``F.linear`` chain (five calls an expert) as its library yardstick;
-   ``label_prop_round`` and the square update on the components slab;
-   the update rows, K2, K3 and ``label_prop_round`` also queued behind a
+   ``label_prop_round``, the square update and ``label_prop_fixpoint``
+   in square mode on the components slab, ``label_prop_fixpoint`` in
+   rect mode on the main path's slab (each fixpoint telemetry off and
+   on, held exactly to ``label_prop_fixpoint_ref``: labels, flags,
+   telemetry; its ptxas registers and spill bytes; its bound rounds x
+   (K2's bytes + the update's)); the fixpoint, update rows, K2, K3 and
+   ``label_prop_round`` also queued behind a
    sleep (the kernels' own time), the main path's update also before
-   phase 6 ran; K2, K3 and ``label_prop_round`` with their slab's set
+   phase 6 ran; pass 2 alone (``packed_cluster_labels`` on the main
+   slab) under the profiler, its busy share and top kernels
+   (``pass2_trace``); K2, K3 and ``label_prop_round`` with their slab's set
    bits, nonzero words and bits a row, and ptxas's registers and spill
    bytes; ``predict_ab``:
    ``laf.predict``'s work with the fused forward and with the
@@ -100,7 +110,11 @@ Phases (each prints one JSON line; any failure exits nonzero):
    and ``F.embedding_bag``: bst's user tower at the ``serve_bulk`` batch
    (``mean``), ``benchmarks/kernel_bench.py:67``'s 8,192 bags of 32 from
    a 1M x 64 fp32 table (``sum``, ~10% padding) and a bf16 table (other
-   negative ids, ids past V) for correctness only (``EB_TOL``).  Their
+   negative ids, ids past V) for correctness only (``EB_TOL``), as are
+   the kernel's edge cases ``EB_EDGES`` (D 1 to 256, bf16 with odd D, L
+   1 to 64, ragged B, a table view off a 16-byte boundary, all-padding
+   bags, ids past V; both combiners) with ptxas's registers and spill
+   bytes.  Their
    byte bound reads each distinct row once; the kernel's and the
    library's device times are taken queued behind a sleep too.
 
@@ -146,6 +160,12 @@ KERNELS = {
                    "src/repro/kernels/label_prop/kernel.py:173"),
     "label_prop_update": ("src/repro_torch/csrc/label_prop.cu",
                           "src/repro/kernels/label_prop/ops.py:211 (jnp inside the fixpoint; no Pallas kernel)"),
+    "label_prop_fixpoint": ("src/repro_torch/csrc/label_prop.cu",
+                            "src/repro/kernels/label_prop/ops.py:228 (the lax.while_loop of packed_cluster_fixpoint "
+                            ":123: label_prop_rect_pallas kernel.py:104 + the jnp update :211-214)"),
+    "label_prop_fixpoint_square": ("src/repro_torch/csrc/label_prop.cu",
+                                   "src/repro/kernels/label_prop/ops.py:114 (the lax.while_loop of "
+                                   "label_propagation_pallas :84: label_prop_round_pallas kernel.py:68 + :109-111)"),
     "range_count": ("src/repro_torch/csrc/range_count.cu",
                     "src/repro/kernels/range_count/kernel.py:75 (_count_kernel :29)"),
     "range_count_bitmap": ("src/repro_torch/csrc/range_count.cu",
@@ -178,7 +198,10 @@ KERNELS = {
                           "src/repro/kernels/embedding_bag/kernel.py:52 (embedding_bag_pallas -> :68, "
                           "_make_kernel :31)"),
 }
-RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_rect", "col_reduce", "label_prop_update")
+RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_fixpoint", "col_reduce")
+# pass 2's fixpoint is one label_prop_fixpoint launch; its round steps,
+# launched one a round before, are not launched on the path
+FIXPOINT_LAUNCHES = {"label_prop_fixpoint": 1, "label_prop_rect": 0, "label_prop_update": 0}
 RMI_LAUNCHES_PER_PREDICT = 3  # one launch a stage (1, 2, 4 experts)
 TOL_RMI = 2e-5
 EXACT_KERNELS = ("range_count", "range_count_bitmap")
@@ -277,7 +300,8 @@ def build_notes(name: str) -> dict:
 def ptxas_entries(name: str, kernel: str) -> dict:
     """Registers and spill-store bytes that ptxas reported in this run's
     build of ``csrc/<name>.cu`` for each instantiation of ``kernel``,
-    keyed ``kernel<flags>`` by its bool template arguments as 0/1."""
+    keyed ``kernel<args>`` by its template arguments: bools as 0/1,
+    integers, ``float`` and ``bf16`` (its ``uint16_t`` bits)."""
     import re
 
     from repro_torch.kernels import _build
@@ -285,11 +309,12 @@ def ptxas_entries(name: str, kernel: str) -> dict:
     out = {}
     for chunk in _build.BUILD_LOG.get(name, "").split("Compiling entry function '")[1:]:
         entry = chunk.split("'", 1)[0]
-        m = re.search(rf"\d{kernel}(?:I((?:Lb[01]E)+)E)?", entry)
+        m = re.search(rf"\d{kernel}(?:I((?:[a-z]|L[a-z]\d+E)+)E)?", entry)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         if m and regs:
-            flags = ",".join(re.findall(r"Lb([01])E", m.group(1) or ""))
+            args = re.findall(r"L[a-z](\d+)E|([a-z])", m.group(1) or "")
+            flags = ",".join(num or {"f": "float", "t": "bf16"}.get(ch, ch) for num, ch in args)
             out[f"{kernel}<{flags}>" if flags else kernel] = {
                 "registers": int(regs.group(1)), "spill_bytes": int(spill.group(1)) if spill else None}
     return out
@@ -505,7 +530,26 @@ def label_prop_inputs(bk, exec_idx, eps, tau):
         slab, torch.from_numpy(rows), tau, n=n, cap=w * 32)
     big_rows = torch.full((r,), BIG, dtype=torch.int32, device=slab.device)
     return {"slab": slab, "rows_t": rows_t, "valid_r": valid_r, "core_r": core_r, "pos": pos,
-            "init": init, "big_rows": big_rows}
+            "init": init, "big_rows": big_rows, "n": n, "tau": tau}
+
+
+def pass2_trace(inp):
+    """Pass 2 alone (``packed_cluster_labels`` on the main path's slab,
+    telemetry off) under the profiler: wall, device busy, its top
+    kernels.  Shows what besides the fixpoint fills ``label_prop_s``."""
+    import torch
+
+    from repro_torch.kernels.label_prop import packed_cluster_labels
+
+    def run():
+        return packed_cluster_labels(inp["slab"], inp["rows_t"], inp["tau"], n=inp["n"], telemetry=False)
+
+    run()
+    torch.cuda.synchronize()
+    wall, busy, union, top = device_busy(run, top=12)
+    return {"phase": "pass2_trace", "wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+            "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top,
+            "ms": time_ms(run, reps=5), "device_ms": queued_ms(run, reps=5, sleep_cycles=20_000_000)}
 
 
 def make_update(inp, m):
@@ -533,9 +577,70 @@ def update_ms(inp):
     return time_ms(update), queued_ms(update)
 
 
+def fixpoint_row(name, bitmap, init, pos, square):
+    """``label_prop_fixpoint`` against ``label_prop_fixpoint_ref`` on the
+    card, telemetry off and on: both label buffers, ``m``, the flags and
+    the telemetry exactly equal (``max_abs_err`` their largest
+    difference); its time (back to back and queued behind a sleep, each
+    call after resetting buffer 0 and the flags, whose queued time is
+    given apart) and its byte bound over this run's rounds:
+    rounds x (K2's bytes + the update's), the section 6 formulas."""
+    import torch
+
+    from repro_torch.kernels.label_prop import label_prop_fixpoint
+    from repro_torch.kernels.label_prop.ref import label_prop_fixpoint_ref
+
+    r, w = bitmap.shape
+    cap, dev, iters = w * 32, bitmap.device, 64
+    flags0 = torch.zeros(iters + 1, dtype=torch.int32, device=dev)
+    flags0[0] = 1
+
+    def state(telemetry):
+        return ((init.clone(), torch.empty_like(init)), torch.empty(r, dtype=torch.int32, device=dev),
+                flags0.clone(), torch.zeros((4, iters), dtype=torch.int32, device=dev) if telemetry else None)
+
+    err, rounds, tele_sum = 0, None, None
+    for telemetry in (False, True):
+        got, want = state(telemetry), state(telemetry)
+        label_prop_fixpoint(bitmap, got[0], got[1], pos, got[2], square=square, tele=got[3])
+        label_prop_fixpoint_ref(bitmap, want[0], want[1], pos, want[2], square=square, tele=want[3])
+        pairs = [(got[0][0], want[0][0]), (got[0][1], want[0][1]), (got[1], want[1]), (got[2], want[2])]
+        if telemetry:
+            pairs.append((got[3], want[3]))
+            tele_sum = got[3].sum(dim=1).tolist()
+        err = max([err] + [int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs])
+        rounds = int(got[2][:iters].sum())
+    (bufs, m, flags, tele) = state(True)
+
+    def reset():
+        bufs[0].copy_(init)
+        flags.copy_(flags0)
+
+    def run(telemetry=False):
+        reset()
+        label_prop_fixpoint(bitmap, bufs, m, pos, flags, square=square, tele=tele if telemetry else None)
+
+    def plain():
+        b, mm, f, _ = state(False)
+        label_prop_fixpoint_ref(bitmap, b, mm, pos, f, square=square)
+
+    k2_bytes = 4 * (r * w + 32 * w + 2 * r)
+    b_ms, b_by = bound_ms(rounds * (k2_bytes + 4 * (3 * cap + r)))
+    return {
+        "name": name, "shape": [r, w], "square": square, "rounds": rounds, "telemetry_sums": tele_sum,
+        "max_abs_err": err, "tolerance": "exact: labels, m, flags, telemetry",
+        "ms": time_ms(run), "device_ms": queued_ms(run), "device_ms_telemetry": queued_ms(lambda: run(True)),
+        "reset_device_ms": queued_ms(reset),
+        "plain_ms": time_ms(plain, reps=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": ptxas_entries("label_prop", "label_prop_fixpoint_kernel"),
+    }
+
+
 def check_label_prop(inp, before_components):
-    """K2, the update step and K3 vs their plain versions on the main
-    path's full slab (exact equality: integer results).
+    """K2, the update step, K3 and the fixpoint (``fixpoint_row``) vs
+    their plain versions on the main path's full slab (exact equality:
+    integer results).
     ``before_components`` is ``update_ms`` read before the components
     phase ran.  K2 and K3 also report their time queued behind a sleep
     (``device_ms``: back to back, the host's ~16 us ``ctypes`` enqueue
@@ -592,6 +697,7 @@ def check_label_prop(inp, before_components):
         "plain_ms": time_ms(lambda: col_reduce_ref(slab, vals, weights), reps=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "ptxas": ptxas_entries("label_prop", "col_reduce_kernel"),
     })
+    out.append(fixpoint_row("label_prop_fixpoint", slab, init, pos, square=False))
     return all(k["max_abs_err"] == 0 for k in out), out
 
 
@@ -749,7 +855,8 @@ def first_occurrence(labels):
 def check_components(test, eps, truth, dev):
     """Phase 6: connected components of exact DBSCAN's core graph over
     the packed square adjacency, the fixpoint against the truth and the
-    plain version, and the square round's two kernels against their plain
+    plain version (one ``label_prop_fixpoint`` launch), the square
+    round's two kernels and the square fixpoint against their plain
     versions.  Returns (ok, phase line, kernel rows, launch counts)."""
     import torch
 
@@ -779,7 +886,8 @@ def check_components(test, eps, truth, dev):
     torch.cuda.synchronize()
     fixpoint_s = time.perf_counter() - t0
     snap = metrics.snapshot()
-    launches = {"label_prop_round": snap.get("kernel.label_prop_round.launches", 0),
+    launches = {"label_prop_fixpoint_square": snap.get("kernel.label_prop_fixpoint.launches", 0),
+                "label_prop_round": snap.get("kernel.label_prop_round.launches", 0),
                 "label_prop_update_square": snap.get("kernel.label_prop_update.launches", 0)}
     t0 = time.perf_counter()
     plain = label_propagation(bitmap, core)
@@ -795,7 +903,9 @@ def check_components(test, eps, truth, dev):
         "equals_plain_label_propagation": bool(torch.equal(labels, plain)),
         "sentinel_on_non_cores": bool((lab[~cores] == n).all()),
         "rounds_within_64": 1 <= rounds < 64,
-        "launches_64_each": launches == {"label_prop_round": 64, "label_prop_update_square": 64},
+        # one launch a fixpoint: its rounds' K2 and update steps run inside it
+        "one_fixpoint_launch": launches == {"label_prop_fixpoint_square": 1, "label_prop_round": 0,
+                                            "label_prop_update_square": 0},
     }
     stats = slab_stats(bitmap)
     line = {"phase": "components", "n": n, "words": w, "slab_bytes": 4 * n * w, "n_cores": int(cores.sum()),
@@ -841,6 +951,7 @@ def check_components(test, eps, truth, dev):
         "ms": time_ms(update), "device_ms": queued_ms(update), "plain_ms": time_ms(lambda: label_prop_update_ref(init, k, pos)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    rows.append(fixpoint_row("label_prop_fixpoint_square", bitmap, init, pos, square=True))
     checks["kernels_equal_plain"] = all(r["max_abs_err"] == 0 for r in rows)
     line["seconds"] = time.perf_counter() - t_phase
     return all(checks.values()), line, rows, launches
@@ -1384,6 +1495,47 @@ def eb_row(name, table, ids, combiner, time_it=True, library=None):
     return ok, row
 
 
+# the kernel's mapping at its edges, for correctness only (mirrors
+# tests/test_torch_embedding_bag.py's EDGE_CASES): (D, L, B, dtype, offset
+# in elements of the table's start in its buffer); B 1003 and 4099 are not
+# multiples of a block's bags, offset 1 puts the table 4 (2) bytes past a
+# 16-byte boundary
+EB_EDGES = ([(d, 20, 1003, "float32", 0) for d in (1, 3, 4, 32, 33, 64, 100, 128, 130, 256)]
+            + [(d, 20, 1003, "bfloat16", 0) for d in (1, 3, 33, 129)]
+            + [(32, l, 4099, "float32", 0) for l in (1, 20, 33, 64)]
+            + [(32, 20, 4099, "float32", 1), (64, 20, 4099, "bfloat16", 1), (33, 7, 1003, "float32", 1)])
+
+
+def eb_edge_inputs(d, length, b, dtype, offset, v=5000, seed=0, device="cpu"):
+    """(table, ids) of an edge case: a (v, d) table that starts ``offset``
+    elements into its buffer; ids in [-2, v + 2) (negative: padding; >= v:
+    row v - 1), bag 0 all padding, bag 1 all past V."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randn(v * d + offset, generator=g).to(device=device, dtype=getattr(torch, dtype))
+    ids = torch.randint(-2, v + 2, (b, length), generator=g, dtype=torch.int32)
+    ids[0] = -1
+    ids[1] = v + torch.arange(length, dtype=torch.int32) % 3
+    return buf[offset:].view(v, d), ids.to(device)  # the view keeps its offset on the device
+
+
+def check_embedding_bag_edges(dev):
+    """Every ``EB_EDGES`` case, both combiners, within ``EB_TOL`` of the
+    plain version.  Returns (ok, rows)."""
+    rows, ok = [], True
+    for case in EB_EDGES:
+        d, length, b, dtype, offset = case
+        table, ids = eb_edge_inputs(*case, seed=len(rows), device=dev)
+        ok &= offset == 0 or table.data_ptr() % 16 != 0  # the view is off a 16-byte boundary
+        for combiner in ("sum", "mean"):
+            ok_c, row = eb_row("embedding_bag_edge", table, ids, combiner, time_it=False)
+            ok &= ok_c
+            rows.append({"D": d, "L": length, "B": b, "dtype": dtype, "offset": offset, "combiner": combiner,
+                         "max_abs_err": row["max_abs_err"], "ok": ok_c})
+    return ok, rows
+
+
 def check_embedding_bag(table, hist, dev):
     """The embedding_bag rows: bst's user tower at the serve_bulk batch
     (its item table and users, ``mean``), kernel_bench's 8,192 bags of 32
@@ -1507,7 +1659,11 @@ def recsys_serve(dev):
     del host, p99_cpu, bulk_cpu, ret_cpu, scores, bulk_prob, cands
     eb_ok, eb_rows, eb_bf16 = check_embedding_bag(model["item_table"], hist_bulk, dev)
     checks["embedding_bag_rows"] = eb_ok
-    line.update({"bst": bst, "embedding_bag_bf16": eb_bf16})
+    edges_ok, edges = check_embedding_bag_edges(dev)
+    checks["embedding_bag_edges"] = edges_ok
+    line.update({"bst": bst, "embedding_bag_bf16": eb_bf16, "embedding_bag_edges": edges,
+                 "embedding_bag_ptxas": {**ptxas_entries("embedding_bag", "embedding_bag_vec16"),
+                                         **ptxas_entries("embedding_bag", "embedding_bag_elem")}})
     del model, hist_bulk
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1638,6 +1794,7 @@ def run(args) -> int:
           "rounds": g.get("laf.cluster.last_rounds"), "launches": launches,
           "host_syncs": host_syncs, "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     ok = all(launches[k] > 0 for k in RP_KERNELS) and host_syncs == 1
+    ok &= all(launches[k] == v for k, v in FIXPOINT_LAUNCHES.items())
     ok &= launches["rmi_mlp"] == RMI_LAUNCHES_PER_PREDICT
     ok &= res.labels.shape == (len(test),) and int(res.labels.min()) >= -1
     ok &= bool(np.array_equal(warm.result.labels, res.labels))
@@ -1724,6 +1881,7 @@ def run(args) -> int:
     t_phase = time.perf_counter()
     k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows, clock_hz)
     lp_ok, lp = check_label_prop(lp_inputs, update_before)
+    emit(pass2_trace(lp_inputs))
     del lp_inputs
     sampled_cores = np.nonzero(pp_core)[0]
     rc_ok, rc = check_range_count(bk.data_device, exec_idx[: args.k1_rows], eps,

@@ -1,4 +1,4 @@
-// Packed-bitmap label propagation, CUDA C++ for sm_90a.  Three kernels
+// Packed-bitmap label propagation, CUDA C++ for sm_90a.  Four kernels
 // over the sweep's (R rows x W words) LSB-first adjacency slab; the slab
 // is never unpacked to memory.
 //
@@ -64,14 +64,17 @@
 //   Bound: bytes (a few label-vector passes).  Reads `lab`, writes the
 //   other buffer, so results equal the reference's round exactly.
 //
-// The one-sync fixpoint: every round's kernels read flags[it] and return
-// at once when it is 0; the update writes flags[it+1] = 1 when a label
-// changed.  The host enqueues max_iters rounds and never reads a flag.
+// The one-sync fixpoint: label_prop_fixpoint (below) runs every round of
+// K2 + update in one cooperative launch, grid barriers between the
+// steps; a round writes flags[it+1] = 1 when a label changed and the loop
+// ends at a 0.  The per-round kernels read flags[it] and return at once
+// when it is 0, for callers that enqueue rounds themselves.  The host
+// never reads a flag.
 //
 // Telemetry (repro/obs/device.py's per-round vectors, computed in jnp
 // inside the reference's while loop at ops.py:198-248): with a non-null
 // `tele` (int32, 4 rows of `tele_stride` rounds) the update kernel adds
-// round `it`'s counts into column `it`:
+// round `it`'s counts into column `it` (the fixpoint kernel counts alike):
 //   frontier   = core columns whose gathered m[pos[j]] < lab[j]
 //   changed    = columns with jumped != lab[j]
 //   hops       = columns with jumped < new(j)
@@ -86,8 +89,11 @@
 
 #include <algorithm>
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -126,15 +132,25 @@ constexpr int kRectThreads = 1024;   // one block an SM
 constexpr int kRectStage = 256;      // words of a work unit: 2 uint4 a lane
 constexpr int kRectBatch = 1024;     // rows a block takes at a time
 
-template <bool VEC, bool SMEM>
-__global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
-    const int* __restrict__ row_labels, const int* __restrict__ col_labels,
-    const uint32_t* __restrict__ bitmap, int R, int W, int* __restrict__ out,
-    const int* __restrict__ flag) {
-  if (flag != nullptr && *flag == 0) return;
-  extern __shared__ int4 s_lab4[];
-  __shared__ int s_rowmin[kRectBatch];
-  __shared__ int s_next;
+// Label reads.  K2 alone reads labels that no kernel writes while it
+// runs, through the read-only path; the fixpoint reads labels (and m,
+// and flags) that the same launch wrote a grid barrier earlier, so
+// through L2 (ld.global.cg), which is coherent across SMs: the read-only
+// path and L1 may hold a line from an earlier round.
+template <bool LIVE>
+__device__ __forceinline__ int ld_label(const int* p) { return LIVE ? __ldcg(p) : __ldg(p); }
+
+template <bool LIVE>
+__device__ __forceinline__ int4 ld_label4(const int4* p) { return LIVE ? __ldcg(p) : __ldg(p); }
+
+// K2's body over the block's rows: out[i] = min(row label, the min of
+// col_labels over row i's set bits), a null row_labels meaning INT32_MAX
+// rows.  The block state (s_next, s_rowmin and the staged labels) is set
+// here, so each call, and each round of the fixpoint, starts afresh.
+template <bool VEC, bool SMEM, bool LIVE>
+__device__ __forceinline__ void rect_rows(
+    const int* row_labels, const int* col_labels, const uint32_t* __restrict__ bitmap,
+    int R, int W, int* out, int4* s_lab4, int* s_rowmin, int* s_next) {
   const int* s_lab = reinterpret_cast<const int*>(s_lab4);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int kWarps = kRectThreads / 32;
@@ -158,23 +174,23 @@ __global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
       const int n4 = W * 8;  // W * 32 labels, four a load
       if ((reinterpret_cast<uintptr_t>(col_labels) & 15) == 0) {
         const int4* src = reinterpret_cast<const int4*>(col_labels);
-        for (int i = threadIdx.x; i < n4; i += kRectThreads) dst[i] = __ldg(src + i);
+        for (int i = threadIdx.x; i < n4; i += kRectThreads) dst[i] = ld_label4<LIVE>(src + i);
       } else {
         int* d = reinterpret_cast<int*>(dst);
-        for (int i = threadIdx.x; i < 4 * n4; i += kRectThreads) d[i] = __ldg(col_labels + i);
+        for (int i = threadIdx.x; i < 4 * n4; i += kRectThreads) d[i] = ld_label<LIVE>(col_labels + i);
       }
     }
     for (int i = threadIdx.x; i < nb; i += kRectThreads) s_rowmin[i] = INT_MAX;
-    if (threadIdx.x == 0) s_next = kWarps;
+    if (threadIdx.x == 0) *s_next = kWarps;
     __syncthreads();
     int claimed = 0;  // lane 0's claim of the unit after next, read one unit later
-    if (lane == 0) claimed = atomicAdd(&s_next, 1);
+    if (lane == 0) claimed = atomicAdd(s_next, 1);
     while (u < units) {
       const uint4 cur[2] = {nxt[0], nxt[1]};
       const int cu = u;
       u = __shfl_sync(0xffffffffu, claimed, 0);
       if (u < units) fetch(b0, u);
-      if (lane == 0) claimed = atomicAdd(&s_next, 1);
+      if (lane == 0) claimed = atomicAdd(s_next, 1);
       const int cw0 = (cu % S) * kRectStage;
       int m = INT_MAX, last = INT_MAX;
 #pragma unroll
@@ -185,7 +201,7 @@ __global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
           const int j = base + __ffs(word) - 1;
           word &= word - 1;
           m = min(m, last);
-          last = SMEM ? s_lab[j] : __ldg(col_labels + j);
+          last = SMEM ? s_lab[j] : ld_label<LIVE>(col_labels + j);
         }
       }
       m = warp_min(min(m, last));
@@ -194,10 +210,22 @@ __global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
     __syncthreads();
     for (int i = threadIdx.x; i < nb; i += kRectThreads) {
       const int r = blockIdx.x + (b0 + i) * G;
-      out[r] = min(row_labels[r], s_rowmin[i]);
+      out[r] = row_labels != nullptr ? min(ld_label<LIVE>(row_labels + r), s_rowmin[i]) : s_rowmin[i];
     }
     __syncthreads();
   }
+}
+
+template <bool VEC, bool SMEM>
+__global__ void __launch_bounds__(kRectThreads, 1) label_prop_rect_kernel(
+    const int* __restrict__ row_labels, const int* __restrict__ col_labels,
+    const uint32_t* __restrict__ bitmap, int R, int W, int* __restrict__ out,
+    const int* __restrict__ flag) {
+  if (flag != nullptr && *flag == 0) return;
+  extern __shared__ int4 s_lab4[];
+  __shared__ int s_rowmin[kRectBatch];
+  __shared__ int s_next;
+  rect_rows<VEC, SMEM, false>(row_labels, col_labels, bitmap, R, W, out, s_lab4, s_rowmin, &s_next);
 }
 
 constexpr int kTileWords = 128;   // a col_reduce block's column tile: one uint4 a lane
@@ -339,12 +367,120 @@ __global__ void label_prop_update_kernel(
   }
 }
 
-// The card's SM count and the shared memory a K2 block may stage labels
-// in (the opt-in limit less K2's static arrays), read once a device; the
-// kernels that take dynamic shared memory are allowed it then.
+// One round's update over the cap columns, grid-strided, inside the
+// fixpoint's launch: the arithmetic of label_prop_update_kernel, with
+// lab, m and flags read through L2 (written earlier in the launch).  The
+// stride loop's trip count is the same for every thread of a block, so
+// the block counts stay collective.
+template <bool TELE>
+__device__ __forceinline__ void update_cols(
+    const int* lab, const int* m, const int* __restrict__ pos, int cap, int* nxt,
+    int* flags, int it, int* tele, int tele_stride) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int base = blockIdx.x * blockDim.x; base < cap; base += stride) {
+    const int j = base + threadIdx.x;
+    bool front = false, changed = false, hop = false;
+    if (j < cap) {
+      const int lj = __ldcg(lab + j), p = __ldg(pos + j);
+      const int mj = p >= 0 ? __ldcg(m + p) : INT_MAX;
+      const int nj = min(lj, mj);  // new(j)
+      int jumped = nj;
+      if (nj < cap) {
+        const int q = __ldg(pos + nj), lq = __ldcg(lab + nj);
+        jumped = min(nj, q >= 0 ? min(lq, __ldcg(m + q)) : lq);  // min(new(j), new(new(j)))
+      }
+      nxt[j] = jumped;
+      changed = jumped != lj;
+      if (changed) flags[it + 1] = 1;
+      front = mj < lj;  // p >= 0 there: mj is INT32_MAX elsewhere
+      hop = jumped < nj;
+    }
+    if (TELE) {
+      const int n_front = __syncthreads_count(front);
+      const int n_changed = __syncthreads_count(changed);
+      const int n_hops = __syncthreads_count(hop);
+      if (threadIdx.x == 0) {
+        if (n_front) {
+          atomicAdd(&tele[it], n_front);
+          atomicAdd(&tele[3 * tele_stride + it], n_front);
+        }
+        if (n_changed) atomicAdd(&tele[tele_stride + it], n_changed);
+        if (n_hops) atomicAdd(&tele[2 * tele_stride + it], n_hops);
+      }
+    }
+  }
+}
+
+// label_prop_fixpoint — the whole fixpoint in one cooperative launch
+//   (replaces the lax.while_loop of repro/kernels/label_prop/ops.py:228
+//   in packed_cluster_fixpoint :123, and of :114 in
+//   label_propagation_pallas :84).  One 1,024-thread block an SM, as K2.
+//   Round it reads buffer it % 2 and writes the other:
+//     1. K2's walk (rect_rows) into m: INT32_MAX row labels (rect mode,
+//        packed_cluster_fixpoint) or the current labels (square mode,
+//        label_propagation_pallas);
+//     2. grid.sync();
+//     3. the update over the cap columns (update_cols): the other buffer,
+//        flags[it + 1], the telemetry column it when tele is not null;
+//     4. grid.sync(); every block reads flags[it + 1] and leaves the loop
+//        when it is 0.
+//   So the buffers, flags and telemetry are bit for bit those of the
+//   per-round launches (K2 + label_prop_update behind flags), and the
+//   host enqueues one launch a fixpoint in place of 2 * max_iters.
+//   Bound: bytes, rounds * (K2's + the update's), as each kernel's.
+//   Where trouble lies, and what the kernel does about it:
+//   (1) buffers written in the same launch: lab, m and flags are read
+//       with __ldcg (L2, coherent), never through __ldg or a const
+//       __restrict__ pointer, which the compiler may turn into the
+//       non-coherent LDG.CONSTANT path; bitmap and pos, which nothing
+//       writes, stay on the read-only path;
+//   (2) per-round block state: rect_rows sets s_next and s_rowmin and
+//       stages the round's labels in shared memory afresh each call;
+//   (3) co-residency: a cooperative launch fails when the grid cannot
+//       all be resident; the launcher returns the error, the wrapper
+//       raises, and nothing falls back to the per-round launches.  The
+//       staged variant takes the opt-in shared-memory limit less this
+//       kernel's own static arrays; the unstaged one serves wider slabs
+//       (4 * 32 * W bytes over the limit, W > ~1,770 words);
+//   (4) grid.sync() needs no relocatable device code since CUDA 11: the
+//       build line (nvcc -gencode arch=compute_90a,code=sm_90a -O3
+//       -shared) is unchanged;
+//   (5) telemetry keeps the reference's contract: per column through
+//       pos, as the update kernel counts, and the loop ends before a
+//       round whose flag is 0, so later slots stay 0.
+template <bool VEC, bool SMEM, bool TELE>
+__global__ void __launch_bounds__(kRectThreads, 1) label_prop_fixpoint_kernel(
+    const uint32_t* __restrict__ bitmap, int R, int W, int square, int* lab0, int* lab1,
+    int* m, const int* __restrict__ pos, int cap, int* flags, int max_iters, int* tele,
+    int tele_stride) {
+  extern __shared__ int4 s_lab4[];
+  __shared__ int s_rowmin[kRectBatch];
+  __shared__ int s_next;
+  cg::grid_group grid = cg::this_grid();
+  for (int it = 0; it < max_iters; ++it) {
+    if (__ldcg(flags + it) == 0) break;  // the same in every block: read after a grid barrier
+    const int* lab = (it & 1) ? lab1 : lab0;
+    int* nxt = (it & 1) ? lab0 : lab1;
+    rect_rows<VEC, SMEM, true>(square ? lab : nullptr, lab, bitmap, R, W, m, s_lab4, s_rowmin, &s_next);
+    grid.sync();
+    update_cols<TELE>(lab, m, pos, cap, nxt, flags, it, tele, tele_stride);
+    grid.sync();
+  }
+}
+
+// The card's SM count and the shared memory a K2 or fixpoint block may
+// stage labels in (the opt-in limit less the kernel's static arrays),
+// read once a device; the kernels that take dynamic shared memory are
+// allowed it then.
 struct Card {
-  int sms = 0, smem_optin = 0;
+  int sms = 0, smem_optin = 0, smem_fixpoint = 0;
 };
+
+template <bool VEC, bool SMEM, bool TELE>
+void allow_fixpoint_smem(int bytes) {
+  cudaFuncSetAttribute(label_prop_fixpoint_kernel<VEC, SMEM, TELE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 Card card() {
   static Card cards[64];
@@ -352,14 +488,21 @@ Card card() {
   cudaGetDevice(&d);
   Card& c = cards[d & 63];
   if (c.sms == 0) {
-    cudaDeviceGetAttribute(&c.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, d);
+    int optin = 0;
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, d);
     cudaFuncAttributes fa;
     cudaFuncGetAttributes(&fa, label_prop_rect_kernel<true, true>);
-    c.smem_optin -= (int)fa.sharedSizeBytes;  // what is left for the staged labels
+    c.smem_optin = optin - (int)fa.sharedSizeBytes;  // what is left for the staged labels
     cudaFuncSetAttribute(label_prop_rect_kernel<true, true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_optin);
     cudaFuncSetAttribute(label_prop_rect_kernel<false, true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_optin);
+    cudaFuncGetAttributes(&fa, label_prop_fixpoint_kernel<true, true, true>);
+    c.smem_fixpoint = optin - (int)fa.sharedSizeBytes;
+    allow_fixpoint_smem<true, true, false>(c.smem_fixpoint);
+    allow_fixpoint_smem<false, true, false>(c.smem_fixpoint);
+    allow_fixpoint_smem<true, true, true>(c.smem_fixpoint);
+    allow_fixpoint_smem<false, true, true>(c.smem_fixpoint);
     cudaFuncSetAttribute(col_reduce_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaFuncSetAttribute(col_reduce_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, d);
@@ -426,4 +569,33 @@ extern "C" int label_prop_update_launch(
     label_prop_update_kernel<false><<<blocks, threads, 0, s>>>(
         lab, m, pos, cap, out, flags, it, tele, tele_stride);
   return (int)cudaGetLastError();
+}
+
+extern "C" int label_prop_fixpoint_launch(
+    const int* bitmap, int R, int W, int square, int* lab0, int* lab1, int* m,
+    const int* pos, int cap, int* flags, int max_iters, int* tele, int tele_stride,
+    void* stream) {
+  if (max_iters <= 0 || (R <= 0 && cap <= 0)) return 0;
+  const Card c = card();
+  // K2's grid (a block an SM, fewer for short slabs), at least one block
+  // for the update when there are no rows
+  const int blocks = (int)std::max<long long>(1, std::min<long long>(c.sms, ((long long)R + 31) / 32));
+  const size_t smem_labels = (size_t)W * 32 * sizeof(int);
+  const bool staged = smem_labels <= (size_t)c.smem_fixpoint;
+  const bool vec = W % 4 == 0 && aligned16(bitmap);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(bitmap);
+  void (*kernel)(const uint32_t*, int, int, int, int*, int*, int*, const int*, int, int*, int, int*, int);
+  if (tele != nullptr)
+    kernel = staged ? (vec ? label_prop_fixpoint_kernel<true, true, true> : label_prop_fixpoint_kernel<false, true, true>)
+                    : (vec ? label_prop_fixpoint_kernel<true, false, true> : label_prop_fixpoint_kernel<false, false, true>);
+  else
+    kernel = staged ? (vec ? label_prop_fixpoint_kernel<true, true, false> : label_prop_fixpoint_kernel<false, true, false>)
+                    : (vec ? label_prop_fixpoint_kernel<true, false, false> : label_prop_fixpoint_kernel<false, false, false>);
+  void* args[] = {(void*)&bits, &R, &W, &square, &lab0, &lab1, &m, (void*)&pos, &cap, &flags,
+                  &max_iters, &tele, &tele_stride};
+  // a grid that cannot all be resident is refused here (no fallback)
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kRectThreads), args,
+                                                    staged ? smem_labels : 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();  // read, so a refusal is not left for the next launch
+  return (int)(e != cudaSuccess ? e : last);
 }

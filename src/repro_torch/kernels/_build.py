@@ -38,6 +38,7 @@ _SIGNATURES = {
         "label_prop_rect_launch": [P, P, P, I, I, P, P, P],
         "col_reduce_launch": [P, P, P, I, I, P, P, P],
         "label_prop_update_launch": [P, P, P, I, P, P, I, P, I, P],
+        "label_prop_fixpoint_launch": [P, I, I, I, P, P, P, P, I, P, I, P, I, P],
     },
     "range_count": {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],

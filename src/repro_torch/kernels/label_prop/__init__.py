@@ -1,5 +1,6 @@
 from .ops import (  # noqa: F401
     col_reduce,
+    label_prop_fixpoint,
     label_prop_rect,
     label_prop_round,
     label_prop_update,

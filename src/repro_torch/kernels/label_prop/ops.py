@@ -4,8 +4,9 @@ slab (port of ``repro.kernels.label_prop.ops``).
 ``label_prop_round`` / ``label_propagation_pallas`` are the square
 connected-components pair over a packed symmetric (N, W) adjacency: one
 round is K2 (``label_prop_rect``'s kernel) with the labels as both its
-row and its column labels, counted as ``kernel.label_prop_round``, and
-the fixpoint runs its rounds behind device flags as below.
+row and its column labels, counted as ``kernel.label_prop_round``; the
+fixpoint runs its rounds in ``label_prop_fixpoint``'s one launch, as
+below.
 
 ``packed_cluster_labels`` takes the sweep engine's rectangular packed
 slab (R executed rows x W words of database columns) and computes,
@@ -16,17 +17,21 @@ jumping), the min-core-neighbor border owner per column and the
 transposed partial-count sums.
 
 The reference keeps its ``changed`` flag inside a ``lax.while_loop``.
-Here the host enqueues ``max_iters`` rounds up front; round ``it``'s
-kernels read ``flags[it]`` on the device and return at once when it is
-clear, and the update kernel sets ``flags[it + 1]`` when a label
-changed.  Round ``it`` reads one label buffer and writes the other, so
-after ``rounds = sum(flags[:max_iters])`` rounds the labels sit in
-buffer ``rounds % 2``, chosen on the device.  Nothing syncs.
+Here both fixpoints are one cooperative launch, ``label_prop_fixpoint``
+(counted as ``kernel.label_prop_fixpoint``): its blocks loop over the
+rounds on the device, K2 and the update separated by grid barriers;
+round ``it`` sets ``flags[it + 1]`` when a label changed, and the loop
+ends at a clear flag.  Round ``it`` reads one label buffer and writes
+the other, so after ``rounds = sum(flags[:max_iters])`` rounds the
+labels sit in buffer ``rounds % 2``, chosen on the device.  Nothing
+syncs.  ``label_prop_rect`` and ``label_prop_update`` stay public, one
+round step a launch, behind the same flags.
 
 ``telemetry=True`` (default: the ``obs`` device switch) adds the
 reference's four per-round counts, ``obs.device.CLUSTER_ROUND_FIELDS``,
-into an int32 ``(4, max_iters)`` device tensor from inside the update
-kernel, returned as a sixth output for the caller's one host copy.
+into an int32 ``(4, max_iters)`` device tensor from inside the
+fixpoint's update step, returned as a sixth output for the caller's one
+host copy.
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ from ...obs import device as _obs_device
 from ...obs import metrics as _metrics
 from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
-from .ref import BIG, col_reduce_ref, label_prop_rect_ref, label_prop_round_ref, label_prop_update_ref
+from .ref import (
+    BIG, col_reduce_ref, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref, label_prop_update_ref,
+)
 
 __all__ = [
     "label_prop_round",
@@ -46,6 +53,7 @@ __all__ = [
     "label_prop_rect",
     "col_reduce",
     "label_prop_update",
+    "label_prop_fixpoint",
     "fixpoint_inputs",
     "packed_cluster_fixpoint",
     "packed_cluster_labels",
@@ -57,6 +65,7 @@ LAUNCHES = {
     "label_prop_rect": "kernel.label_prop_rect.launches",
     "col_reduce": "kernel.col_reduce.launches",
     "label_prop_update": "kernel.label_prop_update.launches",
+    "label_prop_fixpoint": "kernel.label_prop_fixpoint.launches",
 }
 
 
@@ -117,17 +126,16 @@ def _square(bitmap, n):
         raise ValueError(f"{bitmap.shape[1]} words cannot cover {n} columns")
 
 
-def _round_into(col_labels, bitmap, out, flag=None):
+def _round_into(col_labels, bitmap, out):
     """One square round from the (W*32,) labels padded with INT32_MAX
     past N (so bits of columns >= N meet INT32_MAX and change nothing,
     as the reference's ``_pad`` makes them) into ``out`` (N,); rows read
-    ``col_labels[:N]``.  A no-op when ``flag`` holds 0."""
+    ``col_labels[:N]``."""
     n = bitmap.shape[0]
     if bitmap.device.type == "cpu":
-        if flag is None or int(flag[0]) != 0:
-            out.copy_(label_prop_round_ref(col_labels[:n], bitmap))
+        out.copy_(label_prop_round_ref(col_labels[:n], bitmap))
         return out
-    return _launch_rect(col_labels, col_labels, bitmap, out, flag, "label_prop_round")
+    return _launch_rect(col_labels, col_labels, bitmap, out, None, "label_prop_round")
 
 
 def label_prop_round(labels, bitmap):
@@ -180,11 +188,7 @@ def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
         raise ValueError("m must be a contiguous 1-d int32 tensor")
     if flags.dtype != torch.int32 or flags.dim() != 1 or not 0 <= it < flags.shape[0] - 1:
         raise ValueError("flags must be an int32 vector with room for round it + 1")
-    if tele is not None and (
-        tele.dtype != torch.int32 or tele.dim() != 2 or tele.shape[0] != 4
-        or not it < tele.shape[1] or not tele.is_contiguous()
-    ):
-        raise ValueError("tele must be a contiguous (4, > it) int32 tensor")
+    _check_tele(tele, it + 1)
     if lab.device.type == "cpu":
         if int(flags[it]) != 0:
             if tele is None:
@@ -207,6 +211,55 @@ def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
     _metrics.counter(LAUNCHES["label_prop_update"]).inc()
 
 
+def _check_tele(tele, rounds):
+    if tele is not None and (
+        tele.dtype != torch.int32 or tele.dim() != 2 or tele.shape[0] != 4
+        or not rounds <= tele.shape[1] or not tele.is_contiguous()
+    ):
+        raise ValueError(f"tele must be a contiguous (4, >= {rounds}) int32 tensor")
+
+
+def label_prop_fixpoint(bitmap, bufs, m, pos, flags, *, square: bool = False, tele=None) -> None:
+    """Every round of a fixpoint over an (R, W) slab in one launch, in
+    place (see ``csrc/label_prop.cu``): round ``it``, while ``flags[it]``
+    is 1 and for at most ``max_iters = len(flags) - 1`` rounds, is K2
+    from ``bufs[it % 2]`` into ``m`` (R,) — INT32_MAX row labels, or with
+    ``square`` the labels' first R — then the update into the other
+    buffer, setting ``flags[it + 1]`` when a label changed.  ``bufs`` are
+    two (W*32,) int32 label buffers, ``pos`` the (W*32,) slab row of each
+    core column (-1 elsewhere); ``tele`` (int32 (4, >= max_iters)) gets
+    each round's four counts in its column.  The caller sets
+    ``flags[0]`` and zeroes the rest.  A CPU slab runs
+    ``label_prop_fixpoint_ref``; a CUDA slab launches the kernel (one
+    cooperative launch) or raises."""
+    _check_slab(bitmap)
+    r, w = bitmap.shape
+    cap = w * 32
+    for b, what in ((bufs[0], "bufs[0]"), (bufs[1], "bufs[1]"), (pos, "pos")):
+        _int32_vec(b, cap, what)
+    if bufs[0].data_ptr() == bufs[1].data_ptr():
+        raise ValueError("the two label buffers must be distinct")
+    _int32_vec(m, r, "m")
+    if square and r > cap:
+        raise ValueError(f"a square slab of {r} rows needs {r} <= {cap} columns")
+    if flags.dtype != torch.int32 or flags.dim() != 1 or flags.shape[0] < 1 or not flags.is_contiguous():
+        raise ValueError("flags must be a contiguous int32 vector of max_iters + 1")
+    max_iters = flags.shape[0] - 1
+    _check_tele(tele, max_iters)
+    if bitmap.device.type == "cpu":
+        label_prop_fixpoint_ref(bitmap, bufs, m, pos, flags, square=square, tele=tele)
+        return
+    operands = [bitmap, bufs[0], bufs[1], m, pos, flags] + ([tele] if tele is not None else [])
+    stream = _cuda(operands, "label_prop_fixpoint")
+    err = _build.load("label_prop").label_prop_fixpoint_launch(
+        bitmap.data_ptr(), r, w, int(square), bufs[0].data_ptr(), bufs[1].data_ptr(), m.data_ptr(),
+        pos.data_ptr(), cap, flags.data_ptr(), max_iters,
+        tele.data_ptr() if tele is not None else None, tele.shape[1] if tele is not None else 0, stream,
+    )
+    _build.check(err, "label_prop_fixpoint")
+    _metrics.counter(LAUNCHES["label_prop_fixpoint"]).inc()
+
+
 def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds: bool = False, device=None):
     """Connected components over a packed symmetric (N, W) adjacency,
     the contract of ``core.union_find.label_propagation``: (N,) int32,
@@ -215,13 +268,13 @@ def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds
     then the pointer jump ``min(new, new[new])`` over the round's whole
     ``new``; it stops when nothing changed, or after ``max_iters``.
 
-    The rounds run as ``packed_cluster_fixpoint``'s do: ``max_iters``
-    rounds are enqueued, each a ``label_prop_round`` launch and an
-    update launch that return at once when ``flags[it]`` is 0, reading
-    one label buffer and writing the other, so nothing is read on the
-    host.  The buffers hold the masked labels (INT32_MAX on inactive
-    nodes and past N); ``pos`` maps each active column to its own row,
-    so the update kernel computes ``new`` at both ends of the jump.
+    The rounds run as ``packed_cluster_fixpoint``'s do, in one
+    ``label_prop_fixpoint`` launch (square mode: K2 with the labels as
+    row and column labels), reading one label buffer and writing the
+    other, so nothing is read on the host.  The buffers hold the masked
+    labels (INT32_MAX on inactive nodes and past N); ``pos`` maps each
+    active column to its own row, so the update computes ``new`` at both
+    ends of the jump.
     ``with_rounds`` also returns the executed rounds, a device scalar.
     An array ``bitmap`` goes to ``device`` (default cuda); a tensor
     stays on its device."""
@@ -241,10 +294,7 @@ def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds
     m = torch.empty(n, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
     flags[0] = 1
-    for it in range(max_iters):
-        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
-        _round_into(lab, bitmap, m, flags[it : it + 1])
-        label_prop_update(lab, m, pos, nxt, flags, it)
+    label_prop_fixpoint(bitmap, bufs, m, pos, flags, square=True)
     rounds = flags[:max_iters].sum(dtype=torch.int32)
     labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])[:n]
     labels = torch.where(act[:n], labels, n)
@@ -299,15 +349,11 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     dev = bitmap.device
     rows, valid_r, counts, core_r, pos, init = fixpoint_inputs(bitmap, rows, tau, n=n, cap=cap)
     bufs = (init, torch.empty(cap, dtype=torch.int32, device=dev))
-    big_rows = torch.full((r,), BIG, dtype=torch.int32, device=dev)
     m = torch.empty(r, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
     flags[0] = 1
     tele = _obs_device.cluster_telemetry_init(max_iters, dev) if telemetry else None
-    for it in range(max_iters):
-        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
-        label_prop_rect(big_rows, lab, bitmap, out=m, flag=flags[it : it + 1])
-        label_prop_update(lab, m, pos, nxt, flags, it, tele=tele)
+    label_prop_fixpoint(bitmap, bufs, m, pos, flags, tele=tele)
     rounds = flags[:max_iters].sum(dtype=torch.int32)
     labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
     owner, col_sum = col_reduce(

@@ -8,7 +8,8 @@ import torch
 
 from ...core.range_query import unpack_bitmap_t
 
-__all__ = ["BIG", "label_prop_round_ref", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref"]
+__all__ = ["BIG", "label_prop_round_ref", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref",
+           "label_prop_fixpoint_ref"]
 
 BIG = torch.iinfo(torch.int32).max
 
@@ -67,3 +68,29 @@ def label_prop_update_ref(lab, m, pos, *, with_counts: bool = False):
     frontier = ((pos >= 0) & (gathered < lab)).sum()
     counts = torch.stack([frontier, (out != lab).sum(), (out < new).sum(), frontier])
     return out, counts.to(torch.int32)
+
+
+def label_prop_fixpoint_ref(bitmap, bufs, m, pos, flags, *, square: bool = False, tele=None) -> None:
+    """The fixpoint of ``csrc/label_prop.cu``'s ``label_prop_fixpoint``,
+    in place, as a loop over the plain round functions that stops when
+    nothing changed: round ``it`` (while ``flags[it]`` is 1, up to
+    ``len(flags) - 1`` rounds) takes ``m`` = ``label_prop_rect_ref`` of
+    ``bufs[it % 2]`` (INT32_MAX row labels, or with ``square`` the
+    labels' first R), writes the update into the other buffer, adds its
+    counts into ``tele[:, it]`` when given, and sets ``flags[it + 1]``
+    when a label changed."""
+    r = bitmap.shape[0]
+    big_rows = None if square else torch.full((r,), BIG, dtype=torch.int32, device=bitmap.device)
+    for it in range(flags.shape[0] - 1):
+        if int(flags[it]) == 0:
+            break
+        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
+        m.copy_(label_prop_rect_ref(lab[:r] if square else big_rows, lab, bitmap))
+        if tele is None:
+            nxt.copy_(label_prop_update_ref(lab, m, pos))
+        else:
+            out, counts = label_prop_update_ref(lab, m, pos, with_counts=True)
+            nxt.copy_(out)
+            tele[:, it] += counts
+        if bool((nxt != lab).any()):
+            flags[it + 1] = 1

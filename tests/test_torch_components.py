@@ -1,13 +1,14 @@
 """Port parity for connected components over a packed adjacency: the
 square round (``label_prop_round``), its fixpoint
-(``label_propagation_pallas``) and the plain versions in
+(``label_propagation_pallas``, one ``label_prop_fixpoint`` launch in
+square mode) and the plain versions in
 ``repro_torch.core.union_find`` (``label_propagation``,
 ``label_propagation_dense``, ``connected_components_host``), against the
 JAX package (Pallas kernels in interpret mode) on the same numpy
 adjacency.  Labels are integers: every comparison is exact.
 
 On the CPU the port's wrappers run the plain version (``ref.py``); the
-``gpu`` test holds the kernels to it on the card.
+``gpu`` tests hold the kernels to it on the card.
 """
 
 import numpy as np
@@ -23,8 +24,9 @@ from repro.kernels.label_prop import ops as jops
 from repro.kernels.label_prop.ref import label_prop_round_ref as jax_round_ref
 
 from repro_torch.core import union_find as tuf
-from repro_torch.kernels.label_prop import label_prop_round, label_propagation_pallas
-from repro_torch.kernels.label_prop.ref import label_prop_round_ref
+from repro_torch.kernels.label_prop import label_prop_fixpoint, label_prop_round, label_propagation_pallas
+from repro_torch.kernels.label_prop.ops import fixpoint_inputs
+from repro_torch.kernels.label_prop.ref import label_prop_fixpoint_ref, label_prop_round_ref
 from repro_torch.obs import metrics
 
 BIG = np.iinfo(np.int32).max
@@ -120,6 +122,84 @@ def test_label_propagation_plain_matches_jax(n, p, active_frac, max_iters):
     np.testing.assert_array_equal(label_propagation_pallas(bits, act, max_iters=max_iters).numpy(), want)
 
 
+def _path(n):
+    adj = np.zeros((n, n), bool)
+    idx = np.arange(n - 1)
+    adj[idx, idx + 1] = True
+    adj = adj | adj.T
+    np.fill_diagonal(adj, True)
+    return adj
+
+
+def _jax_square_rounds(words, active, max_iters):
+    """``repro``'s ``label_propagation_pallas`` while loop (ops.py:98-116)
+    driven round by round from Python, so its round count and the
+    telemetry counts of each round can be read: (labels, rounds, (4,
+    max_iters) frontier / changed / hops / shard wins)."""
+    n = active.shape[0]
+    act = jnp.asarray(active)
+    labels = jnp.where(act, jnp.arange(n, dtype=jnp.int32), jnp.int32(n))
+    tele = np.zeros((4, max_iters), np.int32)
+    rounds = 0
+    while rounds < max_iters:
+        neigh = jops.label_prop_round(jnp.where(act, labels, BIG), jnp.asarray(words), row_tile=64, word_tile=4)
+        new = jnp.where(act, jnp.minimum(labels, neigh), jnp.int32(n))
+        jump = jnp.where(new < n, new, 0)
+        jumped = jnp.where(new < n, jnp.minimum(new, new[jump]), new)
+        front = int(jnp.sum(act & (neigh < labels)))
+        tele[:, rounds] = [front, int(jnp.sum(jumped != labels)), int(jnp.sum(jumped < new)), front]
+        changed = bool(jnp.any(jumped != labels))
+        labels, rounds = jumped, rounds + 1
+        if not changed:
+            break
+    return np.asarray(labels), rounds, tele
+
+
+def _square_state(bits, active, max_iters, telemetry):
+    """label_propagation_pallas's buffers for the fixpoint in square mode."""
+    n, cap = len(active), bits.shape[1] * 32
+    act = torch.zeros(cap, dtype=torch.bool, device=bits.device)
+    act[:n] = torch.as_tensor(active, device=bits.device)
+    idx = torch.arange(cap, dtype=torch.int32, device=bits.device)
+    bufs = (torch.where(act, idx, BIG), torch.empty(cap, dtype=torch.int32, device=bits.device))
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=bits.device)
+    flags[0] = 1
+    tele = torch.zeros((4, max_iters), dtype=torch.int32, device=bits.device) if telemetry else None
+    return bufs, torch.empty(n, dtype=torch.int32, device=bits.device), torch.where(act, idx, -1), flags, tele
+
+
+# (n, graph, active_frac, max_iters, telemetry): random graphs, and a path
+# whose propagation max_iters cuts short
+@pytest.mark.parametrize("n,graph,active_frac,max_iters,telemetry", [
+    (300, 0.01, 0.7, 64, False), (300, 0.01, 0.7, 64, True), (515, 0.004, 0.9, 64, True),
+    (120, "path", 1.0, 3, False), (120, "path", 1.0, 3, True),
+])
+def test_label_prop_fixpoint_square_matches_jax(n, graph, active_frac, max_iters, telemetry):
+    """The fixpoint in square mode (``label_propagation_pallas``'s): the
+    plain version and the wrapper on the CPU against the reference's
+    while loop (Pallas round in interpret mode): labels, rounds and the
+    four per-round counts."""
+    if graph == "path":
+        adj, active = _path(n), np.ones(n, bool)
+    else:
+        adj, active = _graph(n, graph, n + 11, active_frac)
+    words, bits = _packed(adj)
+    want, want_rounds, want_tele = _jax_square_rounds(words, active, max_iters)
+    np.testing.assert_array_equal(
+        np.asarray(jops.label_propagation_pallas(jnp.asarray(words), jnp.asarray(active), max_iters=max_iters,
+                                                 row_tile=64, word_tile=4)), want)
+    for fixpoint in (label_prop_fixpoint_ref, label_prop_fixpoint):
+        bufs, m, pos, flags, tele = _square_state(bits, active, max_iters, telemetry)
+        fixpoint(bits, bufs, m, pos, flags, square=True, tele=tele)
+        rounds = int(flags[:max_iters].sum())
+        assert rounds == want_rounds
+        got = torch.where(torch.from_numpy(active), bufs[rounds % 2][:n], n)
+        np.testing.assert_array_equal(got.numpy(), want)
+        if telemetry:
+            np.testing.assert_array_equal(tele.numpy(), want_tele)
+    assert (rounds == max_iters) == (graph == "path")
+
+
 @pytest.fixture
 def metrics_on():
     was = metrics.enabled()
@@ -144,11 +224,79 @@ def test_gpu_components_match_plain(n, p, active_frac, metrics_on):
     _, bits = _packed(adj)
     bits, act = bits.to(dev), torch.from_numpy(active).to(dev)
     labels = torch.from_numpy(np.random.default_rng(n).permutation(n).astype(np.int32)).to(dev)
-    launches = {k: metrics.counter(f"kernel.{k}.launches") for k in ("label_prop_round", "label_prop_update")}
+    launches = {k: metrics.counter(f"kernel.{k}.launches")
+                for k in ("label_prop_round", "label_prop_update", "label_prop_fixpoint")}
     before = {k: c.value for k, c in launches.items()}
     assert torch.equal(label_prop_round(labels, bits), label_prop_round_ref(labels, bits))
     got = label_propagation_pallas(bits, act, max_iters=64)
     torch.cuda.synchronize()
-    assert launches["label_prop_round"].value == before["label_prop_round"] + 65
-    assert launches["label_prop_update"].value == before["label_prop_update"] + 64
+    # the round above, then one fixpoint launch that runs every round itself
+    assert launches["label_prop_round"].value == before["label_prop_round"] + 1
+    assert launches["label_prop_update"].value == before["label_prop_update"]
+    assert launches["label_prop_fixpoint"].value == before["label_prop_fixpoint"] + 1
     assert torch.equal(got, tuf.label_propagation(bits, act))
+
+
+def _rect_case(r, w, p, seed):
+    """A sweep-like rect slab: ``r`` executed rows among w*32 columns,
+    their adjacency among themselves (symmetric, self-bits) plus border
+    bits in other columns; returns (slab int32, rows)."""
+    rng = np.random.default_rng(seed)
+    cap = w * 32
+    rows = np.sort(rng.choice(cap, r, replace=False))
+    adj = rng.random((r, r)) < p
+    adj = adj | adj.T
+    np.fill_diagonal(adj, True)
+    full = np.zeros((r, cap), bool)
+    full[:, rows] = adj
+    full |= rng.random((r, cap)) < p / 4
+    full[:, rows] = adj
+    return torch.from_numpy(pack_bitmap(full).view(np.int32)), torch.from_numpy(rows.astype(np.int32))
+
+
+# (mode, size, p, max_iters, telemetry): rect slabs as pass 2 gives them,
+# one of 2048 words (labels of 256 KB: past what a block stages in shared
+# memory), one of 40 rows (fewer than an H100's SMs: 2 blocks), square
+# adjacencies, and paths whose propagation max_iters cuts short
+GPU_FIXPOINT = [
+    ("rect", (1000, 40), 0.01, 64, False), ("rect", (1000, 40), 0.01, 64, True),
+    ("rect", (300, 2048), 0.02, 64, True), ("rect", (40, 8), 0.1, 64, True),
+    ("square", 2000, 0.001, 64, False), ("square", 4421, 0.0015, 64, True),
+    ("square", 3000, "path", 3, True), ("rect", 200, "path", 2, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,size,p,max_iters,telemetry", GPU_FIXPOINT)
+def test_gpu_label_prop_fixpoint_matches_plain(mode, size, p, max_iters, telemetry, metrics_on):
+    """One cooperative launch against the plain fixpoint on the card:
+    both label buffers, m, the flags and the telemetry exactly equal."""
+    dev = _card()
+    if mode == "square":
+        adj, active = (_path(size), np.ones(size, bool)) if p == "path" else _graph(size, p, size, 0.9)
+        bits = _packed(adj)[1].to(dev)
+        states = [_square_state(bits, active, max_iters, telemetry) for _ in range(2)]
+    else:
+        if p == "path":
+            bits, rows = torch.from_numpy(pack_bitmap(_path(size)).view(np.int32)), torch.arange(size, dtype=torch.int32)
+        else:
+            bits, rows = _rect_case(*size, p, seed=size[0])
+        bits, cap = bits.to(dev), bits.shape[1] * 32
+        _, _, _, _, pos, init = fixpoint_inputs(bits, rows, 2, n=cap, cap=cap)
+        states = []
+        for _ in range(2):
+            flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
+            flags[0] = 1
+            states.append(((init.clone(), torch.empty_like(init)), torch.empty(bits.shape[0], dtype=torch.int32, device=dev),
+                           pos, flags, torch.zeros((4, max_iters), dtype=torch.int32, device=dev) if telemetry else None))
+    launches = metrics.counter("kernel.label_prop_fixpoint.launches")
+    before = launches.value
+    (kb, km, kpos, kf, kt), (pb, pm, ppos, pf, pt) = states
+    label_prop_fixpoint(bits, kb, km, kpos, kf, square=mode == "square", tele=kt)
+    torch.cuda.synchronize()
+    assert launches.value == before + 1
+    label_prop_fixpoint_ref(bits, pb, pm, ppos, pf, square=mode == "square", tele=pt)
+    for a, b in [(kb[0], pb[0]), (kb[1], pb[1]), (km, pm), (kf, pf)] + ([(kt, pt)] if telemetry else []):
+        assert torch.equal(a, b)
+    rounds = int(kf[:max_iters].sum())
+    assert rounds >= 1 and (rounds == max_iters) == (p == "path")

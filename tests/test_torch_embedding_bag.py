@@ -152,3 +152,45 @@ def test_gpu_embedding_bag_matches_plain(combiner, metrics_on):
         scale = embedding_bag_ref(t.abs(), i, combiner=combiner)
         err = (got - want).abs()
         assert bool((err <= 2 * l * 2.0 ** -24 * scale + 2.0 ** -23 * want.abs()).all()), (v, d, b, l, dtype)
+
+
+# The kernel's mapping at its edges (chip_smoke.py's EB_EDGES mirror
+# them): (D, L, B, dtype, offset).  D across 16-byte pieces (1, 3: under
+# one; 33, 100, 130: not whole pieces or lanes; 256: two passes of 32
+# lanes), bf16 with odd D, L across a batch of slots (1, 20, 33, 64), B not
+# a multiple of a block's bags, and offset 1: a table view 4 (bf16: 2)
+# bytes past a 16-byte boundary.
+EDGE_CASES = ([(d, 20, 1003, torch.float32, 0) for d in (1, 3, 4, 32, 33, 64, 100, 128, 130, 256)]
+              + [(d, 20, 1003, torch.bfloat16, 0) for d in (1, 3, 33, 129)]
+              + [(32, length, 4099, torch.float32, 0) for length in (1, 20, 33, 64)]
+              + [(32, 20, 4099, torch.float32, 1), (64, 20, 4099, torch.bfloat16, 1), (33, 7, 1003, torch.float32, 1)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,length,b,dtype,offset", EDGE_CASES)
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_gpu_embedding_bag_edges(d, length, b, dtype, offset, combiner, metrics_on):
+    """The same bound as above at the mapping's edges, with bag 0 all
+    padding (exactly 0) and bag 1 all past V (row V - 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev, v = torch.device("cuda"), 5000
+    g = torch.Generator().manual_seed(d * 1000 + length)
+    buf = torch.randn(v * d + offset, generator=g).to(dtype)
+    ids = torch.randint(-2, v + 2, (b, length), generator=g, dtype=torch.int32)
+    ids[0] = -1
+    ids[1] = v + torch.arange(length, dtype=torch.int32) % 3
+    t, i = buf.to(dev)[offset:].view(v, d), ids.to(dev)
+    assert offset == 0 or t.data_ptr() % 16 != 0
+    launches = metrics.counter(LAUNCHES["embedding_bag"])
+    before = launches.value
+    got = embedding_bag(t, i, combiner=combiner)
+    torch.cuda.synchronize()
+    assert launches.value == before + 1
+    want = embedding_bag_ref(t, i, combiner=combiner)
+    scale = embedding_bag_ref(t.abs(), i, combiner=combiner)
+    err = (got - want).abs()
+    assert bool((err <= 2 * length * 2.0 ** -24 * scale + 2.0 ** -23 * want.abs()).all())
+    assert bool((got[0] == 0).all())
+    row = t[v - 1].float() * (1 if combiner == "mean" else length)
+    assert torch.allclose(got[1], row, rtol=2 * length * 2.0 ** -24, atol=0)

@@ -33,11 +33,13 @@ from repro_torch.index.signatures import hamming_words
 from repro_torch.kernels.hamming_filter import ops as thf
 from repro_torch.kernels.label_prop import (
     col_reduce,
+    label_prop_fixpoint,
     label_prop_rect,
     label_prop_update,
     packed_cluster_labels,
 )
-from repro_torch.kernels.label_prop.ref import label_prop_update_ref
+from repro_torch.kernels.label_prop.ops import fixpoint_inputs
+from repro_torch.kernels.label_prop.ref import label_prop_fixpoint_ref, label_prop_update_ref
 
 BIG = np.iinfo(np.int32).max
 
@@ -317,3 +319,76 @@ def test_chain_graph_pointer_jump_round_bound():
     assert (labels[:n] == 0).all()
     assert int(rounds) < 16
     assert int(rounds) == int(j[4])
+
+
+def _path_adjacency(n):
+    adj = np.zeros((n, n), bool)
+    idx = np.arange(n - 1)
+    adj[idx, idx + 1] = True
+    adj = adj | adj.T
+    np.fill_diagonal(adj, True)
+    return adj
+
+
+# (n, graph, max_iters, telemetry): random slabs with every row core or
+# some not, and a path graph whose propagation max_iters cuts short
+@pytest.mark.parametrize("n,graph,max_iters,telemetry", [
+    (96, "random", 64, False), (117, "random", 64, True), (200, "path", 3, False), (200, "path", 3, True),
+    (200, "path", 64, True),
+])
+def test_label_prop_fixpoint_rect_matches_jax(n, graph, max_iters, telemetry):
+    """The fixpoint in rect mode (pass 2's, ``packed_cluster_fixpoint``):
+    the plain version and the wrapper on the CPU against the JAX
+    fixpoint (Pallas K2 in interpret mode) on the same slab: labels,
+    rounds and the four telemetry rows."""
+    if graph == "path":
+        adj, rows, tau = _path_adjacency(n), np.arange(n), 2
+    else:
+        rng = np.random.default_rng(n)
+        adj = rng.random((n, n)) < 0.06
+        adj = adj | adj.T
+        np.fill_diagonal(adj, True)
+        rows, tau = np.sort(rng.choice(n, n - 9, replace=False)), 5
+    slab = pack_bitmap(adj[rows])
+    rows = rows.astype(np.int32)
+    j = jax.device_get(jax_packed_cluster_labels(
+        jnp.asarray(slab), jnp.asarray(rows), tau, n=n, max_iters=max_iters, row_tile=32, word_tile=2,
+        interpret=True, telemetry=telemetry))
+    bitmap = _t(slab)
+    cap = bitmap.shape[1] * 32
+    _, _, _, _, pos, init = fixpoint_inputs(bitmap, torch.from_numpy(rows), tau, n=n, cap=cap)
+    for fixpoint in (label_prop_fixpoint_ref, label_prop_fixpoint):
+        bufs = (init.clone(), torch.empty_like(init))
+        m = torch.empty(len(rows), dtype=torch.int32)
+        flags = torch.zeros(max_iters + 1, dtype=torch.int32)
+        flags[0] = 1
+        tele = torch.zeros((4, max_iters), dtype=torch.int32) if telemetry else None
+        fixpoint(bitmap, bufs, m, pos, flags, tele=tele)
+        rounds = int(flags[:max_iters].sum())
+        assert rounds == int(j[4])
+        np.testing.assert_array_equal(bufs[rounds % 2][:n].numpy(), np.asarray(j[0])[:n])
+        if telemetry:
+            for k in range(4):
+                np.testing.assert_array_equal(tele[k].numpy(), np.asarray(j[5][k]))
+    if graph == "path":
+        assert (rounds == max_iters) == (max_iters == 3)  # cut short, or converged well inside 64
+
+
+def test_label_prop_fixpoint_validates_operands():
+    bitmap = torch.zeros((4, 2), dtype=torch.int32)
+    bufs = (torch.zeros(64, dtype=torch.int32), torch.zeros(64, dtype=torch.int32))
+    m, pos, flags = torch.zeros(4, dtype=torch.int32), torch.full((64,), -1, dtype=torch.int32), torch.ones(3, dtype=torch.int32)
+    label_prop_fixpoint(bitmap, bufs, m, pos, flags)  # well formed
+    with pytest.raises(ValueError, match="distinct"):
+        label_prop_fixpoint(bitmap, (bufs[0], bufs[0]), m, pos, flags)
+    with pytest.raises(ValueError, match="bufs"):
+        label_prop_fixpoint(bitmap, (bufs[0][:32], bufs[1]), m, pos, flags)
+    with pytest.raises(ValueError, match="m must"):
+        label_prop_fixpoint(bitmap, bufs, m[:3], pos, flags)
+    with pytest.raises(ValueError, match="flags"):
+        label_prop_fixpoint(bitmap, bufs, m, pos, flags.long())
+    with pytest.raises(ValueError, match="tele"):
+        label_prop_fixpoint(bitmap, bufs, m, pos, flags, tele=torch.zeros((4, 1), dtype=torch.int32))
+    with pytest.raises(ValueError, match="square"):
+        label_prop_fixpoint(torch.zeros((65, 2), dtype=torch.int32), bufs, torch.zeros(65, dtype=torch.int32),
+                            pos, flags, square=True)
