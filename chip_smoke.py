@@ -14,7 +14,7 @@ Phases (each prints one JSON line; any failure exits nonzero):
    30,437-row test split, with every kernel's launch count set to 0
    just before and read just after (pass 2's fixpoint: one
    ``label_prop_fixpoint`` launch, no ``label_prop_rect`` or
-   ``label_prop_update`` launch);
+   ``label_prop_update`` launch, one ``row_popcount`` launch);
 4. cluster-pass parity: the same sweep through the port's host
    union-find pass (``cluster_device=False``) gives identical labels;
    ground truth: exact DBSCAN of the test split
@@ -116,7 +116,26 @@ Phases (each prints one JSON line; any failure exits nonzero):
    bags, ids past V; both combiners) with ptxas's registers and spill
    bytes.  Their
    byte bound reads each distinct row once; the kernel's and the
-   library's device times are taken queued behind a sleep too.
+   library's device times are taken queued behind a sleep too;
+11. baselines: the paper's KNN-BLOCK (6 projections, window 0.3 n / 2),
+   BLOCK-DBSCAN (rnt 10) and rho-approximate DBSCAN (rho 1, the cell and
+   the direct engine) on the test split at eps 0.55, tau 5, each warmed
+   up once, then timed with the launch and host-sync counts set to 0 just
+   before and read just after (each must launch the kernels of its path,
+   ``BASELINE_KERNELS``), with ARI and AMI against phase 4's exact
+   DBSCAN; each on the card against the same call on the CPU on the
+   first 3,000 rows (identical; or each differing core flag and cluster
+   traced to a kernel hit that differs, named with its margin, every
+   margin within ``FLIP_MARGIN``); the
+   ``evaluation`` line: every method of the paper's Fig. 1 and Table 3
+   (phase 5's four, the main path, the baselines) with its time, speedup
+   over DBSCAN, ARI, AMI and queries, and Table 4's rho-approx / DBSCAN
+   time.  ``row_popcount`` (pass 2's row counts: one launch a clustering
+   in ``fixpoint_inputs``, counted on the main path) is held exactly to
+   its plain version on the main slab (phase 7) and on one KNN-BLOCK band
+   slice with each row's window as its bit range (16-byte loads: the
+   band is whole 128-column pieces), timed back to back and queued, bound
+   by one read of the words (on the band, the words the windows touch).
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -197,11 +216,18 @@ KERNELS = {
     "embedding_bag_sum": ("src/repro_torch/csrc/embedding_bag.cu",
                           "src/repro/kernels/embedding_bag/kernel.py:52 (embedding_bag_pallas -> :68, "
                           "_make_kernel :31)"),
+    "row_popcount": ("src/repro_torch/csrc/popcount.cu",
+                     "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel: jnp.sum(lax.population_count("
+                     "bitmap), axis=1) inside packed_cluster_fixpoint's jit)"),
+    "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
+                          "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
+                          "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
 }
-RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_fixpoint", "col_reduce")
+RP_KERNELS = ("rmi_mlp", "hamming_filter", "label_prop_fixpoint", "col_reduce", "row_popcount")
 # pass 2's fixpoint is one label_prop_fixpoint launch; its round steps,
-# launched one a round before, are not launched on the path
-FIXPOINT_LAUNCHES = {"label_prop_fixpoint": 1, "label_prop_rect": 0, "label_prop_update": 0}
+# launched one a round before, are not launched on the path; its row
+# counts are one row_popcount launch (fixpoint_inputs)
+FIXPOINT_LAUNCHES = {"label_prop_fixpoint": 1, "label_prop_rect": 0, "label_prop_update": 0, "row_popcount": 1}
 RMI_LAUNCHES_PER_PREDICT = 3  # one launch a stage (1, 2, 4 experts)
 TOL_RMI = 2e-5
 EXACT_KERNELS = ("range_count", "range_count_bitmap")
@@ -222,6 +248,16 @@ N_CANDIDATES = 1_000_000                  # retrieval_cand
 BULK_CHECK_ROWS = 4096                    # serve_bulk rows held to the CPU
 RECSYS_TOL = "|card - cpu| <= 1e-5 (1 + |cpu|), fp32 logits and scores, TF32 off on both"
 EB_TOL = "|kernel - plain| <= 2 L 2^-24 sum_l |row| + 2^-23 |plain| (two fp32 summation orders)"
+# phase 11: each baseline and the kernels its path launches (KNN-BLOCK's
+# windowed mode counts only within windows: no count-only launch)
+BASELINE_KERNELS = {
+    "KNN-BLOCK": ("range_count_bitmap", "row_popcount"),
+    "BLOCK-DBSCAN": ("range_count", "range_count_bitmap"),
+    "rho-approx (cell)": ("range_count", "range_count_bitmap"),
+    "rho-approx (direct)": ("range_count", "range_count_bitmap"),
+}
+BASELINE_PARITY_ROWS = 3000
+FLIP_MARGIN = 1e-5  # |dot - threshold| of a pair whose hit differs between the card and the CPU
 
 
 def emit(obj) -> None:
@@ -1712,6 +1748,208 @@ def recsys_serve(dev):
     return all(checks.values()), line, eb_rows, launches
 
 
+def check_row_popcount(slab):
+    """``row_popcount`` on the main path's slab (pass 2's row counts)
+    against its plain version, exactly; its time back to back and queued
+    behind a sleep, and its byte bound (one read of the slab)."""
+    import torch
+
+    from repro_torch.kernels.popcount import row_popcount
+    from repro_torch.kernels.popcount.ref import row_popcount_ref
+
+    r, w = slab.shape
+    got, want = row_popcount(slab), row_popcount_ref(slab)
+    b_ms, b_by = bound_ms(4 * (r * w + r))
+    return {
+        "name": "row_popcount", "shape": [r, w], "max_abs_err": int((got - want).abs().max()),
+        "tolerance": "exact", "set_bits": int(want.sum(dtype=torch.int64)),
+        "ms": time_ms(lambda: row_popcount(slab)), "device_ms": queued_ms(lambda: row_popcount(slab)),
+        "plain_ms": time_ms(lambda: row_popcount_ref(slab), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ptxas": ptxas_entries("popcount", "row_popcount_kernel"),
+    }
+
+
+def knn_band_row(test, eps, tau, dev, block=2048):
+    """``row_popcount`` with KNN-BLOCK's windows on one band slice, as
+    ``knn_block_dbscan`` launches it at phase 11's setting: the middle
+    block of sorted rows along the first projection against its band of
+    columns (``_projection_order`` and ``_band``, the function's own),
+    each row's window as its bit range; exact against the plain version,
+    timed, and bound by one read of the words each row's window touches
+    plus lo, hi and the counts."""
+    import torch
+
+    from repro_torch.core.baselines import _band, _projection_order
+    from repro_torch.kernels.popcount import row_popcount
+    from repro_torch.kernels.popcount.ref import row_popcount_ref
+    from repro_torch.kernels.range_count import range_count_bitmap
+
+    n = len(test)
+    window = max(tau, int(0.3 * n / 2))
+    order = np.ascontiguousarray(_projection_order(test, 6, 0)[:, 0])
+    xs = torch.from_numpy(test[order]).to(dev)
+    s = (n // 2) // block * block
+    e = min(s + block, n)
+    c0, c1, lo, hi = _band(s, e, n, window, dev)
+    _, words = range_count_bitmap(xs[s:e], xs[c0:c1], eps)
+    got, want = row_popcount(words, lo, hi), row_popcount_ref(words, lo, hi)
+    r, w = words.shape
+    touched = ((hi.long() + 31) // 32 - lo.long() // 32).clamp(min=0)  # words each window touches
+    b_ms, b_by = bound_ms(4 * int(touched.sum()) + 12 * r)
+    return {
+        "name": "row_popcount_band", "shape": [r, w], "window": window, "columns": [c0, c1],
+        "vec16": w % 4 == 0, "words_touched": int(touched.sum()),
+        "max_abs_err": int((got - want).abs().max()), "tolerance": "exact",
+        "ms": time_ms(lambda: row_popcount(words, lo, hi)),
+        "device_ms": queued_ms(lambda: row_popcount(words, lo, hi)),
+        "plain_ms": time_ms(lambda: row_popcount_ref(words, lo, hi), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def baseline_methods(eps, tau):
+    """Phase 11's calls: (function name, run(data, device)), at
+    ``benchmarks/methods.py:50-53``'s settings for the two block methods
+    and rho = 1 for both engines of rho-approximate DBSCAN."""
+    from repro_torch.core.baselines import block_dbscan, knn_block_dbscan, rho_approx_dbscan
+
+    return {
+        "KNN-BLOCK": ("knn_block_dbscan", lambda x, d: knn_block_dbscan(
+            x, eps, tau, n_proj=6, window=max(tau, int(0.3 * len(x) / 2)), seed=0, device=d)),
+        "BLOCK-DBSCAN": ("block_dbscan", lambda x, d: block_dbscan(x, eps, tau, rnt=10, seed=0, device=d)),
+        "rho-approx (cell)": ("rho_approx_dbscan", lambda x, d: rho_approx_dbscan(
+            x, eps, tau, 1.0, engine="cell", device=d)),
+        "rho-approx (direct)": ("rho_approx_dbscan", lambda x, d: rho_approx_dbscan(
+            x, eps, tau, 1.0, engine="direct", device=d)),
+    }
+
+
+def same_result(a, b) -> bool:
+    return bool(np.array_equal(a.labels, b.labels) and np.array_equal(a.core, b.core)
+                and a.n_clusters == b.n_clusters and a.n_range_queries == b.n_range_queries
+                and a.extras == b.extras)
+
+
+def changed_rows(a, b):
+    """Rows whose cluster differs between two labelings (as sets of rows,
+    not ids: a merge renumbers every later cluster), noise included."""
+    na, nb = np.bincount(a + 1), np.bincount(b + 1)
+    pair = (a + 1).astype(np.int64) * (b.max() + 2) + (b + 1)
+    _, inv, n_ab = np.unique(pair, return_inverse=True, return_counts=True)
+    same = (na[a + 1] == n_ab[inv]) & (nb[b + 1] == n_ab[inv])
+    return np.nonzero(((a < 0) != (b < 0)) | ((a >= 0) & ~same))[0]
+
+
+def baseline_parity(name, run, x, eps, dev):
+    """One baseline on the card against the same call on the CPU (the
+    kernels' plain versions).  Where they differ, every pair whose hit
+    differs between ``range_count_bitmap`` on the card and its plain
+    version, at each threshold whose hits the method takes from the
+    kernel (eps; eps(1 + rho) for rho-approx), is named with its
+    |dot - threshold|.  The check holds only if ``n_range_queries`` and
+    extras agree, every margin lies within ``FLIP_MARGIN``, every row
+    whose core flag differs has a flipped pair in its own row, and every
+    row whose cluster differs lies in a cluster (on the card or the CPU)
+    that holds an end of a flipped pair: a difference that no flipped
+    hit explains (the cover, the fp32 arg-maxes) fails."""
+    import torch
+
+    from repro_torch.kernels.range_count import range_count_bitmap, threshold
+    from repro_torch.kernels.range_count.ref import range_count_bitmap_ref
+
+    card, cpu = run(x, dev), run(x, "cpu")
+    line = {"identical": same_result(card, cpu), "n_clusters": [card.n_clusters, cpu.n_clusters]}
+    if line["identical"]:
+        return True, line
+    tests = {"eps": eps}
+    if name.startswith("rho"):
+        tests["eps_conn"] = min(2.0 * eps, 2.0)
+    q = torch.from_numpy(x).to(dev)
+    flips, margin, rows, ends = {}, 0.0, set(), set()
+    for label, e in tests.items():
+        pairs = flipped_pairs(range_count_bitmap(q, q, e)[1],
+                              range_count_bitmap_ref(q.cpu(), q.cpu(), threshold(e))[1].to(dev))
+        flips[label] = [[i, j, pair_margin([(i, j)], q, q, e)] for i, j in pairs]
+        margin = max([margin] + [m for _, _, m in flips[label]])
+        if label == "eps":
+            rows = {i for i, _ in pairs}
+        ends |= {k for p in pairs for k in p}
+    core_diff = np.nonzero(card.core != cpu.core)[0]
+    moved = changed_rows(card.labels, cpu.labels)
+    touched_card = {card.labels[k] for k in ends} - {-1}
+    touched_cpu = {cpu.labels[k] for k in ends} - {-1}
+    unexplained_core = [int(k) for k in core_diff if k not in rows]
+    unexplained_rows = [int(k) for k in moved
+                        if card.labels[k] not in touched_card and cpu.labels[k] not in touched_cpu]
+    line.update(label_diffs=int((card.labels != cpu.labels).sum()), rows_moved=len(moved),
+                core_diffs=len(core_diff), flipped_pairs=flips, max_margin=margin, tolerance=FLIP_MARGIN,
+                unexplained_core=unexplained_core[:20], unexplained_rows=unexplained_rows[:20])
+    held = (card.n_range_queries == cpu.n_range_queries and card.extras == cpu.extras and margin <= FLIP_MARGIN
+            and not unexplained_core and not unexplained_rows)
+    return held, line
+
+
+def baselines_phase(test, eps, tau, truth, dev):
+    """Phase 11: the paper's baselines at the main path's operating point.
+    Each method is warmed up once, then timed with the launch and host
+    sync counts set to 0 just before and read just after; quality is ARI
+    and AMI against phase 4's exact DBSCAN.  Then each on the card
+    against the CPU on the split's first ``BASELINE_PARITY_ROWS`` rows,
+    and ``row_popcount`` on one KNN-BLOCK band slice.  Returns (ok,
+    method lines, rows by method, parity line, band kernel row)."""
+    import torch
+
+    from repro_torch.core.baselines import METRICS
+    from repro_torch.core.metrics import adjusted_mutual_info, adjusted_rand_index
+    from repro_torch.obs import metrics
+
+    ok, lines, by = True, [], {}
+    t_phase = time.perf_counter()
+    for name, (fn_name, run) in baseline_methods(eps, tau).items():
+        t_method = time.perf_counter()
+        warm = run(test, dev)
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run(test, dev)
+        elapsed = time.perf_counter() - t0  # the labels are host arrays: the device work is done
+        snap = metrics.snapshot()
+        lc = {k: snap.get(f"kernel.{k}.launches", 0) for k in ("range_count", "range_count_bitmap", "row_popcount")}
+        row = {"elapsed_s": elapsed, "ari": adjusted_rand_index(r.labels, truth.labels),
+               "ami": adjusted_mutual_info(r.labels, truth.labels), "n_range_queries": r.n_range_queries,
+               "n_clusters": r.n_clusters, "noise_ratio": r.noise_ratio, "n_core": int(r.core.sum()),
+               "extras": r.extras, "launches": lc, "host_syncs": snap.get(f"{METRICS[fn_name]}.host_syncs", 0),
+               "phases_s": {k.split(".")[-1][:-2]: v for k, v in snap.items()
+                            if k.startswith(f"{METRICS[fn_name]}.phase.")}}
+        by[name] = row
+        lines.append({"phase": "baselines", "method": name, "seconds": time.perf_counter() - t_method, **row})
+        ok &= all(lc[k] > 0 for k in BASELINE_KERNELS[name]) and same_result(warm, r)
+    parity, sub = {}, np.ascontiguousarray(test[:BASELINE_PARITY_ROWS])
+    for name, (_, run) in baseline_methods(eps, tau).items():
+        p_ok, parity[name] = baseline_parity(name, run, sub, eps, dev)
+        ok &= p_ok
+    band = knn_band_row(test, eps, tau, dev)
+    ok &= band["max_abs_err"] == 0 and band["vec16"]
+    parity_line = {"phase": "baselines", "seconds": time.perf_counter() - t_phase, "n": len(test),
+                   "parity_rows": BASELINE_PARITY_ROWS, "parity": parity}
+    return ok, lines, by, parity_line, band
+
+
+def evaluation_line(by_method, main, baselines):
+    """Every method of the paper's Fig. 1 and Table 3 at the main path's
+    operating point: time, speedup over exact DBSCAN, ARI and AMI against
+    it, range queries; and Table 4's rho-approx (cell) / DBSCAN time."""
+    t_db = by_method["DBSCAN"]["elapsed_s"]
+    rows = {f"{k} (exact backend)": v for k, v in by_method.items()}
+    rows["LAF-DBSCAN (random projection, main path)"] = main
+    rows.update(baselines)
+    return {"phase": "evaluation", "dbscan_s": t_db,
+            "methods": {k: {"time_s": v["elapsed_s"], "speedup_vs_dbscan": t_db / v["elapsed_s"], "ari": v["ari"],
+                            "ami": v["ami"], "queries": v["n_range_queries"]} for k, v in rows.items()},
+            "table4_rho_cell_over_dbscan": baselines["rho-approx (cell)"]["elapsed_s"] / t_db}
+
+
 def run(args) -> int:
     import torch
 
@@ -1882,6 +2120,8 @@ def run(args) -> int:
     k1_ok, k1 = check_hamming(bk, exec_idx, eps, args.k1_rows, clock_hz)
     lp_ok, lp = check_label_prop(lp_inputs, update_before)
     emit(pass2_trace(lp_inputs))
+    pc_row = check_row_popcount(lp_inputs["slab"])
+    lp_ok &= pc_row["max_abs_err"] == 0
     del lp_inputs
     sampled_cores = np.nonzero(pp_core)[0]
     rc_ok, rc = check_range_count(bk.data_device, exec_idx[: args.k1_rows], eps,
@@ -1922,8 +2162,22 @@ def run(args) -> int:
     emit(rs_line)
     ok &= rs_ok and all(n > 0 for n in rs_launches.values())
     launches.update(rs_launches)
+
+    # 11. the paper's baselines beside the exact path's methods, each
+    #     method's launch counts read around its own run
+    bl_ok, bl_lines, bl_by, bl_parity, band = baselines_phase(test, eps, tau, truth, dev)
+    for line in bl_lines:
+        emit(line)
+    emit(bl_parity)
+    main_row = {"elapsed_s": out.elapsed_s, "ari": quality, "ami": adjusted_mutual_info(res.labels, truth.labels),
+                "n_range_queries": res.n_range_queries}
+    emit(evaluation_line(by_method, main_row, bl_by))
+    ok &= bl_ok
+    launches["row_popcount_band"] = bl_by["KNN-BLOCK"]["launches"]["row_popcount"]
+    for k in rc:
+        k["launches_by_method"].update({m: v["launches"][k["name"]] for m, v in bl_by.items()})
     rows = []
-    for k in [k1, *lp, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows]:
+    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

@@ -27,7 +27,9 @@ from ..obs.metrics import PhaseClock
 from .range_query import neighbor_lists, range_counts
 from .union_find import compact_labels_from_parent, union_star
 
-__all__ = ["DBSCANResult", "dbscan_sequential", "dbscan_parallel", "core_mask", "NOISE", "UNDEFINED"]
+__all__ = [
+    "DBSCANResult", "dbscan_sequential", "dbscan_parallel", "core_mask", "cluster_cores", "NOISE", "UNDEFINED",
+]
 
 UNDEFINED = -2
 NOISE = -1
@@ -103,6 +105,40 @@ def core_mask(data: np.ndarray, eps: float, tau: int, block_size: int = 2048, *,
     return counts.cpu().numpy() >= tau
 
 
+def cluster_cores(bk, core: np.ndarray, eps: float, block_size: int, *, conn_eps=None):
+    """Steps 2-3 of ``dbscan_parallel`` over a given core mask: a star
+    union per core row over its core hits, then each border point joins
+    its first (lowest-index) core finder, ``block_size`` core rows a
+    query.  ``conn_eps`` (default ``eps``) is the radius of the core-core
+    edges (rho-approximate DBSCAN's relaxed connectivity); the border
+    claims stay at ``eps``.  Returns (labels, host reads: one per
+    ``query_hits``)."""
+    n = len(core)
+    core_idx = np.nonzero(core)[0]
+    parent = np.arange(n, dtype=np.int64)
+    owner = np.full(n, -1, dtype=np.int64)  # first core finder per column
+    reads = 0
+    for start in range(0, len(core_idx), block_size):
+        rows = core_idx[start : start + block_size]
+        hit = bk.query_hits(rows, eps)  # (b, n)
+        conn = hit if conn_eps is None else bk.query_hits(rows, conn_eps)
+        reads += 1 if conn_eps is None else 2
+        hit_core = conn & core[None, :]
+        for bi in range(len(rows)):
+            union_star(parent, np.nonzero(hit_core[bi])[0])
+        # border claim: first core row in this block to hit an unclaimed col
+        claimed = hit.any(axis=0)
+        todo = claimed & (owner < 0) & ~core
+        if todo.any():
+            first = hit[:, todo].argmax(axis=0)
+            owner[todo] = rows[first]
+
+    labels = compact_labels_from_parent(parent, core)
+    borders = np.nonzero(~core & (owner >= 0))[0]
+    labels[borders] = labels[owner[borders]]
+    return labels, reads
+
+
 def dbscan_parallel(
     data: np.ndarray,
     eps: float,
@@ -130,27 +166,7 @@ def dbscan_parallel(
     counts = bk.query_counts(np.arange(n), eps)
     core = counts >= tau
     clock.mark("core_counts")
-    core_idx = np.nonzero(core)[0]
-
-    parent = np.arange(n, dtype=np.int64)
-    owner = np.full(n, -1, dtype=np.int64)  # first core finder per column
-
-    for start in range(0, len(core_idx), block_size):
-        rows = core_idx[start : start + block_size]
-        hit = bk.query_hits(rows, eps)  # (b, n)
-        hit_core = hit & core[None, :]
-        for bi in range(len(rows)):
-            union_star(parent, np.nonzero(hit_core[bi])[0])
-        # border claim: first core row in this block to hit an unclaimed col
-        claimed = hit.any(axis=0)
-        todo = claimed & (owner < 0) & ~core
-        if todo.any():
-            first = hit[:, todo].argmax(axis=0)
-            owner[todo] = rows[first]
-
-    labels = compact_labels_from_parent(parent, core)
-    borders = np.nonzero(~core & (owner >= 0))[0]
-    labels[borders] = labels[owner[borders]]
+    labels, _ = cluster_cores(bk, core, eps, block_size)
     clock.mark("components")
     clock.publish("dbscan.phase")
     n_clusters = int(labels.max()) + 1 if labels.max() >= 0 else 0

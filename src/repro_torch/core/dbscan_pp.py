@@ -34,7 +34,7 @@ from .dbscan import NOISE, DBSCANResult
 from .postprocess import PartialNeighborMap, post_processing
 from .union_find import compact_labels_from_parent, union_star
 
-__all__ = ["auto_sample_fraction", "kcenter_sample", "dbscan_pp", "laf_dbscan_pp"]
+__all__ = ["auto_sample_fraction", "kcenter_sample", "nearest_core", "dbscan_pp", "laf_dbscan_pp"]
 
 
 def auto_sample_fraction(
@@ -70,6 +70,21 @@ def kcenter_sample(data, m: int, seed: int = 0, *, device=None) -> np.ndarray:
     return np.sort(torch.stack(chosen).cpu().numpy().astype(np.int64))
 
 
+def nearest_core(x: torch.Tensor, core_x: torch.Tensor, eps: float, block_size: int):
+    """For every row of ``x``: the first most similar row of ``core_x``
+    and whether that dot exceeds float32(1 - eps), as host arrays (two
+    reads).  An exact fp32 product, ``block_size`` rows at a time."""
+    exact_fp32()
+    thresh = torch.tensor(1.0 - eps, dtype=torch.float32, device=x.device)
+    best, ok = [], []
+    for start in range(0, x.shape[0], block_size):
+        dots = x[start : start + block_size] @ core_x.T  # (b, m_core)
+        b = torch.argmax(dots, dim=1)
+        best.append(b)
+        ok.append(dots.gather(1, b[:, None])[:, 0] > thresh)
+    return torch.cat(best).cpu().numpy(), torch.cat(ok).cpu().numpy()
+
+
 def _cluster_from_sampled_cores(
     sample_idx: np.ndarray,
     core_in_sample: np.ndarray,
@@ -101,18 +116,8 @@ def _cluster_from_sampled_cores(
     comp = compact_labels_from_parent(parent, np.ones(len(core_idx), bool))
     clock.mark("components")
     # assign every point to its closest sampled core within eps
-    exact_fp32()
     x = bk.data_device
-    core_x = x[torch.from_numpy(core_idx).to(x.device)]
-    thresh = torch.tensor(1.0 - eps, dtype=torch.float32, device=x.device)
-    best, ok = [], []
-    for start in range(0, n, block_size):
-        dots = x[start : start + block_size] @ core_x.T  # (b, m_core)
-        b = torch.argmax(dots, dim=1)
-        best.append(b)
-        ok.append(dots.gather(1, b[:, None])[:, 0] > thresh)
-    best_h = torch.cat(best).cpu().numpy()
-    ok_h = torch.cat(ok).cpu().numpy()
+    best_h, ok_h = nearest_core(x, x[torch.from_numpy(core_idx).to(x.device)], eps, block_size)
     labels[ok_h] = comp[best_h[ok_h]]
     clock.mark("assign")
     return labels

@@ -23,7 +23,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp", "flash_attention", "embedding_bag")
+SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp", "flash_attention", "embedding_bag", "popcount")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,9 @@ _SIGNATURES = {
     },
     "embedding_bag": {
         "embedding_bag_launch": [P, P, P, I, I, I, I, I, I, P],
+    },
+    "popcount": {
+        "row_popcount_launch": [P, I, I, P, P, P, P],
     },
 }
 

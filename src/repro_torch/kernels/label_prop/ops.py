@@ -38,11 +38,11 @@ from __future__ import annotations
 
 import torch
 
-from ...index.signatures import popcount32
 from ...obs import device as _obs_device
 from ...obs import metrics as _metrics
 from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
+from ..popcount import row_popcount
 from .ref import (
     BIG, col_reduce_ref, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref, label_prop_update_ref,
 )
@@ -304,14 +304,14 @@ def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds
 def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):
     """Loop-invariant inputs of the fixpoint, all on the slab's device:
     ``(rows int32, valid_r, counts, core_r, pos, init)`` — row validity,
-    exact neighbor counts (popcount), the tau core test per row, the
+    exact neighbor counts (``row_popcount``), the tau core test per row, the
     slab row of each core column (-1 elsewhere: the scatter target map)
     and the initial labels (own index on core columns, INT32_MAX else)."""
     dev = bitmap.device
     r = bitmap.shape[0]
     rows = rows.to(device=dev, dtype=torch.int32).contiguous()
     valid_r = rows < n
-    counts = torch.where(valid_r, popcount32(bitmap).sum(dim=1, dtype=torch.int32), 0)
+    counts = torch.where(valid_r, row_popcount(bitmap), 0)
     core_r = valid_r & (counts >= int(tau))
     safe_rows = rows.clamp(max=cap - 1).long()
     core_c = torch.zeros(cap, dtype=torch.int32, device=dev).scatter_reduce_(

@@ -93,7 +93,10 @@ def layernorm(p, x, eps=1e-6):
 
 
 def rope_frequencies(d_head: int, theta: float = 10000.0, device=None):
-    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head))
+    """(d_head/2,) float32 inverse frequencies on ``device`` (``None`` =
+    cuda, raising without a card)."""
+    dev = resolve_device(device)
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=dev) / d_head))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):

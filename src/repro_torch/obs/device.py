@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import metrics as _metrics
 from . import trace as _trace
 
@@ -81,9 +82,11 @@ def device_enabled() -> bool:
 
 def cluster_telemetry_init(max_iters: int = MAX_ROUNDS, device=None) -> torch.Tensor:
     """Zeroed per-round telemetry of one cluster fixpoint: an int32
-    ``(4, max_iters)`` tensor on ``device``, one row per field of
-    ``CLUSTER_ROUND_FIELDS``, one column per round."""
-    return torch.zeros((len(CLUSTER_ROUND_FIELDS), max_iters), dtype=torch.int32, device=device)
+    ``(4, max_iters)`` tensor on ``device`` (``None`` = cuda, raising
+    without a card), one row per field of ``CLUSTER_ROUND_FIELDS``, one
+    column per round."""
+    return torch.zeros((len(CLUSTER_ROUND_FIELDS), max_iters), dtype=torch.int32,
+                       device=resolve_device(device))
 
 
 def sweep_stats_tile_sum(stats: torch.Tensor) -> torch.Tensor:

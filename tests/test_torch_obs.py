@@ -216,7 +216,7 @@ def test_harvests_match_reference():
     np.testing.assert_array_equal(tdevice.last_sweep_stats(), slab)
     assert metrics.snapshot("laf.telemetry.") == jmetrics.snapshot("laf.telemetry.")
     assert metrics.snapshot("sweep.tele.") == jmetrics.snapshot("sweep.tele.")
-    t = tdevice.cluster_telemetry_init(8)
+    t = tdevice.cluster_telemetry_init(8, device="cpu")
     assert t.shape == (4, 8) and t.dtype == torch.int32 and not t.any()
     assert tdevice.sweep_stats_tile_sum(torch.ones((1, 3), dtype=torch.int32)).tolist() == [1, 1, 1]
     assert tdevice.CLUSTER_ROUND_FIELDS == jdevice.CLUSTER_ROUND_FIELDS

@@ -16,6 +16,7 @@ import torch
 
 import repro_torch
 from repro_torch import resolve_device
+from repro_torch.core.baselines import block_dbscan, knn_block_dbscan, rho_approx_dbscan
 from repro_torch.core.cardinality.features import build_training_set
 from repro_torch.core.dbscan import dbscan_parallel, dbscan_sequential
 from repro_torch.core.dbscan_pp import dbscan_pp
@@ -36,6 +37,7 @@ from repro_torch.kernels.label_prop import col_reduce, label_prop_rect, label_pr
 from repro_torch.kernels.label_prop.ref import col_reduce_ref, label_prop_rect_ref, label_prop_update_ref
 from repro_torch.models import layers, recsys
 from repro_torch.models.transformer import TransformerConfig, make_cache, transformer_from_jax, transformer_init
+from repro_torch.obs import device as obs_device
 from repro_torch.obs import metrics
 
 PKG = Path(repro_torch.__file__).resolve().parent
@@ -56,14 +58,17 @@ def test_no_jax_or_reference_imports():
     assert {"configs/registry.py", "configs/llama3_8b.py", "models/layers.py", "models/transformer.py",
             "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py", "models/recsys.py",
             "configs/bst.py", "configs/deepfm.py", "configs/dien.py", "configs/autoint.py",
-            "kernels/embedding_bag/ops.py", "kernels/embedding_bag/ref.py"} <= checked
+            "kernels/embedding_bag/ops.py", "kernels/embedding_bag/ref.py", "core/baselines.py",
+            "kernels/popcount/ops.py", "kernels/popcount/ref.py"} <= checked
     bad = [
         (f.relative_to(PKG), m) for f in files for m in _imports(f)
         if m.split(".")[0] in ("jax", "jaxlib", "repro")
     ]
     assert bad == []
-    script = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    assert [m for m in _imports(script) if m.split(".")[0] in ("jax", "repro")] == []
+    root = Path(__file__).resolve().parents[1]
+    scripts = [root / "chip_smoke.py", *sorted((root / "examples").glob("*_torch.py"))]
+    assert len(scripts) == 3
+    assert [(s.name, m) for s in scripts for m in _imports(s) if m.split(".")[0] in ("jax", "repro")] == []
 
 
 def test_entry_points_default_to_cuda():
@@ -82,6 +87,8 @@ def test_entry_points_default_to_cuda():
         lambda **kw: layers.swiglu_init(None, 4, 8, **kw)["wo"],
         lambda **kw: layers.geglu_init(None, 4, 8, **kw)["wi_up"],
         lambda **kw: layers.mlp_init(None, [4, 3, 1], **kw)[1]["b"],
+        lambda **kw: layers.rope_frequencies(8, **kw),
+        lambda **kw: obs_device.cluster_telemetry_init(4, **kw),
     ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -118,6 +125,9 @@ def test_entry_points_default_to_cuda():
         *helpers,
         *[lambda init=init, cfg=cfg: init(0, cfg) for init, cfg in zip(rec_inits, rec.values())],
         lambda: recsys.recsys_from_jax({}, rec["bst"]),
+        lambda: knn_block_dbscan(x, 0.5, 3),
+        lambda: block_dbscan(x, 0.5, 3),
+        lambda: rho_approx_dbscan(x, 0.5, 3),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
