@@ -135,7 +135,47 @@ Phases (each prints one JSON line; any failure exits nonzero):
    its plain version on the main slab (phase 7) and on one KNN-BLOCK band
    slice with each row's window as its bit range (16-byte loads: the
    band is whole 128-column pieces), timed back to back and queued, bound
-   by one read of the words (on the band, the words the windows touch).
+   by one read of the words (on the band, the words the windows touch);
+12. stream: streaming LAF-DBSCAN (``repro_torch.stream``) on the same
+   split, each part with the counts set to 0 just before it and read just
+   after.  The exact stream: the 30,437 test rows through
+   ``StreamingLAF(backend="exact")`` in ``StreamConfig.batch_rows``
+   (4,096-row) batches, estimator off, held label for label (and core
+   for core) to phase 4's exact DBSCAN.  The RP stream, the path users
+   run: ``StreamingLAF`` warm-started from a ``RandomProjectionBackend``
+   (512 bits, margin 3) fitted on the 121,748 train rows, then the test
+   split in the same batches; ARI >= 0.99 against a batch run over all
+   152,185 rows (train then test) on the same backend config, which is
+   ``laf_dbscan`` with every point executed (the device pass; the host
+   star unions of ``dbscan_parallel`` are not run at that size).  Each
+   batch line: elapsed_s, rows/s, executed, promoted,
+   ``stream.ingest.host_syncs`` and ``packed_connectivity``'s launches
+   and rounds (the RP stream's last batch under the profiler: device
+   busy, idle share, top kernels); the host reads are held to one a
+   sweep block, a promotion block and a connectivity block (the
+   reference: a promotion block twice).  Serve: 1,024 database rows perturbed by seeded noise of
+   0.01/sqrt(d) and renormalized, through the RP stream's
+   ``ClusterIndex`` on the engine (K1) and on its host oracle loop:
+   labels, confidence and hits identical; single-query latency (p50,
+   p99 over 200 calls) and the 1,024-query call.  Durable:
+   ``DurableStream`` over the exact stream's batches (fsync on, a
+   snapshot every 3 batches) dropped after batch 5 without ``close``,
+   then ``DurableStream.recover``: labels, counts, core and owner equal
+   the uninterrupted stream's after batch 5 and after the rest;
+   snapshot seconds, recovery seconds, WAL replay rows/s.  Evict: 5% of
+   the exact stream's rows (seeded, a core among them): one rebuild
+   (``stream.rebuilds``), and the live rows' labels equal exact DBSCAN
+   of those rows.  ``stream.degraded.events`` stays 0 throughout (the
+   port has no degrade policy: a device fault raises and fails the
+   phase).  The
+   ``packed_connectivity`` row: one RP block slab (4,096 rows x the
+   stream's 4,756 words) through the connectivity mode's cooperative
+   launch, held exactly to ``packed_connectivity_ref`` (comp, owner,
+   row_first, rounds; round 0 yields the owner and row_first, so the
+   block is that one launch), with its queued device time, rounds, ptxas
+   registers and spills and its byte bound: rounds x (K2 + K3 + the
+   update), the section 6 formulas, + the owner's row indices read and
+   its column minimum written once.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -219,6 +259,11 @@ KERNELS = {
     "row_popcount": ("src/repro_torch/csrc/popcount.cu",
                      "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel: jnp.sum(lax.population_count("
                      "bitmap), axis=1) inside packed_cluster_fixpoint's jit)"),
+    "packed_connectivity": ("src/repro_torch/csrc/label_prop.cu",
+                            "src/repro/kernels/label_prop/ops.py:367 (the lax.while_loop of "
+                            "_packed_connectivity_jit :325-380, behind packed_connectivity :383: "
+                            "label_prop_rect_pallas kernel.py:104 + col_reduce_pallas kernel.py:173 + the jnp "
+                            "update :374-377)"),
     "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
                           "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
                           "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
@@ -257,6 +302,11 @@ BASELINE_KERNELS = {
     "rho-approx (direct)": ("range_count", "range_count_bitmap"),
 }
 BASELINE_PARITY_ROWS = 3000
+# phase 12: the stream's batches (StreamConfig.batch_rows), the kernels
+# its RP path launches, the serve and evict sizes
+STREAM_BATCH = 4096
+STREAM_RP_KERNELS = ("hamming_filter", "row_popcount", "col_reduce", "packed_connectivity")
+SERVE_QUERIES, SERVE_SINGLE_CALLS, EVICT_FRAC = 1024, 200, 0.05
 FLIP_MARGIN = 1e-5  # |dot - threshold| of a pair whose hit differs between the card and the CPU
 
 
@@ -1936,6 +1986,275 @@ def baselines_phase(test, eps, tau, truth, dev):
     return ok, lines, by, parity_line, band
 
 
+def stream_state(s) -> dict:
+    """A stream's labels, counts, core and owner (copies)."""
+    n = s.state.n
+    return {"labels": s.labels(), **{f: getattr(s.state, f)[:n].copy() for f in ("counts", "core", "owner")}}
+
+
+def same_state(a, b) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in ("labels", "counts", "core", "owner"))
+
+
+def stream_batches(x):
+    return [x[s : s + STREAM_BATCH] for s in range(0, len(x), STREAM_BATCH)]
+
+
+def stream_run(s, batches, label, on_batch=None, profile_last=False):
+    """Each batch through ``s.partial_fit``, one line a batch with its
+    report and the deltas of the stream's host reads and
+    ``packed_connectivity``'s launches and rounds; ``profile_last`` runs
+    the last batch under the profiler (wall, device busy, idle share,
+    top kernels)."""
+    from repro_torch.obs import metrics
+
+    keys = {"host_syncs": "stream.ingest.host_syncs", "connectivity_launches": "kernel.packed_connectivity.launches",
+            "connectivity_rounds": "stream.ingest.connectivity_rounds"}
+    lines = []
+    for i, b in enumerate(batches):
+        before = {k: metrics.counter(v).value for k, v in keys.items()}
+        trace = {}
+        if profile_last and i == len(batches) - 1:
+            out = []
+            wall, busy, union, top = device_busy(lambda: out.append(s.partial_fit(b)))
+            rep = out[0]
+            trace = {"trace": {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                               "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top}}
+        else:
+            rep = s.partial_fit(b)
+        line = {"phase": "stream_batch", "stream": label, "batch": i, "rows": len(b), "elapsed_s": rep.elapsed_s,
+                "rows_per_s": len(b) / rep.elapsed_s, "executed": rep.n_executed, "promoted": rep.n_promoted,
+                "n_points": rep.n_points, "n_clusters": rep.n_clusters,
+                **{k: metrics.counter(v).value - before[k] for k, v in keys.items()}, **trace}
+        emit(line)
+        lines.append(line)
+        if on_batch is not None:
+            on_batch(i, s)
+    return lines
+
+
+def blocks(n_rows: int, size: int) -> int:
+    return -(-n_rows // size)
+
+
+def connectivity_row(stream, rows, eps):
+    """``packed_connectivity`` (the connectivity mode's one cooperative
+    launch, whose round 0 also yields the owner and row_first) against
+    ``packed_connectivity_ref`` on one RP block slab of the stream,
+    exactly: comp, owner, row_first, rounds."""
+    import torch
+
+    from repro_torch.kernels.label_prop import packed_connectivity
+    from repro_torch.kernels.label_prop.ref import packed_connectivity_ref
+
+    st, dev = stream.state, stream.backend.device
+    slab = st.mask_packed(stream.backend.query_packed_device(rows, eps))
+    args = (slab, torch.from_numpy(rows).to(dev), torch.from_numpy(st.core[rows]).to(dev),
+            torch.from_numpy(st.core[: st.n]).to(dev))
+    got = packed_connectivity(*args)
+    want = packed_connectivity_ref(*args)
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in zip(got, want))
+    r, w = slab.shape
+    rounds, cap = int(got[3]), 32 * w
+    k2 = 4 * (r * w + 32 * w + 2 * r)
+    k3 = 4 * (r * w + 2 * r + 64 * w)
+    b_ms, b_by = bound_ms(rounds * (k2 + k3 + 4 * 4 * cap) + 4 * (r + cap))
+    _, _, _, top = device_busy(lambda: packed_connectivity(*args), top=6)
+    return {
+        "name": "packed_connectivity", "shape": [r, w], **slab_stats(slab), "rounds": rounds,
+        "n_core_rows": int(st.core[rows].sum()), "max_abs_err": err,
+        "tolerance": "exact: comp, owner, row_first, rounds",
+        "ms": time_ms(lambda: packed_connectivity(*args)), "device_ms": queued_ms(lambda: packed_connectivity(*args)),
+        "plain_ms": time_ms(lambda: packed_connectivity_ref(*args), reps=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_note": "rounds x (K2 4(RW + 32W + 2R) + K3 4(RW + 2R + 64W) + update 4 x 4 x 32W) "
+                      "+ 4(R + 32W): the owner's row indices read and its minimum written, once",
+        "ptxas": ptxas_entries("label_prop", "packed_connectivity_kernel"),
+        "top_kernels": top,
+    }
+
+
+def stream_phase(data, test, truth, eps, tau, dev):
+    """Phase 12: the exact stream, the RP stream and the
+    ``packed_connectivity`` row on one of its blocks, serve, durable and
+    evict.  Returns (ok, stream line, kernel row, launches of the RP
+    stream)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.dbscan import dbscan_parallel
+    from repro_torch.core.laf_dbscan import laf_dbscan
+    from repro_torch.core.metrics import adjusted_rand_index
+    from repro_torch.data.synthetic import train_test_split
+    from repro_torch.index.random_projection import RandomProjectionBackend
+    from repro_torch.obs import metrics
+    from repro_torch.stream import DurableStream, StreamingLAF
+
+    t_phase = time.perf_counter()
+    line, checks, degraded = {"phase": "stream", "batch_rows": STREAM_BATCH}, {}, 0
+    batches = stream_batches(test)
+
+    # the exact stream, held to exact DBSCAN of the split
+    metrics.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex = StreamingLAF(eps, tau, backend="exact", device=dev)
+    at5 = {}
+    ex_lines = stream_run(ex, batches, "exact", lambda i, s: at5.update(stream_state(s)) if i == 4 else None)
+    snap = metrics.snapshot()
+    ex_state = stream_state(ex)
+    checks["exact_equals_dbscan"] = bool(np.array_equal(ex_state["labels"], truth.labels)
+                                         and np.array_equal(ex_state["core"], truth.core))
+    checks["exact_launches"] = snap.get("kernel.range_count_bitmap.launches", 0) > 0
+    degraded += snap.get("stream.degraded.events", 0)
+    line["exact"] = {"seconds": time.perf_counter() - t0, "n_clusters": ex.n_clusters,
+                     "host_syncs": snap.get("stream.ingest.host_syncs", 0),
+                     "range_count_bitmap_launches": snap.get("kernel.range_count_bitmap.launches", 0),
+                     "rows_per_s": len(test) / sum(b["elapsed_s"] for b in ex_lines)}
+
+    # the RP stream: warm start from the fitted train rows, then the split
+    train, test2 = train_test_split(data, 0.8, 0)
+    checks["split_is_phase_1s"] = bool(np.array_equal(test2, test))
+    t0 = time.perf_counter()
+    bk = RandomProjectionBackend(device=dev, n_bits=512, margin=3.0).fit(train)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    metrics.reset()
+    t0 = time.perf_counter()
+    rp = StreamingLAF(eps, tau, backend=bk)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = metrics.snapshot()
+    rp_lines = stream_run(rp, batches, "random_projection", profile_last=True)
+    snap = metrics.snapshot()
+    launches = {k: snap.get(f"kernel.{k}.launches", 0) for k in STREAM_RP_KERNELS}
+    degraded += snap.get("stream.degraded.events", 0)
+    sweep_blocks = blocks(len(train), rp.block_size) + sum(blocks(b["executed"], rp.block_size) for b in rp_lines)
+    promo_blocks = sum(blocks(b["promoted"], rp.block_size) for b in rp_lines)
+    syncs = snap.get("stream.ingest.host_syncs", 0)
+    checks["rp_launches"] = all(v > 0 for v in launches.values())
+    checks["rp_one_connectivity_launch_a_block"] = launches["packed_connectivity"] == sweep_blocks + promo_blocks
+    checks["rp_host_syncs"] = syncs == 2 * sweep_blocks + promo_blocks
+    t0 = time.perf_counter()
+    allx = np.concatenate([train, test])
+    batch = laf_dbscan(allx, eps, tau, 1.0, np.full(len(allx), np.inf),
+                       backend=RandomProjectionBackend(device=dev, n_bits=512, margin=3.0), cluster_device=True)
+    batch_s = time.perf_counter() - t0
+    rp_labels = rp.labels()
+    ari = adjusted_rand_index(rp_labels, batch.labels)
+    checks["rp_ari"] = ari >= 0.99
+    line["random_projection"] = {
+        "fit_s": fit_s, "warm_start_s": warm_s, "warm_rows": len(train),
+        "warm_host_syncs": warm.get("stream.ingest.host_syncs", 0),
+        "warm_connectivity_launches": warm.get("kernel.packed_connectivity.launches", 0),
+        "warm_connectivity_rounds": warm.get("stream.ingest.connectivity_rounds", 0),
+        "stream_rows_per_s": len(test) / sum(b["elapsed_s"] for b in rp_lines),
+        "n_points": rp.n_points, "n_clusters": rp.n_clusters, "words": -(-rp.n_points // 32),
+        "launches": launches, "host_syncs": syncs, "sweep_blocks": sweep_blocks, "promotion_blocks": promo_blocks,
+        "reference_host_reads": sweep_blocks + 2 * promo_blocks + sweep_blocks,
+        "connectivity_rounds": snap.get("stream.ingest.connectivity_rounds", 0),
+        "batch_run": "laf_dbscan, every point executed, device pass", "batch_s": batch_s,
+        "batch_n_clusters": batch.n_clusters, "ari_vs_batch": ari,
+        "labels_differing": int((rp_labels != batch.labels).sum()),
+        "core_differing": int((rp.state.core[: rp.n_points] != batch.core).sum())}
+    del batch
+    # the kernel row on one block of the stream: the last full batch's rows
+    # (the 7th at the ms-150k split)
+    end = rp.n_points - len(batches[-1])
+    kernel_row = connectivity_row(rp, np.arange(end - STREAM_BATCH, end), eps)
+    checks["connectivity_kernel_exact"] = kernel_row["max_abs_err"] == 0
+
+    # serve: perturbed database rows through the engine and the host oracle
+    metrics.reset()
+    rng = np.random.default_rng(7)
+    pick = rng.choice(rp.n_points, SERVE_QUERIES, replace=False)
+    q = rp.backend.data[pick] + (0.01 / np.sqrt(data.shape[1])) * rng.standard_normal(
+        (SERVE_QUERIES, data.shape[1])).astype(np.float32)
+    q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    t0 = time.perf_counter()
+    snap_idx = rp.snapshot()
+    build_s = time.perf_counter() - t0
+    snap_idx.assign(q[:8])  # first use
+    t0 = time.perf_counter()
+    eng = snap_idx.assign(q)
+    bulk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = snap_idx.assign(q, oracle=True)
+    oracle_s = time.perf_counter() - t0
+    lat = []
+    for i in range(SERVE_SINGLE_CALLS):
+        t1 = time.perf_counter()
+        snap_idx.assign(q[i : i + 1])
+        lat.append(time.perf_counter() - t1)
+    checks["serve_engine_equals_oracle"] = all(
+        np.array_equal(getattr(eng, f), getattr(host, f)) for f in ("labels", "confidence", "n_hits"))
+    snap = metrics.snapshot()
+    degraded += snap.get("stream.degraded.events", 0)
+    line["serve"] = {"queries": SERVE_QUERIES, "snapshot_build_s": build_s, "bulk_s": bulk_s, "oracle_s": oracle_s,
+                     "single_p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                     "single_p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                     "agree_with_stream_labels": float(np.mean(eng.labels == rp_labels[pick])),
+                     "noise": int((eng.labels < 0).sum()), "verify_launches": snap.get("serve.verify_launches", 0),
+                     "hamming_filter_launches": snap.get("kernel.hamming_filter.launches", 0)}
+    checks["serve_launches"] = line["serve"]["hamming_filter_launches"] > 0
+    del rp, bk, snap_idx
+
+    # durable: dropped after batch 5, then recovered
+    metrics.reset()
+    obs.enable(trace=True, metrics_on=True)
+    obs.clear_trace()
+
+    def factory():
+        return StreamingLAF(eps, tau, backend="exact", device=dev)
+
+    with tempfile.TemporaryDirectory() as td:
+        d = DurableStream(factory(), td, snapshot_every=3, fsync=True)
+        for b in batches[:5]:
+            d.partial_fit(b)
+        snap_s = [r.dur for r in obs.spans("durability.snapshot")]
+        d2 = DurableStream.recover(td, factory, fsync=True)  # d is dropped: no close
+        info = d2.recovery_info
+        checks["durable_after_batch_5"] = same_state(stream_state(d2.stream), at5)
+        for b in batches[5:]:
+            d2.partial_fit(b)
+        checks["durable_after_all"] = same_state(stream_state(d2.stream), ex_state)
+        d2.close()
+        d.close()
+    obs.enable(trace=False, metrics_on=True)
+    snap = metrics.snapshot()
+    degraded += snap.get("stream.degraded.events", 0)
+    line["durable"] = {"snapshot_every": 3, "fsync": True, "snapshot_s": snap_s, "recovered_seq": info["seq"],
+                       "snapshot_step": info["snapshot_step"], "restore_s": info["restore_s"],
+                       "replay_s": info["replay_s"], "recovery_s": info["recovery_s"],
+                       "wal_rows": info["wal_rows"], "wal_replay_rows_per_s": info["wal_rows"] / info["replay_s"]}
+
+    # evict: 5% of the exact stream's rows, a core among them
+    metrics.reset()
+    rng = np.random.default_rng(11)
+    n = ex.n_points
+    idx = np.sort(rng.choice(n, int(EVICT_FRAC * n), replace=False))
+    t0 = time.perf_counter()
+    rebuilt = ex.evict(idx)
+    evict_s = time.perf_counter() - t0
+    live = np.setdiff1d(np.arange(n), idx)
+    ref = dbscan_parallel(test[live], eps, tau, backend="exact", device=dev)
+    snap = metrics.snapshot()
+    degraded += snap.get("stream.degraded.events", 0)
+    checks["evict_kills_a_core"] = bool(ex_state["core"][idx].any())
+    checks["evict_rebuilds_once"] = bool(rebuilt) and snap.get("stream.rebuilds", 0) == 1
+    checks["evict_equals_dbscan"] = bool(np.array_equal(ex.labels(), ref.labels))
+    line["evict"] = {"evicted": len(idx), "cores_evicted": int(ex_state["core"][idx].sum()), "evict_s": evict_s,
+                     "rebuilds": snap.get("stream.rebuilds", 0),
+                     "rebuilds_core_death": snap.get("stream.rebuilds.core_death", 0),
+                     "n_points": ex.n_points, "n_clusters": ex.n_clusters}
+
+    line["degraded_events"] = degraded
+    checks["no_degraded_events"] = degraded == 0
+    line["checks"] = checks
+    line["seconds"] = time.perf_counter() - t_phase
+    return all(checks.values()), line, kernel_row, launches
+
+
 def evaluation_line(by_method, main, baselines):
     """Every method of the paper's Fig. 1 and Table 3 at the main path's
     operating point: time, speedup over exact DBSCAN, ARI and AMI against
@@ -2174,10 +2493,17 @@ def run(args) -> int:
     emit(evaluation_line(by_method, main_row, bl_by))
     ok &= bl_ok
     launches["row_popcount_band"] = bl_by["KNN-BLOCK"]["launches"]["row_popcount"]
+
+    # 12. streaming: the exact and the RP stream, serve, durable, evict,
+    #     each part's counts read around its own run
+    sm_ok, sm_line, pc_conn, sm_launches = stream_phase(data, test, truth, eps, tau, dev)
+    emit(sm_line)
+    ok &= sm_ok
+    launches["packed_connectivity"] = sm_launches["packed_connectivity"]
     for k in rc:
         k["launches_by_method"].update({m: v["launches"][k["name"]] for m, v in bl_by.items()})
     rows = []
-    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band]:
+    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

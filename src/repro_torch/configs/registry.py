@@ -5,8 +5,11 @@ reduced same-family config for CPU tests, its shape table and its
 documented skips.  ``_ensure_loaded`` imports only the configs the port
 can run: ``llama3_8b`` (the dense GQA decoder) and the four recsys
 rankers ``bst``, ``deepfm``, ``dien`` and ``autoint``.  The reference's
-other configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the GNN
-model, laf_dbscan's launch config) are queued in ROADMAP A11.
+other model configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the
+GNN model) are queued in ROADMAP A11; laf_dbscan's launch config
+(``LAFClusterConfig`` and its entry) in A10.  Its ``StreamConfig`` is
+ported as a plain dataclass in ``configs/laf_dbscan.py``, outside the
+registry.
 """
 
 from __future__ import annotations

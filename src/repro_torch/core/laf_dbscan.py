@@ -14,7 +14,10 @@ device and feeds the packed label propagation; the host reads labels,
 owners, partial counts, neighbor counts and rounds in ONE copy
 (``laf.cluster.host_syncs``).  ``cluster_device=False`` runs the host
 unpack -> union-find pass over the same hits, the parity oracle.  A
-device failure raises.
+device failure of the cluster pass (a refused launch, among them
+``label_prop_fixpoint``'s cooperative launch when its grid cannot be
+resident, or a ``testing.faults`` plan firing at ``cluster.launch``)
+raises; the host pass never stands in for it.
 
 Spans (``obs.enable(trace=True)``) follow the reference's:
 ``laf.cluster`` around the engine, ``laf.fit_index``, ``laf.pass1`` ⊃
@@ -195,7 +198,9 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
     ``union_star``'s min-root merging produces).
     """
     from ..kernels.label_prop import packed_cluster_labels
+    from ..testing import faults as _faults
 
+    _faults.maybe_fail("cluster.launch", n=int(n), n_exec=int(len(exec_idx)))
     n_exec = len(exec_idx)
     with _span("laf.pass1", n=n, n_exec=int(n_exec), block_size=block_size, device=True):
         # uploaded before the sweep: a host->device copy waits for the stream

@@ -69,6 +69,7 @@ class LAFPipeline:
         self.device = resolve_device(device)
         self.cluster_device = cluster_device
         self.estimator: Optional[TrainedEstimator] = None
+        self._stream = None
 
     def fit(self, train_vectors: np.ndarray) -> "LAFPipeline":
         self.estimator = train_rmi(
@@ -92,6 +93,58 @@ class LAFPipeline:
         if self.estimator is None:
             raise RuntimeError("call fit() first")
         return self.estimator.predict_counts(vectors, eps)
+
+    # -- streaming (repro_torch.stream) ------------------------------------
+    @property
+    def stream(self):
+        """The live ``StreamingLAF`` (None until the first ``partial_fit``)."""
+        return self._stream
+
+    def partial_fit(self, batch: np.ndarray, *, eps: float = None, tau: int = None, **kw):
+        """Ingest an embedding batch into the maintained online clustering.
+
+        The first call fixes the (eps, tau) operating point and builds a
+        ``repro_torch.stream.StreamingLAF`` on this pipeline's backend and
+        device; a trained estimator (from ``fit``) is wired in as the
+        ingest fast path (``use_estimator=False`` forces the exact path).
+        Later calls stream batches in; changing eps/tau mid-stream raises.
+        Returns the batch's ``IngestReport``.
+        """
+        if self._stream is None:
+            if eps is None or tau is None:
+                raise ValueError("the first partial_fit must fix eps= and tau=")
+            from ..index.base import RangeBackend
+            from ..stream import StreamingLAF
+
+            if self.estimator is not None:
+                kw.setdefault("estimator", self.estimator)
+                kw.setdefault("use_estimator", True)
+            kw.setdefault("backend", self.backend)
+            if not isinstance(kw["backend"], RangeBackend):
+                # a constructed instance keeps its own device; only
+                # registry names take the pipeline's
+                kw.setdefault("device", self.device)
+            self._stream = StreamingLAF(eps, tau, **kw)
+            return self._stream.partial_fit(batch)
+        if (eps is not None and eps != self._stream.eps) or (tau is not None and tau != self._stream.tau):
+            raise ValueError(
+                f"stream is live at eps={self._stream.eps}, tau={self._stream.tau}; "
+                f"got eps={eps}, tau={tau} — the maintained counts are "
+                f"operating-point-specific (start a new pipeline/stream to change)"
+            )
+        if kw:
+            raise ValueError(
+                f"stream is live; constructor kwargs {sorted(kw)} cannot be "
+                f"applied after the first partial_fit"
+            )
+        return self._stream.partial_fit(batch)
+
+    def assign(self, queries: np.ndarray, **kw):
+        """Serving API: cluster ids + confidence for unseen vectors
+        against the streamed clustering (``repro_torch.stream.serve``)."""
+        if self._stream is None:
+            raise RuntimeError("call partial_fit() first")
+        return self._stream.assign(queries, **kw)
 
     def _engine_kw(self, kw) -> dict:
         kw.setdefault("backend", self.backend)

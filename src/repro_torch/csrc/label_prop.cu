@@ -248,33 +248,45 @@ __device__ __forceinline__ int warp_exclusive_sum(int v, int lane, int& total) {
   return x - v;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kernel(
-    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
-    const int* __restrict__ row_weights, int R, int W, int chunk_rows,
-    int* __restrict__ col_min, int* __restrict__ col_sum) {
-  extern __shared__ int4 s_col4[];
-  int* s_min = reinterpret_cast<int*>(s_col4);
-  int* s_sum = s_min + kAccSlots;
+// K3's body over one work item: the tile of 128 words at word t0 over
+// rows r0 .. r1, accumulated in shared memory (`smem`, kColSmem bytes)
+// and added into col_min, and with a second accumulator (ACC2) into
+// col_acc2: kAccSum adds row_second[i] (col_reduce's weights), kAccMin
+// takes the min of row_second[i] under the same mask as the values (the
+// connectivity mode's owner).  A row's value is row_vals[i], or INT32_MAX
+// where row_mask is given and row_mask[i] is 0; LIVE reads the values
+// through L2 (written earlier in the same launch).  Every thread of the
+// block calls it; it ends behind a barrier, so the block may call it
+// again at once or reuse the shared memory.
+constexpr int kAccNone = 0, kAccSum = 1, kAccMin = 2;
+
+template <bool VEC, bool LIVE, int ACC2>
+__device__ __forceinline__ void col_tile(
+    const uint32_t* __restrict__ bitmap, const int* row_vals, const int* __restrict__ row_mask,
+    const int* __restrict__ row_second, int R, int W, int t0, int r0, int r1,
+    int* col_min, int* col_acc2, int* smem) {
+  constexpr bool SUM = ACC2 == kAccSum, MIN2 = ACC2 == kAccMin;
+  constexpr int kEmpty2 = MIN2 ? INT_MAX : 0;  // a second accumulator's identity
+  int* s_min = smem;
+  int* s_acc2 = s_min + kAccSlots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // the warp's list of its row's nonzero words, and where each goes
-  uint32_t* s_word = reinterpret_cast<uint32_t*>(s_sum + kAccSlots) + warp * kTileWords;
-  int* s_base = s_sum + kAccSlots + (kColWarps + warp) * kTileWords;
+  uint32_t* s_word = reinterpret_cast<uint32_t*>(s_acc2 + kAccSlots) + warp * kTileWords;
+  int* s_base = s_acc2 + kAccSlots + (kColWarps + warp) * kTileWords;
   for (int i = threadIdx.x; i < kAccSlots; i += kColThreads) {
     s_min[i] = INT_MAX;
-    s_sum[i] = 0;
+    if (ACC2 != kAccNone) s_acc2[i] = kEmpty2;
   }
   __syncthreads();
-  const int t0 = blockIdx.x * kTileWords;         // the tile's first word
   const int wl = t0 + lane * 4;                    // the lane's first word
-  const int r0 = blockIdx.y * chunk_rows;
-  const int r1 = min(R, r0 + chunk_rows);
   int r = r0 + warp;                               // the warp's next row
   uint4 nxt;
-  int nv, nw;
+  int nv, nw = kEmpty2;
   auto fetch = [&](int i) {
-    nv = __ldg(row_vals + i);
-    nw = __ldg(row_weights + i);
+    const bool on = row_mask == nullptr || __ldg(row_mask + i);
+    nv = on ? ld_label<LIVE>(row_vals + i) : INT_MAX;
+    if (SUM) nw = __ldg(row_second + i);
+    if (MIN2) nw = on ? __ldg(row_second + i) : INT_MAX;
     nxt = load4<VEC>(bitmap + (size_t)i * W, wl, W);
   };
   if (r < r1) fetch(r);
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kerne
     const int v = nv, wt = nw;  // the same in every lane
     r += kColWarps;
     if (r < r1) fetch(r);
-    if (v == INT_MAX && wt == 0) continue;  // the row changes nothing
+    if (v == INT_MAX && wt == kEmpty2) continue;  // the row changes nothing
     // list the nonzero words (branch-free: k is known at compile time) ...
     const uint32_t nz = nonzero4(cur);
     int total;
@@ -304,7 +316,8 @@ __global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kerne
         const int j = base + __ffs(word) - 1;
         word &= word - 1;
         if (v != INT_MAX) atomicMin(&s_min[j], v);
-        if (wt != 0) atomicAdd(&s_sum[j], wt);
+        if (SUM && wt != 0) atomicAdd(&s_acc2[j], wt);
+        if (MIN2 && wt != INT_MAX) atomicMin(&s_acc2[j], wt);
       } while (word);
     }
     __syncwarp();
@@ -314,10 +327,24 @@ __global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kerne
     const int word = t0 + (c >> 5);
     if (word >= W) break;
     const int j = (c >> 5) * kStride + (c & 31);
-    const int mn = s_min[j], sm = s_sum[j];
+    const int mn = s_min[j];
     if (mn != INT_MAX) atomicMin(&col_min[word * 32 + (c & 31)], mn);
-    if (sm != 0) atomicAdd(&col_sum[word * 32 + (c & 31)], sm);
+    const int a2 = ACC2 != kAccNone ? s_acc2[j] : kEmpty2;
+    if (SUM && a2 != 0) atomicAdd(&col_acc2[word * 32 + (c & 31)], a2);
+    if (MIN2 && a2 != INT_MAX) atomicMin(&col_acc2[word * 32 + (c & 31)], a2);
   }
+  __syncthreads();
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kernel(
+    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
+    const int* __restrict__ row_weights, int R, int W, int chunk_rows,
+    int* __restrict__ col_min, int* __restrict__ col_sum) {
+  extern __shared__ int4 s_col4[];
+  const int r0 = blockIdx.y * chunk_rows;
+  col_tile<VEC, false, kAccSum>(bitmap, row_vals, nullptr, row_weights, R, W, blockIdx.x * kTileWords, r0,
+                             min(R, r0 + chunk_rows), col_min, col_sum, reinterpret_cast<int*>(s_col4));
 }
 
 __device__ __forceinline__ int scattered(const int* lab, const int* m,
@@ -468,12 +495,102 @@ __global__ void __launch_bounds__(kRectThreads, 1) label_prop_fixpoint_kernel(
   }
 }
 
+// packed_connectivity_kernel — the fixpoint's third mode, connectivity
+//   (replaces the lax.while_loop of repro/kernels/label_prop/ops.py:367 in
+//   _packed_connectivity_jit :325-380, behind packed_connectivity :383:
+//   label_prop_rect_pallas kernel.py:104 + col_reduce_pallas kernel.py:173
+//   + the jnp update :374-377).  A streaming block's rows are not a
+//   superset of the core set, so a round relays columns -> core rows ->
+//   columns.  One 1,024-thread block an SM, as the other two modes; round
+//   it reads buffer it % 2 and writes the other:
+//     1. K2's walk (rect_rows) with INT32_MAX row labels and the column
+//        labels lab into m; meanwhile cmin is reset to INT32_MAX (the
+//        previous round read it before its last barrier);
+//     2. grid.sync();
+//     3. K3's walk (col_tile, no sums): the work items, (128-word tile,
+//        row chunk) pairs, grid-strided over the blocks, take
+//        min(row_core[i] ? m[i] : INT32_MAX) down each column into cmin;
+//     4. grid.sync();
+//     5. the update over the cap columns:
+//          new(j)  = core_c[j] ? min(lab[j], cmin[j]) : INT32_MAX
+//          out[j]  = new(j) < cap ? min(new(j), new(new(j))) : new(j)
+//        with new(new(j)) computed again from lab and cmin, as update_cols
+//        does; the other buffer; flags[it + 1] when a label changed;
+//     6. grid.sync(); every block reads flags[it + 1] and leaves the loop
+//        at 0.
+//   The two loop-invariant outputs come out of round 0, which always runs
+//   and reads the initial labels: row_first (the min core column adjacent
+//   to each row) is round 0's m, so round 0 writes m into row_first and
+//   K3 reads it from there; the owner (the min core row adjacent to each
+//   column) is a second min accumulator of round 0's K3 walk over the
+//   same core rows, taking each row's index.  So a block is one launch.
+//   Bound: bytes, rounds * (K2's + K3's + the update's).
+//   Where trouble lies, and what the kernel does about it:
+//   (1) m, cmin, lab and flags are written in the launch and read with
+//       __ldcg (point (1) of label_prop_fixpoint); bitmap, row_core and
+//       core_c, which nothing writes, stay on the read-only path;
+//   (2) shared memory: K2's staged labels and K3's tile accumulators are
+//       used in phases split by barriers, so they alias one dynamic
+//       buffer, sized for the larger of the two; a stream's slabs are
+//       wide (3,805 words at the ms-150k warm start, 4,756 after the
+//       stream), over the staging limit, so the unstaged K2 variant
+//       carries them and the buffer is K3's;
+//   (3) co-residency: as label_prop_fixpoint, a grid that cannot all be
+//       resident is refused and the wrapper raises;
+//   (4) the ragged R and W: rect_rows and col_tile mask words >= W and
+//       rows >= R themselves (the reference pads both to its tiles, with
+//       pad rows that are not core).
+template <bool VEC, bool SMEM>
+__global__ void __launch_bounds__(kRectThreads, 1) packed_connectivity_kernel(
+    const uint32_t* __restrict__ bitmap, int R, int W, const int* __restrict__ rows,
+    const int* __restrict__ row_core, const int* __restrict__ core_c, int* lab0, int* lab1, int* m,
+    int* cmin, int cap, int* flags, int* row_first, int* owner, int max_iters, int chunk_rows,
+    int n_chunks) {
+  extern __shared__ int4 s_dyn[];
+  __shared__ int s_rowmin[kRectBatch];
+  __shared__ int s_next;
+  cg::grid_group grid = cg::this_grid();
+  const int tiles = (W + kTileWords - 1) / kTileWords, items = tiles * n_chunks;
+  const int stride = gridDim.x * blockDim.x;
+  for (int it = 0; it < max_iters; ++it) {
+    if (__ldcg(flags + it) == 0) break;  // the same in every block: read after a grid barrier
+    const int* lab = (it & 1) ? lab1 : lab0;
+    int* nxt = (it & 1) ? lab0 : lab1;
+    int* mr = it == 0 ? row_first : m;  // round 0's m is row_first
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) cmin[j] = INT_MAX;
+    rect_rows<VEC, SMEM, true>(nullptr, lab, bitmap, R, W, mr, s_dyn, s_rowmin, &s_next);
+    grid.sync();
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int r0 = (item / tiles) * chunk_rows, r1 = min(R, r0 + chunk_rows), t0 = (item % tiles) * kTileWords;
+      if (it == 0)  // with the owner's accumulator
+        col_tile<VEC, true, kAccMin>(bitmap, mr, row_core, rows, R, W, t0, r0, r1, cmin, owner,
+                                     reinterpret_cast<int*>(s_dyn));
+      else
+        col_tile<VEC, true, kAccNone>(bitmap, mr, row_core, nullptr, R, W, t0, r0, r1, cmin, nullptr,
+                                      reinterpret_cast<int*>(s_dyn));
+    }
+    grid.sync();
+    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) {
+      const int lj = __ldcg(lab + j);
+      const int nj = __ldg(core_c + j) ? min(lj, __ldcg(cmin + j)) : INT_MAX;  // new(j)
+      int jumped = nj;
+      if (nj < cap) {
+        const int nq = __ldg(core_c + nj) ? min(__ldcg(lab + nj), __ldcg(cmin + nj)) : INT_MAX;
+        jumped = min(nj, nq);  // min(new(j), new(new(j)))
+      }
+      nxt[j] = jumped;
+      if (jumped != lj) flags[it + 1] = 1;
+    }
+    grid.sync();
+  }
+}
+
 // The card's SM count and the shared memory a K2 or fixpoint block may
 // stage labels in (the opt-in limit less the kernel's static arrays),
 // read once a device; the kernels that take dynamic shared memory are
 // allowed it then.
 struct Card {
-  int sms = 0, smem_optin = 0, smem_fixpoint = 0;
+  int sms = 0, smem_optin = 0, smem_fixpoint = 0, smem_connectivity = 0;
 };
 
 template <bool VEC, bool SMEM, bool TELE>
@@ -503,6 +620,16 @@ Card card() {
     allow_fixpoint_smem<false, true, false>(c.smem_fixpoint);
     allow_fixpoint_smem<true, true, true>(c.smem_fixpoint);
     allow_fixpoint_smem<false, true, true>(c.smem_fixpoint);
+    cudaFuncGetAttributes(&fa, packed_connectivity_kernel<true, true>);
+    c.smem_connectivity = optin - (int)fa.sharedSizeBytes;
+    cudaFuncSetAttribute(packed_connectivity_kernel<true, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
+    cudaFuncSetAttribute(packed_connectivity_kernel<false, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
+    cudaFuncSetAttribute(packed_connectivity_kernel<true, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
+    cudaFuncSetAttribute(packed_connectivity_kernel<false, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
     cudaFuncSetAttribute(col_reduce_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaFuncSetAttribute(col_reduce_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, d);
@@ -596,6 +723,37 @@ extern "C" int label_prop_fixpoint_launch(
   // a grid that cannot all be resident is refused here (no fallback)
   const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kRectThreads), args,
                                                     staged ? smem_labels : 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();  // read, so a refusal is not left for the next launch
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+extern "C" int packed_connectivity_launch(
+    const int* bitmap, int R, int W, const int* rows, const int* row_core, const int* core_c, int* lab0,
+    int* lab1, int* m, int* cmin, int cap, int* flags, int* row_first, int* owner, int max_iters,
+    void* stream) {
+  if (max_iters <= 0 || R <= 0 || W <= 0) return 0;
+  const Card c = card();
+  const int blocks = (int)std::max<long long>(1, std::min<long long>(c.sms, ((long long)R + 31) / 32));
+  // K3's work items: about two a block, row chunks a multiple of a block step
+  const int tiles = (W + kTileWords - 1) / kTileWords;
+  const int want = std::max(1, (2 * blocks + tiles - 1) / tiles);
+  int chunk = (R + want - 1) / want;
+  chunk = (chunk + kColWarps - 1) / kColWarps * kColWarps;
+  int n_chunks = (R + chunk - 1) / chunk;
+  const size_t smem_labels = (size_t)W * 32 * sizeof(int);
+  const bool staged = smem_labels <= (size_t)c.smem_connectivity;
+  const size_t smem = std::max(staged ? smem_labels : (size_t)0, (size_t)kColSmem);
+  const bool vec = W % 4 == 0 && aligned16(bitmap);
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(bitmap);
+  void (*kernel)(const uint32_t*, int, int, const int*, const int*, const int*, int*, int*, int*, int*, int, int*,
+                 int*, int*, int, int, int) =
+      staged ? (vec ? packed_connectivity_kernel<true, true> : packed_connectivity_kernel<false, true>)
+             : (vec ? packed_connectivity_kernel<true, false> : packed_connectivity_kernel<false, false>);
+  void* args[] = {(void*)&bits, &R, &W, (void*)&rows, (void*)&row_core, (void*)&core_c, &lab0, &lab1, &m, &cmin,
+                  &cap, &flags, &row_first, &owner, &max_iters, &chunk, &n_chunks};
+  // a grid that cannot all be resident is refused here (no fallback)
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kRectThreads), args,
+                                                    smem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // read, so a refusal is not left for the next launch
   return (int)(e != cudaSuccess ? e : last);
 }

@@ -34,6 +34,14 @@ class RangeBackend:
     def fit(self, data: np.ndarray) -> "RangeBackend":
         raise NotImplementedError
 
+    def partial_fit(self, rows: np.ndarray) -> "RangeBackend":
+        """Append ``rows`` to the fitted database (streaming ingest).
+
+        Appended rows take indices ``n_before .. n_after - 1``; existing
+        indices never move, the invariant the streaming cluster state
+        builds on.  On an unfitted backend it is ``fit``."""
+        raise NotImplementedError(f"{self.name!r} backend does not append")
+
     def query_hits(self, rows: np.ndarray, eps: float) -> np.ndarray:
         """Boolean (len(rows), n) adjacency of db[rows] against the db."""
         raise NotImplementedError
@@ -71,6 +79,17 @@ class RangeBackend:
             sub = rows[start : start + block]
             counts[start : start + len(sub)] = self.query_hits(sub, eps).sum(axis=1)
         return counts
+
+    def state_export(self) -> Dict[str, np.ndarray]:
+        """Snapshot the fitted state as a flat dict of host arrays,
+        capacity-faithful: the doubling buffers whole (append slack
+        included) and the live row count, in the reference's keys and
+        dtypes, so a snapshot restores in either package."""
+        raise NotImplementedError(f"{self.name!r} backend does not export state")
+
+    def state_import(self, state: Dict[str, np.ndarray]) -> "RangeBackend":
+        """Rebuild fitted state from a ``state_export`` dict; returns self."""
+        raise NotImplementedError(f"{self.name!r} backend does not import state")
 
     def neighbor_lists(self, eps: float, block_size: int = 2048) -> List[np.ndarray]:
         """Per-point sorted neighbor index arrays for the whole database."""

@@ -17,12 +17,25 @@ Two evaluators of that one contract:
 * ``oracle=True``: the host numpy path (``_tile_hits`` /
   ``_tile_counts``), the in-package parity oracle.
 
+Device faults: a sweep that fails (a refused launch, or a
+``testing.faults`` plan firing at ``sweep.launch``) raises to the
+caller.  Nothing retries it or falls back to the host oracle.
+
 ``suggest_margin`` / ``record_occupancy`` price the Hamming band with
 the kernel's ``[accept, band, reject]`` occupancy counters (or one host
 Hamming sweep on the oracle); with metrics on, ``band()`` records its
 own band's occupancy once per eps into ``index.band.*``.
 ``q_tile``/``db_tile`` are the reference kernel's tile grid, on which
 those counters and the sweep's occupancy slab are defined.
+
+Streaming: ``partial_fit`` signs the appended rows with the existing
+projection on the device and writes rows and signatures in place into
+capacity buffers that grow by doubling, rounded to ``db_tile`` as the
+reference rounds them; the database never leaves the device and every
+query sees exactly its first n rows.  ``state_export`` /
+``state_import`` carry the reference's keys and dtypes (``n``,
+``data_buf``, ``sigs_buf`` as uint32, ``projection``, ``n_bits``,
+``seed``, ``db_tile``), so a snapshot restores in either package.
 """
 
 from __future__ import annotations
@@ -33,10 +46,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.range_query import unpack_bitmap
+from ..core.range_query import pack_bitmap, unpack_bitmap
 from ..kernels.hamming_filter.ops import DEFAULT_DB_TILE, DEFAULT_Q_TILE, hamming_filter_count
 from ..obs import get_logger, rate_limited_warn
 from ..obs import metrics as _metrics
+from ..testing import faults as _faults
 from .base import RangeBackend, register_backend
 from .signatures import hamming_band, hamming_numpy, make_projection, sign_signatures
 from .sweep import DEFAULT_CHUNKS_PER_LAUNCH, sweep_bitmap, sweep_bitmap_device, sweep_counts
@@ -83,6 +97,11 @@ class RandomProjectionBackend(RangeBackend):
         self._data_dev: Optional[torch.Tensor] = None
         self._sigs_dev: Optional[torch.Tensor] = None
         self._sigs_host: Optional[np.ndarray] = None
+        # capacity buffers (host rows, device rows, device signatures):
+        # _data, _data_dev and _sigs_dev are their first n rows
+        self._data_buf: Optional[np.ndarray] = None
+        self._data_buf_dev: Optional[torch.Tensor] = None
+        self._sigs_buf_dev: Optional[torch.Tensor] = None
         # eps values whose band occupancy was already measured into the
         # index.band.* metrics (one sampled pass per (backend, eps))
         self._occ_recorded: set = set()
@@ -104,6 +123,74 @@ class RandomProjectionBackend(RangeBackend):
         self._data_dev = torch.from_numpy(data).to(self.device)
         self._sigs_dev = sign_signatures(self._data_dev, self.projection, device=self.device)
         self._sigs_host = None
+        # cap == n: the first append copies into owned buffers
+        self._data_buf, self._data_buf_dev, self._sigs_buf_dev = self._data, self._data_dev, self._sigs_dev
+        return self
+
+    def partial_fit(self, rows: np.ndarray) -> "RandomProjectionBackend":
+        """Append rows and their signatures (streaming ingest): signed
+        through the existing projection on the device and written in
+        place into the capacity buffers; nothing already indexed is
+        recomputed or uploaded again.  Capacity doubles, rounded to the
+        db tile, as the reference's does (``index.capacity_doublings``)."""
+        rows = np.ascontiguousarray(rows, dtype=np.float32)
+        if self._data is None:
+            return self.fit(rows)
+        n, b = self._data.shape[0], rows.shape[0]
+        if b == 0:
+            return self
+        if n + b > self._data_buf.shape[0]:
+            _metrics.counter("index.capacity_doublings").inc()
+            cap = max(2 * self._data_buf.shape[0], n + b)
+            cap = -(-cap // self.db_tile) * self.db_tile
+            d, words = self._data.shape[1], self._sigs_dev.shape[1]
+            data_buf = np.zeros((cap, d), dtype=np.float32)
+            data_buf[:n] = self._data
+            data_dev = torch.zeros((cap, d), dtype=torch.float32, device=self.device)
+            data_dev[:n] = self._data_dev
+            sigs_dev = torch.zeros((cap, words), dtype=torch.int32, device=self.device)
+            sigs_dev[:n] = self._sigs_dev
+            self._data_buf, self._data_buf_dev, self._sigs_buf_dev = data_buf, data_dev, sigs_dev
+        new = torch.from_numpy(rows).to(self.device)
+        self._data_buf[n : n + b] = rows
+        self._data_buf_dev[n : n + b] = new
+        self._sigs_buf_dev[n : n + b] = sign_signatures(new, self.projection, device=self.device)
+        self._set_views(n + b)
+        return self
+
+    def _set_views(self, n: int) -> None:
+        self._data = self._data_buf[:n]
+        self._data_dev = self._data_buf_dev[:n]
+        self._sigs_dev = self._sigs_buf_dev[:n]
+        self._sigs_host = None
+
+    def state_export(self):
+        """Capacity-faithful snapshot in the reference's keys and dtypes:
+        the whole capacity buffers (rows, uint32 signatures), the live
+        row count, the projection and the config echo."""
+        assert self._data is not None, "call fit() first"
+        return {
+            "n": np.int64(self._data.shape[0]),
+            "data_buf": np.ascontiguousarray(self._data_buf),
+            "sigs_buf": self._sigs_buf_dev.cpu().numpy().view(np.uint32),
+            "projection": np.ascontiguousarray(self.projection),
+            "n_bits": np.int64(self.n_bits),
+            "seed": np.int64(self.seed),
+            "db_tile": np.int64(self.db_tile),
+        }
+
+    def state_import(self, state) -> "RandomProjectionBackend":
+        if int(state["n_bits"]) != self.n_bits:
+            raise ValueError(f"snapshot n_bits={int(state['n_bits'])} != backend n_bits={self.n_bits}")
+        if int(state["db_tile"]) != self.db_tile:
+            raise ValueError(f"snapshot db_tile={int(state['db_tile'])} != backend db_tile={self.db_tile}")
+        self._data_buf = np.ascontiguousarray(state["data_buf"], dtype=np.float32)
+        sigs = np.ascontiguousarray(state["sigs_buf"], dtype=np.uint32).view(np.int32)
+        self._data_buf_dev = torch.from_numpy(self._data_buf).to(self.device)
+        self._sigs_buf_dev = torch.from_numpy(sigs).to(self.device)
+        self.projection = np.ascontiguousarray(state["projection"], dtype=np.float32)
+        self.seed = int(state["seed"])
+        self._set_views(int(state["n"]))
         return self
 
     @property
@@ -230,6 +317,7 @@ class RandomProjectionBackend(RangeBackend):
         )
 
     def _sweep_hits_packed(self, rows, eps):
+        _faults.maybe_fail("sweep.launch", op="hits")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
         return sweep_bitmap(
@@ -257,12 +345,26 @@ class RandomProjectionBackend(RangeBackend):
             return super().query_hits_packed(rows, eps)
         return self._sweep_hits_packed(rows, eps)
 
+    def query_packed_device(self, rows: np.ndarray, eps: float):
+        """Packed hit rows (len(rows), ceil(n/32)) as an int32 tensor on
+        the device, straight from the sweep's slab with no host read:
+        the streaming ingest's native block.  On the oracle, the host
+        oracle's words are uploaded instead."""
+        assert self._data is not None, "call fit() first"
+        rows = np.asarray(rows, dtype=np.int64)
+        if self.oracle:
+            words = pack_bitmap(self._host_query_hits(rows, eps)).view(np.int32)
+            return torch.from_numpy(words).to(self.device)
+        _faults.maybe_fail("sweep.launch", op="hits")
+        return self.query_bitmap_device(rows, eps)[0][: len(rows)]
+
     def query_hits_subset(self, rows: np.ndarray, cols: np.ndarray, eps: float) -> np.ndarray:
         assert self._data is not None, "call fit() first"
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         if self.oracle:
             return self._host_query_hits_subset(rows, cols, eps)
+        _faults.maybe_fail("sweep.launch", op="subset")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
         db, db_sig = self._gather(cols)
@@ -279,6 +381,7 @@ class RandomProjectionBackend(RangeBackend):
         rows = np.asarray(rows, dtype=np.int64)
         if self.oracle:
             return self._host_query_counts(rows, eps)
+        _faults.maybe_fail("sweep.launch", op="counts")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
         return sweep_counts(

@@ -39,6 +39,7 @@ _SIGNATURES = {
         "col_reduce_launch": [P, P, P, I, I, P, P, P],
         "label_prop_update_launch": [P, P, P, I, P, P, I, P, I, P],
         "label_prop_fixpoint_launch": [P, I, I, I, P, P, P, P, I, P, I, P, I, P],
+        "packed_connectivity_launch": [P, I, I, P, P, P, P, P, P, P, I, P, P, P, I, P],
     },
     "range_count": {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],

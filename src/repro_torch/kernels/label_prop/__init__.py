@@ -7,4 +7,5 @@ from .ops import (  # noqa: F401
     label_propagation_pallas,
     packed_cluster_fixpoint,
     packed_cluster_labels,
+    packed_connectivity,
 )

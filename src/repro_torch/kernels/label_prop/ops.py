@@ -44,7 +44,8 @@ from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
 from ..popcount import row_popcount
 from .ref import (
-    BIG, col_reduce_ref, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref, label_prop_update_ref,
+    BIG, col_reduce_ref, connectivity_inputs, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref,
+    label_prop_update_ref, packed_connectivity_ref,
 )
 
 __all__ = [
@@ -57,6 +58,7 @@ __all__ = [
     "fixpoint_inputs",
     "packed_cluster_fixpoint",
     "packed_cluster_labels",
+    "packed_connectivity",
     "LAUNCHES",
 ]
 
@@ -66,6 +68,7 @@ LAUNCHES = {
     "col_reduce": "kernel.col_reduce.launches",
     "label_prop_update": "kernel.label_prop_update.launches",
     "label_prop_fixpoint": "kernel.label_prop_fixpoint.launches",
+    "packed_connectivity": "kernel.packed_connectivity.launches",
 }
 
 
@@ -378,3 +381,61 @@ def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64, tel
     rows = torch.as_tensor(rows).to(device=bitmap.device, dtype=torch.int32)
     return packed_cluster_fixpoint(bitmap, rows, tau, n=n, cap=w * 32, max_iters=max_iters,
                                    telemetry=telemetry)
+
+
+def packed_connectivity(bitmap, rows, row_core, core_cols, *, max_iters: int = 64):
+    """Connectivity of one packed hit block, bipartite propagation (the
+    contract of ``repro.kernels.label_prop.packed_connectivity``).
+
+    ``bitmap`` (R, W) int32 is a block of alive-masked adjacency rows
+    whose database indices are ``rows`` (R,); ``row_core`` flags which of
+    those rows are core; ``core_cols`` (n,), n <= W*32, flags the core
+    columns.  Bits past n must be clear (the pack contract).
+
+    Returns device tensors ``(comp (n,), owner (n,), row_first (R,),
+    rounds ())``: ``comp[j]`` = min core column reachable from core
+    column j through the block's core rows (INT32_MAX on non-core
+    columns), ``owner[j]`` = min core row adjacent to column j,
+    ``row_first[i]`` = min core column adjacent to row i.  Nothing is
+    read on the host.
+
+    A CPU slab runs ``packed_connectivity_ref``.  On a CUDA slab the
+    whole block is one cooperative launch, the fixpoint's connectivity
+    mode (``csrc/label_prop.cu``, counted as
+    ``kernel.packed_connectivity``): K2's walk, K3's walk and the update
+    split by grid barriers, round ``it`` reading one label buffer and
+    writing the other and setting ``flags[it + 1]`` when a label changed.
+    Round 0, which always runs (``max_iters`` >= 1), also yields the two
+    loop-invariant outputs: its K2 walk is row_first, and its K3 walk
+    takes the owner in a second accumulator.  A grid that cannot be
+    resident raises."""
+    _check_slab(bitmap)
+    if max_iters < 1:
+        raise ValueError(f"max_iters must be >= 1, got {max_iters}")
+    if bitmap.device.type == "cpu":
+        return packed_connectivity_ref(bitmap, rows, row_core, core_cols, max_iters=max_iters)
+    rows, row_core, core_c, init = connectivity_inputs(bitmap, rows, row_core, core_cols)
+    r, w = bitmap.shape
+    n, cap, dev = int(core_cols.shape[0]), w * 32, bitmap.device
+    row_core_i, core_c_i = row_core.to(torch.int32), core_c.to(torch.int32)
+    # both buffers start at init: a launch with no rows runs no round, and
+    # the one round the plain version counts leaves the labels as they are
+    bufs = (init.clone(), init.clone())
+    m = torch.empty(r, dtype=torch.int32, device=dev)
+    row_first = torch.empty(r, dtype=torch.int32, device=dev)
+    owner = torch.full((cap,), BIG, dtype=torch.int32, device=dev)  # K3 takes its min into it
+    cmin = torch.empty(cap, dtype=torch.int32, device=dev)
+    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
+    flags[0] = 1
+    stream = _cuda([bitmap, rows, row_core_i, core_c_i, bufs[0], bufs[1], m, cmin, flags, row_first, owner],
+                   "packed_connectivity")
+    err = _build.load("label_prop").packed_connectivity_launch(
+        bitmap.data_ptr(), r, w, rows.data_ptr(), row_core_i.data_ptr(), core_c_i.data_ptr(), bufs[0].data_ptr(),
+        bufs[1].data_ptr(), m.data_ptr(), cmin.data_ptr(), cap, flags.data_ptr(), row_first.data_ptr(),
+        owner.data_ptr(), max_iters, stream,
+    )
+    _build.check(err, "packed_connectivity")
+    _metrics.counter(LAUNCHES["packed_connectivity"]).inc()
+    rounds = flags[:max_iters].sum(dtype=torch.int32)
+    comp = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
+    return comp[:n], owner[:n], row_first, rounds

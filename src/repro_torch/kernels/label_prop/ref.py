@@ -9,7 +9,7 @@ import torch
 from ...core.range_query import unpack_bitmap_t
 
 __all__ = ["BIG", "label_prop_round_ref", "label_prop_rect_ref", "col_reduce_ref", "label_prop_update_ref",
-           "label_prop_fixpoint_ref"]
+           "label_prop_fixpoint_ref", "packed_connectivity_ref"]
 
 BIG = torch.iinfo(torch.int32).max
 
@@ -94,3 +94,54 @@ def label_prop_fixpoint_ref(bitmap, bufs, m, pos, flags, *, square: bool = False
             tele[:, it] += counts
         if bool((nxt != lab).any()):
             flags[it + 1] = 1
+
+
+def connectivity_inputs(bitmap, rows, row_core, core_cols):
+    """The operands of one connectivity block on the slab's device:
+    ``(rows int32 (R,), row_core bool (R,), core_c bool (W*32,), init)``
+    with ``core_c`` the core columns padded with False past n and
+    ``init`` each core column's own index (INT32_MAX elsewhere)."""
+    dev = bitmap.device
+    r, w = bitmap.shape
+    n = int(core_cols.shape[0])
+    if n > w * 32:
+        raise ValueError(f"a slab of {w} words cannot cover n={n} columns")
+    rows = torch.as_tensor(rows).to(device=dev, dtype=torch.int32).contiguous()
+    row_core = torch.as_tensor(row_core).to(device=dev, dtype=torch.bool)
+    if rows.shape != (r,) or row_core.shape != (r,):
+        raise ValueError(f"rows and row_core must have the slab's {r} rows")
+    core_c = torch.zeros(w * 32, dtype=torch.bool, device=dev)
+    core_c[:n] = torch.as_tensor(core_cols).to(device=dev, dtype=torch.bool)
+    init = torch.where(core_c, torch.arange(w * 32, dtype=torch.int32, device=dev), BIG)
+    return rows, row_core, core_c, init
+
+
+def packed_connectivity_ref(bitmap, rows, row_core, core_cols, *, max_iters: int = 64):
+    """Connectivity of one packed hit block, round by round as the
+    reference's ``_packed_connectivity_jit`` (``repro/kernels/label_prop/
+    ops.py:343-380``): each round K2 over INT32_MAX row labels and the
+    column labels, masked to the core rows, then K3's column minimum,
+    ``min(lab, cmin)`` on the core columns and one pointer jump; it stops
+    when nothing changed, or after ``max_iters`` rounds.  Returns
+    ``(comp (n,), owner (n,), row_first (R,), rounds)`` as tensors on the
+    slab's device."""
+    rows, row_core, core_c, init = connectivity_inputs(bitmap, rows, row_core, core_cols)
+    r, w = bitmap.shape
+    n, cap, dev = int(core_cols.shape[0]), w * 32, bitmap.device
+    big_rows = torch.full((r,), BIG, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(r, dtype=torch.int32, device=dev)
+    lab, rounds = init, 0
+    while rounds < max_iters:
+        m = label_prop_rect_ref(big_rows, lab, bitmap)
+        cmin, _ = col_reduce_ref(bitmap, torch.where(row_core, m, BIG), zeros)
+        new = torch.where(core_c, torch.minimum(lab, cmin), BIG)
+        jump = torch.where(new < cap, new, 0).long()
+        new = torch.where(new < cap, torch.minimum(new, new[jump]), new)
+        rounds += 1
+        changed = bool((new != lab).any())
+        lab = new
+        if not changed:
+            break
+    owner, _ = col_reduce_ref(bitmap, torch.where(row_core, rows, BIG), zeros)
+    row_first = label_prop_rect_ref(big_rows, init, bitmap)
+    return lab[:n], owner[:n], row_first, torch.tensor(rounds, dtype=torch.int32, device=dev)

@@ -300,3 +300,106 @@ def test_gpu_label_prop_fixpoint_matches_plain(mode, size, p, max_iters, telemet
         assert torch.equal(a, b)
     rounds = int(kf[:max_iters].sum())
     assert rounds >= 1 and (rounds == max_iters) == (p == "path")
+
+
+# ---------------------------------------------------------------------------
+# packed_connectivity (B10): one streaming block, bipartite propagation
+# ---------------------------------------------------------------------------
+
+
+def _conn_block(n, r, p, core_frac, seed, all_core_rows=False):
+    """A streaming block: ``r`` rows of a symmetric adjacency over ``n``
+    points (self-bits), a core mask, and the rows' core flags."""
+    rng = np.random.default_rng(seed)
+    adj = rng.random((n, n)) < p
+    adj = adj | adj.T
+    np.fill_diagonal(adj, True)
+    core = rng.random(n) < core_frac
+    rows = np.sort(rng.choice(n, r, replace=False))
+    if all_core_rows:
+        core[rows] = True
+    return pack_bitmap(adj[rows]), rows, core
+
+
+# (n, R, p, core_frac, all_core_rows): rows partly core; every row core;
+# no core at all; a ragged R (37, 130) and W (7, 32 words) against the
+# reference's 32-row / 2-word tiles
+CONN_CASES = [(150, 40, 0.06, 0.5, False), (200, 37, 0.03, 0.5, False), (200, 64, 0.03, 0.4, True),
+              (96, 20, 0.1, 0.0, False), (1000, 130, 0.01, 0.6, False)]
+
+
+@pytest.mark.parametrize("n,r,p,core_frac,all_core_rows", CONN_CASES)
+def test_packed_connectivity_matches_jax(n, r, p, core_frac, all_core_rows):
+    """The port's wrapper (its plain version on the CPU) against the JAX
+    function through its Pallas kernels in interpret mode: comp, owner,
+    row_first and rounds exactly equal."""
+    from repro_torch.kernels.label_prop import packed_connectivity
+
+    words, rows, core = _conn_block(n, r, p, core_frac, n + r, all_core_rows)
+    want = jax.device_get(jops.packed_connectivity(
+        jnp.asarray(words), jnp.asarray(rows), jnp.asarray(core[rows]), jnp.asarray(core),
+        row_tile=32, word_tile=2, interpret=True))
+    got = packed_connectivity(torch.from_numpy(words.view(np.int32)), torch.from_numpy(rows),
+                              torch.from_numpy(core[rows]), torch.from_numpy(core))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(got[3]) >= 1
+
+
+def test_packed_connectivity_needs_a_round():
+    """Round 0 yields row_first and the owner on the card, so the wrapper
+    refuses ``max_iters`` < 1 on every device."""
+    from repro_torch.kernels.label_prop import packed_connectivity
+
+    words, rows, core = _conn_block(96, 20, 0.1, 0.5, 3)
+    with pytest.raises(ValueError, match="max_iters"):
+        packed_connectivity(torch.from_numpy(words.view(np.int32)), torch.from_numpy(rows),
+                            torch.from_numpy(core[rows]), torch.from_numpy(core), max_iters=0)
+
+
+def _conn_gpu_case(r, w, p, seed, core_frac=0.5):
+    """A wide streaming slab on the card: ``r`` rows over ``w`` words
+    (bits past n = 32 w - 5 clear), a ``core_frac`` share of the rows and
+    columns core."""
+    rng = np.random.default_rng(seed)
+    n = 32 * w - 5
+    rows = np.sort(rng.choice(n, r, replace=False))
+    hit = rng.random((r, n)) < p
+    hit[np.arange(r), rows] = True
+    core = rng.random(n) < core_frac
+    return torch.from_numpy(pack_bitmap(hit).view(np.int32)), rows, core
+
+
+# (R, W words, density, seed, core share, max_iters): the exact main
+# slab's width (952: K2 staged) and the stream's width at 152,185 points
+# (4,756: unstaged), a ragged small slab, a sparse one whose propagation
+# takes many rounds, the same cut to one and to two rounds (round 0 alone
+# yields row_first and the owner), a block with no core, and a block with
+# no rows (the launch runs no round; the plain version counts one)
+GPU_CONNECTIVITY = [(512, 952, 0.004, 0, 0.5, 64), (512, 4756, 0.001, 1, 0.5, 64), (37, 7, 0.05, 2, 0.5, 64),
+                    (2048, 952, 0.0005, 3, 0.5, 64), (2048, 952, 0.0005, 3, 0.5, 1), (2048, 952, 0.0005, 3, 0.5, 2),
+                    (300, 130, 0.01, 5, 0.0, 64), (0, 7, 0.05, 4, 0.5, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,w,p,seed,core_frac,max_iters", GPU_CONNECTIVITY)
+def test_gpu_packed_connectivity_matches_plain(r, w, p, seed, core_frac, max_iters, metrics_on):
+    """The connectivity mode's one cooperative launch, which also yields
+    the owner and row_first, against the plain version on the card: all
+    four outputs exactly equal, and no other kernel launched."""
+    from repro_torch.kernels.label_prop import packed_connectivity
+    from repro_torch.kernels.label_prop.ref import packed_connectivity_ref
+
+    dev = _card()
+    bits, rows, core = _conn_gpu_case(r, w, p, seed, core_frac)
+    bits = bits.to(dev)
+    args = (bits, torch.from_numpy(rows).to(dev), torch.from_numpy(core[rows]).to(dev), torch.from_numpy(core).to(dev))
+    names = ("packed_connectivity", "col_reduce", "label_prop_rect", "label_prop_update")
+    before = {k: metrics.counter(f"kernel.{k}.launches").value for k in names}
+    got = packed_connectivity(*args, max_iters=max_iters)
+    torch.cuda.synchronize()
+    after = {k: metrics.counter(f"kernel.{k}.launches").value - before[k] for k in names}
+    assert after == {"packed_connectivity": 1, "col_reduce": 0, "label_prop_rect": 0, "label_prop_update": 0}
+    want = packed_connectivity_ref(*args, max_iters=max_iters)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

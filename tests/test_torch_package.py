@@ -39,6 +39,7 @@ from repro_torch.models import layers, recsys
 from repro_torch.models.transformer import TransformerConfig, make_cache, transformer_from_jax, transformer_init
 from repro_torch.obs import device as obs_device
 from repro_torch.obs import metrics
+from repro_torch.stream import ClusterIndex, DurableStream, StreamingLAF
 
 PKG = Path(repro_torch.__file__).resolve().parent
 
@@ -59,7 +60,9 @@ def test_no_jax_or_reference_imports():
             "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py", "models/recsys.py",
             "configs/bst.py", "configs/deepfm.py", "configs/dien.py", "configs/autoint.py",
             "kernels/embedding_bag/ops.py", "kernels/embedding_bag/ref.py", "core/baselines.py",
-            "kernels/popcount/ops.py", "kernels/popcount/ref.py"} <= checked
+            "kernels/popcount/ops.py", "kernels/popcount/ref.py", "stream/state.py", "stream/ingest.py",
+            "stream/serve.py", "stream/durability.py", "train/checkpoint.py", "train/fault_tolerance.py",
+            "testing/faults.py", "configs/laf_dbscan.py"} <= checked
     bad = [
         (f.relative_to(PKG), m) for f in files for m in _imports(f)
         if m.split(".")[0] in ("jax", "jaxlib", "repro")
@@ -71,7 +74,7 @@ def test_no_jax_or_reference_imports():
     assert [(s.name, m) for s in scripts for m in _imports(s) if m.split(".")[0] in ("jax", "repro")] == []
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without a card every entry point raises unless told device='cpu';
     with one, the default is cuda."""
     x = np.random.default_rng(0).standard_normal((40, 8)).astype(np.float32)
@@ -102,6 +105,9 @@ def test_entry_points_default_to_cuda():
         assert ExactBackend().device.type == "cuda"
         assert transformer_init(0, lm).embed.device.type == "cuda"
         assert make_cache(lm, 1, 4)["k"].device.type == "cuda"
+        assert StreamingLAF(0.5, 3).backend.device.type == "cuda"
+        assert ClusterIndex(x, np.zeros(40, np.int64), 0.5).device.type == "cuda"
+        assert DurableStream(StreamingLAF(0.5, 3), tmp_path, fsync=False).backend.device.type == "cuda"
         return
     calls = [
         resolve_device,
@@ -128,6 +134,11 @@ def test_entry_points_default_to_cuda():
         lambda: knn_block_dbscan(x, 0.5, 3),
         lambda: block_dbscan(x, 0.5, 3),
         lambda: rho_approx_dbscan(x, 0.5, 3),
+        lambda: StreamingLAF(0.5, 3),
+        lambda: StreamingLAF(0.5, 3, backend="exact"),
+        lambda: ClusterIndex(x, np.zeros(40, np.int64), 0.5),
+        lambda: DurableStream(StreamingLAF(0.5, 3), tmp_path / "d"),
+        lambda: DurableStream.recover(tmp_path / "r", lambda: StreamingLAF(0.5, 3)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -146,6 +157,8 @@ def test_entry_points_default_to_cuda():
     assert all(h(device="cpu").device.type == "cpu" for h in helpers)
     assert all(next(init(0, cfg, device="cpu").parameters()).device.type == "cpu"
                for init, cfg in zip(rec_inits, rec.values()))
+    assert StreamingLAF(0.5, 3, device="cpu").partial_fit(x).n_points == 40
+    assert DurableStream(StreamingLAF(0.5, 3, device="cpu"), tmp_path / "c", fsync=False).backend.device.type == "cpu"
 
 
 def test_wrappers_validate_operands():
