@@ -175,7 +175,40 @@ Phases (each prints one JSON line; any failure exits nonzero):
    block is that one launch), with its queued device time, rounds, ptxas
    registers and spills and its byte bound: rounds x (K2 + K3 + the
    update), the section 6 formulas, + the owner's row indices read and
-   its column minimum written once.
+   its column minimum written once;
+13. lm_zoo: the rest of the LM zoo in bf16, weights drawn on the card by
+   ``transformer_init(0, cfg)``, one model at a time (each freed before
+   the next loads): gemma3-27b (62 layers, window 1024, 5:1
+   local:global) and granite-20b (52 layers, MQA) at full width and
+   depth; grok-1-314b (8 experts, top-2) at full width with its depth
+   cut to 4 of 64 layers (39.7 GiB) and deepseek-v2-236b (MLA, 160
+   experts top-6 and 2 shared) at full width cut to 5 of 60 layers (1
+   dense prefix + 4 MoE, 32.2 GiB), the weights that fit one card.
+   Each: ``transformer_prefill`` of 2 x 4096 tokens of ``token_stream``
+   (cut from ``prefill_32k``'s 32 x 32768; warmed, then timed; MoE at the
+   published capacity 1.25 with each layer's ``drop_fraction``); a
+   prompt fed a token a step and 32 greedy tokens at B 2 (cut from
+   ``decode_32k``'s 128 x 32768): gemma3 the first 1,152 tokens through
+   ``transformer_decode_step_windowed`` into 1,024-slot rings (they
+   wrap), the others 256 through ``transformer_decode_step``; MoE models
+   decode and are checked at the no-drop capacity ``n_experts / top_k``
+   (a dropped entry makes forward differ from decode); decode against
+   prefill at the last prompt position and against forward at 16
+   positions (gemma3's include 1,023, 1,024 and 1,151) within
+   ``LM_REL_L2`` / ``LM_MAX_ABS``; the launches of each path
+   (``flash_attention``: one a GQA layer, 62 a gemma3 step, none in
+   MLA's absorbed decode); the decode mapping on the filled caches (a
+   ring's valid slots unmasked, a global prefix causal) against
+   ``attention_ref`` (``FLASH_TOL``); a profiled decode step; MoE: one
+   layer's output at 1,024 tokens against the same layer with fp32
+   expert GEMMs, and its routes against an fp64 router.  Then the rows
+   ``flash_attention_d192`` (deepseek-v2's prefill, B 2, H 128, S 4096,
+   q/k 192, v padded to 192; ptxas's registers and spills of each D
+   192 instantiation), ``flash_attention_decode_ring`` (gemma3's full
+   ring: B 2, Hq 32, Hkv 16, 1,024 slots, unmasked) and
+   ``flash_attention_decode_mqa`` (granite's filled cache: Hq 48, Hkv 1,
+   288 keys), each against the plain version, timed back to back and
+   queued beside ``scaled_dot_product_attention`` with its bound.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -264,6 +297,16 @@ KERNELS = {
                             "_packed_connectivity_jit :325-380, behind packed_connectivity :383: "
                             "label_prop_rect_pallas kernel.py:104 + col_reduce_pallas kernel.py:173 + the jnp "
                             "update :374-377)"),
+    "flash_attention_d192": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                             "_make_kernel :30; D 192: MLA's q/k, src/repro/models/mla.py:84-96)"),
+    "flash_attention_decode_ring": ("src/repro_torch/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention/kernel.py:90 (the Sq = 1 mapping over a "
+                                    "ring buffer's valid slots; the reference's windowed decode attends with a jnp "
+                                    "einsum, src/repro/models/transformer.py:441-457)"),
+    "flash_attention_decode_mqa": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                                   "_make_kernel :30; the Sq = 1 mapping at Hkv 1)"),
     "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
                           "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
                           "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
@@ -387,7 +430,8 @@ def ptxas_entries(name: str, kernel: str) -> dict:
     """Registers and spill-store bytes that ptxas reported in this run's
     build of ``csrc/<name>.cu`` for each instantiation of ``kernel``,
     keyed ``kernel<args>`` by its template arguments: bools as 0/1,
-    integers, ``float`` and ``bf16`` (its ``uint16_t`` bits)."""
+    integers, ``float`` and ``bf16`` (its ``uint16_t`` bits or
+    ``__nv_bfloat16``)."""
     import re
 
     from repro_torch.kernels import _build
@@ -395,12 +439,13 @@ def ptxas_entries(name: str, kernel: str) -> dict:
     out = {}
     for chunk in _build.BUILD_LOG.get(name, "").split("Compiling entry function '")[1:]:
         entry = chunk.split("'", 1)[0]
-        m = re.search(rf"\d{kernel}(?:I((?:[a-z]|L[a-z]\d+E)+)E)?", entry)
+        m = re.search(rf"\d{kernel}(?:I((?:[a-z]|L[a-z]\d+E|13__nv_bfloat16)+)E)?", entry)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
         if m and regs:
-            args = re.findall(r"L[a-z](\d+)E|([a-z])", m.group(1) or "")
-            flags = ",".join(num or {"f": "float", "t": "bf16"}.get(ch, ch) for num, ch in args)
+            args = re.findall(r"L[a-z](\d+)E|(13__nv_bfloat16|[a-z])", m.group(1) or "")
+            flags = ",".join(num or {"f": "float", "t": "bf16", "13__nv_bfloat16": "bf16"}.get(ch, ch)
+                             for num, ch in args)
             out[f"{kernel}<{flags}>" if flags else kernel] = {
                 "registers": int(regs.group(1)), "spill_bytes": int(spill.group(1)) if spill else None}
     return out
@@ -2269,6 +2314,371 @@ def evaluation_line(by_method, main, baselines):
             "table4_rho_cell_over_dbscan": baselines["rho-approx (cell)"]["elapsed_s"] / t_db}
 
 
+# phase 13: the rest of the LM zoo, one card each, bf16, weights drawn by
+# transformer_init(0, cfg) on the card; depth cut only where the weights
+# would not fit (grok-1: 4 of 64 layers, 39.7 GiB; deepseek-v2: 5 of 60,
+# 1 dense prefix + 4 MoE, 32.2 GiB); prefill 2 x 4096 and decode prompts
+# cut from prefill_32k / decode_32k to fit the run's time limit
+ZOO_PREFILL = (2, 4096)
+ZOO_CELLS = {
+    # name: (layers kept or None, decode prompt tokens, greedy tokens, windowed decode)
+    "gemma3-27b": (None, 1152, 32, True),
+    "granite-20b": (None, 256, 32, False),
+    "grok-1-314b": (4, 256, 32, False),
+    "deepseek-v2-236b": (5, 256, 32, False),
+}
+ZOO_MOE_TOKENS = 1024   # one MoE layer's tokens, bf16 against fp32 expert GEMMs
+PREFILL_TRIES = 8       # prompt positions, from the last back, for decode == prefill (MoE route flips)
+
+
+class route_log:
+    """Records the experts of every ``moe_apply`` call inside a ``with``
+    block: each call's (G, Tg, k) indices, sorted within the k, by
+    wrapping ``repro_torch.models.moe.route`` (this script's
+    instrumentation; the module is restored on exit)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe.route
+
+        def wrapped(router, cfg, xg):
+            out = self._route(router, cfg, xg)
+            self.calls.append(out[2].sort(dim=-1).values)
+            return out
+
+        moe.route = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def masked_gap(got, want, keep):
+    """``logit_gap`` over the rows (batch, position) that ``keep`` marks."""
+    return logit_gap(got[keep], want[keep]) if bool(keep.any()) else (0.0, 0.0)
+
+
+def ring_checks(cache, cfg, steps, dev):
+    """The decode mapping on the path's own filled caches against the
+    plain version on the same slots: a local layer's ring (its valid
+    prefix, unmasked, as ``_windowed_decode_layer`` passes it) and a
+    global layer's prefix (causal, as ``_gqa_decode_layer`` passes it).
+    Returns (ok, rows)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.layers import blockwise_attention
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b = cache["loc_k"].shape[2] if "loc_k" in cache else cache["k"].shape[1]
+    q = torch.randn((b, cfg.n_heads, 1, cfg.d_head), generator=g, device=dev).to(cfg.dtype)
+    ok, rows = True, []
+    if "loc_k" in cache:
+        pairs = [("ring", cache["loc_k"][0, 0], cache["loc_v"][0, 0]),
+                 ("global", cache["glob_k"][0], cache["glob_v"][0])]
+        if len(cache["suf_k"]):
+            pairs.append(("suffix_ring", cache["suf_k"][-1], cache["suf_v"][-1]))
+    else:
+        pairs = [("layer_0", cache["k"][0], cache["v"][0]), ("layer_last", cache["k"][-1], cache["v"][-1])]
+    for name, kc, vc in pairs:
+        ring = name.endswith("ring")
+        for n in ((kc.shape[2],) if ring else (1, 77, steps)):
+            if ring:
+                out = blockwise_attention(q, kc, vc, causal=False, valid_len=n)
+                ref = attention_ref(q, kc[:, :, :n], vc[:, :, :n])
+            else:
+                out = blockwise_attention(q, kc, vc, causal=True, q_offset=n - 1, valid_len=n)
+                ref = attention_ref(q, kc[:, :, :n], vc[:, :, :n], causal=True)
+            ok_n, gap = flash_gap(out, ref)
+            gap.pop("tolerance")
+            ok &= ok_n
+            rows.append({"cache": name, "slots": n, **gap})
+    return ok, rows
+
+
+def moe_precision(model, cfg, dev):
+    """One MoE layer (the first) on ``ZOO_MOE_TOKENS`` normal hidden rows:
+    the port's bf16 expert GEMMs against the same layer with its expert
+    weights in fp32 (the reference's arithmetic: fp32 products and sums;
+    the shared expert, bf16 in both packages, unchanged); the routes of
+    the fp32 router against an fp64 one (ties go to the lower expert in
+    both).  Returns the line's fields."""
+    import torch
+
+    from repro_torch.models.moe import moe_apply, route
+
+    p = model.layers[0]["moe"]
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((ZOO_MOE_TOKENS, cfg.d_model), generator=g, device=dev).to(cfg.dtype)
+    out, aux = moe_apply(p, cfg.moe, x)
+    p32 = {k: (v.float() if k in ("wi_gate", "wi_up", "wo") else v) for k, v in p.items()}
+    ref, aux32 = moe_apply(p32, cfg.moe, x)
+    del p32
+    rel, mx = logit_gap(out, ref)
+    _, _, idx = route(p["router"], cfg.moe, x[None])
+    _, _, idx64 = route(p["router"].double(), cfg.moe, x[None].double())
+    torch.cuda.empty_cache()
+    return {"tokens": ZOO_MOE_TOKENS, "rel_l2": rel, "max_abs": mx, "out_rms": float(ref.pow(2).mean().sqrt()),
+            "bf16_reduced_precision_reduction": torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "drop_fraction": float(aux["drop_fraction"]), "drop_fraction_fp32": float(aux32["drop_fraction"]),
+            "routes_differ_vs_fp64_router": int((idx != idx64).sum()), "routes": idx.numel(),
+            "ok": rel <= LM_REL_L2 and mx <= LM_MAX_ABS and bool(torch.isfinite(out).all())}
+
+
+def zoo_model(name, dev):
+    """One cell of phase 13: the config at full width (depth cut as
+    ``ZOO_CELLS`` says), prefill of ``ZOO_PREFILL`` tokens (warmed, then
+    timed; MoE: each layer's drop fraction at the published capacity),
+    then a prompt fed a token a step (gemma3: ``make_cache_windowed``'s
+    rings, wrapped) and greedy tokens, each path with the launch count
+    set to 0 just before it and read just after; decode against prefill
+    at the last prompt position and against forward at 16 positions
+    (MoE models decode and run these checks at the no-drop capacity
+    ``n_experts / top_k``: a dropped entry makes forward differ from
+    decode, as the reference's tests note); the decode kernel on the
+    filled caches against the plain version; a profiled decode step;
+    MoE: ``moe_precision``.  The weights are freed before it returns.
+    Returns (ok, line, launches by path)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import metrics
+
+    counter = "kernel.flash_attention.launches"
+    t_model = time.perf_counter()
+    depth, n_prompt, n_new, windowed = ZOO_CELLS[name]
+    cfg = get_arch(name).make_config()
+    full_layers = cfg.n_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tt.transformer_init(0, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {"phase": "lm_zoo", "arch": name, "dtype": str(cfg.dtype), "n_layers": cfg.n_layers,
+            "published_layers": full_layers, "params": n_params,
+            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()), "init_s": init_s}
+    toks, _ = token_stream(np.random.default_rng(0), *ZOO_PREFILL, cfg.vocab)
+    toks = torch.from_numpy(toks).to(dev)
+
+    # prefill at the published capacity: warm once, then one timed call
+    tt.transformer_prefill(model, cfg, toks)
+    metrics.reset()
+    aux = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = tt.transformer_prefill(model, cfg, toks, moe_aux=aux)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = metrics.snapshot().get(counter, 0)
+    finite = bool(torch.isfinite(pre).all())
+    # bounds of the weights' work alone (attention's left out): a prefill
+    # token multiplies every active non-embedding weight once (2 FLOP
+    # each; lm_head only at the last position), a decode step reads every
+    # weight but the embedding table once (MoE at capacity 8 runs every
+    # expert)
+    embed = cfg.vocab * cfg.d_model
+    weight_flops = 2.0 * ZOO_PREFILL[0] * (ZOO_PREFILL[1] * (cfg.active_param_count() - 2 * embed) + embed)
+    line.update({"prefill_weight_bound_s": weight_flops / BF16_FLOPS,
+                 "step_bytes_bound_ms": 1e3 * (line["param_bytes"] - embed * model.embed.element_size())
+                 / HBM_BYTES_PER_S})
+    line.update({"prefill_shape": list(ZOO_PREFILL), "prefill_s": prefill_s,
+                 "prefill_tokens_per_s": ZOO_PREFILL[0] * ZOO_PREFILL[1] / prefill_s,
+                 "prefill_launches": prefill_launches, "prefill_peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if cfg.moe is not None:
+        line["prefill_capacity_factor"] = cfg.moe.capacity_factor
+        line["prefill_drop_fraction_by_layer"] = [float(a["drop_fraction"]) for a in aux]
+    del pre, aux
+
+    # decode: the prompt token by token (teacher-forced), then greedy
+    dcfg = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    b, steps = ZOO_PREFILL[0], n_prompt + n_new
+    prompt = toks[:, :n_prompt].contiguous()
+    del toks
+    step = tt.transformer_decode_step_windowed if windowed else tt.transformer_decode_step
+    cache = (tt.make_cache_windowed if windowed else tt.make_cache)(dcfg, b, steps)
+    check_at = sorted(set(range(n_prompt // 16 - 1, n_prompt, n_prompt // 16))
+                      | ({cfg.window - 1, cfg.window, n_prompt - 1} if windowed else set()))[-16:]
+    saved, step_s, step_launches, generated = {}, [], [], []
+    n_moe = 0 if cfg.moe is None else cfg.n_layers - cfg.n_dense_layers
+    metrics.reset()
+    torch.cuda.synchronize()
+    with route_log() as dec_log:
+        t0 = time.perf_counter()
+        for t in range(n_prompt):
+            logits, cache = step(model, dcfg, prompt[:, t : t + 1], cache, t)
+            if t in check_at or t >= n_prompt - PREFILL_TRIES:
+                saved[t] = logits.float()
+        torch.cuda.synchronize()
+        prompt_s = time.perf_counter() - t0
+        tok = logits.argmax(-1, keepdim=True)
+        for t in range(n_prompt, steps):
+            generated.append(tok)
+            before = metrics.snapshot().get(counter, 0)
+            t0 = time.perf_counter()
+            logits, cache = step(model, dcfg, tok, cache, t)
+            tok = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_launches.append(metrics.snapshot().get(counter, 0) - before)
+    decode_launches = metrics.snapshot().get(counter, 0)
+    finite &= bool(torch.isfinite(logits).all())
+    step_ms = 1e3 * float(np.median(step_s))
+    # flash_attention calls a step: one a GQA layer; MLA's absorbed decode calls none
+    per_step = 0 if cfg.attention == "mla" else cfg.n_layers
+    line.update({"decode_batch": b, "cache_len": steps, "prompt_steps": n_prompt, "greedy_steps": n_new,
+                 "decode": "transformer_decode_step_windowed" if windowed else "transformer_decode_step",
+                 "decode_capacity_factor": None if cfg.moe is None else dcfg.moe.capacity_factor,
+                 "prompt_s": prompt_s, "prompt_ms_per_step": 1e3 * prompt_s / n_prompt,
+                 "step_ms_median": step_ms, "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
+                 "decode_tokens_per_s": b / (step_ms / 1e3), "decode_launches": decode_launches,
+                 "launches_per_step": sorted(set(step_launches)), "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if windowed:
+        line["ring_slots"] = int(cache["loc_k"].shape[-2])
+        line["ring_launches_per_step"] = sum(not cfg.layer_is_global(i) for i in range(cfg.n_layers))
+
+    # checks: decode == prefill at the last prompt position, decode ==
+    # forward at 16 positions, the greedy tokens against forward.  MoE in
+    # bf16: where a token's experts differ between the decode step and
+    # the full-sequence pass (a route flip: the router sees inputs one
+    # rounding apart near a tie), its logits differ by the experts'
+    # outputs, not by rounding; such rows are counted and left out of
+    # the gap, and at least half the rows must remain.  Where every row
+    # of the last prompt position flipped, the prefill check steps back
+    # to the last prompt position (of PREFILL_TRIES) whose routes agree
+    n_moe_calls = len(dec_log.calls)
+    for t_pre in range(n_prompt - 1, n_prompt - 1 - PREFILL_TRIES, -1):
+        with torch.inference_mode(), route_log() as pre_log:
+            pre = tt.transformer_prefill(model, dcfg, prompt[:, : t_pre + 1])
+        flip_pre = torch.zeros((b,), dtype=torch.bool, device=dev)
+        if n_moe:
+            dec_t = torch.stack(dec_log.calls).view(steps, n_moe, b, -1)[t_pre]             # (L, B, k)
+            pre_t = torch.stack(pre_log.calls).view(n_moe, b, t_pre + 1, -1)[:, :, -1]
+            flip_pre = (dec_t != pre_t).any(-1).any(0)                                       # (B,)
+        if not bool(flip_pre.all()):
+            break
+    gen = torch.cat(generated, dim=1)
+    with torch.inference_mode(), route_log() as fwd_log:
+        fwd = tt.transformer_forward(model, dcfg, torch.cat([prompt, gen[:, :-1]], dim=1))
+    flips = torch.zeros((b, steps - 1), dtype=torch.bool, device=dev)
+    if n_moe:
+        assert n_moe_calls == steps * n_moe
+        dec_r = torch.stack(dec_log.calls).view(steps, n_moe, b, -1)[: steps - 1]   # (T, L, B, k)
+        fwd_r = torch.stack(fwd_log.calls).view(n_moe, b, steps - 1, -1).permute(2, 0, 1, 3)
+        flips = (dec_r != fwd_r).any(-1).any(1).T                                     # (B, T)
+    keep_at = ~flips[:, check_at]
+    rel_a, abs_a = masked_gap(saved[t_pre], pre, ~flip_pre)
+    fwd_at = fwd[:, check_at].float()
+    dec_at = torch.stack([saved[t] for t in check_at], dim=1)
+    rel_b, abs_b = masked_gap(dec_at, fwd_at, keep_at)
+    greedy_fwd = fwd[:, n_prompt - 1 :].argmax(-1)
+    finite &= bool(torch.isfinite(pre).all()) and bool(torch.isfinite(fwd).all())
+    kern_ok, kern_rows = (True, []) if cfg.attention == "mla" else ring_checks(cache, cfg, steps, dev)
+    checks = {
+        "prefill_launches": prefill_launches == cfg.n_layers,
+        "launches_per_step": set(step_launches) == {per_step},
+        "decode_launches": decode_launches == per_step * steps,
+        "decode_equals_prefill": rel_a <= LM_REL_L2 and abs_a <= LM_MAX_ABS and not bool(flip_pre.all()),
+        "decode_equals_forward": (rel_b <= LM_REL_L2 and abs_b <= LM_MAX_ABS
+                                  and 2 * int(keep_at.sum()) >= keep_at.numel()),
+        "decode_kernel_on_cache": kern_ok,
+        "finite": finite,
+    }
+    line.update({
+        "tolerance": f"rel L2 <= {LM_REL_L2} and max |diff| <= {LM_MAX_ABS} (fp32 compare of bf16 logits)",
+        "decode_vs_prefill": {"position": t_pre, "rel_l2": rel_a, "max_abs": abs_a,
+                              "logit_max_abs": float(pre.float().abs().max()),
+                              "rows_with_route_flips": int(flip_pre.sum())},
+        "decode_vs_forward": {"positions": check_at, "rel_l2": rel_b, "max_abs": abs_b,
+                              "rows_compared": int(keep_at.sum()), "rows": keep_at.numel(),
+                              "all_rows": dict(zip(("rel_l2", "max_abs"), logit_gap(dec_at, fwd_at)))},
+        "route_flips_vs_forward": {"positions": int(flips.sum()), "of": flips.numel()} if n_moe else None,
+        "argmax_differs_vs_forward": int((dec_at.argmax(-1) != fwd_at.argmax(-1)).sum()),
+        "greedy_tokens_differ_vs_forward": int((greedy_fwd != gen).sum()), "greedy_tokens": gen.numel(),
+        "decode_kernel_on_cache": {"tolerance": FLASH_TOL, "rows": kern_rows},
+    })
+    del pre, fwd, fwd_at, dec_at, saved
+    wall, busy, union, top = device_busy(lambda: step(model, dcfg, tok, cache, steps - 1))
+    line["decode_step_trace"] = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+                                 "idle_share": None if union is None else 1.0 - union / wall, "top_kernels": top}
+    del cache, logits
+    torch.cuda.empty_cache()
+    if cfg.moe is not None:
+        line["moe_bf16_vs_fp32_experts"] = mp = moe_precision(model, cfg, dev)
+        checks["moe_bf16_vs_fp32_experts"] = mp["ok"]
+    line["checks"] = checks
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_model
+    return all(checks.values()), line, {"prefill": prefill_launches, "decode": decode_launches}
+
+
+def lm_zoo(dev):
+    """Phase 13: ``zoo_model`` for each of ``ZOO_CELLS`` in turn (each
+    model freed before the next loads).  Returns (ok, lines, launches by
+    kernel row, phase seconds)."""
+    t_phase = time.perf_counter()
+    ok, lines, by = True, [], {}
+    for name in ZOO_CELLS:
+        m_ok, line, launches = zoo_model(name, dev)
+        ok &= m_ok
+        lines.append(line)
+        by[name] = launches
+    launches = {"flash_attention_d192": by["deepseek-v2-236b"]["prefill"],
+                "flash_attention_decode_ring": by["gemma3-27b"]["decode"],
+                "flash_attention_decode_mqa": by["granite-20b"]["decode"]}
+    return ok, lines, launches, time.perf_counter() - t_phase
+
+
+def check_zoo_flash(zoo_launches):
+    """The phase-13 kernel rows, each against its plain version in bf16
+    with its time back to back and queued, the plain version's, the
+    library's and its bound: ``flash_attention_d192`` (deepseek-v2's
+    prefill: B 2, H 128, S 4096, q/k 192 and v padded from 128 to 192;
+    the bound counts the padded work the kernel does and, beside it, the
+    unpadded 2 (192 + 128) FLOP a pair; ptxas's registers and spills of
+    every 192 instantiation), ``flash_attention_decode_ring`` (gemma3's
+    full 1,024-slot ring, B 2, Hq 32, Hkv 16, unmasked) and
+    ``flash_attention_decode_mqa`` (granite's filled cache: B 2, Hq 48,
+    Hkv 1, 288 keys).  Returns (ok, rows)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    ok_p, pre = flash_row("flash_attention_d192", 2, 128, 128, 4096, 4096, 192, True, None, seed=7)
+    ok_r, ring = flash_row("flash_attention_decode_ring", 2, 32, 16, 1, 1024, 128, False, None, seed=8)
+    ok_m, mqa = flash_row("flash_attention_decode_mqa", 2, 48, 1, 1, ZOO_CELLS["granite-20b"][1]
+                          + ZOO_CELLS["granite-20b"][2], 128, True, None, seed=9)
+    pairs = pre["flops"] / (4.0 * 2 * 128 * 192)
+    unpadded = 2.0 * 2 * 128 * pairs * (192 + 128)
+    pre["flops_unpadded"] = unpadded
+    pre["bound_unpadded_ms"] = bound_ms(pre["bytes"], unpadded, BF16_FLOPS)[0]
+    pre["bound_two_term_pv_ms"] = bound_ms(pre["bytes"], 2.0 * 2 * 128 * pairs * (192 + 2 * 192), BF16_FLOPS)[0]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((2, 128, 4096, 192), generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    pre["queued_ms"] = queued_ms(lambda: flash_attention(q, k, v, causal=True), reps=5)
+    del q, k, v
+    ptx = {}
+    for kernel in ("prefill_tc_kernel", "prefill_fp32_kernel", "decode_split_kernel", "merge_kernel"):
+        ptx.update(ptxas_entries("flash_attention", kernel))
+    pre["ptxas"] = ptx   # every instantiation, D 192's among them
+    for row in (pre, ring, mqa):
+        row["launches"] = zoo_launches[row["name"]]
+        row["ptxas_192"] = {k: v for k, v in ptx.items() if "192" in k}
+    torch.cuda.empty_cache()
+    return ok_p and ok_r and ok_m, [pre, ring, mqa]
+
+
 def run(args) -> int:
     import torch
 
@@ -2502,8 +2912,19 @@ def run(args) -> int:
     launches["packed_connectivity"] = sm_launches["packed_connectivity"]
     for k in rc:
         k["launches_by_method"].update({m: v["launches"][k["name"]] for m, v in bl_by.items()})
+    # 13. the rest of the LM zoo, one model at a time, each path's counts
+    #     read around its own run; then the zoo's flash_attention rows
+    t_phase = time.perf_counter()
+    zoo_ok, zoo_lines, zoo_launches, zoo_s = lm_zoo(dev)
+    for line in zoo_lines:
+        emit(line)
+    zf_ok, zf_rows = check_zoo_flash(zoo_launches)
+    emit({"phase": "lm_zoo", "seconds": time.perf_counter() - t_phase, "models_s": zoo_s,
+          "models_ok": zoo_ok, "flash_rows_ok": zf_ok})
+    ok &= zoo_ok and zf_ok and all(n > 0 for n in zoo_launches.values())
+    launches.update(zoo_launches)
     rows = []
-    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn]:
+    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

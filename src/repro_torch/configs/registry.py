@@ -2,14 +2,14 @@
 
 Each arch module registers an ``ArchSpec`` carrying its full config, a
 reduced same-family config for CPU tests, its shape table and its
-documented skips.  ``_ensure_loaded`` imports only the configs the port
-can run: ``llama3_8b`` (the dense GQA decoder) and the four recsys
-rankers ``bst``, ``deepfm``, ``dien`` and ``autoint``.  The reference's
-other model configs (gemma3-27b, granite-20b, grok-1, deepseek-v2, the
-GNN model) are queued in ROADMAP A11; laf_dbscan's launch config
-(``LAFClusterConfig`` and its entry) in A10.  Its ``StreamConfig`` is
-ported as a plain dataclass in ``configs/laf_dbscan.py``, outside the
-registry.
+documented skips.  ``_ensure_loaded`` imports the configs the port can
+run: the five LMs (``llama3_8b``, ``gemma3_27b``, ``granite_20b``,
+``grok1_314b``, ``deepseek_v2_236b``) and the four recsys rankers
+``bst``, ``deepfm``, ``dien`` and ``autoint``.  The reference's GNN
+config (gat-cora) waits with ``models/gnn.py`` (ROADMAP A11b);
+laf_dbscan's launch config (``LAFClusterConfig`` and its entry) waits
+for A10.  Its ``StreamConfig`` is ported as a plain dataclass in
+``configs/laf_dbscan.py``, outside the registry.
 """
 
 from __future__ import annotations
@@ -65,7 +65,9 @@ def list_archs():
 
 
 def _ensure_loaded():
-    from . import autoint, bst, deepfm, dien, llama3_8b  # noqa: F401  (each registers on first import)
+    from . import (  # noqa: F401  (each registers on first import)
+        autoint, bst, deepfm, deepseek_v2_236b, dien, gemma3_27b, granite_20b, grok1_314b, llama3_8b,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -63,8 +63,16 @@
 //   gives out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
 //   1e-30): a wholly masked split (m = -1e30, l = 0) adds exactly 0.
 //
+// Head widths D: 16, 32, 128 and 192 (MLA's concatenated q/k, 128 + 64;
+// its v, 128, is zero-padded to 192 by the caller).  At D 192 the bf16
+// prefill keeps one K and one V stage and runs a tile's steps in order
+// (TC<D> below: the 96-register O accumulator leaves no room for S and
+// P beside it), and the decode mapping fits two blocks an SM (Dec<T, D>).
+//
 // Left for later: no cluster multicast of K/V across the GQA group, no
-// FP8, no persistent blocks, no store of the output through TMA.
+// FP8, no persistent blocks, no store of the output through TMA, no
+// (DK, DV) = (192, 128) instantiation (P.V at N 128 would drop a third
+// of MLA's padded P.V work).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -404,6 +412,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 192) += A (64 x 16 bf16, registers) . B (16 x 192 bf16, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 32) += A (64 x 16 bf16, registers) . B (16 x 32 bf16, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -433,10 +468,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], 
 
 constexpr int TQ = 128;                      // queries per block: two warpgroups of 64
 constexpr int TK = 128;                      // keys per K/V tile
-constexpr int STAGES = 3;                    // K/V ring depth
 constexpr int CONSUMERS = 256;               // the two consumer warpgroups
 constexpr int TC_THREADS = CONSUMERS + 128;  // + the producer warpgroup (one thread issues)
 
+// D <= 128: a 3-stage K/V ring, tile i + 1's Q.K^T issued with tile i's
+// P.V (OVERLAP).  D 192: a 48 KB tile, so one K and one V stage (Q + K +
+// V = 144 KB; three stages would need 336 KB), and the tile's steps run
+// in order (Q.K^T, softmax, P.V): the O accumulator is 96 registers a
+// thread, and S (64) beside P_hi/P_lo (64) in flight would not fit under
+// setmaxnreg's 240.  K's stage is released as soon as Q.K^T has read it,
+// V's after P.V, so the producer loads tile i + 1's K during tile i's
+// softmax and P.V, and its V during tile i + 1's Q.K^T.
 template <int D> struct TC {
   static constexpr int ROWB = D * 2 < 128 ? D * 2 : 128;  // bytes of a row within one TMA box: the swizzle span
   static constexpr int BOXD = ROWB / 2;                    // elements of a row within one box
@@ -445,7 +487,10 @@ template <int D> struct TC {
   static constexpr int TILE = NBOX * BOX;                  // bytes of a Q, K or V tile
   static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
   static constexpr uint32_t SBO = 8 * ROWB;                // 8-row group stride
-  static constexpr size_t smem = 1024 + (size_t)TILE * (1 + 2 * STAGES);
+  static constexpr bool OVERLAP = D <= 128;
+  static constexpr int KST = OVERLAP ? 3 : 1;              // K stages
+  static constexpr int VST = OVERLAP ? 3 : 1;              // V stages
+  static constexpr size_t smem = 1024 + (size_t)TILE * (1 + KST + VST);
 };
 
 // S = Q . K^T, 64 x 128 scores of one warpgroup from K-major operands; a
@@ -536,9 +581,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   using C = TC<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);
-  uint8_t* ks = qs + C::TILE;            // STAGES K tiles
-  uint8_t* vs = ks + STAGES * C::TILE;   // STAGES V tiles
-  __shared__ __align__(8) uint64_t q_full, k_full[STAGES], v_full[STAGES], empty[STAGES];
+  uint8_t* ks = qs + C::TILE;            // KST K tiles
+  uint8_t* vs = ks + C::KST * C::TILE;   // VST V tiles
+  __shared__ __align__(8) uint64_t q_full, k_full[C::KST], v_full[C::VST], k_empty[C::KST], v_empty[C::VST];
 
   const int n_qt = (p.Sq + TQ - 1) / TQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * TQ;  // the heaviest causal tiles launch first
@@ -557,29 +602,33 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (tid == 0) {
     mbar_init(&q_full, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < C::KST; ++s) {
       mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], CONSUMERS);
+    }
+    for (int s = 0; s < C::VST; ++s) {
       mbar_init(&v_full[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
+      mbar_init(&v_empty[s], CONSUMERS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp >= CONSUMERS / 32) {  // producer warpgroup: gives its registers up, one thread keeps the ring full
+  if (warp >= CONSUMERS / 32) {  // producer warpgroup: gives its registers up, one thread keeps the rings full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == CONSUMERS) {
       mbar_expect_tx(&q_full, C::TILE);
       for (int x = 0; x < C::NBOX; ++x) tma_load(qs + x * C::BOX, &qmap, &q_full, x * C::BOXD, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES, k0 = (t_lo + i) * TK;
-        if (i >= STAGES) mbar_wait(&empty[s], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&k_full[s], C::TILE);
+        const int sk = i % C::KST, sv = i % C::VST, k0 = (t_lo + i) * TK;
+        if (i >= C::KST) mbar_wait(&k_empty[sk], (i / C::KST - 1) & 1);
+        mbar_expect_tx(&k_full[sk], C::TILE);
         for (int x = 0; x < C::NBOX; ++x)
-          tma_load(ks + s * C::TILE + x * C::BOX, &kmap, &k_full[s], x * C::BOXD, k0, g, b);
-        mbar_expect_tx(&v_full[s], C::TILE);
+          tma_load(ks + sk * C::TILE + x * C::BOX, &kmap, &k_full[sk], x * C::BOXD, k0, g, b);
+        if (i >= C::VST) mbar_wait(&v_empty[sv], (i / C::VST - 1) & 1);
+        mbar_expect_tx(&v_full[sv], C::TILE);
         for (int x = 0; x < C::NBOX; ++x)
-          tma_load(vs + s * C::TILE + x * C::BOX, &vmap, &v_full[s], x * C::BOXD, k0, g, b);
+          tma_load(vs + sv * C::TILE + x * C::BOX, &vmap, &v_full[sv], x * C::BOXD, k0, g, b);
       }
     }
     return;
@@ -588,8 +637,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 
   // consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the
   // tile; this thread holds rows `row` and `row + 8` of the accumulator
-  // fragments, columns 8 j + 2 (lane % 4) + {0, 1}.  In the loop, P.V of
-  // tile i runs on the tensor cores while the softmax of tile i + 1 runs.
+  // fragments, columns 8 j + 2 (lane % 4) + {0, 1}.
   const int wg = warp / 4;
   const int row = 64 * wg + 16 * (warp % 4) + lane / 4;
   const int qp = q0 + row + off;
@@ -603,6 +651,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     else
       softmax_tile<false>(sc, m, l, corr, qp, k0 + 2 * (lane % 4), p, sl2);
   };
+  auto rescale = [&](float (&o)[D / 2]) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  };
 
   float o[D / 2];
 #pragma unroll
@@ -611,54 +668,80 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   uint32_t hi[8][4], lo[8][4];
 
   mbar_wait(&q_full, 0);
-  if (n_tiles > 0) {  // the first tile's probabilities
+  if constexpr (C::OVERLAP) {
+    // P.V of tile i runs on the tensor cores while the softmax of tile
+    // i + 1 runs
+    if (n_tiles > 0) {  // the first tile's probabilities
+#pragma unroll
+      for (int j = 0; j < 64; ++j) sc[j] = 0.f;
+      mbar_wait(&k_full[0], 0);
+      pin(sc);
+      wgmma_fence();
+      issue_qk<D>(sc, q_addr, smem_u32(ks));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      softmax(sc, t_lo * TK);
+      split_p(sc, hi, lo);
+    }
+    // steady state: tile i + 1's scores are issued ahead of tile i's P.V
+    for (int i = 0; i + 1 < n_tiles; ++i) {
+      const int s = i % C::KST, sn = (i + 1) % C::KST, k1 = (t_lo + i + 1) * TK;
+      mbar_wait(&k_full[sn], ((i + 1) / C::KST) & 1);
+      mbar_wait(&v_full[s], (i / C::VST) & 1);
+      pin(sc), pin(o), pin(hi), pin(lo);
+      wgmma_fence();
+      issue_qk<D>(sc, q_addr, smem_u32(ks + sn * C::TILE));
+      wgmma_commit();
+      issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
+      wgmma_commit();
+      wgmma_wait<1>();  // Q.K^T of tile i + 1 is done; P.V of tile i may still run
+      pin(sc);
+      softmax(sc, k1);
+      wgmma_wait<0>();
+      pin(o), pin(hi), pin(lo);
+      mbar_arrive(&k_empty[s]);
+      mbar_arrive(&v_empty[s]);
+      rescale(o);
+      split_p(sc, hi, lo);
+    }
+    if (n_tiles > 0) {  // the last tile's P.V
+      const int s = (n_tiles - 1) % C::VST;
+      mbar_wait(&v_full[s], ((n_tiles - 1) / C::VST) & 1);
+      pin(o), pin(hi), pin(lo);
+      wgmma_fence();
+      issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o), pin(hi), pin(lo);
+    }
+  } else {
+    // one tile at a time: Q.K^T (K's stage released), softmax, P.V (V's
+    // stage released)
 #pragma unroll
     for (int j = 0; j < 64; ++j) sc[j] = 0.f;
-    mbar_wait(&k_full[0], 0);
-    pin(sc);
-    wgmma_fence();
-    issue_qk<D>(sc, q_addr, smem_u32(ks));
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(sc);
-    softmax(sc, t_lo * TK);
-    split_p(sc, hi, lo);
-  }
-  // steady state: tile i + 1's scores are issued ahead of tile i's P.V
-  for (int i = 0; i + 1 < n_tiles; ++i) {
-    const int s = i % STAGES, sn = (i + 1) % STAGES, k1 = (t_lo + i + 1) * TK;
-    mbar_wait(&k_full[sn], ((i + 1) / STAGES) & 1);
-    mbar_wait(&v_full[s], (i / STAGES) & 1);
-    pin(sc), pin(o), pin(hi), pin(lo);
-    wgmma_fence();
-    issue_qk<D>(sc, q_addr, smem_u32(ks + sn * C::TILE));
-    wgmma_commit();
-    issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
-    wgmma_commit();
-    wgmma_wait<1>();  // Q.K^T of tile i + 1 is done; P.V of tile i may still run
-    pin(sc);
-    softmax(sc, k1);
-    wgmma_wait<0>();
-    pin(o), pin(hi), pin(lo);
-    mbar_arrive(&empty[s]);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[4 * j] *= corr[0];
-      o[4 * j + 1] *= corr[0];
-      o[4 * j + 2] *= corr[1];
-      o[4 * j + 3] *= corr[1];
+    for (int i = 0; i < n_tiles; ++i) {
+      const int sk = i % C::KST, sv = i % C::VST;
+      mbar_wait(&k_full[sk], (i / C::KST) & 1);
+      pin(sc), pin(o);
+      wgmma_fence();
+      issue_qk<D>(sc, q_addr, smem_u32(ks + sk * C::TILE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(sc);
+      mbar_arrive(&k_empty[sk]);
+      softmax(sc, (t_lo + i) * TK);
+      rescale(o);
+      split_p(sc, hi, lo);
+      mbar_wait(&v_full[sv], (i / C::VST) & 1);
+      pin(o), pin(hi), pin(lo);
+      wgmma_fence();
+      issue_pv<D>(o, hi, lo, smem_u32(vs + sv * C::TILE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(o), pin(hi), pin(lo);
+      mbar_arrive(&v_empty[sv]);
     }
-    split_p(sc, hi, lo);
-  }
-  if (n_tiles > 0) {  // the last tile's P.V
-    const int s = (n_tiles - 1) % STAGES;
-    mbar_wait(&v_full[s], ((n_tiles - 1) / STAGES) & 1);
-    pin(o), pin(hi), pin(lo);
-    wgmma_fence();
-    issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(o), pin(hi), pin(lo);
   }
 
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) + ((long long)(b * p.Hq + h) * p.Sq) * D;
@@ -687,6 +770,10 @@ constexpr int RG = 4;                       // query heads per decode block (ops
 constexpr int DWARPS = 2 * RG;              // consumer warps: (head, half of each tile's keys)
 constexpr int D_THREADS = DWARPS * 32 + 32; // + the producer warp
 
+// D 192: the 2-stage ring of 24 KB (bf16) tiles makes 108.6 KB a block,
+// so two blocks an SM where D 128 (72.8 KB) fits three; in fp32 (48 KB
+// tiles, 206.9 KB) one, as at D 128 (138.3 KB).  A lane's 6 output
+// columns are read as 3 pairs, since 6 elements cross a 16-byte chunk.
 template <typename T, int D> struct Dec {
   static constexpr int ES = sizeof(T);
   static constexpr int ROWB = D * ES < 128 ? D * ES : 128;  // bytes of a row within one box: the swizzle span
@@ -696,6 +783,7 @@ template <typename T, int D> struct Dec {
   static constexpr int TILE = NBOX * BOX;    // bytes of a K or V tile
   static constexpr int VEC = 16 / ES;        // elements of a 16-byte chunk
   static constexpr int DPL = D >= 32 ? D / 32 : 1;  // output columns a lane owns
+  static constexpr int VLOAD = DPL == 6 ? 2 : DPL;  // elements of one V read (within a 16-byte chunk)
   static constexpr size_t smem = 1024 + (size_t)2 * DSTAGES * TILE + sizeof(float) * (RG * D + DWARPS * (D + 2));
 };
 
@@ -714,8 +802,11 @@ __device__ __forceinline__ void load_f(const uint8_t* src, float* dst, float) {
   if constexpr (N == 4) {
     const float4 a = *reinterpret_cast<const float4*>(src);
     dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  } else if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    dst[0] = a.x; dst[1] = a.y;
   } else {
-    static_assert(N == 1, "fp32: 4 or 1 elements");
+    static_assert(N == 1, "fp32: 4, 2 or 1 elements");
     dst[0] = *reinterpret_cast<const float*>(src);
   }
 }
@@ -723,8 +814,11 @@ template <int N>
 __device__ __forceinline__ void load_f(const uint8_t* src, float* dst, __nv_bfloat16) {
   if constexpr (N == 1) {
     dst[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(src));
+  } else if constexpr (N == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src));
+    dst[0] = f.x; dst[1] = f.y;
   } else {
-    static_assert(N == 8 || N == 4, "bf16: 8, 4 or 1 elements");
+    static_assert(N == 8 || N == 4, "bf16: 8, 4, 2 or 1 elements");
     uint32_t u[N / 2];
     if constexpr (N == 8) *reinterpret_cast<uint4*>(u) = *reinterpret_cast<const uint4*>(src);
     else *reinterpret_cast<uint2*>(u) = *reinterpret_cast<const uint2*>(src);
@@ -844,7 +938,9 @@ __global__ void __launch_bounds__(D_THREADS, 3)
       const float pj = __shfl_sync(0xffffffffu, pk, j);
       if (col < D) {
         float vx[C::DPL];
-        load_f<C::DPL>(vt + dec_off<T, D>(half * 32 + j, col), vx, T());
+#pragma unroll
+        for (int e = 0; e < C::DPL; e += C::VLOAD)
+          load_f<C::VLOAD>(vt + dec_off<T, D>(half * 32 + j, col + e), vx + e, T());
 #pragma unroll
         for (int e = 0; e < C::DPL; ++e) acc[e] = fmaf(pj, vx[e], acc[e]);
       }
@@ -1023,6 +1119,7 @@ extern "C" int flash_attention_launch(
     case 16: return (int)launch<16>(p, dtype, s);
     case 32: return (int)launch<32>(p, dtype, s);
     case 128: return (int)launch<128>(p, dtype, s);
+    case 192: return (int)launch<192>(p, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

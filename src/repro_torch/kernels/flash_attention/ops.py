@@ -36,7 +36,7 @@ from .ref import attention_ref
 __all__ = ["flash_attention", "decode_splits", "LAUNCHES", "HEAD_DIMS", "DECODE_TILE", "DECODE_GROUP", "SMS"]
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches"}
-HEAD_DIMS = (16, 32, 128)  # head widths the kernel is instantiated for
+HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DECODE_TILE = 64   # keys per decode tile (csrc/flash_attention.cu DBK)
 DECODE_GROUP = 4   # query heads per decode block (csrc/flash_attention.cu RG)

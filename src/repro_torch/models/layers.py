@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention.ops import HEAD_DIMS
 
 __all__ = [
     "dense_init", "dense", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
@@ -132,12 +133,15 @@ def blockwise_attention(
     Query ``i`` sits at position ``q_offset + i`` and attends the keys
     ``k[:, :, :valid_len]`` (the prefix view: the keys past it are masked
     in the reference); no valid key gives 0, as the reference's clamped
-    normalizer does.  Where ``Dv != D`` the narrower of ``v`` and
-    ``q``/``k`` is zero-padded along D to the wider width and the output
-    cut back to ``Dv``: zero columns of ``v`` add nothing, zero columns
-    of ``q`` and ``k`` leave ``q·k`` unchanged, and the scale stays
-    1/sqrt(D).  ``kv_block`` is the reference's scan chunk and is
-    ignored: the kernel tiles the keys itself.  Unlike the reference's
+    normalizer does.  ``q``/``k`` and ``v`` are zero-padded along D to
+    the kernel's narrowest width (``HEAD_DIMS``) that holds ``max(D,
+    Dv)`` (MLA: q/k 192 and v 128 run at 192; its reduced 24 and 16 at
+    32), and the output is cut back to ``Dv``: zero columns of ``v`` add
+    nothing, zero columns of ``q`` and ``k`` leave ``q·k`` unchanged, and
+    the scale stays 1/sqrt(D).  A width past the widest is left as it
+    is (the plain version takes it; the card raises).  ``kv_block`` is
+    the reference's scan chunk and is ignored: the kernel tiles the keys
+    itself.  Unlike the reference's
     jnp body, the probabilities are not rounded to the inputs' type in
     P·V: fp32 (as in the TPU kernel), or on the card's bf16 prefill two
     bf16 terms, P_hi·V + P_lo·V (P to about 16 bits), so bf16 results
@@ -150,7 +154,7 @@ def blockwise_attention(
     if n <= 0:
         return torch.zeros((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     k, v = k[:, :, :n], v[:, :, :n]
-    width = max(d, dv)
+    width = min((w for w in HEAD_DIMS if w >= max(d, dv)), default=max(d, dv))
     if d < width:
         q, k = F.pad(q, (0, width - d)), F.pad(k, (0, width - d))
     if dv < width:

@@ -1,34 +1,41 @@
 """Decoder-only transformer LM, the serving path (port of
-``repro.models.transformer``): GQA/MQA + RoPE, a dense SwiGLU FFN, an
-optional per-layer sliding-window pattern (Gemma-3's local:global),
+``repro.models.transformer``): GQA/MQA + RoPE, an optional per-layer
+sliding-window pattern (Gemma-3's 5:1 local:global) with its windowed
+ring-buffer decode, optional MoE FFNs (Grok-1, DeepSeek-V2:
+``moe.py``) and optional MLA attention (DeepSeek-V2: ``mla.py``);
 prefill and KV-cache decode.
 
 The parameters are an ``nn.Module`` (``Transformer``) whose layers are an
 ``nn.ModuleList``; the reference stacks them on a leading axis and
 ``lax.scan``s over them.  Each layer is an ``nn.ModuleDict`` of
-``nn.ParameterDict``s with the reference's names (``ln1``, ``ln2``,
-``attn`` = ``wq``/``wk``/``wv``/``wo``, ``ffn`` = ``wi_gate``/``wi_up``/
-``wo``), and dense weights keep the reference's (in, out) layout, so
-``dense(w, x) = x @ w``.  ``transformer_from_jax`` carries the
-reference's parameters across.
+``nn.ParameterDict`` trees with the reference's names (``ln1``, ``ln2``,
+``attn`` = ``wq``/``wk``/``wv``/``wo`` or MLA's ``wq_a``, ``q_norm``,
+..., ``ffn`` = ``wi_gate``/``wi_up``/``wo`` or ``moe`` = ``router``,
+``wi_gate``, ``wi_up``, ``wo`` (+ ``shared``)); ``prefix_layers`` (the
+leading ``n_dense_layers``) have a dense FFN.  Every leaf has the dtype
+the reference gives it: ``cfg.dtype``, the MoE experts ``cfg.moe.dtype``
+and the router fp32.  Dense weights keep the reference's (in, out)
+layout, so ``dense(w, x) = x @ w``.  ``transformer_from_jax`` carries
+the reference's parameters across.
 
 Attention runs ``layers.blockwise_attention``, i.e. the hand-written
-``flash_attention`` kernel on the card.  The GEMMs are ``torch.matmul``
-(cuBLAS), as the reference leaves them to XLA.  Serving functions run
-under ``torch.inference_mode()``.
+``flash_attention`` kernel on the card: the prefill of every config
+(MLA's at D 192), each GQA/MQA decode step, and the windowed decode's
+ring buffers, whose valid slots are read as a prefix without a mask (a
+softmax does not depend on the slots' order).  MLA's absorbed decode is
+plain fp32 PyTorch, as the reference's jnp.  The GEMMs are
+``torch.matmul`` (cuBLAS), as the reference leaves them to XLA.
+Serving functions run under ``torch.inference_mode()``.
 
-Not ported yet (ROADMAP A11): MoE FFNs (``moe.py``), MLA attention
-(``mla.py``), the windowed ring-buffer decode of hybrid configs
-(``transformer_decode_step_windowed``, ``make_cache_windowed``) and
-training (gradients).  A config that needs MoE or MLA raises
-``NotImplementedError`` in every function that would run it.
+Not ported yet: training (gradients; ``transformer_loss`` is forward
+only), the reference's sharding hooks (``shard_act`` and friends).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,11 +43,13 @@ from torch import nn
 
 from .. import resolve_device
 from .layers import apply_rope, blockwise_attention, cross_entropy_loss, dense, rmsnorm, swiglu
+from .mla import MLAConfig, mla_attention, mla_decode_step, mla_shapes
+from .moe import MoEConfig, moe_apply, moe_shapes
 
 __all__ = [
     "TransformerConfig", "Transformer", "transformer_init", "transformer_from_jax",
     "transformer_hidden", "transformer_forward", "transformer_loss", "transformer_prefill",
-    "make_cache", "transformer_decode_step",
+    "make_cache", "transformer_decode_step", "make_cache_windowed", "transformer_decode_step_windowed",
 ]
 
 
@@ -56,10 +65,10 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None     # sliding window for local layers
     global_every: int = 0            # 0: all layers global; k: layer i global iff (i+1)%k==0
-    moe: Optional[Any] = None        # the reference's MoEConfig (not ported: ROADMAP A11)
+    moe: Optional[MoEConfig] = None
     n_dense_layers: int = 0          # leading layers with dense FFN even when moe set
-    attention: str = "gqa"           # "gqa" | "mla" (mla not ported: ROADMAP A11)
-    mla: Optional[Any] = None
+    attention: str = "gqa"           # "gqa" | "mla"
+    mla: Optional[MLAConfig] = None
     dtype: torch.dtype = torch.bfloat16
     kv_block: int = 1024             # the reference's attention KV chunk; the kernel tiles itself
     remat: bool = True               # the reference's checkpointing switch; no training here
@@ -108,12 +117,10 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attention == "mla" or cfg.mla is not None:
-        raise NotImplementedError("MLA attention (mla.py) is not ported yet: ROADMAP A11")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE FFN layers (moe.py) are not ported yet: ROADMAP A11")
-    if cfg.attention != "gqa":
+    if cfg.attention not in ("gqa", "mla"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
+    if cfg.attention == "mla" and cfg.mla is None:
+        raise ValueError("attention='mla' needs an MLAConfig")
 
 
 def _windows(cfg: TransformerConfig):
@@ -128,57 +135,72 @@ def _windows(cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 
-def _params(shapes, make):
-    return nn.ParameterDict({k: nn.Parameter(make(k, s), requires_grad=False) for k, s in shapes.items()})
+def _tree(spec, make) -> nn.ParameterDict:
+    """{name: (shape, dtype) or a nested spec} -> a ParameterDict tree of
+    ``make(name, shape, dtype)`` leaves."""
+    return nn.ParameterDict({
+        k: _tree(v, make) if isinstance(v, dict) else nn.Parameter(make(k, *v), requires_grad=False)
+        for k, v in spec.items()})
 
 
-def _layer(cfg: TransformerConfig, make) -> nn.ModuleDict:
-    d, kvd = cfg.d_model, cfg.kv_heads * cfg.d_head
-    return nn.ModuleDict({
-        "ln1": _params({"scale": (d,)}, make),
-        "ln2": _params({"scale": (d,)}, make),
-        "attn": _params({"wq": (d, cfg.attn_dim), "wk": (d, kvd), "wv": (d, kvd), "wo": (cfg.attn_dim, d)}, make),
-        "ffn": _params({"wi_gate": (d, cfg.d_ff), "wi_up": (d, cfg.d_ff), "wo": (cfg.d_ff, d)}, make),
-    })
+def _layer_spec(cfg: TransformerConfig, dense_ffn: bool):
+    d, dt = cfg.d_model, cfg.dtype
+    if cfg.attention == "mla":
+        attn = mla_shapes(cfg.mla, dt)
+    else:
+        kvd = cfg.kv_heads * cfg.d_head
+        attn = {"wq": ((d, cfg.attn_dim), dt), "wk": ((d, kvd), dt), "wv": ((d, kvd), dt),
+                "wo": ((cfg.attn_dim, d), dt)}
+    spec = {"ln1": {"scale": ((d,), dt)}, "ln2": {"scale": ((d,), dt)}, "attn": attn}
+    if cfg.moe is not None and not dense_ffn:
+        spec["moe"] = moe_shapes(cfg.moe)
+    else:
+        spec["ffn"] = {"wi_gate": ((d, cfg.d_ff), dt), "wi_up": ((d, cfg.d_ff), dt), "wo": ((cfg.d_ff, d), dt)}
+    return spec
+
+
+def _layer(cfg: TransformerConfig, make, dense_ffn: bool) -> nn.ModuleDict:
+    return nn.ModuleDict({k: _tree(v, make) for k, v in _layer_spec(cfg, dense_ffn).items()})
 
 
 class Transformer(nn.Module):
     """The reference's parameter pytree as a module: ``embed`` (V, D),
     ``layers`` (one ``ModuleDict`` a stacked layer), ``prefix_layers``
-    (the unstacked leading dense layers), ``ln_f``, ``lm_head`` (D, V)."""
+    (the unstacked leading dense-FFN layers), ``ln_f``, ``lm_head`` (D, V)."""
 
     def __init__(self, cfg: TransformerConfig, make):
         super().__init__()
         _check_supported(cfg)
-        self.embed = nn.Parameter(make("embed", (cfg.vocab, cfg.d_model)), requires_grad=False)
-        self.prefix_layers = nn.ModuleList([_layer(cfg, make) for _ in range(cfg.n_dense_layers)])
-        self.layers = nn.ModuleList([_layer(cfg, make) for _ in range(cfg.n_layers - cfg.n_dense_layers)])
-        self.ln_f = _params({"scale": (cfg.d_model,)}, make)
-        self.lm_head = nn.Parameter(make("lm_head", (cfg.d_model, cfg.vocab)), requires_grad=False)
+        self.embed = nn.Parameter(make("embed", (cfg.vocab, cfg.d_model), cfg.dtype), requires_grad=False)
+        self.prefix_layers = nn.ModuleList([_layer(cfg, make, True) for _ in range(cfg.n_dense_layers)])
+        self.layers = nn.ModuleList([_layer(cfg, make, False) for _ in range(cfg.n_layers - cfg.n_dense_layers)])
+        self.ln_f = _tree({"scale": ((cfg.d_model,), cfg.dtype)}, make)
+        self.lm_head = nn.Parameter(make("lm_head", (cfg.d_model, cfg.vocab), cfg.dtype), requires_grad=False)
 
 
 def transformer_init(seed_or_generator, cfg: TransformerConfig, device=None) -> Transformer:
     """Random parameters as ``transformer_init`` draws them: embed
-    normal * 0.02, dense weights normal / sqrt(d_in), norms ones; drawn
-    in fp32 on ``device`` and stored in ``cfg.dtype``.  ``device`` is
-    ``cuda`` unless the caller passes ``"cpu"``; on ``"meta"`` only the
-    shapes exist (nothing is drawn).  The draws come from a
-    ``torch.Generator`` (a seed makes one on the device), so they are
-    other numbers than ``jax.random``'s for the same seed."""
+    normal * 0.02, dense and expert weights normal / sqrt(fan-in), norms
+    ones; drawn in fp32 on ``device`` and stored in each leaf's dtype
+    (``cfg.dtype``; MoE experts ``cfg.moe.dtype``, the router fp32).
+    ``device`` is ``cuda`` unless the caller passes ``"cpu"``; on
+    ``"meta"`` only the shapes exist (nothing is drawn).  The draws come
+    from a ``torch.Generator`` (a seed makes one on the device), so they
+    are other numbers than ``jax.random``'s for the same seed."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     if dev.type == "meta":
-        return Transformer(cfg, lambda name, shape: torch.empty(shape, dtype=cfg.dtype, device=dev))
+        return Transformer(cfg, lambda name, shape, dtype: torch.empty(shape, dtype=dtype, device=dev))
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
 
-    def make(name, shape):
+    def make(name, shape, dtype):
         if name == "scale":
-            return torch.ones(shape, dtype=cfg.dtype, device=dev)
+            return torch.ones(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        w.mul_(0.02 if name == "embed" else 1.0 / math.sqrt(shape[0]))
-        return w.to(cfg.dtype)
+        w.mul_(0.02 if name == "embed" else 1.0 / math.sqrt(shape[-2]))
+        return w.to(dtype)
 
     with torch.no_grad():
         return Transformer(cfg, make)
@@ -188,26 +210,29 @@ def transformer_from_jax(params, cfg: TransformerConfig, device=None) -> Transfo
     """The port's module holding the reference's parameter pytree
     (arrays as numpy, or anything ``np.asarray`` takes): ``params["layers"]``
     is unstacked along its leading (layer) axis into ``layers``, and
-    ``params["prefix_layers"]`` (a list) goes into ``prefix_layers``.
-    Values are stored in ``cfg.dtype`` on ``device`` (``cuda`` unless
-    ``"cpu"``)."""
+    ``params["prefix_layers"]`` (a list) goes into ``prefix_layers``;
+    the ``attn`` (MLA's included), ``ffn`` and ``moe`` (with ``shared``)
+    subtrees come across whole.  Each value is stored in its leaf's own
+    dtype on ``device`` (``cuda`` unless ``"cpu"``)."""
     dev = resolve_device(device)
     _check_supported(cfg)
 
-    def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=cfg.dtype)
+    def tensor(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=dev, dtype=dtype)
 
-    def fill(layer, tree, i=None):
-        for group, p in layer.items():
-            for name, param in p.items():
-                a = np.asarray(tree[group][name])
-                param.copy_(tensor(a if i is None else a[i]))
+    def fill(module, tree, i=None):
+        for name, child in module.items():
+            if isinstance(child, nn.Module):
+                fill(child, tree[name], i)
+            else:
+                a = np.asarray(tree[name])
+                child.copy_(tensor(a if i is None else a[i], child.dtype))
 
-    model = Transformer(cfg, lambda name, shape: torch.empty(shape, dtype=cfg.dtype, device=dev))
+    model = Transformer(cfg, lambda name, shape, dtype: torch.empty(shape, dtype=dtype, device=dev))
     with torch.no_grad():
-        model.embed.copy_(tensor(params["embed"]))
-        model.lm_head.copy_(tensor(params["lm_head"]))
-        model.ln_f["scale"].copy_(tensor(params["ln_f"]["scale"]))
+        model.embed.copy_(tensor(params["embed"], cfg.dtype))
+        model.lm_head.copy_(tensor(params["lm_head"], cfg.dtype))
+        fill(model.ln_f, params["ln_f"])
         for i, layer in enumerate(model.layers):
             fill(layer, params["layers"], i)
         for layer, tree in zip(model.prefix_layers, params.get("prefix_layers", [])):
@@ -237,10 +262,26 @@ def _gqa_attend(p, cfg: TransformerConfig, h, positions, *, window):
     return dense(p["wo"], o), (k, v)
 
 
-def _layer_forward(p, cfg: TransformerConfig, h, positions, window):
-    attn_out, _ = _gqa_attend(p["attn"], cfg, rmsnorm(p["ln1"], h), positions, window=window)
+def _ffn(p, cfg: TransformerConfig, x, moe_aux=None):
+    """The layer's FFN on x (B, S, d): the dense SwiGLU, or the MoE over
+    the B*S tokens (its aux dict appended to ``moe_aux`` when given)."""
+    if "moe" not in p:
+        return swiglu(p["ffn"], x)
+    b, s, d = x.shape
+    y, aux = moe_apply(p["moe"], cfg.moe, x.reshape(b * s, d))
+    if moe_aux is not None:
+        moe_aux.append(aux)
+    return y.view(b, s, d)
+
+
+def _layer_forward(p, cfg: TransformerConfig, h, positions, window, moe_aux=None):
+    x = rmsnorm(p["ln1"], h)
+    if cfg.attention == "mla":
+        attn_out, _ = mla_attention(p["attn"], cfg.mla, x, positions)
+    else:
+        attn_out, _ = _gqa_attend(p["attn"], cfg, x, positions, window=window)
     h = h + attn_out
-    return h + swiglu(p["ffn"], rmsnorm(p["ln2"], h))
+    return h + _ffn(p, cfg, rmsnorm(p["ln2"], h), moe_aux)
 
 
 def _tokens(tokens, device):
@@ -248,24 +289,26 @@ def _tokens(tokens, device):
 
 
 @torch.inference_mode()
-def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens):
-    """Backbone forward -> final hidden states (B, S, D) after ln_f."""
+def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
+    """Backbone forward -> final hidden states (B, S, D) after ln_f.
+    ``moe_aux``, a list, receives each MoE layer's aux dict in layer
+    order (the reference drops them)."""
     _check_supported(cfg)
     tokens = _tokens(tokens, params.embed.device)
     b, s = tokens.shape
     h = params.embed.to(cfg.dtype)[tokens]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     for p in params.prefix_layers:
-        h = _layer_forward(p, cfg, h, positions, None)
+        h = _layer_forward(p, cfg, h, positions, None, moe_aux)
     for p, window in zip(params.layers, _windows(cfg)):
-        h = _layer_forward(p, cfg, h, positions, window)
+        h = _layer_forward(p, cfg, h, positions, window, moe_aux)
     return rmsnorm(params.ln_f, h)
 
 
 @torch.inference_mode()
-def transformer_forward(params: Transformer, cfg: TransformerConfig, tokens):
+def transformer_forward(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
     """Forward -> logits (B, S, V)."""
-    return dense(params.lm_head, transformer_hidden(params, cfg, tokens))
+    return dense(params.lm_head, transformer_hidden(params, cfg, tokens, moe_aux=moe_aux))
 
 
 @torch.inference_mode()
@@ -282,10 +325,10 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, tokens, labels
 
 
 @torch.inference_mode()
-def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens):
+def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
     """Prefill: full-sequence forward returning the last position's
     logits (B, V).  As in the reference, it fills no cache."""
-    h = transformer_hidden(params, cfg, tokens)
+    h = transformer_hidden(params, cfg, tokens, moe_aux=moe_aux)
     return dense(params.lm_head, h[:, -1])
 
 
@@ -295,41 +338,70 @@ def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens):
 
 
 def make_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None):
-    """Zeroed K/V caches, (layers, B, Hkv, max_len, Dh) each, on
-    ``device`` (``cuda`` unless ``"cpu"``)."""
+    """Zeroed caches on ``device`` (``cuda`` unless ``"cpu"``): GQA K/V,
+    (layers, B, Hkv, max_len, Dh) each; MLA ``ckv`` (layers, B, max_len,
+    kv_lora) and ``krope`` (layers, B, max_len, rope).  The prefix
+    layers get their own (``prefix_k``/``prefix_v``, ``prefix_ckv``/
+    ``prefix_krope``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    shape = (cfg.n_layers - cfg.n_dense_layers, batch, cfg.kv_heads, max_len, cfg.d_head)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev), "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    n_stacked = cfg.n_layers - cfg.n_dense_layers
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.attention == "mla":
+        m = cfg.mla
+        cache = {"ckv": zeros(n_stacked, batch, max_len, m.kv_lora_rank),
+                 "krope": zeros(n_stacked, batch, max_len, m.qk_rope_dim)}
+        if cfg.n_dense_layers:
+            cache["prefix_ckv"] = zeros(cfg.n_dense_layers, batch, max_len, m.kv_lora_rank)
+            cache["prefix_krope"] = zeros(cfg.n_dense_layers, batch, max_len, m.qk_rope_dim)
+        return cache
+    cache = {"k": zeros(n_stacked, batch, cfg.kv_heads, max_len, cfg.d_head),
+             "v": zeros(n_stacked, batch, cfg.kv_heads, max_len, cfg.d_head)}
     if cfg.n_dense_layers:
-        pshape = (cfg.n_dense_layers, batch, cfg.kv_heads, max_len, cfg.d_head)
-        cache["prefix_k"] = torch.zeros(pshape, dtype=dtype, device=dev)
-        cache["prefix_v"] = torch.zeros(pshape, dtype=dtype, device=dev)
+        cache["prefix_k"] = zeros(cfg.n_dense_layers, batch, cfg.kv_heads, max_len, cfg.d_head)
+        cache["prefix_v"] = zeros(cfg.n_dense_layers, batch, cfg.kv_heads, max_len, cfg.d_head)
     return cache
+
+
+def _decode_qkv(a, cfg: TransformerConfig, x, cur_len: int):
+    """The step's q (B, Hq, 1, Dh), k and v (B, Hkv, 1, Dh), RoPE at
+    position ``cur_len``."""
+    b = x.shape[0]
+    q = _heads(dense(a["wq"], x), b, 1, cfg.n_heads, cfg.d_head)
+    k = _heads(dense(a["wk"], x), b, 1, cfg.kv_heads, cfg.d_head)
+    v = _heads(dense(a["wv"], x), b, 1, cfg.kv_heads, cfg.d_head)
+    pos = torch.full((b, 1), cur_len, dtype=torch.long, device=x.device)
+    return apply_rope(q, pos[:, None, :], cfg.rope_theta), apply_rope(k, pos[:, None, :], cfg.rope_theta), v
+
+
+def _decode_out(p, cfg: TransformerConfig, h, o):
+    """The residual update of a decode layer from its attention output o
+    (B, Hq, 1, Dh): the output projection, then the FFN."""
+    h = h + dense(p["attn"]["wo"], o.transpose(1, 2).reshape(h.shape[0], 1, cfg.attn_dim))
+    return h + _ffn(p, cfg, rmsnorm(p["ln2"], h))
 
 
 def _gqa_decode_layer(p, cfg: TransformerConfig, h, k_cache, v_cache, cur_len: int, window):
     """h (B, 1, d); k/v_cache (B, Hkv, S, Dh), written in place at
     ``cur_len``; attention reads the prefix of ``cur_len + 1`` keys."""
-    b = h.shape[0]
-    x = rmsnorm(p["ln1"], h)
-    a = p["attn"]
-    q = _heads(dense(a["wq"], x), b, 1, cfg.n_heads, cfg.d_head)
-    k = _heads(dense(a["wk"], x), b, 1, cfg.kv_heads, cfg.d_head)
-    v = _heads(dense(a["wv"], x), b, 1, cfg.kv_heads, cfg.d_head)
-    pos = torch.full((b, 1), cur_len, dtype=torch.long, device=h.device)
-    q = apply_rope(q, pos[:, None, :], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None, :], cfg.rope_theta)
+    q, k, v = _decode_qkv(p["attn"], cfg, rmsnorm(p["ln1"], h), cur_len)
     k_cache[:, :, cur_len] = k[:, :, 0].to(k_cache.dtype)
     v_cache[:, :, cur_len] = v[:, :, 0].to(v_cache.dtype)
     o = blockwise_attention(
         q, k_cache, v_cache, causal=True, window=window,
         q_offset=cur_len, kv_block=cfg.kv_block, valid_len=cur_len + 1,
     )
-    o = o.transpose(1, 2).reshape(b, 1, cfg.attn_dim)
-    h = h + dense(a["wo"], o)
-    return h + swiglu(p["ffn"], rmsnorm(p["ln2"], h))
+    return _decode_out(p, cfg, h, o)
+
+
+def _mla_decode_layer(p, cfg: TransformerConfig, h, ckv, krope, cur_len: int):
+    attn, _, _ = mla_decode_step(p["attn"], cfg.mla, rmsnorm(p["ln1"], h), ckv, krope, cur_len)
+    h = h + attn
+    return h + _ffn(p, cfg, rmsnorm(p["ln2"], h))
 
 
 @torch.inference_mode()
@@ -337,16 +409,110 @@ def transformer_decode_step(params: Transformer, cfg: TransformerConfig, token, 
     """One decode step: token (B, 1), ``cur_len`` tokens already cached
     -> (logits (B, V), cache).
 
-    The cache is updated in place (``k_cache[..., cur_len, :] = k``) and
-    the same dict is returned; the reference returns a new cache built
-    by ``dynamic_update_slice``."""
+    The cache is updated in place (``k_cache[..., cur_len, :] = k``; MLA:
+    ``ckv[:, cur_len] = c_kv``) and the same dict is returned; the
+    reference returns a new cache built by ``dynamic_update_slice``."""
     _check_supported(cfg)
     cur_len = int(cur_len)
     token = _tokens(token, params.embed.device)
     h = params.embed.to(cfg.dtype)[token]
-    for i, p in enumerate(params.prefix_layers):
-        h = _gqa_decode_layer(p, cfg, h, cache["prefix_k"][i], cache["prefix_v"][i], cur_len, None)
-    for i, (p, window) in enumerate(zip(params.layers, _windows(cfg))):
-        h = _gqa_decode_layer(p, cfg, h, cache["k"][i], cache["v"][i], cur_len, window)
+    if cfg.attention == "mla":
+        for i, p in enumerate(params.prefix_layers):
+            h = _mla_decode_layer(p, cfg, h, cache["prefix_ckv"][i], cache["prefix_krope"][i], cur_len)
+        for i, p in enumerate(params.layers):
+            h = _mla_decode_layer(p, cfg, h, cache["ckv"][i], cache["krope"][i], cur_len)
+    else:
+        for i, p in enumerate(params.prefix_layers):
+            h = _gqa_decode_layer(p, cfg, h, cache["prefix_k"][i], cache["prefix_v"][i], cur_len, None)
+        for i, (p, window) in enumerate(zip(params.layers, _windows(cfg))):
+            h = _gqa_decode_layer(p, cfg, h, cache["k"][i], cache["v"][i], cur_len, window)
+    h = rmsnorm(params.ln_f, h)
+    return dense(params.lm_head, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# windowed decode (hybrid local/global configs: ring buffers on local layers)
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_blocks(cfg: TransformerConfig):
+    """(n_blocks, per_block, n_suffix): the local:global repeat pattern.
+    gemma3: 62 layers at global_every 6 -> 10 blocks of (5 local + 1
+    global) + 2 suffix local layers."""
+    ge = cfg.global_every
+    n_blocks = cfg.n_layers // ge
+    return n_blocks, ge, cfg.n_layers - n_blocks * ge
+
+
+def _check_hybrid(cfg: TransformerConfig) -> None:
+    _check_supported(cfg)
+    if cfg.attention != "gqa" or cfg.window is None or cfg.global_every <= 0 or cfg.n_dense_layers:
+        raise ValueError("windowed decode needs a GQA config with a window, global_every > 0 and no "
+                         "prefix layers (the hybrid local:global pattern)")
+
+
+def make_cache_windowed(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None):
+    """Heterogeneous caches of the hybrid local/global decode, on
+    ``device`` (``cuda`` unless ``"cpu"``): each local layer a ring of
+    ``W = min(window, max_len)`` slots, only the global layers the full
+    sequence.  ``loc_k``/``loc_v`` (blocks, per_block - 1, B, Hkv, W,
+    Dh), ``glob_k``/``glob_v`` (blocks, B, Hkv, max_len, Dh),
+    ``suf_k``/``suf_v`` (suffix layers, B, Hkv, W, Dh), as the
+    reference lays them out.  gemma3-27b keeps 1024 slots on 52 of its
+    62 layers."""
+    _check_hybrid(cfg)
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    nb, ge, ns = _hybrid_blocks(cfg)
+    w = min(cfg.window, max_len)
+    h, d = cfg.kv_heads, cfg.d_head
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "loc_k": zeros(nb, ge - 1, batch, h, w, d), "loc_v": zeros(nb, ge - 1, batch, h, w, d),
+        "glob_k": zeros(nb, batch, h, max_len, d), "glob_v": zeros(nb, batch, h, max_len, d),
+        "suf_k": zeros(ns, batch, h, w, d), "suf_v": zeros(ns, batch, h, w, d),
+    }
+
+
+def _windowed_decode_layer(p, cfg: TransformerConfig, h, kc, vc, cur_len: int, is_global: bool):
+    """One decode layer against a full (global) cache or a ring buffer
+    (local): position t lives in slot t % W, RoPE applied at write time,
+    so a stored key carries its absolute position.  The ring's valid
+    slots are its first ``min(cur_len + 1, W)``, which hold exactly the
+    last W positions: they are read as a prefix, unmasked (causal off,
+    no window), since the softmax does not depend on their order."""
+    if is_global:
+        return _gqa_decode_layer(p, cfg, h, kc, vc, cur_len, None)
+    q, k, v = _decode_qkv(p["attn"], cfg, rmsnorm(p["ln1"], h), cur_len)
+    w = kc.shape[2]
+    kc[:, :, cur_len % w] = k[:, :, 0].to(kc.dtype)
+    vc[:, :, cur_len % w] = v[:, :, 0].to(vc.dtype)
+    o = blockwise_attention(q, kc, vc, causal=False, kv_block=cfg.kv_block, valid_len=min(cur_len + 1, w))
+    return _decode_out(p, cfg, h, o)
+
+
+@torch.inference_mode()
+def transformer_decode_step_windowed(params: Transformer, cfg: TransformerConfig, token, cache, cur_len):
+    """One decode step over ``make_cache_windowed``'s caches: each
+    (local^(per_block - 1), global) block, then the local suffix layers;
+    the caches are written in place and the same dict is returned.
+    Gives ``transformer_decode_step``'s logits on a full cache."""
+    _check_hybrid(cfg)
+    cur_len = int(cur_len)
+    nb, ge, ns = _hybrid_blocks(cfg)
+    token = _tokens(token, params.embed.device)
+    h = params.embed.to(cfg.dtype)[token]
+    for bi in range(nb):
+        for j in range(ge - 1):
+            h = _windowed_decode_layer(params.layers[bi * ge + j], cfg, h, cache["loc_k"][bi, j],
+                                       cache["loc_v"][bi, j], cur_len, is_global=False)
+        h = _windowed_decode_layer(params.layers[bi * ge + ge - 1], cfg, h, cache["glob_k"][bi],
+                                   cache["glob_v"][bi], cur_len, is_global=True)
+    for i in range(ns):
+        h = _windowed_decode_layer(params.layers[nb * ge + i], cfg, h, cache["suf_k"][i], cache["suf_v"][i],
+                                   cur_len, is_global=False)
     h = rmsnorm(params.ln_f, h)
     return dense(params.lm_head, h)[:, 0], cache

@@ -2,4 +2,4 @@
 slice needs (port of part of ``repro.train``): atomic, checksummed
 checkpoints (``checkpoint``) and the retry / straggler policies
 (``fault_tolerance``).  The trainer, optimizer and schedules are queued
-in ROADMAP A11b."""
+with the model zoo's training (ROADMAP A11b, its training half)."""

@@ -42,7 +42,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.layers import blockwise_attention as jax_blockwise
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import DECODE_GROUP, DECODE_TILE, LAUNCHES, SMS, decode_splits
+from repro_torch.kernels.flash_attention.ops import DECODE_GROUP, DECODE_TILE, HEAD_DIMS, LAUNCHES, SMS, decode_splits
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, merge_partials_ref
 from repro_torch.models.layers import blockwise_attention
 from repro_torch.obs import metrics
@@ -368,3 +368,90 @@ def test_gpu_blockwise_attention_offsets_match_plain(dtype, metrics_on):
         assert got.shape == want.shape == q.shape[:3] + (v.shape[-1],)
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
                                    err_msg=str(case))
+
+
+# ---------------------------------------------------------------------------
+# D 192: MLA's concatenated q/k (128 + 64), its v (128) padded to it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mla_widths_match_jax(causal):
+    """q/k 192 and v 128 through ``blockwise_attention`` against the
+    reference's jnp function, and the padded call (v 192) through
+    ``flash_attention`` against the Pallas kernel in interpret mode and
+    its oracle, at small S; the padding runs at the narrowest width in
+    ``HEAD_DIMS`` that holds both."""
+    assert HEAD_DIMS == (16, 32, 128, 192)
+    rng = np.random.default_rng(192)
+    q, k = (rng.standard_normal((1, 2, 40, 192)).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((1, 2, 40, 128)).astype(np.float32)
+    want = np.asarray(jax_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, kv_block=16))
+    got = blockwise_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal)
+    assert got.shape == (1, 2, 40, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    v192 = np.concatenate([v, np.zeros((1, 2, 40, 64), np.float32)], axis=-1)
+    kern, oracle = _jax_both(q, k, v192, causal, None)
+    np.testing.assert_allclose(kern, oracle, rtol=TOL, atol=TOL)
+    out = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v192), causal=causal)
+    np.testing.assert_allclose(out.numpy(), kern, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out[..., :128].numpy(), want, rtol=TOL, atol=TOL)
+    assert not out[..., 128:].any()
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): the new width's mappings and the
+# zoo's decode shapes at small B
+GPU_ZOO_CASES = [
+    (1, 4, 4, 300, 300, 192, True, None),      # D 192 prefill, ragged S
+    (2, 4, 2, 129, 129, 192, True, None),      # two query tiles, GQA
+    (1, 4, 4, 70, 200, 192, False, None),      # Sq < Sk, non-causal
+    (1, 4, 4, 513, 513, 192, True, 100),       # window across tiles
+    (2, 8, 8, 1, 1000, 192, True, None),       # D 192 decode, split over Sk
+    (2, 128, 128, 1, 77, 192, True, None),     # deepseek's heads, one split
+    (2, 48, 1, 1, 288, 128, True, None),       # granite's MQA decode
+    (2, 48, 1, 300, 300, 128, True, None),     # granite's MQA prefill
+    (2, 32, 16, 1, 1024, 128, False, None),    # gemma3's full ring: 1024 slots, unmasked
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_zoo_shapes_match_plain(dtype, metrics_on):
+    """D 192 in the three mappings (bf16 tensor-core prefill, fp32
+    prefill, split decode), MQA (Hkv 1, Hq 48), a ring buffer's valid
+    prefix (causal off, min(n, W) slots after n steps), the reduced MLA
+    widths 24/16 run at 32, and a width outside ``HEAD_DIMS`` raising."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    launches = metrics.counter(LAUNCHES["flash_attention"])
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    for case in GPU_ZOO_CASES:
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _qkv(case, seed=sum(case[:6])))
+        before = launches.value
+        got = flash_attention(q, k, v, causal=case[6], window=case[7])
+        torch.cuda.synchronize()
+        assert launches.value == before + 1
+        want = attention_ref(q, k, v, causal=case[6], window=case[7])
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=str(case))
+    rng = np.random.default_rng(5)
+    ring = torch.from_numpy(rng.standard_normal((2, 2, 16, 64, 128), np.float32)).to(dev, dtype)
+    q = torch.from_numpy(rng.standard_normal((2, 32, 1, 128), np.float32)).to(dev, dtype)
+    for n in (1, 40, 64, 65, 200):   # steps taken: the ring holds min(n, 64) valid slots
+        slots = min(n, 64)
+        got = blockwise_attention(q, ring[0], ring[1], causal=False, valid_len=slots)
+        want = attention_ref(q, ring[0][:, :, :slots], ring[1][:, :, :slots])
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"ring {n}")
+    for d, dv, s in ((192, 128, 300), (24, 16, 100)):
+        q, k = (torch.from_numpy(rng.standard_normal((2, 4, s, d), np.float32)).to(dev, dtype) for _ in range(2))
+        v = torch.from_numpy(rng.standard_normal((2, 4, s, dv), np.float32)).to(dev, dtype)
+        got = blockwise_attention(q, k, v, causal=True)
+        want = attention_ref(q, k, v, causal=True, scale=1 / np.sqrt(d))
+        assert got.shape == (2, 4, s, dv)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"mla {d}/{dv}")
+    x = torch.zeros((1, 2, 8, 64), device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="head width 64"):
+        flash_attention(x, x, x)

@@ -34,6 +34,8 @@ from repro.models.moe import MoEConfig
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.data.synthetic import token_stream
 from repro_torch.models import layers as tl
+from repro_torch.models import mla as tmla_mod
+from repro_torch.models import moe as tmoe_mod
 from repro_torch.models import transformer as tt
 
 TOL_LAYER = 1e-5
@@ -59,7 +61,8 @@ def _close(got, want, tol):
 
 
 def test_registry_and_llama3_configs_match_jax():
-    assert list_archs() == ["autoint", "bst", "deepfm", "dien", "llama3-8b"]
+    assert list_archs() == ["autoint", "bst", "deepfm", "deepseek-v2-236b", "dien", "gemma3-27b", "granite-20b",
+                            "grok-1-314b", "llama3-8b"]
     spec, jspec = get_arch("llama3-8b"), jax_get_arch("llama3-8b")
     assert spec.family == jspec.family and dict(spec.skips) == dict(jspec.skips)
     assert {k: (s.kind, dict(s.meta)) for k, s in spec.shapes.items()} == \
@@ -73,7 +76,7 @@ def test_registry_and_llama3_configs_match_jax():
         assert ours == theirs
         assert cfg.param_count() == jcfg.param_count()
     with pytest.raises(KeyError):
-        get_arch("gemma3-27b")
+        get_arch("gat-cora")
 
 
 def test_token_stream_matches_jax():
@@ -92,22 +95,32 @@ def test_param_count_is_the_meta_models_numel():
 
 
 def test_param_count_moe_and_mla_arithmetic_and_refusal():
-    """The MoE/MLA counts follow the reference's arithmetic; running such
-    a config raises NotImplementedError (ROADMAP A11), never another path."""
+    """The MoE/MLA counts follow the reference's arithmetic, and such
+    configs now build and run (they raised NotImplementedError before
+    MoE and MLA were ported); an unknown attention still raises."""
     moe = MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2, n_shared=1, dtype=jnp.float32)
     kw = dict(vocab=256, d_model=64, n_layers=4, n_heads=4, kv_heads=2, d_head=16, d_ff=128, n_dense_layers=1)
     jcfg = jt.TransformerConfig(**kw, moe=moe, dtype=jnp.float32)
-    cfg = tt.TransformerConfig(**kw, moe=moe, dtype=torch.float32)
+    tmoe = tmoe_mod.MoEConfig(d_model=64, d_ff=32, n_experts=4, top_k=2, n_shared=1, dtype=torch.float32)
+    cfg = tt.TransformerConfig(**kw, moe=tmoe, dtype=torch.float32)
     assert cfg.param_count() == jcfg.param_count()
     assert cfg.active_param_count() == jcfg.active_param_count() < cfg.param_count()
-    mla = types.SimpleNamespace(q_lora_rank=32, n_heads=4, qk_nope_dim=16, qk_rope_dim=8, kv_lora_rank=16, v_dim=16)
+    mla = tmla_mod.MLAConfig(d_model=64, q_lora_rank=32, n_heads=4, qk_nope_dim=16, qk_rope_dim=8, kv_lora_rank=16,
+                             v_dim=16)
+    jmla = types.SimpleNamespace(**dataclasses.asdict(mla))
     cfg_mla = tt.TransformerConfig(**kw, attention="mla", mla=mla, dtype=torch.float32)
-    assert cfg_mla.param_count() == jt.TransformerConfig(**kw, attention="mla", mla=mla).param_count()
-    for bad in (cfg, cfg_mla):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tt.transformer_init(0, bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="A11"):
-            tt.make_cache(bad, 1, 4, device="cpu")
+    assert cfg_mla.param_count() == jt.TransformerConfig(**kw, attention="mla", mla=jmla).param_count()
+    toks = np.random.default_rng(0).integers(0, 256, size=(2, 8))
+    for good, extra in ((cfg, 0), (cfg_mla, kw["n_layers"] * (mla.q_lora_rank + mla.kv_lora_rank))):
+        model = tt.transformer_init(0, good, device="cpu")
+        # the reference's count leaves out MLA's two norm scales a layer
+        assert sum(p.numel() for p in model.parameters()) == good.param_count() + extra
+        assert torch.isfinite(tt.transformer_forward(model, good, toks)).all()
+        cache = tt.make_cache(good, 2, 8, device="cpu")
+        logits, _ = tt.transformer_decode_step(model, good, toks[:, :1], cache, 0)
+        assert torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="attention"):
+        tt.transformer_init(0, dataclasses.replace(cfg, attention="linear"), device="cpu")
 
 
 # ---------------------------------------------------------------------------
