@@ -173,9 +173,13 @@ Phases (each prints one JSON line; any failure exits nonzero):
    launch, held exactly to ``packed_connectivity_ref`` (comp, owner,
    row_first, rounds; round 0 yields the owner and row_first, so the
    block is that one launch), with its queued device time, rounds, ptxas
-   registers and spills and its byte bound: rounds x (K2 + K3 + the
-   update), the section 6 formulas, + the owner's row indices read and
-   its column minimum written once;
+   registers and spills, its grid (blocks, blocks an SM, the work
+   items' row chunks), the split of its probe build (each round's K2
+   walk, K3 walk and update, and how long blocks wait at each grid
+   barrier: ``connectivity_split``) and its byte bound: rounds x (K2 +
+   K3 + the update), the section 6 formulas, + the owner's row indices
+   read and its column minimum written once (and, beside it, the same
+   over the core rows that K3 and the later rounds' K2 need);
 13. lm_zoo: the rest of the LM zoo in bf16, weights drawn on the card by
    ``transformer_init(0, cfg)``, one model at a time (each freed before
    the next loads): gemma3-27b (62 layers, window 1024, 5:1
@@ -203,7 +207,9 @@ Phases (each prints one JSON line; any failure exits nonzero):
    layer's output at 1,024 tokens against the same layer with fp32
    expert GEMMs, and its routes against an fp64 router.  Then the rows
    ``flash_attention_d192`` (deepseek-v2's prefill, B 2, H 128, S 4096,
-   q/k 192, v padded to 192; ptxas's registers and spills of each D
+   the (192, 128) pair with v at its own 128, as phase 13's prefill
+   runs it; the faster of SDPA with v at 128 and padded to 192; the
+   two-term floor beside the bound; ptxas's registers and spills of each
    192 instantiation), ``flash_attention_decode_ring`` (gemma3's full
    ring: B 2, Hq 32, Hkv 16, 1,024 slots, unmasked) and
    ``flash_attention_decode_mqa`` (granite's filled cache: Hq 48, Hkv 1,
@@ -299,7 +305,7 @@ KERNELS = {
                             "update :374-377)"),
     "flash_attention_d192": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
-                             "_make_kernel :30; D 192: MLA's q/k, src/repro/models/mla.py:84-96)"),
+                             "_make_kernel :30; the (192, 128) pair: MLA's q/k and v, src/repro/models/mla.py:84-96)"),
     "flash_attention_decode_ring": ("src/repro_torch/csrc/flash_attention.cu",
                                     "src/repro/kernels/flash_attention/kernel.py:90 (the Sq = 1 mapping over a "
                                     "ring buffer's valid slots; the reference's windowed decode attends with a jnp "
@@ -1475,11 +1481,13 @@ def flash_gap(out, ref):
                 "tolerance": FLASH_TOL}
 
 
-def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
+def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True, dv=None):
     """The kernel against its plain version on the card in bf16 (the
-    working type) at one shape, within ``flash_gap``'s one bf16 step,
-    and, when ``time_it``, its time, the plain version's, the library's
-    (``scaled_dot_product_attention`` with ``enable_gqa``) and the bound
+    working type) at one shape, v ``dv`` wide (default ``d``), within
+    ``flash_gap``'s one bf16 step, and, when ``time_it``, its time, the
+    plain version's, the library's (``scaled_dot_product_attention`` with
+    ``enable_gqa``; where ``dv != d``, the faster of SDPA with v at its
+    own width and with v zero-padded to ``d``, both timed) and the bound
     over bf16 tensor cores (the fp32 CUDA-core bound beside it); a decode
     row (Sq 1) also gives both calls' time queued behind a sleep, which
     leaves out the host's cost of issuing them."""
@@ -1494,12 +1502,14 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
     def draw(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
 
-    q, k, v = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, d)
+    dv = d if dv is None else dv
+    q, k, v = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, dv)
     out = flash_attention(q, k, v, causal=causal, window=window)
     ref = attention_ref(q, k, v, causal=causal, window=window)
     ok, gap = flash_gap(out, ref)
-    row = {"name": name, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": causal,
-                                   "window": window, "dtype": "bfloat16"}, **gap}
+    ok &= out.shape == ref.shape == (b, hq, sq, dv)
+    row = {"name": name, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "Dv": dv,
+                                   "causal": causal, "window": window, "dtype": "bfloat16"}, **gap}
     del out, ref
     if not time_it:
         return ok, row
@@ -1512,12 +1522,13 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
     if window is not None:
         keep &= kpos > qpos - window
     pairs = int(keep.sum())
-    flops = 4.0 * b * hq * pairs * d
-    n_bytes = 2 * (2 * b * hq * sq * d + 2 * b * hkv * sk * d)
+    flops = 2.0 * b * hq * pairs * (d + dv)
+    n_bytes = 2 * (b * hq * sq * (d + dv) + b * hkv * sk * (d + dv))
     b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
     fp32_ms, _ = bound_ms(n_bytes, flops, FP32_FLOPS)
+    vp = F.pad(v, (0, d - dv)) if dv != d else None
 
-    def library():
+    def library(v=v):
         if window is None and (causal and sq == sk or sq == 1):
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal and sq > 1, enable_gqa=True)
         raise ValueError("no single library call for this mask")
@@ -1525,10 +1536,15 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True):
     t1 = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps=5)
     plain = time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window), reps=2, warmup=1)
     lib = time_ms(library, reps=5)
+    lib_padded = time_ms(lambda: library(vp), reps=5) if dv != d else None
     t2 = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), reps=5)
     if sq == 1:
         row.update({"queued_ms": queued_ms(lambda: flash_attention(q, k, v, causal=causal, window=window)),
                     "library_queued_ms": queued_ms(library)})
+    if dv != d:
+        row.update({"library_v_own_width_ms": lib, "library_v_padded_ms": lib_padded,
+                    "two_term_floor_ms": bound_ms(n_bytes, 2.0 * b * hq * pairs * (d + 2 * dv), BF16_FLOPS)[0]})
+        lib = min(lib, lib_padded)
     row.update({"flops": flops, "bytes": n_bytes, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "plain_ms": plain,
                 "library_ms": lib, "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16",
                 "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_cuda_cores_ms": fp32_ms,
@@ -2082,40 +2098,104 @@ def blocks(n_rows: int, size: int) -> int:
     return -(-n_rows // size)
 
 
+def connectivity_args(stream, rows, eps):
+    """``packed_connectivity``'s operands for the stream's block of
+    ``rows``, as ``apply_core_rows_packed`` builds them: the alive-masked
+    packed slab of their hits, the rows, their core flags, the core
+    columns."""
+    import torch
+
+    st, dev = stream.state, stream.backend.device
+    slab = st.mask_packed(stream.backend.query_packed_device(rows, eps))
+    return (slab, torch.from_numpy(rows).to(dev), torch.from_numpy(st.core[rows]).to(dev),
+            torch.from_numpy(st.core[: st.n]).to(dev))
+
+
+CONN_PHASES = ("k2", "k3", "update")  # the steps of a packed_connectivity round, split by grid barriers
+
+
+def connectivity_split(args, reps: int = 5) -> dict:
+    """Where ``packed_connectivity``'s time goes on ``args``: its probe
+    build (``stamps``) records ``%globaltimer`` as each block enters and
+    as it leaves each step of each round.  For each round and step,
+    ``span_us`` is the last block's exit less the last block's exit of
+    the step before (the barrier's latency included) and ``wait_us`` the
+    last block's exit less the median block's (how long half the blocks
+    idle at the barrier); medians over ``reps`` launches after one
+    warm-up.  Also the grid (blocks, blocks an SM, K2's and K3's row
+    chunks), and the stamped launch from the first block's entry to the
+    last block's exit."""
+    import torch
+
+    from repro_torch.kernels.label_prop import packed_connectivity
+    from repro_torch.kernels.label_prop.ops import connectivity_grid
+
+    r, w = args[0].shape
+    blocks, per_sm, chunk2, chunk3 = connectivity_grid(r, w)
+    max_iters = 64
+    runs = []
+    for _ in range(reps + 1):
+        st = torch.zeros((1 + 3 * max_iters, blocks), dtype=torch.int64, device=args[0].device)
+        rounds = packed_connectivity(*args, max_iters=max_iters, stamps=st)[3]
+        runs.append((st.cpu().numpy().astype(np.float64), int(rounds)))
+    runs = runs[1:]
+    rounds = runs[0][1]
+    split = []
+    for it in range(rounds):
+        for ph, name in enumerate(CONN_PHASES):
+            slot = 1 + 3 * it + ph
+            split.append({"round": it, "step": name,
+                          "span_us": float(np.median([(st[slot].max() - st[slot - 1].max()) / 1e3 for st, _ in runs])),
+                          "wait_us": float(np.median([(st[slot].max() - np.median(st[slot])) / 1e3
+                                                      for st, _ in runs]))})
+    return {"blocks": blocks, "blocks_per_sm": per_sm, "chunk_rows": [chunk2, chunk3], "rounds": rounds,
+            "split": split,
+            "stamped_us": float(np.median([(st[3 * rounds].max() - st[0].min()) / 1e3 for st, _ in runs])),
+            "entry_spread_us": float(np.median([(st[0].max() - st[0].min()) / 1e3 for st, _ in runs]))}
+
+
 def connectivity_row(stream, rows, eps):
     """``packed_connectivity`` (the connectivity mode's one cooperative
     launch, whose round 0 also yields the owner and row_first) against
     ``packed_connectivity_ref`` on one RP block slab of the stream,
     exactly: comp, owner, row_first, rounds."""
-    import torch
-
     from repro_torch.kernels.label_prop import packed_connectivity
     from repro_torch.kernels.label_prop.ref import packed_connectivity_ref
 
-    st, dev = stream.state, stream.backend.device
-    slab = st.mask_packed(stream.backend.query_packed_device(rows, eps))
-    args = (slab, torch.from_numpy(rows).to(dev), torch.from_numpy(st.core[rows]).to(dev),
-            torch.from_numpy(st.core[: st.n]).to(dev))
+    st = stream.state
+    args = connectivity_args(stream, rows, eps)
+    slab = args[0]
     got = packed_connectivity(*args)
     want = packed_connectivity_ref(*args)
     err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in zip(got, want))
     r, w = slab.shape
-    rounds, cap = int(got[3]), 32 * w
-    k2 = 4 * (r * w + 32 * w + 2 * r)
-    k3 = 4 * (r * w + 2 * r + 64 * w)
-    b_ms, b_by = bound_ms(rounds * (k2 + k3 + 4 * 4 * cap) + 4 * (r + cap))
+    rounds, cap, rc = int(got[3]), 32 * w, int(st.core[rows].sum())
+
+    def k2(n_rows):
+        return 4 * (n_rows * w + 32 * w + 2 * n_rows)
+
+    def k3(n_rows):
+        return 4 * (n_rows * w + 2 * n_rows + 64 * w)
+
+    b_ms, b_by = bound_ms(rounds * (k2(r) + k3(r) + 4 * 4 * cap) + 4 * (r + cap))
+    # what the function needs: K3 and the later rounds' K2 read the core rows only
+    core_ms, _ = bound_ms(k2(r) + k3(rc) + (rounds - 1) * (k2(rc) + k3(rc)) + rounds * 4 * 4 * cap + 4 * (r + cap))
     _, _, _, top = device_busy(lambda: packed_connectivity(*args), top=6)
     return {
         "name": "packed_connectivity", "shape": [r, w], **slab_stats(slab), "rounds": rounds,
-        "n_core_rows": int(st.core[rows].sum()), "max_abs_err": err,
+        "n_core_rows": rc, "max_abs_err": err,
         "tolerance": "exact: comp, owner, row_first, rounds",
         "ms": time_ms(lambda: packed_connectivity(*args)), "device_ms": queued_ms(lambda: packed_connectivity(*args)),
         "plain_ms": time_ms(lambda: packed_connectivity_ref(*args), reps=2, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "bound_note": "rounds x (K2 4(RW + 32W + 2R) + K3 4(RW + 2R + 64W) + update 4 x 4 x 32W) "
                       "+ 4(R + 32W): the owner's row indices read and its minimum written, once",
+        "bound_core_rows_ms": core_ms,
+        "bound_core_rows_note": "the same with K3 and rounds >= 1's K2 over the core rows only (round 0's K2, "
+                                "row_first, over every row): the bytes this block's data needs",
         "ptxas": ptxas_entries("label_prop", "packed_connectivity_kernel"),
         "top_kernels": top,
+        **connectivity_split(args),
     }
 
 
@@ -2644,10 +2724,11 @@ def check_zoo_flash(zoo_launches):
     """The phase-13 kernel rows, each against its plain version in bf16
     with its time back to back and queued, the plain version's, the
     library's and its bound: ``flash_attention_d192`` (deepseek-v2's
-    prefill: B 2, H 128, S 4096, q/k 192 and v padded from 128 to 192;
-    the bound counts the padded work the kernel does and, beside it, the
-    unpadded 2 (192 + 128) FLOP a pair; ptxas's registers and spills of
-    every 192 instantiation), ``flash_attention_decode_ring`` (gemma3's
+    prefill: B 2, H 128, S 4096, the (192, 128) pair, v drawn at 128; the
+    bound is the unpadded 2 (192 + 128) FLOP a pair, the two-term floor
+    2 (192 + 2 x 128) beside it; the library the faster SDPA, v at 128 or
+    padded to 192; ptxas's registers and spills of every 192
+    instantiation), ``flash_attention_decode_ring`` (gemma3's
     full 1,024-slot ring, B 2, Hq 32, Hkv 16, unmasked) and
     ``flash_attention_decode_mqa`` (granite's filled cache: B 2, Hq 48,
     Hkv 1, 288 keys).  Returns (ok, rows)."""
@@ -2655,17 +2736,13 @@ def check_zoo_flash(zoo_launches):
 
     from repro_torch.kernels.flash_attention import flash_attention
 
-    ok_p, pre = flash_row("flash_attention_d192", 2, 128, 128, 4096, 4096, 192, True, None, seed=7)
+    ok_p, pre = flash_row("flash_attention_d192", 2, 128, 128, 4096, 4096, 192, True, None, seed=7, dv=128)
     ok_r, ring = flash_row("flash_attention_decode_ring", 2, 32, 16, 1, 1024, 128, False, None, seed=8)
     ok_m, mqa = flash_row("flash_attention_decode_mqa", 2, 48, 1, 1, ZOO_CELLS["granite-20b"][1]
                           + ZOO_CELLS["granite-20b"][2], 128, True, None, seed=9)
-    pairs = pre["flops"] / (4.0 * 2 * 128 * 192)
-    unpadded = 2.0 * 2 * 128 * pairs * (192 + 128)
-    pre["flops_unpadded"] = unpadded
-    pre["bound_unpadded_ms"] = bound_ms(pre["bytes"], unpadded, BF16_FLOPS)[0]
-    pre["bound_two_term_pv_ms"] = bound_ms(pre["bytes"], 2.0 * 2 * 128 * pairs * (192 + 2 * 192), BF16_FLOPS)[0]
     g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn((2, 128, 4096, 192), generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    q, k = (torch.randn((2, 128, 4096, 192), generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((2, 128, 4096, 128), generator=g, device="cuda").to(torch.bfloat16)
     pre["queued_ms"] = queued_ms(lambda: flash_attention(q, k, v, causal=True), reps=5)
     del q, k, v
     ptx = {}

@@ -12,7 +12,8 @@
 // left gives 0.  GQA: query head h reads kv head h / (Hq / Hkv) in
 // place, never repeated.  Operands are addressed by element strides for
 // B, H and S (unit stride on D, rows 16-byte aligned), so a decode cache
-// prefix goes in without a copy.  The output is contiguous (B, Hq, Sq, D).
+// prefix goes in without a copy.  The output is contiguous (B, Hq, Sq,
+// Dv), Dv = D but for the (192, 128) pair below.
 //
 // Three mappings, chosen statically by Sq and dtype:
 // * bf16 prefill (Sq > 1): prefill_tc_kernel.  Bound: operations (at
@@ -31,14 +32,14 @@
 //   diagonal, the window's edge or Sk.  P.V is two bf16 wgmma products
 //   into one fp32 accumulator, P_hi.V + P_lo.V with P_hi = bf16(p),
 //   P_lo = bf16(p - P_hi), A from registers (the S fragment has the
-//   A-fragment layout), V from shared memory MN-major, N = D; l sums the
-//   fp32 p.  Tile i + 1's Q.K^T is issued with tile i's P.V, so that its
-//   softmax runs while P.V does.  Why two terms: the card holds this
-//   kernel to one bf16 step of the fp32-P value, and P rounded once to
-//   bf16 misses that on 224,501 of 2,097,152 outputs at B 1, H 8,
-//   S 2048, D 128, causal (TF32: 14,235; two terms: 0).  The split costs
-//   1.5x the bf16 tensor-core work (a floor of ~0.83 ms at the row
-//   above).
+//   A-fragment layout), V from shared memory MN-major, N = Dv; l sums the
+//   fp32 p.  At D <= 128 tile i + 1's Q.K^T is issued with tile i's
+//   P.V, so that its softmax runs while P.V does.  Why two terms: the
+//   card holds this kernel to one bf16 step of the fp32-P value, and P
+//   rounded once to bf16 misses that on 224,501 of 2,097,152 outputs at
+//   B 1, H 8, S 2048, D 128, causal (TF32: 14,235; two terms: 0).  The
+//   split costs 1.5x the bf16 tensor-core work (a floor of ~0.83 ms at
+//   the row above).
 // * fp32 prefill (Sq > 1): prefill_fp32_kernel, fp32 FMA on the CUDA
 //   cores (tensor cores would need TF32).  One block per (64-query tile,
 //   b, h); K and V tiles of 64 keys staged in shared memory and shared by
@@ -63,16 +64,20 @@
 //   gives out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
 //   1e-30): a wholly masked split (m = -1e30, l = 0) adds exactly 0.
 //
-// Head widths D: 16, 32, 128 and 192 (MLA's concatenated q/k, 128 + 64;
-// its v, 128, is zero-padded to 192 by the caller).  At D 192 the bf16
-// prefill keeps one K and one V stage and runs a tile's steps in order
-// (TC<D> below: the 96-register O accumulator leaves no room for S and
-// P beside it), and the decode mapping fits two blocks an SM (Dec<T, D>).
+// Head widths D: 16, 32, 128 and 192 (MLA's concatenated q/k, 128 + 64),
+// and one (DK, DV) pair, (192, 128): MLA's v and output at their own
+// width in the bf16 prefill (TC<DK, DV> below), P.V at N 128 on a 32 KB V
+// tile over a 2-stage K and V ring.  Its floor is 2 pairs (192 + 2 x 128)
+// FLOP on the bf16 tensor cores (the two-term P.V), where v padded to
+// 192 cost 2 pairs (192 + 2 x 192).  The fp32 prefill and the decode
+// mapping are not instantiated on the pair: the launcher answers kPadV
+// and the wrapper (ops.py) calls again with v padded to 192; no path
+// runs them at MLA's widths.  At DK 192 the bf16 prefill runs a
+// tile's steps in order (TC), and the decode mapping fits two blocks an
+// SM (Dec<T, D>).
 //
 // Left for later: no cluster multicast of K/V across the GQA group, no
-// FP8, no persistent blocks, no store of the output through TMA, no
-// (DK, DV) = (192, 128) instantiation (P.V at N 128 would drop a third
-// of MLA's padded P.V work).
+// FP8, no persistent blocks, no store of the output through TMA.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -471,48 +476,58 @@ constexpr int TK = 128;                      // keys per K/V tile
 constexpr int CONSUMERS = 256;               // the two consumer warpgroups
 constexpr int TC_THREADS = CONSUMERS + 128;  // + the producer warpgroup (one thread issues)
 
-// D <= 128: a 3-stage K/V ring, tile i + 1's Q.K^T issued with tile i's
-// P.V (OVERLAP).  D 192: a 48 KB tile, so one K and one V stage (Q + K +
-// V = 144 KB; three stages would need 336 KB), and the tile's steps run
-// in order (Q.K^T, softmax, P.V): the O accumulator is 96 registers a
-// thread, and S (64) beside P_hi/P_lo (64) in flight would not fit under
-// setmaxnreg's 240.  K's stage is released as soon as Q.K^T has read it,
-// V's after P.V, so the producer loads tile i + 1's K during tile i's
-// softmax and P.V, and its V during tile i + 1's Q.K^T.
-template <int D> struct TC {
-  static constexpr int ROWB = D * 2 < 128 ? D * 2 : 128;  // bytes of a row within one TMA box: the swizzle span
-  static constexpr int BOXD = ROWB / 2;                    // elements of a row within one box
-  static constexpr int NBOX = D / BOXD;                    // boxes across D
-  static constexpr int BOX = TK * ROWB;                    // bytes of one box (TQ == TK rows)
-  static constexpr int TILE = NBOX * BOX;                  // bytes of a Q, K or V tile
+// The bf16 prefill is instantiated on a (DK, DV) pair: q and k are DK
+// wide, v and the output DV (DK == DV but for MLA's (192, 128)).
+// DK <= 128 (OVERLAP): a 3-stage K and V ring, and tile i + 1's Q.K^T
+// issued with tile i's P.V, so that its softmax runs while P.V does.
+// DK 192: ptxas sizes the kernel by its 384 threads, 168 registers a
+// thread whatever setmaxnreg gives the consumers at run time, and S (64)
+// beside P_hi/P_lo (64) in flight beside O does not fit them, so each
+// tile's steps run in order (Q.K^T, softmax, P.V) and the two consumer
+// warpgroups' steps interleave on the tensor cores.  (192, 128): O is 64
+// registers (P.V at N 128 on a 32 KB V tile), and a 2-stage K and V ring
+// (Q 48 + 2 x 48 + 2 x 32 KB = 209 KB; a third stage would pass the
+// 227 KB a block may hold); on the card this ran faster than overlapping
+// 64-key half tiles (which fit the registers) and as fast as making the
+// two warpgroups take turns on the tensor cores.  (192, 192): a 48 KB
+// tile, so one K and one V stage.  A K stage is released as soon as its
+// Q.K^T has completed, a V stage after its P.V, so the producer refills K
+// a whole tile's softmax and P.V ahead of its use.
+template <int DK, int DV = DK> struct TC {
+  static constexpr int ROWB = DK * 2 < 128 ? DK * 2 : 128;  // bytes of a row within one TMA box: the swizzle span
+  static_assert(DK == DV || (DK * 2 >= 128 && DV * 2 >= 128), "a pair's tiles share one swizzle span");
+  static constexpr int BOXD = ROWB / 2;                      // elements of a row within one box
+  static constexpr int BOX = TK * ROWB;                      // bytes of one box (TQ == TK rows)
+  static constexpr int TILE_K = DK / BOXD * BOX;             // bytes of a Q or K tile
+  static constexpr int TILE_V = DV / BOXD * BOX;             // bytes of a V tile
   static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
-  static constexpr uint32_t SBO = 8 * ROWB;                // 8-row group stride
-  static constexpr bool OVERLAP = D <= 128;
-  static constexpr int KST = OVERLAP ? 3 : 1;              // K stages
-  static constexpr int VST = OVERLAP ? 3 : 1;              // V stages
-  static constexpr size_t smem = 1024 + (size_t)TILE * (1 + KST + VST);
+  static constexpr uint32_t SBO = 8 * ROWB;                  // 8-row group stride
+  static constexpr bool OVERLAP = DK <= 128;
+  static constexpr int KST = DK <= 128 ? 3 : DV <= 128 ? 2 : 1;  // K stages
+  static constexpr int VST = KST;                                // V stages
+  static constexpr size_t smem = 1024 + (size_t)TILE_K * (1 + KST) + (size_t)TILE_V * VST;
 };
 
 // S = Q . K^T, 64 x 128 scores of one warpgroup from K-major operands; a
 // 16-wide step of D is 32 bytes along the swizzled row
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q_addr, uint32_t k_addr) {
-  using C = TC<D>;
+  using C = TC<DK, DV>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const uint32_t at = (kk * 32 / C::ROWB) * C::BOX + (kk * 32) % C::ROWB;
     wgmma_ss_n128(sc, gmma_desc(q_addr + at, 16, C::SBO, C::LAYOUT), gmma_desc(k_addr + at, 16, C::SBO, C::LAYOUT),
                   kk > 0);
   }
 }
 
-// O += P_hi . V + P_lo . V, N = D; V is MN-major (D contiguous): a
+// O += P_hi . V + P_lo . V, N = DV; V is MN-major (DV contiguous): a
 // 16-key step is 16 rows, and the leading byte offset steps from one box
-// of D (a swizzle atom) to the next
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&hi)[8][4], const uint32_t (&lo)[8][4],
+// of DV (a swizzle atom) to the next
+template <int DK, int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2], const uint32_t (&hi)[8][4], const uint32_t (&lo)[8][4],
                                          uint32_t v_addr) {
-  using C = TC<D>;
+  using C = TC<DK, DV>;
 #pragma unroll
   for (int kc = 0; kc < 8; ++kc) {
     const uint64_t dv = gmma_desc(v_addr + kc * 16 * C::ROWB, C::BOX, C::SBO, C::LAYOUT);
@@ -574,15 +589,15 @@ __device__ __forceinline__ void split_p(const float (&sc)[64], uint32_t (&hi)[8]
     }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     prefill_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap, Params p) {
-  using C = TC<D>;
+  using C = TC<DK, DV>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = align1024(smem_raw);
-  uint8_t* ks = qs + C::TILE;            // KST K tiles
-  uint8_t* vs = ks + C::KST * C::TILE;   // VST V tiles
+  uint8_t* ks = qs + C::TILE_K;            // KST K tiles
+  uint8_t* vs = ks + C::KST * C::TILE_K;   // VST V tiles
   __shared__ __align__(8) uint64_t q_full, k_full[C::KST], v_full[C::VST], k_empty[C::KST], v_empty[C::VST];
 
   const int n_qt = (p.Sq + TQ - 1) / TQ;
@@ -617,18 +632,18 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   if (warp >= CONSUMERS / 32) {  // producer warpgroup: gives its registers up, one thread keeps the rings full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == CONSUMERS) {
-      mbar_expect_tx(&q_full, C::TILE);
-      for (int x = 0; x < C::NBOX; ++x) tma_load(qs + x * C::BOX, &qmap, &q_full, x * C::BOXD, q0, h, b);
+      mbar_expect_tx(&q_full, C::TILE_K);
+      for (int x = 0; x < DK / C::BOXD; ++x) tma_load(qs + x * C::BOX, &qmap, &q_full, x * C::BOXD, q0, h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int sk = i % C::KST, sv = i % C::VST, k0 = (t_lo + i) * TK;
         if (i >= C::KST) mbar_wait(&k_empty[sk], (i / C::KST - 1) & 1);
-        mbar_expect_tx(&k_full[sk], C::TILE);
-        for (int x = 0; x < C::NBOX; ++x)
-          tma_load(ks + sk * C::TILE + x * C::BOX, &kmap, &k_full[sk], x * C::BOXD, k0, g, b);
+        mbar_expect_tx(&k_full[sk], C::TILE_K);
+        for (int x = 0; x < DK / C::BOXD; ++x)
+          tma_load(ks + sk * C::TILE_K + x * C::BOX, &kmap, &k_full[sk], x * C::BOXD, k0, g, b);
         if (i >= C::VST) mbar_wait(&v_empty[sv], (i / C::VST - 1) & 1);
-        mbar_expect_tx(&v_full[sv], C::TILE);
-        for (int x = 0; x < C::NBOX; ++x)
-          tma_load(vs + sv * C::TILE + x * C::BOX, &vmap, &v_full[sv], x * C::BOXD, k0, g, b);
+        mbar_expect_tx(&v_full[sv], C::TILE_V);
+        for (int x = 0; x < DV / C::BOXD; ++x)
+          tma_load(vs + sv * C::TILE_V + x * C::BOX, &vmap, &v_full[sv], x * C::BOXD, k0, g, b);
       }
     }
     return;
@@ -651,9 +666,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     else
       softmax_tile<false>(sc, m, l, corr, qp, k0 + 2 * (lane % 4), p, sl2);
   };
-  auto rescale = [&](float (&o)[D / 2]) {
+  auto rescale = [&](float (&o)[DV / 2]) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       o[4 * j] *= corr[0];
       o[4 * j + 1] *= corr[0];
       o[4 * j + 2] *= corr[1];
@@ -661,9 +676,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     }
   };
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
   float sc[64];
   uint32_t hi[8][4], lo[8][4];
 
@@ -677,31 +692,32 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       mbar_wait(&k_full[0], 0);
       pin(sc);
       wgmma_fence();
-      issue_qk<D>(sc, q_addr, smem_u32(ks));
+      issue_qk<DK, DV>(sc, q_addr, smem_u32(ks));
       wgmma_commit();
       wgmma_wait<0>();
       pin(sc);
+      mbar_arrive(&k_empty[0]);  // tile 0's K is read
       softmax(sc, t_lo * TK);
       split_p(sc, hi, lo);
     }
     // steady state: tile i + 1's scores are issued ahead of tile i's P.V
     for (int i = 0; i + 1 < n_tiles; ++i) {
-      const int s = i % C::KST, sn = (i + 1) % C::KST, k1 = (t_lo + i + 1) * TK;
+      const int sn = (i + 1) % C::KST, sv = i % C::VST, k1 = (t_lo + i + 1) * TK;
       mbar_wait(&k_full[sn], ((i + 1) / C::KST) & 1);
-      mbar_wait(&v_full[s], (i / C::VST) & 1);
+      mbar_wait(&v_full[sv], (i / C::VST) & 1);
       pin(sc), pin(o), pin(hi), pin(lo);
       wgmma_fence();
-      issue_qk<D>(sc, q_addr, smem_u32(ks + sn * C::TILE));
+      issue_qk<DK, DV>(sc, q_addr, smem_u32(ks + sn * C::TILE_K));
       wgmma_commit();
-      issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
+      issue_pv<DK, DV>(o, hi, lo, smem_u32(vs + sv * C::TILE_V));
       wgmma_commit();
       wgmma_wait<1>();  // Q.K^T of tile i + 1 is done; P.V of tile i may still run
       pin(sc);
+      mbar_arrive(&k_empty[sn]);  // tile i + 1's K is read
       softmax(sc, k1);
       wgmma_wait<0>();
       pin(o), pin(hi), pin(lo);
-      mbar_arrive(&k_empty[s]);
-      mbar_arrive(&v_empty[s]);
+      mbar_arrive(&v_empty[sv]);
       rescale(o);
       split_p(sc, hi, lo);
     }
@@ -710,14 +726,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       mbar_wait(&v_full[s], ((n_tiles - 1) / C::VST) & 1);
       pin(o), pin(hi), pin(lo);
       wgmma_fence();
-      issue_pv<D>(o, hi, lo, smem_u32(vs + s * C::TILE));
+      issue_pv<DK, DV>(o, hi, lo, smem_u32(vs + s * C::TILE_V));
       wgmma_commit();
       wgmma_wait<0>();
       pin(o), pin(hi), pin(lo);
     }
   } else {
     // one tile at a time: Q.K^T (K's stage released), softmax, P.V (V's
-    // stage released)
+    // stage released); the two warpgroups' steps interleave on the card
 #pragma unroll
     for (int j = 0; j < 64; ++j) sc[j] = 0.f;
     for (int i = 0; i < n_tiles; ++i) {
@@ -725,7 +741,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       mbar_wait(&k_full[sk], (i / C::KST) & 1);
       pin(sc), pin(o);
       wgmma_fence();
-      issue_qk<D>(sc, q_addr, smem_u32(ks + sk * C::TILE));
+      issue_qk<DK, DV>(sc, q_addr, smem_u32(ks + sk * C::TILE_K));
       wgmma_commit();
       wgmma_wait<0>();
       pin(sc);
@@ -736,7 +752,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       mbar_wait(&v_full[sv], (i / C::VST) & 1);
       pin(o), pin(hi), pin(lo);
       wgmma_fence();
-      issue_pv<D>(o, hi, lo, smem_u32(vs + sv * C::TILE));
+      issue_pv<DK, DV>(o, hi, lo, smem_u32(vs + sv * C::TILE_V));
       wgmma_commit();
       wgmma_wait<0>();
       pin(o), pin(hi), pin(lo);
@@ -744,7 +760,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     }
   }
 
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) + ((long long)(b * p.Hq + h) * p.Sq) * D;
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) + ((long long)(b * p.Hq + h) * p.Sq) * DV;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lr = l[hr];
@@ -754,8 +770,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (qi >= p.Sq) continue;
     const float den = fmaxf(lr, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qi * D + 8 * j + 2 * (lane % 4)) =
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qi * DV + 8 * j + 2 * (lane % 4)) =
           __floats2bfloat162_rn(o[4 * j + 2 * hr] / den, o[4 * j + 2 * hr + 1] / den);
   }
 }
@@ -1041,20 +1057,20 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int D, int S, int H, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DK, int DV = DK>
 cudaError_t launch_prefill_tc(const Params& p, cudaStream_t stream) {
-  using C = TC<D>;
+  using C = TC<DK, DV>;
   CUtensorMap qm, km, vm;
-  cudaError_t e = make_map<__nv_bfloat16>(&qm, p.q, D, p.Sq, p.Hq, p.B, p.qss, p.qsh, p.qsb, C::BOXD, TQ, C::ROWB);
+  cudaError_t e = make_map<__nv_bfloat16>(&qm, p.q, DK, p.Sq, p.Hq, p.B, p.qss, p.qsh, p.qsb, C::BOXD, TQ, C::ROWB);
   if (e == cudaSuccess)
-    e = make_map<__nv_bfloat16>(&km, p.k, D, p.Sk, p.Hkv, p.B, p.kss, p.ksh, p.ksb, C::BOXD, TK, C::ROWB);
+    e = make_map<__nv_bfloat16>(&km, p.k, DK, p.Sk, p.Hkv, p.B, p.kss, p.ksh, p.ksb, C::BOXD, TK, C::ROWB);
   if (e == cudaSuccess)
-    e = make_map<__nv_bfloat16>(&vm, p.v, D, p.Sk, p.Hkv, p.B, p.vss, p.vsh, p.vsb, C::BOXD, TK, C::ROWB);
+    e = make_map<__nv_bfloat16>(&vm, p.v, DV, p.Sk, p.Hkv, p.B, p.vss, p.vsh, p.vsb, C::BOXD, TK, C::ROWB);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(prefill_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+    e = cudaFuncSetAttribute(prefill_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
   if (e != cudaSuccess) return e;
   dim3 grid((p.Sq + TQ - 1) / TQ, p.B * p.Hq);
-  prefill_tc_kernel<D><<<grid, TC_THREADS, C::smem, stream>>>(qm, km, vm, p);
+  prefill_tc_kernel<DK, DV><<<grid, TC_THREADS, C::smem, stream>>>(qm, km, vm, p);
   return cudaGetLastError();
 }
 
@@ -1094,14 +1110,19 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16.  Decode (Sq == 1) runs n_split splits of
+// dtype: 0 fp32, 1 bf16.  Dv is v's and the output's width: D, or 128
+// at D 192 in the bf16 prefill (the one pair).  Where the mapping is not
+// instantiated on (D, Dv), nothing is launched and kPadV is returned: the
+// caller pads v to D.  Decode (Sq == 1) runs n_split splits of
 // split_tiles 64-key tiles each; with n_split > 1, part_ml (B, Hq,
 // n_split, 2) and part_acc (B, Hq, n_split, D) are fp32 scratch and a
 // second kernel merges them.  Returns cudaGetLastError() after the
 // launches.
+constexpr int kPadV = -1;
+
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype,
-    int B, int Hq, int Hkv, int Sq, int Sk, int D,
+    int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
     long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
@@ -1115,6 +1136,10 @@ extern "C" int flash_attention_launch(
   Params p{q, k, v, out, B, Hq, Hkv, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, causal, window, q_offset,
            scale, n_split, split_tiles, static_cast<float*>(part_ml), static_cast<float*>(part_acc)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Dv != D) {
+    if (D == 192 && Dv == 128 && dtype == 1 && Sq > 1) return (int)launch_prefill_tc<192, 128>(p, s);
+    return kPadV;
+  }
   switch (D) {
     case 16: return (int)launch<16>(p, dtype, s);
     case 32: return (int)launch<32>(p, dtype, s);

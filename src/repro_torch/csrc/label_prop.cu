@@ -248,45 +248,31 @@ __device__ __forceinline__ int warp_exclusive_sum(int v, int lane, int& total) {
   return x - v;
 }
 
-// K3's body over one work item: the tile of 128 words at word t0 over
-// rows r0 .. r1, accumulated in shared memory (`smem`, kColSmem bytes)
-// and added into col_min, and with a second accumulator (ACC2) into
-// col_acc2: kAccSum adds row_second[i] (col_reduce's weights), kAccMin
-// takes the min of row_second[i] under the same mask as the values (the
-// connectivity mode's owner).  A row's value is row_vals[i], or INT32_MAX
-// where row_mask is given and row_mask[i] is 0; LIVE reads the values
-// through L2 (written earlier in the same launch).  Every thread of the
-// block calls it; it ends behind a barrier, so the block may call it
-// again at once or reuse the shared memory.
-constexpr int kAccNone = 0, kAccSum = 1, kAccMin = 2;
-
-template <bool VEC, bool LIVE, int ACC2>
-__device__ __forceinline__ void col_tile(
-    const uint32_t* __restrict__ bitmap, const int* row_vals, const int* __restrict__ row_mask,
-    const int* __restrict__ row_second, int R, int W, int t0, int r0, int r1,
-    int* col_min, int* col_acc2, int* smem) {
-  constexpr bool SUM = ACC2 == kAccSum, MIN2 = ACC2 == kAccMin;
-  constexpr int kEmpty2 = MIN2 ? INT_MAX : 0;  // a second accumulator's identity
-  int* s_min = smem;
-  int* s_acc2 = s_min + kAccSlots;
+template <bool VEC>
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kernel(
+    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
+    const int* __restrict__ row_weights, int R, int W, int chunk_rows,
+    int* __restrict__ col_min, int* __restrict__ col_sum) {
+  extern __shared__ int4 s_col4[];
+  int* s_min = reinterpret_cast<int*>(s_col4);
+  int* s_sum = s_min + kAccSlots;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t0 = blockIdx.x * kTileWords, r0 = blockIdx.y * chunk_rows, r1 = min(R, r0 + chunk_rows);
   // the warp's list of its row's nonzero words, and where each goes
-  uint32_t* s_word = reinterpret_cast<uint32_t*>(s_acc2 + kAccSlots) + warp * kTileWords;
-  int* s_base = s_acc2 + kAccSlots + (kColWarps + warp) * kTileWords;
+  uint32_t* s_word = reinterpret_cast<uint32_t*>(s_sum + kAccSlots) + warp * kTileWords;
+  int* s_base = s_sum + kAccSlots + (kColWarps + warp) * kTileWords;
   for (int i = threadIdx.x; i < kAccSlots; i += kColThreads) {
     s_min[i] = INT_MAX;
-    if (ACC2 != kAccNone) s_acc2[i] = kEmpty2;
+    s_sum[i] = 0;
   }
   __syncthreads();
   const int wl = t0 + lane * 4;                    // the lane's first word
   int r = r0 + warp;                               // the warp's next row
   uint4 nxt;
-  int nv, nw = kEmpty2;
+  int nv, nw;
   auto fetch = [&](int i) {
-    const bool on = row_mask == nullptr || __ldg(row_mask + i);
-    nv = on ? ld_label<LIVE>(row_vals + i) : INT_MAX;
-    if (SUM) nw = __ldg(row_second + i);
-    if (MIN2) nw = on ? __ldg(row_second + i) : INT_MAX;
+    nv = __ldg(row_vals + i);
+    nw = __ldg(row_weights + i);
     nxt = load4<VEC>(bitmap + (size_t)i * W, wl, W);
   };
   if (r < r1) fetch(r);
@@ -295,7 +281,7 @@ __device__ __forceinline__ void col_tile(
     const int v = nv, wt = nw;  // the same in every lane
     r += kColWarps;
     if (r < r1) fetch(r);
-    if (v == INT_MAX && wt == kEmpty2) continue;  // the row changes nothing
+    if (v == INT_MAX && wt == 0) continue;  // the row changes nothing
     // list the nonzero words (branch-free: k is known at compile time) ...
     const uint32_t nz = nonzero4(cur);
     int total;
@@ -316,8 +302,7 @@ __device__ __forceinline__ void col_tile(
         const int j = base + __ffs(word) - 1;
         word &= word - 1;
         if (v != INT_MAX) atomicMin(&s_min[j], v);
-        if (SUM && wt != 0) atomicAdd(&s_acc2[j], wt);
-        if (MIN2 && wt != INT_MAX) atomicMin(&s_acc2[j], wt);
+        if (wt != 0) atomicAdd(&s_sum[j], wt);
       } while (word);
     }
     __syncwarp();
@@ -327,24 +312,10 @@ __device__ __forceinline__ void col_tile(
     const int word = t0 + (c >> 5);
     if (word >= W) break;
     const int j = (c >> 5) * kStride + (c & 31);
-    const int mn = s_min[j];
+    const int mn = s_min[j], sm = s_sum[j];
     if (mn != INT_MAX) atomicMin(&col_min[word * 32 + (c & 31)], mn);
-    const int a2 = ACC2 != kAccNone ? s_acc2[j] : kEmpty2;
-    if (SUM && a2 != 0) atomicAdd(&col_acc2[word * 32 + (c & 31)], a2);
-    if (MIN2 && a2 != INT_MAX) atomicMin(&col_acc2[word * 32 + (c & 31)], a2);
+    if (sm != 0) atomicAdd(&col_sum[word * 32 + (c & 31)], sm);
   }
-  __syncthreads();
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) col_reduce_kernel(
-    const uint32_t* __restrict__ bitmap, const int* __restrict__ row_vals,
-    const int* __restrict__ row_weights, int R, int W, int chunk_rows,
-    int* __restrict__ col_min, int* __restrict__ col_sum) {
-  extern __shared__ int4 s_col4[];
-  const int r0 = blockIdx.y * chunk_rows;
-  col_tile<VEC, false, kAccSum>(bitmap, row_vals, nullptr, row_weights, R, W, blockIdx.x * kTileWords, r0,
-                             min(R, r0 + chunk_rows), col_min, col_sum, reinterpret_cast<int*>(s_col4));
 }
 
 __device__ __forceinline__ int scattered(const int* lab, const int* m,
@@ -501,88 +472,340 @@ __global__ void __launch_bounds__(kRectThreads, 1) label_prop_fixpoint_kernel(
 //   label_prop_rect_pallas kernel.py:104 + col_reduce_pallas kernel.py:173
 //   + the jnp update :374-377).  A streaming block's rows are not a
 //   superset of the core set, so a round relays columns -> core rows ->
-//   columns.  One 1,024-thread block an SM, as the other two modes; round
-//   it reads buffer it % 2 and writes the other:
-//     1. K2's walk (rect_rows) with INT32_MAX row labels and the column
-//        labels lab into m; meanwhile cmin is reset to INT32_MAX (the
-//        previous round read it before its last barrier);
+//   columns.  Round it reads label buffer it % 2 and writes the other:
+//     1. K2's walk (conn_tile): m[i] = min over row i's set bits j of
+//        lab[j]; meanwhile cmin is reset to INT32_MAX (the previous round
+//        read it before its last barrier);
 //     2. grid.sync();
-//     3. K3's walk (col_tile, no sums): the work items, (128-word tile,
-//        row chunk) pairs, grid-strided over the blocks, take
-//        min(row_core[i] ? m[i] : INT32_MAX) down each column into cmin;
+//     3. K3's walk (conn_tile): cmin[j] = min over the core rows i with
+//        bit (i, j) of m[i];
 //     4. grid.sync();
 //     5. the update over the cap columns:
 //          new(j)  = core_c[j] ? min(lab[j], cmin[j]) : INT32_MAX
 //          out[j]  = new(j) < cap ? min(new(j), new(new(j))) : new(j)
 //        with new(new(j)) computed again from lab and cmin, as update_cols
-//        does; the other buffer; flags[it + 1] when a label changed;
+//        does; the other buffer; flags[it + 1] when a label changed; m
+//        reset to INT32_MAX for the next round's K2;
 //     6. grid.sync(); every block reads flags[it + 1] and leaves the loop
 //        at 0.
 //   The two loop-invariant outputs come out of round 0, which always runs
-//   and reads the initial labels: row_first (the min core column adjacent
-//   to each row) is round 0's m, so round 0 writes m into row_first and
-//   K3 reads it from there; the owner (the min core row adjacent to each
-//   column) is a second min accumulator of round 0's K3 walk over the
-//   same core rows, taking each row's index.  So a block is one launch.
-//   Bound: bytes, rounds * (K2's + K3's + the update's).
-//   Where trouble lies, and what the kernel does about it:
-//   (1) m, cmin, lab and flags are written in the launch and read with
-//       __ldcg (point (1) of label_prop_fixpoint); bitmap, row_core and
-//       core_c, which nothing writes, stay on the read-only path;
-//   (2) shared memory: K2's staged labels and K3's tile accumulators are
-//       used in phases split by barriers, so they alias one dynamic
-//       buffer, sized for the larger of the two; a stream's slabs are
-//       wide (3,805 words at the ms-150k warm start, 4,756 after the
-//       stream), over the staging limit, so the unstaged K2 variant
-//       carries them and the buffer is K3's;
-//   (3) co-residency: as label_prop_fixpoint, a grid that cannot all be
-//       resident is refused and the wrapper raises;
-//   (4) the ragged R and W: rect_rows and col_tile mask words >= W and
-//       rows >= R themselves (the reference pads both to its tiles, with
-//       pad rows that are not core).
-template <bool VEC, bool SMEM>
-__global__ void __launch_bounds__(kRectThreads, 1) packed_connectivity_kernel(
-    const uint32_t* __restrict__ bitmap, int R, int W, const int* __restrict__ rows,
-    const int* __restrict__ row_core, const int* __restrict__ core_c, int* lab0, int* lab1, int* m,
-    int* cmin, int cap, int* flags, int* row_first, int* owner, int max_iters, int chunk_rows,
-    int n_chunks) {
-  extern __shared__ int4 s_dyn[];
-  __shared__ int s_rowmin[kRectBatch];
-  __shared__ int s_next;
-  cg::grid_group grid = cg::this_grid();
-  const int tiles = (W + kTileWords - 1) / kTileWords, items = tiles * n_chunks;
-  const int stride = gridDim.x * blockDim.x;
-  for (int it = 0; it < max_iters; ++it) {
-    if (__ldcg(flags + it) == 0) break;  // the same in every block: read after a grid barrier
-    const int* lab = (it & 1) ? lab1 : lab0;
-    int* nxt = (it & 1) ? lab0 : lab1;
-    int* mr = it == 0 ? row_first : m;  // round 0's m is row_first
-    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) cmin[j] = INT_MAX;
-    rect_rows<VEC, SMEM, true>(nullptr, lab, bitmap, R, W, mr, s_dyn, s_rowmin, &s_next);
-    grid.sync();
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int r0 = (item / tiles) * chunk_rows, r1 = min(R, r0 + chunk_rows), t0 = (item % tiles) * kTileWords;
-      if (it == 0)  // with the owner's accumulator
-        col_tile<VEC, true, kAccMin>(bitmap, mr, row_core, rows, R, W, t0, r0, r1, cmin, owner,
-                                     reinterpret_cast<int*>(s_dyn));
-      else
-        col_tile<VEC, true, kAccNone>(bitmap, mr, row_core, nullptr, R, W, t0, r0, r1, cmin, nullptr,
-                                      reinterpret_cast<int*>(s_dyn));
+//   on the initial labels: row_first (the min core column adjacent
+//   to each row) is round 0's m (the wrapper fills it with INT32_MAX), and
+//   the owner (the min core row adjacent to each column) is a second min
+//   accumulator of round 0's K3 walk over the same core rows, taking each
+//   row's index.  So a block is one launch.
+//   Round 0 computes its labels (core column j is j) where it would read
+//   them, and the launch ends by moving the last round's labels into
+//   lab0 and writing the rounds it ran, so the wrapper launches nothing
+//   but its buffers' fills around it.
+//   Bound: bytes, rounds * (K2's + K3's + the update's) over the whole
+//   slab; K3 and the later rounds' K2 need only the core rows (round 0's
+//   K2 is row_first, over every row), and both walks skip the others'
+//   words (a tighter bound, which chip_smoke.py prints beside it).
+//   The design, from what held the first one to 12% of that bound
+//   (0.745 ms: each round's K2 walk 243 us, K3 103-152 us, the update 9):
+//   (1) the column labels (4 * 32W bytes: 608 KB at the stream's 4,756
+//       words) fit no shared memory, so its K2 gathered each set bit's
+//       label from L2, a round trip per bit.  Here both walks run on the
+//       same work items, (128-word tile, chunk of rows) pairs: K2 stages
+//       the tile's 4,096 labels in shared memory (16 KB, any W), walks
+//       the chunk's rows with shared-memory gathers, and folds each row's
+//       minimum into m with one global atomicMin (a RED) per (row, tile)
+//       that has a set bit;
+//   (2) a warp had one row's 16-byte loads in flight, in registers: the
+//       walks waited on device memory, row after row.  Here each warp
+//       keeps kRing rows of its tile in flight in a shared-memory ring
+//       filled by cp.async (no registers held), and lists each row's
+//       nonzero words from there and deals them to its lanes (the walk
+//       of col_reduce, whose kernel keeps its own body);
+//   (3) items are claimed one at a time from a device counter (work[0]
+//       for K2, work[1] for K3; each step resets the other's), the next
+//       claim in flight while the block works the current item, so the
+//       rows and columns whose bits cluster set no block's pace;
+//   (4) the grid is sized by occupancy: two 1,024-thread blocks an SM
+//       (registers capped at 32), where one block an SM over at most
+//       R / 32 blocks ran before;
+//   (5) K2's items are short (about 5 a block): they cost one label tile
+//       and nothing at their end.  K3's are taller (at most kMaxChunk
+//       rows, whose values it stages): each ends by folding its 4,096
+//       column minima into cmin (and the owner) with global atomics, so
+//       fewer row chunks there mean fewer of those.
+//   Kept from the first design: m, cmin, lab and flags are written in the
+//   launch and read with __ldcg or cp.async.cg (L2, coherent); bitmap,
+//   row_core and core_c, which nothing writes, take the read-only path; a
+//   grid that cannot all be resident is refused and the wrapper raises;
+//   words >= W and rows >= R are masked here (the reference pads both to
+//   its tiles, with pad rows that are not core).
+constexpr int kConnBlocksPerSM = 2;  // 1,024-thread blocks (32 warps) an SM
+constexpr int kConnItemsK2 = 5;      // K2 items a block, about
+constexpr int kConnItemsK3 = 3;      // K3 items a block, about
+constexpr int kRing = 4;             // slab rows a warp has in flight
+constexpr int kMaxChunk = 512;       // rows of a K3 item at most (its staged row values)
+// Shared memory of a connectivity block, in ints: K3's two accumulators
+// (K2's 4,096 staged labels alias them), then each warp's ring of kRing
+// 128-word rows, the chunk's row values and owner candidates (K3), and
+// each warp's list of nonzero words (bytes).
+constexpr int kConnRing = 2 * kAccSlots;
+constexpr int kConnVals = kConnRing + kColWarps * kRing * kTileWords;
+constexpr int kConnList = kConnVals + 2 * kMaxChunk;
+constexpr int kConnSmem = (int)sizeof(int) * kConnList + kColWarps * kTileWords;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async: `bytes` (16, or 0 to write 16 zero bytes) through L2 only,
+// so a line written earlier in the launch is read as it now is
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes, or 0 to write a zero word (the slab, which nothing writes)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The lane's 4 words of row r of the tile at word t0 into the ring slot:
+// 16 bytes where VEC, else 4 words one at a time; words past W, and the
+// whole row when it is off, are written as zeros and not read.
+template <bool VEC>
+__device__ __forceinline__ void ring_fetch(uint32_t* slot, const uint32_t* bitmap, int r, int W, int t0, int lane,
+                                           bool on) {
+  const int w = t0 + lane * 4;
+  const uint32_t* src = bitmap + (size_t)r * W + w;
+  if (VEC) {
+    cp_async16(slot + lane * 4, on && w < W ? src : bitmap, on && w < W ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cp_async4(slot + lane * 4 + k, on && w + k < W ? src + k : bitmap, on && w + k < W ? 4 : 0);
+  }
+}
+
+// The walks of the connectivity launch over one work item, the 128-word
+// tile at word t0 over rows r0 .. r1 (< kMaxChunk rows for K3):
+//   K2 (K3 false): the tile's 4,096 column labels staged in shared
+//     memory (INIT: round 0's, each core column's own index and INT32_MAX
+//     elsewhere, computed; else lab's, by cp.async), then
+//     m[i] = min(m[i], row i's minimum over the tile's set bits) with one
+//     global atomicMin a row that has a set bit; rows with mask[i] 0 are
+//     skipped (a null mask: every row);
+//   K3: cmin[j] = min over the rows with mask[i] of vals[i], and with
+//     OWNER owner[j] = min of rows[i] over the same rows, in shared
+//     accumulators (a word's 32 columns at stride 33), added into cmin /
+//     owner with one global atomicMin a touched column.
+// A warp walks rows r0 + warp, r0 + warp + 32, ...; each lane copies its
+// 4 words of a row into the warp's ring by cp.async, kRing - 1 rows ahead
+// of the one it walks, so loads stay in flight without holding
+// registers; the warp lists the row's nonzero words (a prefix sum over
+// the lanes) and deals them to the lanes, which walk their set bits.
+// Every thread of the block calls it; it ends behind a barrier.
+template <bool VEC, bool K3, bool INIT_OR_OWNER>
+__device__ __forceinline__ void conn_tile(
+    const uint32_t* __restrict__ bitmap, const uint8_t* __restrict__ mask, const int* vals,
+    const uint8_t* __restrict__ core_cols, const int* __restrict__ rows, int n, int W, int t0, int r0, int r1,
+    int* out_min, int* out_owner, int* smem) {
+  constexpr bool INIT = !K3 && INIT_OR_OWNER, OWNER = K3 && INIT_OR_OWNER;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* s_lab = smem;                 // K2
+  int* s_min = smem;                 // K3
+  int* s_own = smem + kAccSlots;     // K3 with OWNER
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + kConnRing) + warp * kRing * kTileWords;
+  int* s_val = smem + kConnVals;     // K3: the chunk's row values
+  int* s_cand = s_val + kMaxChunk;   // K3 with OWNER: their row indices
+  uint8_t* list = reinterpret_cast<uint8_t*>(smem + kConnList) + warp * kTileWords;
+  const int words = min(kTileWords, W - t0);
+  if (K3) {
+    for (int i = threadIdx.x; i < kAccSlots; i += kColThreads) {
+      s_min[i] = INT_MAX;
+      if (OWNER) s_own[i] = INT_MAX;
     }
+    for (int i = threadIdx.x; i < r1 - r0; i += kColThreads) {
+      const bool on = __ldg(mask + r0 + i) != 0;
+      s_val[i] = on ? __ldcg(vals + r0 + i) : INT_MAX;
+      if (OWNER) s_cand[i] = on ? __ldg(rows + r0 + i) : INT_MAX;
+    }
+  } else if (INIT) {
+    for (int c = threadIdx.x; c < words * 32; c += kColThreads) {
+      const int j = t0 * 32 + c;
+      s_lab[c] = j < n && __ldg(core_cols + j) ? j : INT_MAX;
+    }
+  } else {
+    for (int i = threadIdx.x; i < words * 8; i += kColThreads) cp_async16(s_lab + 4 * i, vals + t0 * 32 + 4 * i, 16);
+  }
+  const int first = r0 + warp;
+  const int n_rows = first < r1 ? (r1 - 1 - first) / kColWarps + 1 : 0;  // this warp's rows
+  auto fetch = [&](int k) {
+    const int r = first + k * kColWarps;
+    ring_fetch<VEC>(ring + k % kRing * kTileWords, bitmap, r, W, t0, lane, mask == nullptr || __ldg(mask + r));
+  };
+#pragma unroll
+  for (int k = 0; k < kRing - 1; ++k) {
+    if (k < n_rows) fetch(k);
+    cp_async_commit();  // the first group also holds the staged labels
+  }
+  cp_async_wait<kRing - 2>();
+  __syncthreads();  // labels, accumulators and row values in place
+  for (int k = 0; k < n_rows; ++k) {
+    if (k + kRing - 1 < n_rows) fetch(k + kRing - 1);
+    cp_async_commit();
+    cp_async_wait<kRing - 1>();  // row k's words are in
+    __syncwarp();
+    const int r = first + k * kColWarps;
+    const uint32_t* slot = ring + k % kRing * kTileWords;
+    const int v = K3 ? s_val[r - r0] : 0, wt = OWNER ? s_cand[r - r0] : INT_MAX;
+    const uint4 cur = *reinterpret_cast<const uint4*>(slot + lane * 4);
+    const uint32_t nz = nonzero4(cur);
+    int total;
+    int pos = warp_exclusive_sum(__popc(nz), lane, total);
+    if (total > 0 && (!K3 || v != INT_MAX || wt != INT_MAX)) {  // the same in every lane
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if ((nz >> q) & 1u) list[pos++] = (uint8_t)(lane * 4 + q);
+      __syncwarp();
+      int mn = INT_MAX, last = INT_MAX;  // K2: each gather's min taken one bit later
+      for (int e = lane; e < total; e += 32) {
+        const int idx = list[e];
+        uint32_t word = slot[idx];
+        do {
+          const int b = __ffs(word) - 1;
+          word &= word - 1;
+          if (K3) {
+            const int j = idx * kStride + b;
+            if (v != INT_MAX) atomicMin(&s_min[j], v);
+            if (OWNER && wt != INT_MAX) atomicMin(&s_own[j], wt);
+          } else {
+            mn = min(mn, last);
+            last = s_lab[idx * 32 + b];
+          }
+        } while (word);
+      }
+      if (!K3) {
+        mn = warp_min(min(mn, last));
+        if (lane == 0 && mn != INT_MAX) atomicMin(out_min + r, mn);
+      }
+    }
+    __syncwarp();  // the slot and the list are free again
+  }
+  __syncthreads();
+  if (K3) {
+    for (int c = threadIdx.x; c < words * 32; c += kColThreads) {
+      const int j = (c >> 5) * kStride + (c & 31), col = t0 * 32 + c;
+      const int mn = s_min[j];
+      if (mn != INT_MAX) atomicMin(out_min + col, mn);
+      if (OWNER) {
+        const int ow = s_own[j];
+        if (ow != INT_MAX) atomicMin(out_owner + col, ow);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Work items 0 .. items - 1 claimed one at a time from *ctr (0 at the
+// step's start), thread 0 claiming the next while the block works the
+// current one; body(item) must hold a barrier before its end.
+template <typename Body>
+__device__ __forceinline__ void claim_items(int* ctr, int items, int* s_claim, Body&& body) {
+  if (threadIdx.x == 0) *s_claim = atomicAdd(ctr, 1);
+  __syncthreads();
+  int item = *s_claim;
+  while (item < items) {
+    int next = 0;
+    if (threadIdx.x == 0) next = atomicAdd(ctr, 1);
+    body(item);
+    if (threadIdx.x == 0) *s_claim = next;
+    __syncthreads();
+    item = *s_claim;
+  }
+}
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The probe build's stamp: once the whole block is past this point, the
+// time (ns) into stamps[slot][block]; the main path's instantiation
+// (STAMP = false) has none.
+template <bool STAMP>
+__device__ __forceinline__ void stamp(long long* stamps, int slot) {
+  if (!STAMP) return;
+  __syncthreads();
+  if (threadIdx.x == 0) stamps[(size_t)slot * gridDim.x + blockIdx.x] = globaltimer();
+}
+
+template <bool VEC, bool STAMP>
+__global__ void __launch_bounds__(kColThreads, kConnBlocksPerSM) packed_connectivity_kernel(
+    const uint32_t* __restrict__ bitmap, int R, int W, int n, const int* __restrict__ rows,
+    const uint8_t* __restrict__ row_core, const uint8_t* __restrict__ core_cols, int* lab0, int* lab1, int* m,
+    int* cmin, int* flags, int* row_first, int* owner, int max_iters, int chunk2, int chunk3, long long* stamps) {
+  extern __shared__ int4 s_dyn[];
+  __shared__ int s_claim;
+  int* smem = reinterpret_cast<int*>(s_dyn);
+  int* work = flags + max_iters + 1;  // K2's and K3's item counters, then the rounds run
+  cg::grid_group grid = cg::this_grid();
+  const int cap = W * 32, tiles = (W + kTileWords - 1) / kTileWords;
+  const int items2 = tiles * ((R + chunk2 - 1) / chunk2), items3 = tiles * ((R + chunk3 - 1) / chunk3);
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x, stride = gridDim.x * blockDim.x;
+  auto core = [&](int j) { return j < n && __ldg(core_cols + j) != 0; };
+  stamp<STAMP>(stamps, 0);
+  int it = 0;
+  for (; it < max_iters; ++it) {
+    if (it > 0 && __ldcg(flags + it) == 0) break;  // the same in every block: read after a grid barrier
+    const int* lab = (it & 1) ? lab1 : lab0;      // round 0 computes its labels: core column j is j
+    int* nxt = (it & 1) ? lab0 : lab1;
+    int* mr = it == 0 ? row_first : m;            // round 0's m is row_first
+    for (int j = tid; j < cap; j += stride) cmin[j] = INT_MAX;
+    if (tid == 0) work[1] = 0;
+    claim_items(work, items2, &s_claim, [&](int item) {
+      const int t0 = (item % tiles) * kTileWords, r0 = (item / tiles) * chunk2, r1 = min(R, r0 + chunk2);
+      if (it == 0)
+        conn_tile<VEC, false, true>(bitmap, nullptr, nullptr, core_cols, nullptr, n, W, t0, r0, r1, mr, nullptr, smem);
+      else
+        conn_tile<VEC, false, false>(bitmap, row_core, lab, nullptr, nullptr, n, W, t0, r0, r1, mr, nullptr, smem);
+    });
+    stamp<STAMP>(stamps, 1 + 3 * it);
     grid.sync();
-    for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < cap; j += stride) {
-      const int lj = __ldcg(lab + j);
-      const int nj = __ldg(core_c + j) ? min(lj, __ldcg(cmin + j)) : INT_MAX;  // new(j)
+    if (tid == 0) work[0] = 0;
+    claim_items(work + 1, items3, &s_claim, [&](int item) {
+      const int t0 = (item % tiles) * kTileWords, r0 = (item / tiles) * chunk3, r1 = min(R, r0 + chunk3);
+      if (it == 0)  // with the owner's accumulator
+        conn_tile<VEC, true, true>(bitmap, row_core, mr, nullptr, rows, n, W, t0, r0, r1, cmin, owner, smem);
+      else
+        conn_tile<VEC, true, false>(bitmap, row_core, mr, nullptr, nullptr, n, W, t0, r0, r1, cmin, nullptr, smem);
+    });
+    stamp<STAMP>(stamps, 2 + 3 * it);
+    grid.sync();
+    for (int j = tid; j < R; j += stride) m[j] = INT_MAX;  // the next round's K2 takes its min into m
+    for (int j = tid; j < cap; j += stride) {
+      const bool cj = core(j);
+      const int lj = it == 0 ? (cj ? j : INT_MAX) : __ldcg(lab + j);
+      const int nj = cj ? min(lj, __ldcg(cmin + j)) : INT_MAX;  // new(j)
       int jumped = nj;
       if (nj < cap) {
-        const int nq = __ldg(core_c + nj) ? min(__ldcg(lab + nj), __ldcg(cmin + nj)) : INT_MAX;
-        jumped = min(nj, nq);  // min(new(j), new(new(j)))
+        const int lq = it == 0 ? nj : __ldcg(lab + nj);  // nj < cap is a core column
+        jumped = min(nj, core(nj) ? min(lq, __ldcg(cmin + nj)) : INT_MAX);  // min(new(j), new(new(j)))
       }
       nxt[j] = jumped;
       if (jumped != lj) flags[it + 1] = 1;
     }
+    stamp<STAMP>(stamps, 3 + 3 * it);
     grid.sync();
   }
+  // the labels end in lab0: the last round (it - 1) wrote lab1 when it is even
+  if ((it - 1) % 2 == 0)
+    for (int j = tid; j < n; j += stride) lab0[j] = __ldcg(lab1 + j);
+  if (tid == 0) work[2] = it;
 }
 
 // The card's SM count and the shared memory a K2 or fixpoint block may
@@ -590,7 +813,7 @@ __global__ void __launch_bounds__(kRectThreads, 1) packed_connectivity_kernel(
 // read once a device; the kernels that take dynamic shared memory are
 // allowed it then.
 struct Card {
-  int sms = 0, smem_optin = 0, smem_fixpoint = 0, smem_connectivity = 0;
+  int sms = 0, smem_optin = 0, smem_fixpoint = 0;
 };
 
 template <bool VEC, bool SMEM, bool TELE>
@@ -620,16 +843,9 @@ Card card() {
     allow_fixpoint_smem<false, true, false>(c.smem_fixpoint);
     allow_fixpoint_smem<true, true, true>(c.smem_fixpoint);
     allow_fixpoint_smem<false, true, true>(c.smem_fixpoint);
-    cudaFuncGetAttributes(&fa, packed_connectivity_kernel<true, true>);
-    c.smem_connectivity = optin - (int)fa.sharedSizeBytes;
-    cudaFuncSetAttribute(packed_connectivity_kernel<true, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
-    cudaFuncSetAttribute(packed_connectivity_kernel<false, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
-    cudaFuncSetAttribute(packed_connectivity_kernel<true, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
-    cudaFuncSetAttribute(packed_connectivity_kernel<false, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem_connectivity);
+    for (auto k : {packed_connectivity_kernel<true, false>, packed_connectivity_kernel<false, false>,
+                   packed_connectivity_kernel<true, true>, packed_connectivity_kernel<false, true>})
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kConnSmem);
     cudaFuncSetAttribute(col_reduce_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaFuncSetAttribute(col_reduce_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kColSmem);
     cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, d);
@@ -727,33 +943,71 @@ extern "C" int label_prop_fixpoint_launch(
   return (int)(e != cudaSuccess ? e : last);
 }
 
-extern "C" int packed_connectivity_launch(
-    const int* bitmap, int R, int W, const int* rows, const int* row_core, const int* core_c, int* lab0,
-    int* lab1, int* m, int* cmin, int cap, int* flags, int* row_first, int* owner, int max_iters,
-    void* stream) {
-  if (max_iters <= 0 || R <= 0 || W <= 0) return 0;
+namespace {
+
+// packed_connectivity's grid and work items on an (R, W) slab: as many
+// blocks as can be resident (kConnBlocksPerSM an SM, fewer for a small
+// slab), K2's row chunks about kConnItemsK2 items a block and K3's about
+// kConnItemsK3 (at most kMaxChunk rows), each a multiple of a block's 32
+// warps.
+struct ConnGrid {
+  int blocks = 0, per_sm = 0, chunk2 = 0, chunk3 = 0;
+};
+
+ConnGrid conn_grid(int R, int W) {
+  ConnGrid g;
   const Card c = card();
-  const int blocks = (int)std::max<long long>(1, std::min<long long>(c.sms, ((long long)R + 31) / 32));
-  // K3's work items: about two a block, row chunks a multiple of a block step
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&g.per_sm, packed_connectivity_kernel<true, false>, kColThreads,
+                                                kConnSmem);
   const int tiles = (W + kTileWords - 1) / kTileWords;
-  const int want = std::max(1, (2 * blocks + tiles - 1) / tiles);
-  int chunk = (R + want - 1) / want;
-  chunk = (chunk + kColWarps - 1) / kColWarps * kColWarps;
-  int n_chunks = (R + chunk - 1) / chunk;
-  const size_t smem_labels = (size_t)W * 32 * sizeof(int);
-  const bool staged = smem_labels <= (size_t)c.smem_connectivity;
-  const size_t smem = std::max(staged ? smem_labels : (size_t)0, (size_t)kColSmem);
+  const long long need = std::max<long long>({1, (long long)tiles * ((R + kColWarps - 1) / kColWarps),
+                                              ((long long)W * 32 + kColThreads - 1) / kColThreads});
+  g.blocks = (int)std::min<long long>((long long)g.per_sm * c.sms, need);
+  auto chunk = [&](int per_block) {
+    const int want = std::max(1, (per_block * g.blocks + tiles - 1) / tiles);  // row chunks
+    const int rows = (R + want - 1) / want;
+    return std::max(kColWarps, (rows + kColWarps - 1) / kColWarps * kColWarps);
+  };
+  g.chunk2 = chunk(kConnItemsK2);
+  g.chunk3 = std::min(kMaxChunk, chunk(kConnItemsK3));
+  return g;
+}
+
+}  // namespace
+
+extern "C" int packed_connectivity_grid(int R, int W, int* out) {
+  const ConnGrid g = conn_grid(R, W);
+  out[0] = g.blocks, out[1] = g.per_sm, out[2] = g.chunk2, out[3] = g.chunk3;
+  return (int)cudaGetLastError();
+}
+
+// row_core (R) and core_cols (n) are bytes, 0 or 1 (torch.bool);
+// rows int32.  flags: max_iters + 4 ints, zero: the round flags, then the
+// launch's two work-item counters, then the rounds run, written at the
+// end.  The labels come out in lab0[:n]; lab1 and m are scratch;
+// row_first and owner must hold INT32_MAX.  stamps: null on the main
+// path; else (1 + 3 max_iters) x blocks int64 for the probe build.
+extern "C" int packed_connectivity_launch(
+    const int* bitmap, int R, int W, int n, const int* rows, const uint8_t* row_core, const uint8_t* core_cols,
+    int* lab0, int* lab1, int* m, int* cmin, int* flags, int* row_first, int* owner, int max_iters,
+    long long* stamps, void* stream) {
+  if (max_iters <= 0 || R <= 0 || W <= 0) return 0;
+  const ConnGrid g = conn_grid(R, W);
+  if (g.blocks <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const bool vec = W % 4 == 0 && aligned16(bitmap);
   const uint32_t* bits = reinterpret_cast<const uint32_t*>(bitmap);
-  void (*kernel)(const uint32_t*, int, int, const int*, const int*, const int*, int*, int*, int*, int*, int, int*,
-                 int*, int*, int, int, int) =
-      staged ? (vec ? packed_connectivity_kernel<true, true> : packed_connectivity_kernel<false, true>)
-             : (vec ? packed_connectivity_kernel<true, false> : packed_connectivity_kernel<false, false>);
-  void* args[] = {(void*)&bits, &R, &W, (void*)&rows, (void*)&row_core, (void*)&core_c, &lab0, &lab1, &m, &cmin,
-                  &cap, &flags, &row_first, &owner, &max_iters, &chunk, &n_chunks};
+  void (*kernel)(const uint32_t*, int, int, int, const int*, const uint8_t*, const uint8_t*, int*, int*, int*, int*,
+                 int*, int*, int*, int, int, int, long long*);
+  if (stamps != nullptr)
+    kernel = vec ? packed_connectivity_kernel<true, true> : packed_connectivity_kernel<false, true>;
+  else
+    kernel = vec ? packed_connectivity_kernel<true, false> : packed_connectivity_kernel<false, false>;
+  int c2 = g.chunk2, c3 = g.chunk3;
+  void* args[] = {(void*)&bits, &R, &W, &n, (void*)&rows, (void*)&row_core, (void*)&core_cols, &lab0, &lab1, &m,
+                  &cmin, &flags, &row_first, &owner, &max_iters, &c2, &c3, &stamps};
   // a grid that cannot all be resident is refused here (no fallback)
-  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kRectThreads), args,
-                                                    smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(g.blocks), dim3(kColThreads), args,
+                                                    kConnSmem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // read, so a refusal is not left for the next launch
   return (int)(e != cudaSuccess ? e : last);
 }

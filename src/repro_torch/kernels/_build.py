@@ -39,7 +39,8 @@ _SIGNATURES = {
         "col_reduce_launch": [P, P, P, I, I, P, P, P],
         "label_prop_update_launch": [P, P, P, I, P, P, I, P, I, P],
         "label_prop_fixpoint_launch": [P, I, I, I, P, P, P, P, I, P, I, P, I, P],
-        "packed_connectivity_launch": [P, I, I, P, P, P, P, P, P, P, I, P, P, P, I, P],
+        "packed_connectivity_launch": [P, I, I, I, P, P, P, P, P, P, P, P, P, P, I, P, P],
+        "packed_connectivity_grid": [I, I, P],
     },
     "range_count": {
         "range_count_launch": [P, P, I, I, I, F, P, P, I, I, P],
@@ -48,7 +49,7 @@ _SIGNATURES = {
         "rmi_mlp_launch": [P, I, I, I, *[P] * 10, I, I, I, I, I, P, P],
     },
     "flash_attention": {
-        "flash_attention_launch": [P, P, P, P, I, *[I] * 6, *[L] * 9, I, I, I, F, I, I, P, P, P],
+        "flash_attention_launch": [P, P, P, P, I, *[I] * 7, *[L] * 9, I, I, I, F, I, I, P, P, P],
     },
     "embedding_bag": {
         "embedding_bag_launch": [P, P, P, I, I, I, I, I, I, P],

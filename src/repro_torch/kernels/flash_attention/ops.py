@@ -2,8 +2,9 @@
 ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention(q, k, v, *, causal, window, scale, q_offset)`` takes
-the reference's (B, H, S, D) layout: q (B, Hq, Sq, D), k/v (B, Hkv, Sk,
-D), Hq a multiple of Hkv; query ``i`` sits at position ``q_offset + i``
+the reference's (B, H, S, D) layout: q (B, Hq, Sq, D), k (B, Hkv, Sk,
+D), v (B, Hkv, Sk, Dv) with Dv = D or (D, Dv) one of ``HEAD_PAIRS``, Hq
+a multiple of Hkv; query ``i`` sits at position ``q_offset + i``
 (default ``Sk - Sq``: right-aligned against the keys).  A CPU
 ``q`` runs the plain version (``ref.py``); a CUDA ``q`` launches
 ``csrc/flash_attention.cu`` or raises.
@@ -20,7 +21,12 @@ The mapping is chosen statically: bf16 with Sq > 1 runs the tensor-core
 prefill (P·V as two bf16 products, P_hi·V + P_lo·V), fp32 with Sq > 1
 the CUDA-core prefill, and Sq == 1 the decode mapping, split over Sk by
 ``decode_splits`` and merged by a second kernel that the same call
-enqueues (one wrapper call, one count, two launches when split).
+enqueues (one wrapper call, one count, two launches when split).  A
+pair of ``HEAD_PAIRS`` (MLA's q/k 192 with v 128) runs the bf16 prefill
+at its own widths.  The launcher alone knows which mappings take a pair:
+where it answers ``_PAD_V`` (today the fp32 prefill and the decode
+mapping), the call is made again with v zero-padded to D and the output
+cut back to Dv.
 """
 
 from __future__ import annotations
@@ -28,16 +34,20 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ...obs import metrics as _metrics
 from .. import _build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "decode_splits", "LAUNCHES", "HEAD_DIMS", "DECODE_TILE", "DECODE_GROUP", "SMS"]
+__all__ = ["flash_attention", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS", "DECODE_TILE", "DECODE_GROUP",
+           "SMS"]
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches"}
 HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
+HEAD_PAIRS = ((192, 128),)      # (D, Dv) pairs with v narrower than q/k: MLA's (bf16 prefill at its own widths)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAD_V = -1        # the launcher's answer where its mapping is not instantiated on (D, Dv)
 DECODE_TILE = 64   # keys per decode tile (csrc/flash_attention.cu DBK)
 DECODE_GROUP = 4   # query heads per decode block (csrc/flash_attention.cu RG)
 SMS = 132          # streaming multiprocessors of an H100 SXM
@@ -62,8 +72,10 @@ def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be (B, H, S, D), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, _, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if v.shape[3] != d and (d, v.shape[3]) not in HEAD_PAIRS:
+        raise ValueError(f"v width {v.shape[3]} with q/k width {d}: v matches q/k or (D, Dv) is one of {HEAD_PAIRS}")
     if k.shape[1] == 0 or hq % k.shape[1]:
         raise ValueError(f"query heads {hq} are not a multiple of kv heads {k.shape[1]}")
     if k.shape[2] == 0:
@@ -87,11 +99,11 @@ def _operand(t):
 
 def _launch(q, k, v, causal, window, scale, q_offset):
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if d not in HEAD_DIMS:
         raise ValueError(f"head width {d}: the kernel takes each of {HEAD_DIMS}")
     q, k, v = _operand(q), _operand(k), _operand(v)
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
     # a window wider than the last query's position masks nothing
@@ -104,20 +116,23 @@ def _launch(q, k, v, causal, window, scale, q_offset):
             part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=q.device)
     err = _build.load("flash_attention").flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, hq, hkv, sq, sk, d,
+        b, hq, hkv, sq, sk, d, dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(bool(causal)), w, q_offset, scale, n_split, split_tiles,
         None if part_ml is None else part_ml.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err == _PAD_V:  # this mapping (fp32, or decode) takes the pair with v padded to D
+        return _launch(q, k, F.pad(v, (0, d - dv)), causal, window, scale, q_offset)[..., :dv]
     _build.check(err, "flash_attention")
     _metrics.counter(LAUNCHES["flash_attention"]).inc()
     return out
 
 
 def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q_offset=None) -> torch.Tensor:
-    """Exact softmax attention, q (B, Hq, Sq, D) against k/v (B, Hkv, Sk,
-    D) -> (B, Hq, Sq, D) in ``q.dtype``; scores, softmax and P·V in fp32
+    """Exact softmax attention, q (B, Hq, Sq, D) against k (B, Hkv, Sk,
+    D) and v (B, Hkv, Sk, Dv), Dv = D or (D, Dv) in ``HEAD_PAIRS`` ->
+    (B, Hq, Sq, Dv) in ``q.dtype``; scores, softmax and P·V in fp32
     (on the card, bf16 prefill's P·V is P_hi·V + P_lo·V on the tensor
     cores: P to about 16 bits), ``scale`` = 1/sqrt(D) unless given,
     query ``i`` at position ``q_offset + i`` (``Sk - Sq`` unless given).

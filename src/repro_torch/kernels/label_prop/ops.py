@@ -36,6 +36,8 @@ host copy.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ...obs import device as _obs_device
@@ -44,7 +46,7 @@ from .. import _build
 from ..hamming_filter.ops import _tail_word_mask
 from ..popcount import row_popcount
 from .ref import (
-    BIG, col_reduce_ref, connectivity_inputs, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref,
+    BIG, col_reduce_ref, label_prop_fixpoint_ref, label_prop_rect_ref, label_prop_round_ref,
     label_prop_update_ref, packed_connectivity_ref,
 )
 
@@ -59,6 +61,7 @@ __all__ = [
     "packed_cluster_fixpoint",
     "packed_cluster_labels",
     "packed_connectivity",
+    "connectivity_grid",
     "LAUNCHES",
 ]
 
@@ -383,7 +386,17 @@ def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64, tel
                                    telemetry=telemetry)
 
 
-def packed_connectivity(bitmap, rows, row_core, core_cols, *, max_iters: int = 64):
+def connectivity_grid(r: int, w: int):
+    """``(blocks, blocks an SM, K2's chunk rows, K3's chunk rows)`` of
+    ``packed_connectivity``'s cooperative launch on an (r, w) slab, as
+    the launcher sizes it on the current card."""
+    out = (ctypes.c_int * 4)()
+    err = _build.load("label_prop").packed_connectivity_grid(int(r), int(w), out)
+    _build.check(err, "packed_connectivity_grid")
+    return tuple(out)
+
+
+def packed_connectivity(bitmap, rows, row_core, core_cols, *, max_iters: int = 64, stamps=None):
     """Connectivity of one packed hit block, bipartite propagation (the
     contract of ``repro.kernels.label_prop.packed_connectivity``).
 
@@ -403,39 +416,57 @@ def packed_connectivity(bitmap, rows, row_core, core_cols, *, max_iters: int = 6
     whole block is one cooperative launch, the fixpoint's connectivity
     mode (``csrc/label_prop.cu``, counted as
     ``kernel.packed_connectivity``): K2's walk, K3's walk and the update
-    split by grid barriers, round ``it`` reading one label buffer and
-    writing the other and setting ``flags[it + 1]`` when a label changed.
-    Round 0, which always runs (``max_iters`` >= 1), also yields the two
-    loop-invariant outputs: its K2 walk is row_first, and its K3 walk
-    takes the owner in a second accumulator.  A grid that cannot be
-    resident raises."""
+    split by grid barriers, both walks over (128-word tile, row chunk)
+    work items claimed from a device counter, round ``it`` reading one
+    label buffer and writing the other and setting ``flags[it + 1]`` when
+    a label changed.  Round 0, which always runs (``max_iters`` >= 1),
+    computes its labels (each core column its own index) and also yields
+    the two loop-invariant outputs: its K2 walk is row_first, and its K3
+    walk takes the owner in a second accumulator.  The launch leaves the
+    labels in one buffer and the rounds it ran in its flags tensor, so
+    the outputs are views.  A grid that cannot be resident raises.
+
+    ``stamps``, for the probe (``scripts/connectivity_probe.py``), CUDA
+    only, changes no output: a zeroed int64 ``(1 + 3 * max_iters,
+    blocks)`` tensor (blocks from ``connectivity_grid``) that the
+    kernel's probe build fills with ``%globaltimer`` (ns) as each
+    block enters (row 0) and as it leaves each step of round ``it`` (rows
+    ``1 + 3 it + step``, steps K2, K3, update; rounds that do not run
+    stay 0)."""
     _check_slab(bitmap)
     if max_iters < 1:
         raise ValueError(f"max_iters must be >= 1, got {max_iters}")
     if bitmap.device.type == "cpu":
         return packed_connectivity_ref(bitmap, rows, row_core, core_cols, max_iters=max_iters)
-    rows, row_core, core_c, init = connectivity_inputs(bitmap, rows, row_core, core_cols)
     r, w = bitmap.shape
     n, cap, dev = int(core_cols.shape[0]), w * 32, bitmap.device
-    row_core_i, core_c_i = row_core.to(torch.int32), core_c.to(torch.int32)
-    # both buffers start at init: a launch with no rows runs no round, and
-    # the one round the plain version counts leaves the labels as they are
-    bufs = (init.clone(), init.clone())
+    if n > cap:
+        raise ValueError(f"a slab of {w} words cannot cover n={n} columns")
+    rows = torch.as_tensor(rows).to(device=dev, dtype=torch.int32).contiguous()
+    row_core = torch.as_tensor(row_core).to(device=dev, dtype=torch.bool).contiguous()
+    core_cols = torch.as_tensor(core_cols).to(device=dev, dtype=torch.bool).contiguous()
+    if rows.shape != (r,) or row_core.shape != (r,):
+        raise ValueError(f"rows and row_core must have the slab's {r} rows")
+    labels = torch.empty((2, cap), dtype=torch.int32, device=dev)  # the result comes out in row 0
     m = torch.empty(r, dtype=torch.int32, device=dev)
-    row_first = torch.empty(r, dtype=torch.int32, device=dev)
-    owner = torch.full((cap,), BIG, dtype=torch.int32, device=dev)  # K3 takes its min into it
     cmin = torch.empty(cap, dtype=torch.int32, device=dev)
-    flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
-    flags[0] = 1
-    stream = _cuda([bitmap, rows, row_core_i, core_c_i, bufs[0], bufs[1], m, cmin, flags, row_first, owner],
-                   "packed_connectivity")
+    # round 0's K2 and K3 take their minima into these
+    row_first = torch.full((r,), BIG, dtype=torch.int32, device=dev)
+    owner = torch.full((cap,), BIG, dtype=torch.int32, device=dev)
+    # the round flags, the two work-item counters, the rounds run
+    flags = torch.zeros(max_iters + 4, dtype=torch.int32, device=dev)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev or not stamps.is_contiguous()
+                               or stamps.numel() < (1 + 3 * max_iters) * connectivity_grid(r, w)[0]):
+        raise ValueError("stamps must be a contiguous int64 (1 + 3 max_iters, blocks) tensor on the slab's device")
+    stream = _cuda([bitmap, rows, row_core, core_cols, labels, m, cmin, flags, row_first, owner], "packed_connectivity")
     err = _build.load("label_prop").packed_connectivity_launch(
-        bitmap.data_ptr(), r, w, rows.data_ptr(), row_core_i.data_ptr(), core_c_i.data_ptr(), bufs[0].data_ptr(),
-        bufs[1].data_ptr(), m.data_ptr(), cmin.data_ptr(), cap, flags.data_ptr(), row_first.data_ptr(),
-        owner.data_ptr(), max_iters, stream,
+        bitmap.data_ptr(), r, w, n, rows.data_ptr(), row_core.data_ptr(), core_cols.data_ptr(), labels[0].data_ptr(),
+        labels[1].data_ptr(), m.data_ptr(), cmin.data_ptr(), flags.data_ptr(), row_first.data_ptr(), owner.data_ptr(),
+        max_iters, None if stamps is None else stamps.data_ptr(), stream,
     )
     _build.check(err, "packed_connectivity")
     _metrics.counter(LAUNCHES["packed_connectivity"]).inc()
-    rounds = flags[:max_iters].sum(dtype=torch.int32)
-    comp = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
-    return comp[:n], owner[:n], row_first, rounds
+    if r == 0:  # no round runs: each core column keeps its own index, the one round the plain version counts
+        comp = torch.where(core_cols, torch.arange(n, dtype=torch.int32, device=dev), BIG)
+        return comp, owner[:n], row_first, torch.ones((), dtype=torch.int32, device=dev)
+    return labels[0, :n], owner[:n], row_first, flags[max_iters + 3]

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
-from ..kernels.flash_attention.ops import HEAD_DIMS
+from ..kernels.flash_attention.ops import HEAD_DIMS, HEAD_PAIRS
 
 __all__ = [
     "dense_init", "dense", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
@@ -133,19 +133,20 @@ def blockwise_attention(
     Query ``i`` sits at position ``q_offset + i`` and attends the keys
     ``k[:, :, :valid_len]`` (the prefix view: the keys past it are masked
     in the reference); no valid key gives 0, as the reference's clamped
-    normalizer does.  ``q``/``k`` and ``v`` are zero-padded along D to
-    the kernel's narrowest width (``HEAD_DIMS``) that holds ``max(D,
-    Dv)`` (MLA: q/k 192 and v 128 run at 192; its reduced 24 and 16 at
-    32), and the output is cut back to ``Dv``: zero columns of ``v`` add
-    nothing, zero columns of ``q`` and ``k`` leave ``q·k`` unchanged, and
-    the scale stays 1/sqrt(D).  A width past the widest is left as it
-    is (the plain version takes it; the card raises).  ``kv_block`` is
-    the reference's scan chunk and is ignored: the kernel tiles the keys
-    itself.  Unlike the reference's
-    jnp body, the probabilities are not rounded to the inputs' type in
-    P·V: fp32 (as in the TPU kernel), or on the card's bf16 prefill two
-    bf16 terms, P_hi·V + P_lo·V (P to about 16 bits), so bf16 results
-    differ by that rounding."""
+    normalizer does.  A (D, Dv) pair the kernel is instantiated for
+    (``HEAD_PAIRS``: MLA's q/k 192 with v 128) goes in as it is.  Other
+    widths are zero-padded along D to the kernel's narrowest width
+    (``HEAD_DIMS``) that holds ``max(D, Dv)`` (MLA's reduced 24 and 16
+    run at 32), and the output is cut back to ``Dv``: zero columns of
+    ``v`` add nothing, zero columns of ``q`` and ``k`` leave ``q·k``
+    unchanged, and the scale stays 1/sqrt(D).  A width past the widest
+    is left as it is (the plain version takes it; the card raises).
+    ``kv_block`` is the reference's scan chunk and is ignored: the kernel
+    tiles the keys itself.  Unlike the reference's jnp body, the
+    probabilities are not rounded to the inputs' type in P·V: fp32 (as
+    in the TPU kernel), or on the card's bf16 prefill two bf16 terms,
+    P_hi·V + P_lo·V (P to about 16 bits), so bf16 results differ by that
+    rounding."""
     del kv_block
     b, hq, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
@@ -154,13 +155,14 @@ def blockwise_attention(
     if n <= 0:
         return torch.zeros((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     k, v = k[:, :, :n], v[:, :, :n]
-    width = min((w for w in HEAD_DIMS if w >= max(d, dv)), default=max(d, dv))
-    if d < width:
-        q, k = F.pad(q, (0, width - d)), F.pad(k, (0, width - d))
-    if dv < width:
-        v = F.pad(v, (0, width - dv))
+    if (d, dv) not in HEAD_PAIRS:
+        width = min((w for w in HEAD_DIMS if w >= max(d, dv)), default=max(d, dv))
+        if d < width:
+            q, k = F.pad(q, (0, width - d)), F.pad(k, (0, width - d))
+        if dv < width:
+            v = F.pad(v, (0, width - dv))
     out = flash_attention(q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(d), q_offset=offset)
-    return out if dv == width else out[..., :dv]
+    return out if out.shape[-1] == dv else out[..., :dv]
 
 
 # ---------------------------------------------------------------------------

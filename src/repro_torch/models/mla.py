@@ -7,8 +7,8 @@ through their own low-rank path and split into nope + rope parts.
 
 ``mla_attention`` is the prefill: q and k concatenate to ``qk_nope_dim +
 qk_rope_dim`` (192 at full width) and run ``blockwise_attention``, i.e.
-the ``flash_attention`` kernel on the card at D 192 with v (128)
-zero-padded to it.  ``mla_decode_step`` is the absorbed decode: W_uk
+the ``flash_attention`` kernel on the card at the (192, 128) pair: v and
+the output at their own 128, nothing padded.  ``mla_decode_step`` is the absorbed decode: W_uk
 folds into the query and W_uv into the output, and the softmax runs in
 the latent space over the (c_kv, k_rope) cache in plain fp32 PyTorch,
 as the reference's jnp einsums do; the cache is written in place at

@@ -370,29 +370,36 @@ def _conn_gpu_case(r, w, p, seed, core_frac=0.5):
     return torch.from_numpy(pack_bitmap(hit).view(np.int32)), rows, core
 
 
-# (R, W words, density, seed, core share, max_iters): the exact main
-# slab's width (952: K2 staged) and the stream's width at 152,185 points
-# (4,756: unstaged), a ragged small slab, a sparse one whose propagation
-# takes many rounds, the same cut to one and to two rounds (round 0 alone
-# yields row_first and the owner), a block with no core, and a block with
-# no rows (the launch runs no round; the plain version counts one)
-GPU_CONNECTIVITY = [(512, 952, 0.004, 0, 0.5, 64), (512, 4756, 0.001, 1, 0.5, 64), (37, 7, 0.05, 2, 0.5, 64),
-                    (2048, 952, 0.0005, 3, 0.5, 64), (2048, 952, 0.0005, 3, 0.5, 1), (2048, 952, 0.0005, 3, 0.5, 2),
-                    (300, 130, 0.01, 5, 0.0, 64), (0, 7, 0.05, 4, 0.5, 64)]
+def _conn_gpu_sparse_case(r, w, p, seed, core_frac=0.5, dense=0):
+    """As ``_conn_gpu_case``, built packed (LSB-first, as ``pack_bitmap``)
+    from the set bits alone, so that tall and wide slabs need no (r, n)
+    draw: about a share ``p`` of each row's bits set at random plus its
+    own column; ``dense`` core columns hit by half the rows (a skewed
+    slab: clustered points share their core neighbours)."""
+    rng = np.random.default_rng(seed)
+    n = 32 * w - 5
+    rows = np.sort(rng.choice(n, r, replace=False))
+    k = rng.binomial(n, p, size=r)
+    ri = np.concatenate([np.repeat(np.arange(r), k), np.arange(r)])
+    ci = np.concatenate([rng.integers(0, n, size=int(k.sum())), rows])
+    core = rng.random(n) < core_frac
+    if dense:
+        cols = rng.choice(n, dense, replace=False)
+        dr, dc = np.nonzero(rng.random((r, dense)) < 0.5)
+        ri, ci = np.concatenate([ri, dr]), np.concatenate([ci, cols[dc]])
+        core[cols] = True
+    words = np.zeros((r, w), dtype=np.uint32)
+    np.bitwise_or.at(words, (ri, ci // 32), np.left_shift(np.uint32(1), (ci % 32).astype(np.uint32)))
+    return torch.from_numpy(words.view(np.int32)), rows, core
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("r,w,p,seed,core_frac,max_iters", GPU_CONNECTIVITY)
-def test_gpu_packed_connectivity_matches_plain(r, w, p, seed, core_frac, max_iters, metrics_on):
-    """The connectivity mode's one cooperative launch, which also yields
-    the owner and row_first, against the plain version on the card: all
-    four outputs exactly equal, and no other kernel launched."""
+def _check_connectivity_on_card(bits, rows, core, max_iters):
+    """``packed_connectivity`` on the card against the plain version: all
+    four outputs exactly equal, one launch and no other kernel."""
     from repro_torch.kernels.label_prop import packed_connectivity
     from repro_torch.kernels.label_prop.ref import packed_connectivity_ref
 
-    dev = _card()
-    bits, rows, core = _conn_gpu_case(r, w, p, seed, core_frac)
-    bits = bits.to(dev)
+    dev = bits.device
     args = (bits, torch.from_numpy(rows).to(dev), torch.from_numpy(core[rows]).to(dev), torch.from_numpy(core).to(dev))
     names = ("packed_connectivity", "col_reduce", "label_prop_rect", "label_prop_update")
     before = {k: metrics.counter(f"kernel.{k}.launches").value for k in names}
@@ -403,3 +410,89 @@ def test_gpu_packed_connectivity_matches_plain(r, w, p, seed, core_frac, max_ite
     want = packed_connectivity_ref(*args, max_iters=max_iters)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# (R, W words, density, seed, core share, max_iters): the exact main
+# slab's width (952: K2 staged) and the stream's width at 152,185 points
+# (4,756: unstaged), a ragged small slab, a sparse one whose propagation
+# takes many rounds, the same cut to one and to two rounds (round 0 alone
+# yields row_first and the owner), a block with no core, and a block with
+# no rows (the launch runs no round; the plain version counts one)
+GPU_CONNECTIVITY = [(512, 952, 0.004, 0, 0.5, 64), (512, 4756, 0.001, 1, 0.5, 64), (37, 7, 0.05, 2, 0.5, 64),
+                    (2048, 952, 0.0005, 3, 0.5, 64), (2048, 952, 0.0005, 3, 0.5, 1), (2048, 952, 0.0005, 3, 0.5, 2),
+                    (300, 130, 0.01, 5, 0.0, 64), (0, 7, 0.05, 4, 0.5, 64)]
+# (R, W, density, seed, core share, max_iters, dense core columns): the
+# work items' edges at the launcher's own heights (``conn_grid``; see
+# test_gpu_connectivity_items_reach_their_edges): one chunk holding all
+# of R inside a warp's step (20 rows); many 32-row chunks (5,000 rows
+# over 3 tiles); R past K3's capped 512-row chunk and not a multiple of
+# 32 (1,700 rows over 265 tiles: chunks 512, 512, 512, 164); R not a
+# multiple of 32 (4,133 rows); W % 4 != 0 (4,757 and 1,001 words: the
+# 4-byte loads) past the old label-staging limit; a skewed slab whose
+# dense core columns cluster in a few tiles; a single round
+GPU_CONNECTIVITY_ITEMS = [(5000, 300, 0.004, 6, 0.5, 64, 0), (4133, 4757, 0.0005, 7, 0.6, 64, 0),
+                          (700, 1001, 0.003, 8, 0.5, 64, 0), (4096, 952, 0.001, 9, 0.6, 64, 300),
+                          (1000, 4756, 0.0002, 10, 0.6, 64, 2000), (4133, 4757, 0.0005, 7, 0.6, 1, 0),
+                          (20, 40, 0.01, 11, 0.5, 64, 0), (1700, 33800, 0.00003, 12, 0.6, 64, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,w,p,seed,core_frac,max_iters", GPU_CONNECTIVITY)
+def test_gpu_packed_connectivity_matches_plain(r, w, p, seed, core_frac, max_iters, metrics_on):
+    """The connectivity mode's one cooperative launch, which also yields
+    the owner and row_first, against the plain version on the card: all
+    four outputs exactly equal, and no other kernel launched."""
+    dev = _card()
+    bits, rows, core = _conn_gpu_case(r, w, p, seed, core_frac)
+    _check_connectivity_on_card(bits.to(dev), rows, core, max_iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,w,p,seed,core_frac,max_iters,dense", GPU_CONNECTIVITY_ITEMS)
+def test_gpu_packed_connectivity_items_match_plain(r, w, p, seed, core_frac, max_iters, dense, metrics_on):
+    """The same on slabs shaped to the work items' edges."""
+    dev = _card()
+    bits, rows, core = _conn_gpu_sparse_case(r, w, p, seed, core_frac, dense)
+    _check_connectivity_on_card(bits.to(dev), rows, core, max_iters)
+
+
+@pytest.mark.gpu
+def test_gpu_connectivity_items_reach_their_edges():
+    """The launcher's work-item heights on the card put the edge slabs of
+    ``GPU_CONNECTIVITY_ITEMS`` where their comment says: one chunk of
+    both steps over 20 rows, over a hundred 32-row chunks over 5,000, and
+    K3's chunk capped at 512 rows below R = 1,700, with a ragged last."""
+    from repro_torch.kernels.label_prop.ops import connectivity_grid
+
+    _card()
+    _, _, c2, c3 = connectivity_grid(20, 40)
+    assert c2 >= 20 and c3 >= 20
+    _, _, c2, c3 = connectivity_grid(5000, 300)
+    assert -(-5000 // c2) > 100 and -(-5000 // c3) > 100
+    _, _, _, c3 = connectivity_grid(1700, 33800)
+    assert c3 == 512 and 1700 % c3 % 32
+
+
+@pytest.mark.gpu
+def test_gpu_packed_connectivity_reaches_max_iters(metrics_on):
+    """A path of core columns through core rows (row i joins columns i
+    and i + 1), which pointer jumping needs about log2 of its length in
+    rounds to close: cut at 3 rounds, the launch stops there with the
+    plain version's labels (rounds == max_iters), and uncut it reaches
+    the one component."""
+    from repro_torch.kernels.label_prop import packed_connectivity
+    from repro_torch.kernels.label_prop.ref import packed_connectivity_ref
+
+    dev = _card()
+    n = 3000
+    hit = np.zeros((n - 1, n), dtype=bool)
+    hit[np.arange(n - 1), np.arange(n - 1)] = hit[np.arange(n - 1), np.arange(1, n)] = True
+    args = (torch.from_numpy(pack_bitmap(hit).view(np.int32)).to(dev), torch.arange(n - 1, device=dev),
+            torch.ones(n - 1, dtype=torch.bool, device=dev), torch.ones(n, dtype=torch.bool, device=dev))
+    for max_iters in (3, 64):
+        got = packed_connectivity(*args, max_iters=max_iters)
+        want = packed_connectivity_ref(*args, max_iters=max_iters)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), max_iters
+    assert int(packed_connectivity(*args, max_iters=3)[3]) == 3
+    assert (packed_connectivity(*args)[0] == 0).all()

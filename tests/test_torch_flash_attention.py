@@ -42,7 +42,9 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models.layers import blockwise_attention as jax_blockwise
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import DECODE_GROUP, DECODE_TILE, HEAD_DIMS, LAUNCHES, SMS, decode_splits
+from repro_torch.kernels.flash_attention.ops import (
+    DECODE_GROUP, DECODE_TILE, HEAD_DIMS, HEAD_PAIRS, LAUNCHES, SMS, decode_splits,
+)
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, merge_partials_ref
 from repro_torch.models.layers import blockwise_attention
 from repro_torch.obs import metrics
@@ -144,6 +146,11 @@ def test_flash_attention_validates_operands():
         flash_attention(q.double(), kv.double(), kv.double())
     with pytest.raises(TypeError):
         flash_attention(q, kv.to(torch.bfloat16), kv)
+    # v narrower than q/k only at an instantiated pair
+    for d, dv in ((128, 64), (192, 64), (32, 16)):
+        assert (d, dv) not in HEAD_PAIRS
+        with pytest.raises(ValueError, match="v width"):
+            flash_attention(torch.zeros((1, 2, 8, d)), torch.zeros((1, 2, 8, d)), torch.zeros((1, 2, 8, dv)))
 
 
 # (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_offset, valid_len)
@@ -399,6 +406,65 @@ def test_mla_widths_match_jax(causal):
     assert not out[..., 128:].any()
 
 
+# (B, Hq, Hkv, Sq, Sk, causal, window, q_offset): MLA's (192, 128) pair at
+# small S: ragged S, GQA, Sq < Sk, a window, offsets off the right-aligned
+# default (queries before the keys' end, and past it)
+PAIR_CASES = [
+    (1, 2, 2, 40, 40, True, None, None),
+    (1, 2, 2, 40, 40, False, None, None),
+    (2, 4, 2, 33, 33, True, None, None),
+    (1, 2, 1, 12, 40, False, None, None),
+    (1, 2, 2, 48, 48, True, 10, None),
+    (1, 2, 2, 10, 40, True, None, 5),
+    (1, 2, 2, 10, 40, True, None, 35),
+]
+
+
+def _pair_inputs(case):
+    b, hq, hkv, sq, sk = case[:5]
+    rng = np.random.default_rng(sum(case[:5]) + 128)
+    return (rng.standard_normal((b, hq, sq, 192)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, 192)).astype(np.float32),
+            rng.standard_normal((b, hkv, sk, 128)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", PAIR_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_head_pair_flash_attention_matches_jax(case):
+    """``flash_attention`` takes MLA's (192, 128) pair (``HEAD_PAIRS``)
+    with v at its own width and returns (..., 128): on the CPU its plain
+    version, against the JAX oracle (kv heads repeated) where the queries
+    are right-aligned, and against the port's ``attention_ref`` at any
+    offset, 2e-5."""
+    assert (192, 128) in HEAD_PAIRS
+    b, hq, hkv, sq, sk, causal, window, q_offset = case
+    q, k, v = _pair_inputs(case)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                          window=window, q_offset=q_offset)
+    assert got.shape == (b, hq, sq, 128) and got.dtype == torch.float32
+    want = attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                         window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+    if q_offset is None:
+        rep = hq // hkv
+        oracle = np.asarray(jax_ref(jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, 1),
+                                    jnp.repeat(jnp.asarray(v), rep, 1), causal=causal, window=window))
+        np.testing.assert_allclose(got.numpy(), oracle, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", PAIR_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_head_pair_blockwise_attention_matches_jax(case):
+    """``blockwise_attention`` at (192, 128), which hands the pair to the
+    kernel's wrapper unpadded, against the reference's jnp scan, 2e-5."""
+    b, hq, hkv, sq, sk, causal, window, q_offset = case
+    q, k, v = _pair_inputs(case)
+    want = np.asarray(jax_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+                                    q_offset=q_offset, kv_block=16))
+    got = blockwise_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                              window=window, q_offset=q_offset)
+    assert got.shape == (b, hq, sq, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
 # (B, Hq, Hkv, Sq, Sk, D, causal, window): the new width's mappings and the
 # zoo's decode shapes at small B
 GPU_ZOO_CASES = [
@@ -455,3 +521,48 @@ def test_gpu_zoo_shapes_match_plain(dtype, metrics_on):
     x = torch.zeros((1, 2, 8, 64), device=dev, dtype=dtype)
     with pytest.raises(ValueError, match="head width 64"):
         flash_attention(x, x, x)
+
+
+# (B, Hq, Hkv, Sq, Sk, causal, window, q_offset): the (192, 128) pair's
+# bf16 prefill (fp32 and Sq 1 take v padded to 192)
+GPU_PAIR_CASES = [
+    (1, 4, 4, 300, 300, True, None, None),     # ragged S: three query tiles, the last partial
+    (1, 4, 4, 300, 300, False, None, None),
+    (2, 8, 2, 129, 129, True, None, None),     # GQA 4, two query tiles
+    (1, 4, 4, 70, 300, False, None, None),     # Sq < Sk
+    (1, 4, 4, 70, 300, True, None, 100),       # q_offset off the right-aligned default
+    (1, 4, 2, 513, 513, True, 100, None),      # window across tiles
+    (2, 16, 16, 1, 300, True, None, None),     # decode: v padded to 192
+    (2, 128, 128, 256, 256, True, None, None), # deepseek-v2's heads
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_head_pair_matches_plain(dtype, metrics_on):
+    """MLA's (192, 128) pair on the card against the plain version, one
+    launch a call, the output at Dv 128; ``blockwise_attention`` at the
+    pair; a pair that is not instantiated raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    launches = metrics.counter(LAUNCHES["flash_attention"])
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    for case in GPU_PAIR_CASES:
+        causal, window, q_offset = case[5:]
+        q, k, v = (torch.from_numpy(a).to(dev, dtype) for a in _pair_inputs(case))
+        before = launches.value
+        got = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        torch.cuda.synchronize()
+        assert launches.value == before + 1
+        assert got.shape == q.shape[:3] + (128,)
+        want = attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=str(case))
+        got = blockwise_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"blockwise {case}")
+    for d, dv in ((128, 64), (192, 64)):
+        x, y = torch.zeros((1, 2, 8, d), device=dev, dtype=dtype), torch.zeros((1, 2, 8, dv), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="v width"):
+            flash_attention(x, x, y)
