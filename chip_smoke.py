@@ -214,7 +214,45 @@ Phases (each prints one JSON line; any failure exits nonzero):
    ring: B 2, Hq 32, Hkv 16, 1,024 slots, unmasked) and
    ``flash_attention_decode_mqa`` (granite's filled cache: Hq 48, Hkv 1,
    288 keys), each against the plain version, timed back to back and
-   queued beside ``scaled_dot_product_attention`` with its bound.
+   queued beside ``scaled_dot_product_attention`` with its bound;
+14. train: the training half.  B11 (``flash_attention_bwd``, the
+   gradient of attention) against ``attention_bwd_ref`` on the card at
+   every instantiated width (16, 32, 128), fp32 and bf16, causal,
+   windowed and unmasked, Hq / Hkv 1, 4 and 8, ragged S, a query offset
+   (``BWD_CASES``; the forward's log-sum-exp within ``LSE_TOL``, the
+   gradients within ``BWD_TOL``, the autograd path too), D 192 and the
+   (192, 128) pair raising; its row at the forward row's shape (B 4, Hq
+   32, Hkv 8, S 4096, D 128, causal, bf16: back to back and queued, the
+   plain version, SDPA's backward as the library, the bound 2.5 x the
+   forward's FLOP on bf16 tensor cores, ptxas) and the
+   ``flash_attention_lse`` row (that forward with the log-sum-exp
+   written, beside it not written).  llama3-8b at full width, 2 layers,
+   1 x 1,024 tokens, bf16: every parameter's gradient through the
+   kernels against the same loss through ``attention_ref`` with
+   autograd (``GRAD_REL_L2``).  llama3-8b training at full width, 8 of
+   32 layers (2,795,573,248 parameters: bf16 weights and grads, fp32
+   AdamW state), B 8 x 4,096 (``train_4k``'s sequence; batch cut from
+   256), ``lm_batches(0, 8, 4096, 128256)``'s batch 0 repeated, remat,
+   ``ce_chunk`` 512, ``adamw(lr=3e-4)`` behind a 100-step linear warmup
+   (``TRAIN_LM_WARMUP``), through ``train_loop`` with a checkpoint
+   directory: 3 steps (the first a warm-up), saved, one more step of the
+   live state under the profiler (its device time by class: B11, the
+   attention forward, the GEMMs, the rest; the AdamW window between
+   CUDA events); then everything dropped, a model from another seed
+   resumed from the checkpoint (its parameters and optimizer state
+   fingerprinted against the saved ones: bit for bit) and stepped once
+   (its loss against the uninterrupted run's, ``RESUME_TOL``); the loss
+   must fall; the launches of a step: ``flash_attention`` 16 (forward
+   and remat recompute), ``flash_attention_bwd`` 8.  The recsys
+   rankers' ``train_batch`` at full width (bst, DeepFM, AutoInt, DIEN;
+   65,536 rows of ``ctr_batches``, DIEN's halved until its GRU steps
+   fit), and GAT's ``full_graph_sm`` (Cora's sizes), ``minibatch_lg``
+   (1,024 seeds, fanout 15-10, from a ``powerlaw_graph`` at Reddit's
+   232,965 nodes and 114,615,892 edges, CSR and sampler on the host) and
+   ``molecule`` (128 graphs): each one step on a small batch held to a
+   CPU copy (``TRAIN_STEP_TOL``: every gradient, relative L2 per leaf,
+   then the loss and the updated parameters), then a warm-up and three timed steps
+   (rows/s, edges/s).  ``ogb_products`` waits for A10.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -313,6 +351,13 @@ KERNELS = {
     "flash_attention_decode_mqa": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
                                    "_make_kernel :30; the Sq = 1 mapping at Hkv 1)"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "(no Pallas kernel) the gradient of `blockwise_attention`, `src/repro/models/layers.py:94`, "
+                            "taken by `jax.value_and_grad` at `src/repro/launch/steps.py:261`"),
+    "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                            "_make_kernel :30; the prefill with the log-sum-exp written: training's forward and "
+                            "its remat recompute)"),
     "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
                           "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
                           "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
@@ -2756,6 +2801,740 @@ def check_zoo_flash(zoo_launches):
     return ok_p and ok_r and ok_m, [pre, ring, mqa]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training (the attention gradient B11, llama3-8b, recsys, GAT)
+# ---------------------------------------------------------------------------
+
+# B11 against attention_bwd_ref: (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset)
+BWD_CASES = [
+    (2, 4, 4, 70, 70, 16, True, None, None), (2, 8, 1, 200, 200, 32, True, None, None),
+    (1, 8, 2, 300, 300, 128, True, None, None), (2, 4, 1, 129, 129, 128, False, None, None),
+    (1, 8, 8, 513, 513, 128, True, 100, None), (1, 4, 4, 100, 260, 32, True, None, None),
+    (1, 4, 1, 64, 200, 16, True, None, -20), (2, 8, 2, 65, 333, 128, False, None, None),
+    (1, 4, 4, 257, 257, 32, True, 64, None),
+]
+LSE_TOL = "|kernel - plain| <= 1e-4 (1 + |plain|), fp32 lse; +inf on the same rows"
+BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2^-7 |plain| + 1e-3 rms(plain) "
+           "(one bf16 step of the value: both sum in fp32 and round once)")
+BWD_ROW = (4, 32, 8, 4096, 128)   # B, Hq, Hkv, S, D: the forward row's shape, causal, bf16
+# full-width gradients through the kernels against the same step through attention_ref with autograd
+GRAD_CHECK = (2, 1, 1024)         # layers, batch, tokens
+GRAD_REL_L2 = 0.05                # per leaf, bf16: the kernel's P.V is two bf16 terms, the plain P fp32
+# llama3-8b training at full width, depth cut
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 8, 4096
+# the reference's adamw(lr=3e-4) behind a linear warmup over 100 steps: at a
+# constant 3e-4 Adam's first steps move all 2.8 B parameters by +-lr at once,
+# and the loss on one batch rises 11.8 -> 14.0 -> 14.6 -> 25.7 through the
+# kernels and through attention_ref alike; over 10 steps it still rises
+# (scripts/train_lm_lr_witness.py on an NVIDIA H100 80GB HBM3, 700 W; PERF.md,
+# section 6)
+TRAIN_LM_WARMUP = 100
+RESUME_TOL = 1e-4                 # |resumed - uninterrupted| / |loss| at the first step after the restore
+# recsys and GAT steps held to a CPU copy
+RECSYS_TRAIN_BATCH, TRAIN_PARITY_ROWS = 65536, 512
+TRAIN_GRAD_REL_L2 = 1e-4          # per leaf, fp32 on both: the CPU tests' bound against JAX
+TRAIN_STEP_TOL = (f"gradients: relative L2 per leaf <= {TRAIN_GRAD_REL_L2}; loss: |card - cpu| <= 1e-5 |cpu|; "
+                  "parameters after one AdamW step: |card - cpu| <= 1e-5 (1 + |cpu|) where the CPU gradient "
+                  "is 0 or >= 1e-6 (the first step maps g to lr g / (|g| + 1e-8): between the two, the "
+                  "rounding of g moves the parameter by up to lr, so those are held by the gradients alone)")
+GNN_MINIBATCH_SEEDS, GNN_FANOUT = 1024, (15, 10)
+
+
+class StepFailed(Exception):
+    """A train step that raised: not retried (``GuardedStep`` retries a
+    ``RuntimeError``, and a failure here is a failed check)."""
+
+
+def bwd_grad_gap(got, want, dtype):
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = want.pow(2).mean().sqrt()
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    atol = (1e-4 if dtype == torch.float32 else 1e-3) * rms + 1e-30
+    ok = bool((err <= rel * want.abs() + atol).all()) and bool(got.isfinite().all())
+    return ok, float(err.max()), float(err.max() / rms.clamp_min(1e-30))
+
+
+def bwd_case(c, dtype, seed):
+    """One B11 case: the forward's log-sum-exp against ``attention_ref``'s,
+    ``flash_attention_bwd`` against ``attention_bwd_ref`` on the same
+    inputs (the kernel's own output and log-sum-exp), and the autograd
+    path's gradients against the same."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    b, hq, hkv, sq, sk, d, causal, window, off = c
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+    q, k, v, dout = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, d), draw(b, hq, sq, d)
+    q_offset = sk - sq if off is None else off
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device="cuda")
+    out = ops._launch(q, k, v, causal, window, d ** -0.5, q_offset, lse)
+    _, lse_ref = attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, return_lse=True)
+    fin = lse_ref.isfinite()
+    ok = bool(torch.equal(fin, lse.isfinite()))
+    ok &= bool(((lse - lse_ref)[fin].abs() <= 1e-4 * (1 + lse_ref[fin].abs())).all())
+    row = {"case": dict(zip(("B", "Hq", "Hkv", "Sq", "Sk", "D", "causal", "window", "q_offset"), c)),
+           "dtype": str(dtype).split(".")[-1], "lse_ok": ok,
+           "lse_max_abs_err": float((lse - lse_ref)[fin].abs().max()) if fin.any() else 0.0,
+           "rows_without_keys": int((~fin).sum())}
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window, q_offset=q_offset)
+    want = attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window, q_offset=q_offset)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ops.flash_attention(ql, kl, vl, causal=causal, window=window, q_offset=q_offset).backward(dout)
+    for name, a, w in [*zip(("dq", "dk", "dv"), got, want),
+                       *zip(("autograd_dq", "autograd_dk", "autograd_dv"), (ql.grad, kl.grad, vl.grad), want)]:
+        o, e, r = bwd_grad_gap(a, w, dtype)
+        row[name] = {"ok": o, "max_abs_err": e, "max_err_over_rms": r}
+        ok &= o
+    row["ok"] = ok
+    return ok, row
+
+
+def check_attention_bwd():
+    """B11 held to its plain version at every instantiated width, both
+    dtypes and every mask of ``BWD_CASES``; the widths it does not take
+    (192, MLA's (192, 128)) raise before the forward launches.  Returns
+    (ok, case rows, raises)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    ok, rows = True, []
+    for i, c in enumerate(BWD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            o, row = bwd_case(c, dtype, seed=i)
+            rows.append(row)
+            ok &= o
+    raised = {}
+    for d, dv in ((192, 192), (192, 128)):
+        q = torch.randn(1, 2, 64, d, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        v = torch.randn(1, 2, 64, dv, device="cuda", dtype=torch.bfloat16)
+        try:
+            ops.flash_attention(q, q.detach(), v, causal=True)
+            raised[f"{d}_{dv}"] = False
+        except NotImplementedError:
+            raised[f"{d}_{dv}"] = True
+    return ok and all(raised.values()), rows, raised
+
+
+def bwd_ptxas():
+    return {**ptxas_entries("flash_attention_bwd", "dkdv_kernel"), **ptxas_entries("flash_attention_bwd", "dq_kernel"),
+            **ptxas_entries("flash_attention_bwd", "delta_kernel")}
+
+
+def attention_bwd_rows():
+    """The ``flash_attention_bwd`` row at the forward row's shape (B 4,
+    Hq 32, Hkv 8, S 4096, D 128, causal, bf16): against the plain version
+    on the same inputs, its time back to back and queued, the plain
+    version's, SDPA's backward (its forward plus ``backward()`` less its
+    forward) and the bound (2.5 x the forward's FLOP on bf16 tensor
+    cores); and the D 128 forward with the log-sum-exp written (training's
+    forward) beside the same launch without it.  Returns (ok, bwd row,
+    lse row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    b, hq, hkv, s, d = BWD_ROW
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v, dout = draw(b, hq, s, d), draw(b, hkv, s, d), draw(b, hkv, s, d), draw(b, hq, s, d)
+    scale = d ** -0.5
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    out = ops._launch(q, k, v, True, None, scale, 0, lse)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    want = attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    ok, errs = True, []
+    for a, w in zip(got, want):
+        o, e, _ = bwd_grad_gap(a, w, torch.bfloat16)
+        ok &= o
+        errs.append(e)
+    del got, want
+    bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    t1 = time_ms(bwd, reps=3, warmup=1)
+    queued = queued_ms(bwd, reps=3)
+    t2 = time_ms(bwd, reps=3, warmup=0)
+    plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout, causal=True), reps=1, warmup=1)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True).backward(dout)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    fb, f_only = time_ms(sdpa_fwd_bwd, reps=5), time_ms(sdpa_fwd, reps=5)
+    pairs = b * hq * s * (s + 1) // 2
+    fwd_flops = 4.0 * pairs * d
+    n_bytes = 2 * (3 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s  # q, o, dO, dq; k, v, dk, dv; lse
+    b_ms, b_by = bound_ms(n_bytes, 2.5 * fwd_flops, BF16_FLOPS)
+    bwd_row = {"name": "flash_attention_bwd", "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                                                        "causal": True, "dtype": "bfloat16"},
+               "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tolerance": BWD_TOL,
+               "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": queued, "plain_ms": plain,
+               "library_ms": fb - f_only, "library_fwd_bwd_ms": fb, "library_fwd_ms": f_only,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True): forward + backward() less its forward",
+               "flops": 2.5 * fwd_flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_fp32_cuda_cores_ms": bound_ms(n_bytes, 2.5 * fwd_flops, FP32_FLOPS)[0],
+               "tflops_counted": 2.5 * fwd_flops / ((t1 + t2) / 2) / 1e9, "ptxas": bwd_ptxas()}
+    # the forward with the log-sum-exp written, beside the same launch without it
+    fwd_lse = lambda: ops._launch(q, k, v, True, None, scale, 0, lse)
+    fwd_none = lambda: ops._launch(q, k, v, True, None, scale, 0)
+    w1, n1 = time_ms(fwd_lse, reps=5), time_ms(fwd_none, reps=5)
+    qw, qn = queued_ms(fwd_lse, reps=10), queued_ms(fwd_none, reps=10)
+    w2, n2 = time_ms(fwd_lse, reps=5), time_ms(fwd_none, reps=5)
+    ref, lse_ref = attention_ref(q, k, v, causal=True, return_lse=True)
+    out2 = fwd_lse()
+    ok_f, gap = flash_gap(out2, ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    ok_f &= lse_err <= 1e-4 * (1 + float(lse_ref.abs().max()))
+    plain_f = time_ms(lambda: attention_ref(q, k, v, causal=True, return_lse=True), reps=2, warmup=1)
+    del ref, lse_ref
+    lib_f = time_ms(sdpa_fwd, reps=5)
+    fb_ms, fb_by = bound_ms(2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s, fwd_flops, BF16_FLOPS)
+    lse_row = {"name": "flash_attention_lse", "shape": bwd_row["shape"], **gap, "lse_max_abs_err": lse_err,
+               "ms": (w1 + w2) / 2, "ms_turns": [w1, w2], "queued_ms": qw,
+               "ms_lse_not_written": (n1 + n2) / 2, "ms_lse_not_written_turns": [n1, n2],
+               "queued_ms_lse_not_written": qn, "plain_ms": plain_f, "library_ms": lib_f,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16, causal (no log-sum-exp out)",
+               "bound_ms": fb_ms, "bound_by": fb_by}
+    del q, k, v, dout, out, out2, lse, ql, kl, vl
+    torch.cuda.empty_cache()
+    return ok and ok_f, bwd_row, lse_row
+
+
+def fingerprint(tree, chunk: int = 1 << 26):
+    """Per leaf, two int64 sums of its raw bits (as integers, and weighted
+    by position mod 65521 + 1), on its device: equal fingerprints show a
+    restore bit for bit (any single flipped bit changes both)."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        t = x.detach().reshape(-1)
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+        w = t.view(bits)
+        s1 = s2 = 0
+        for i in range(0, w.numel(), chunk):
+            part = w[i:i + chunk].to(torch.int64)
+            pos = torch.arange(i, i + part.numel(), device=part.device) % 65521 + 1
+            s1 += int(part.sum())
+            s2 += int((part * pos).sum())
+        out.append((s1, s2))
+    return out
+
+
+def synced_step(step_fn, launches: list):
+    """``step_fn`` ended by a device sync (so ``train_loop``'s step seconds
+    are the step's own), with each call's kernel launches appended to
+    ``launches``; a ``RuntimeError`` becomes :class:`StepFailed` (no
+    retry, no restore)."""
+    import torch
+
+    from repro_torch.obs import metrics
+
+    names = ("flash_attention", "flash_attention_bwd")
+
+    def fn(params, opt_state, batch):
+        before = {n: metrics.counter(f"kernel.{n}.launches").value for n in names}
+        try:
+            out = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise StepFailed(f"{type(e).__name__}: {e}") from e
+        launches.append({n: metrics.counter(f"kernel.{n}.launches").value - before[n] for n in names})
+        return out
+
+    return fn
+
+
+def full_width_grads(dev):
+    """llama3-8b at full width, ``GRAD_CHECK``'s 2 layers, 1 x 1,024
+    tokens, bf16: every parameter's gradient through the kernels (the
+    forward twice a layer with remat, B11 once) against the same loss
+    through ``attention_ref`` with autograd, relative L2 per leaf."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import transformer_init, transformer_loss
+    from repro_torch.obs import metrics
+
+    n_layers, b, s = GRAD_CHECK
+    cfg = dataclasses.replace(get_arch("llama3-8b").make_config(), n_layers=n_layers)
+    model = transformer_init(0, cfg, device=dev).requires_grad_(True)
+    batch = lm_batches(1, b, s, cfg.vocab)(0)
+    tokens, labels = (torch.from_numpy(batch[k]).to(dev) for k in ("tokens", "labels"))
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = transformer_loss(model, cfg, tokens, labels, ce_chunk=512)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    metrics.reset()
+    loss_k, g_k = grads()
+    launches = {n: metrics.counter(f"kernel.{n}.launches").value for n in ("flash_attention", "flash_attention_bwd")}
+    kernel_fn = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, **kw: attention_ref(q, k, v, **kw)  # the plain path, autograd
+    try:
+        loss_p, g_p = grads()
+    finally:
+        layers.flash_attention = kernel_fn
+    rel = {n: float((g_k[n].float() - g_p[n].float()).norm() / g_p[n].float().norm().clamp_min(1e-30)) for n in g_p}
+    ok = max(rel.values()) <= GRAD_REL_L2 and all(bool(g.isfinite().all()) for g in g_k.values())
+    ok &= launches == {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    line = {"phase": "train_grads", "arch": "llama3-8b", "n_layers": n_layers, "batch": b, "tokens": s,
+            "dtype": "bfloat16", "loss_kernel": loss_k, "loss_plain": loss_p, "leaves": len(rel),
+            "max_rel_l2": max(rel.values()), "median_rel_l2": float(np.median(list(rel.values()))),
+            "worst_leaves": worst, "tolerance": f"per leaf relative L2 <= {GRAD_REL_L2}", "launches": launches,
+            "ok": ok}
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+    return ok, line
+
+
+def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt):
+    """One ``lm_train_step`` under ``torch.profiler``: (its result, the
+    split of its device time).  The trace's kernels are summed by class:
+    B11 (``delta``, ``dkdv``, ``dq``), the attention forward (the prefill
+    launches: forward and remat recompute), the GEMMs (cuBLAS and
+    CUTLASS kernels) and the rest (norms, activations, the loss, the
+    embedding's scatter, the clip and the optimizer's elementwise
+    kernels).  CUDA events bound the optimizer on the device timeline:
+    ``opt.update`` (the AdamW math) and ``apply_updates`` after it; the
+    forward, backward and clip come before."""
+    import torch
+
+    from repro_torch.train.optimizer import Optimizer
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def update(grads, st, p=None):
+        ev[1].record()
+        out = opt.update(grads, st, p)
+        ev[2].record()
+        return out
+
+    res = {}
+
+    def run():
+        ev[0].record()
+        res["out"] = step_fn(model, cfg, params, state, batch, n_microbatches=n_mb, ce_chunk=chunk,
+                             opt=Optimizer(opt.init, update))
+        ev[3].record()
+
+    wall, busy, union, kernels = device_busy(run, top=1 << 30)
+    classes = {"flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+               "flash_attention_fwd": ("prefill_",),
+               "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
+    by = {c: 0.0 for c in (*classes, "other")}
+    for name, ms, _ in kernels:
+        c = next((c for c, keys in classes.items() if any(k in name.lower() for k in keys)), "other")
+        by[c] += ms / 1e3
+    step_s = ev[0].elapsed_time(ev[3]) / 1e3
+    split = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
+             "idle_share": None if union is None else 1.0 - union / wall, "kernels_s": by,
+             "busy_share": None if not busy else {c: v / busy for c, v in by.items()},
+             "events_s": {"step": step_s, "forward_backward_clip": ev[0].elapsed_time(ev[1]) / 1e3,
+                          "adamw_update": ev[1].elapsed_time(ev[2]) / 1e3,
+                          "apply_updates": ev[2].elapsed_time(ev[3]) / 1e3},
+             "top_kernels": kernels[:12]}
+    return res["out"], split
+
+
+def lm_train(dev):
+    """llama3-8b training at full width, ``TRAIN_LM_LAYERS`` of 32 layers,
+    B 8 x 4,096 (``train_4k``'s sequence; batch cut from 256), bf16,
+    remat, through ``train_loop`` with a checkpoint directory: 3 steps on
+    one repeated batch (step 0 the warm-up), saved; one more step of the
+    live state (the uninterrupted run); dropped (the kill); a model drawn
+    from another seed resumed by ``train_loop`` from the checkpoint (no
+    step left, so nothing is written again: one 26 GiB checkpoint a run,
+    not two), its state fingerprinted against the saved one's, then
+    stepped once.  Returns (ok, line, launches a
+    step)."""
+    import dataclasses
+    import functools
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.steps import lm_ce_chunk, lm_microbatches, lm_train_step
+    from repro_torch.models.transformer import transformer_init
+    from repro_torch.train.optimizer import adamw, param_tree
+    from repro_torch.train.schedule import warmup_linear
+    from repro_torch.train.trainer import TrainLoopConfig, train_loop
+
+    cfg = dataclasses.replace(get_arch("llama3-8b").make_config(), n_layers=TRAIN_LM_LAYERS)
+    opt = adamw(lr=warmup_linear(3e-4, TRAIN_LM_WARMUP, 10_000))
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    batch0 = lm_batches(0, TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg.vocab)(0)
+    make_batch = lambda step: batch0  # noqa: E731  (a repeated batch: the loss must fall)
+    n_mb, chunk = lm_microbatches(cfg, TRAIN_LM_BATCH), lm_ce_chunk(cfg)
+    line = {"phase": "train_lm", "arch": "llama3-8b", "dtype": str(cfg.dtype), "n_layers": cfg.n_layers,
+            "params": cfg.param_count(), "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "microbatches": n_mb,
+            "ce_chunk": chunk, "remat": cfg.remat,
+            "optimizer": f"adamw(lr=warmup_linear(3e-4, {TRAIN_LM_WARMUP}, 10000)), fp32 state, clip 1.0",
+            "reduced": {"n_layers": "8 of 32 (the weights, grads and fp32 AdamW state of one card)",
+                        "global_batch": "8 of train_4k's 256 (one microbatch)"}}
+
+    def start(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = transformer_init(seed, cfg, device=dev).requires_grad_(True)
+        params = param_tree(model)
+        state = opt.init(params)
+        torch.cuda.synchronize()
+        return model, params, state, time.perf_counter() - t0
+
+    launches, logs = [], []
+    model, params, state, init_s = start(0)
+    step = synced_step(functools.partial(lm_train_step, model, cfg, n_microbatches=n_mb, ce_chunk=chunk, opt=opt),
+                       launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_loop(TrainLoopConfig(total_steps=3, ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=1),
+                     step, params, state, make_batch, log=logs.append)
+    loop_s = time.perf_counter() - t0
+    hist = out["history"]
+    state = out["opt_state"]
+    saved_fp = fingerprint((params, state))
+    peak = torch.cuda.max_memory_allocated()
+    # the uninterrupted run's next step, under the profiler
+    (_, state, m3), split = profiled_lm_step(lm_train_step, model, cfg, params, state, batch0, n_mb, chunk, opt)
+    loss_a3 = float(m3["loss"])
+    step_s = [h["step_s"] for h in hist]
+    losses = [h["loss"] for h in hist] + [loss_a3]
+    line.update({"init_s": init_s, "losses": losses, "step_s": step_s + [None],
+                 "warmup_step_s": step_s[0], "step_s_timed": step_s[1:],
+                 "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / float(np.median(step_s[1:])),
+                 "save_s": loop_s - sum(step_s), "peak_mem_bytes": peak, "launches_a_step": launches[1],
+                 "grad_norm_last": float(m3["grad_norm"]), "profiled_step": split})
+    # the kill: every tensor of the run dropped
+    del model, params, state, out, step, m3
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, state, _ = start(1)  # other weights: the restore must overwrite every leaf
+    step = synced_step(functools.partial(lm_train_step, model, cfg, n_microbatches=n_mb, ce_chunk=chunk, opt=opt),
+                       launches)
+    t0 = time.perf_counter()
+    out = train_loop(TrainLoopConfig(total_steps=3, ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=1),
+                     step, params, state, make_batch, log=logs.append)
+    restore_s = time.perf_counter() - t0
+    state = out["opt_state"]
+    restored = fingerprint((params, state)) == saved_fp
+    _, state, m3 = step(params, state, batch0)  # the resumed run's next step
+    loss_b3 = float(m3["loss"])
+    line.update({"resumed_from": [s for s in logs if s.startswith("resumed")], "restore_s": restore_s,
+                 "restored_bit_for_bit": restored, "resumed_step": int(state["step"]) - 1,
+                 "resumed_loss": loss_b3, "uninterrupted_loss": loss_a3,
+                 "resume_rel_diff": abs(loss_b3 - loss_a3) / abs(loss_a3), "resume_tolerance": RESUME_TOL,
+                 "checkpoint_bytes": sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())})
+    ok = all(np.isfinite(losses)) and losses[-1] < losses[0] and restored and not out["history"]
+    ok &= line["resumed_step"] == 3 and line["resume_rel_diff"] <= RESUME_TOL
+    ok &= launches[1] == {"flash_attention": 2 * TRAIN_LM_LAYERS, "flash_attention_bwd": TRAIN_LM_LAYERS}
+    line["ok"] = ok
+    del model, params, state, out, step, m3
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return ok, line, launches[1]
+
+
+def cpu_step_parity(card_step, cpu_step, card_params, cpu_params, card_loss_fn, cpu_loss_fn):
+    """One train step on the card and the same step on a CPU copy: (ok,
+    fields) under ``TRAIN_STEP_TOL``.  First every parameter's gradient
+    on both (``card_loss_fn``, ``cpu_loss_fn``), relative L2 per leaf;
+    then the steps: the losses, and the parameters after the update
+    wherever the CPU gradient is 0 or at least 1e-6.  Between the two
+    AdamW's first step maps g to about lr g / (|g| + 1e-8), so the
+    rounding of a tiny g moves the parameter by up to lr: those elements
+    are held by the gradient check alone, and counted."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    def grads(params, loss_fn):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        return torch.autograd.grad(loss_fn(), leaves, materialize_grads=True)
+
+    g_card, g_cpu = grads(card_params, card_loss_fn), grads(cpu_params, cpu_loss_fn)
+    rel = [float((a.detach().cpu().double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+           for a, b in zip(g_card, g_cpu)]
+    ok = max(rel) <= TRAIN_GRAD_REL_L2
+    del g_card
+    m_cpu = cpu_step()
+    m_card = card_step()
+    l_cpu, l_card = float(m_cpu["loss"]), float(m_card["loss"])
+    ok &= abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    worst, zero, small = 0.0, 0, 0
+    for a, b, g in zip(tree_leaves(card_params), tree_leaves(cpu_params), g_cpu):
+        a, b = a.detach().cpu().float(), b.detach().float()
+        held = (g == 0) | (g.abs() >= 1e-6)
+        if held.any():
+            e = float(((a - b).abs()[held] / (1 + b[held].abs())).max())
+            ok &= e <= 1e-5
+            worst = max(worst, e)
+        zero += int((g == 0).sum())
+        small += int((~held).sum())
+    return ok, {"loss_card": l_card, "loss_cpu": l_cpu, "grad_max_rel_l2": max(rel),
+                "grad_median_rel_l2": float(np.median(rel)), "leaves": len(rel), "param_max_err": worst,
+                "elements": sum(g.numel() for g in g_cpu), "elements_zero_grad": zero,
+                "elements_grad_below_1e-6": small}
+
+
+def recsys_train(dev):
+    """The four recsys rankers' ``train_batch`` at full width: a step on
+    ``TRAIN_PARITY_ROWS`` rows held to a CPU copy, then one warm-up and
+    three timed ``recsys_train_step``s at 65,536 rows of ``ctr_batches``
+    (DIEN's batch halved until its 2 x 100 GRU steps fit).  Returns (ok,
+    lines)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import ctr_batches
+    from repro_torch.launch.steps import recsys_optimizer, recsys_train_step
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import param_tree
+
+    ok, lines = True, []
+    for name in ("bst", "deepfm", "autoint", "dien"):
+        t_model = time.perf_counter()
+        cfg = get_arch(name).make_config()
+        model = getattr(recsys, f"{name}_init")(0, cfg, device=dev)
+        host = copy.deepcopy(model).cpu()
+        seq = name in ("bst", "dien")
+
+        def batches(batch, seed):
+            if seq:
+                mk = ctr_batches(seed, batch, [cfg.item_vocab], seq_len=cfg.seq_len)
+                return lambda i: {k: v for k, v in mk(i).items() if k != "ids"}
+            return ctr_batches(seed, batch, cfg.vocab_sizes)
+
+        small = batches(TRAIN_PARITY_ROWS, 1)(0)
+        opt = recsys_optimizer()
+        card_tree, host_tree = param_tree(model), param_tree(host)
+        card_state, host_state = opt.init(card_tree), opt.init(host_tree)
+        small_dev = {k: torch.as_tensor(v, device=dev) for k, v in small.items()}
+        p_ok, parity = cpu_step_parity(
+            lambda: recsys_train_step(model, cfg, card_tree, card_state, small)[2],
+            lambda: recsys_train_step(host, cfg, host_tree, host_state, small)[2],
+            card_tree, host_tree,
+            lambda: recsys.bce_loss(recsys.recsys_logits(model, cfg, small_dev), small_dev["label"]),
+            lambda: recsys.bce_loss(recsys.recsys_logits(host, cfg, small), small["label"]))
+        del host, host_tree, host_state, small_dev
+        gc.collect()
+        state = opt.init(card_tree)
+        batch, tried, step_s, losses = RECSYS_TRAIN_BATCH, [], [], []
+        while True:
+            make = batches(batch, 0)
+            try:
+                step_s, losses = [], []
+                for i in range(4):
+                    b = make(i)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, state, m = recsys_train_step(model, cfg, card_tree, state, b)
+                    losses.append(float(m["loss"]))
+                    step_s.append(time.perf_counter() - t0)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if name != "dien" or batch <= 1024:
+                    raise
+                tried.append(batch)
+                batch //= 2
+                state = opt.init(card_tree)
+                gc.collect()
+                torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        row = {"phase": "train_recsys", "arch": name, "params": sum(p.numel() for p in model.parameters()),
+               "batch": batch, "parity_rows": TRAIN_PARITY_ROWS, "parity_ok": p_ok, "parity": parity,
+               "tolerance": TRAIN_STEP_TOL, "warmup_step_s": step_s[0], "step_s": step_s[1:],
+               "rows_per_s": batch / float(np.median(step_s[1:])), "losses": losses, "peak_mem_bytes": peak,
+               "seconds": time.perf_counter() - t_model}
+        if tried:
+            row["reduced"] = {"batch": f"{batch} of train_batch's {RECSYS_TRAIN_BATCH}: "
+                                       f"{tried} ran out of memory in the GRU steps' saved activations"}
+        step_ok = p_ok and all(np.isfinite(losses))
+        row["ok"] = step_ok
+        ok &= step_ok
+        lines.append(row)
+        del model, card_tree, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return ok, lines
+
+
+def gnn_train(dev):
+    """GAT (gat-cora's layers) on three of its shapes: ``full_graph_sm``
+    at Cora's sizes, ``minibatch_lg`` (1,024 seeds, fanout 15-10, 602
+    features, drawn by ``sample_fanout`` from a ``powerlaw_graph`` at
+    Reddit's 232,965 nodes and 114,615,892 edges) and ``molecule`` (128
+    graphs of 30 nodes, 64 edges): a step held to a CPU copy, then one
+    warm-up and three timed ``gnn_train_step``s.  Returns (ok, lines)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.gat_cora import config_for_shape
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.data.graph_sampler import build_csr, sample_fanout
+    from repro_torch.data.synthetic import powerlaw_graph, random_small_graphs
+    from repro_torch.launch.steps import gnn_optimizer, gnn_train_step
+    from repro_torch.models import gnn
+
+    def full_batch(g):
+        n, e = len(g["feats"]), len(g["src"])
+        return {"feats": g["feats"], "src": g["src"], "dst": g["dst"], "labels": g["labels"],
+                "label_mask": np.ones(n, np.float32), "edge_mask": np.ones(e, bool)}
+
+    ok, lines = True, []
+    meta = GNN_SHAPES["full_graph_sm"].meta
+    cora = powerlaw_graph(np.random.default_rng(0), meta["n_nodes"], meta["n_edges"], meta["d_feat"])
+    meta = GNN_SHAPES["minibatch_lg"].meta
+    t0 = time.perf_counter()
+    reddit = powerlaw_graph(np.random.default_rng(1), meta["n_nodes"], meta["n_edges"], meta["d_feat"])
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = build_csr(reddit["src"], reddit["dst"], meta["n_nodes"])
+    csr_s = time.perf_counter() - t0
+    del reddit["src"], reddit["dst"]
+
+    def sampled(i):
+        rng = np.random.default_rng([2, i])
+        seeds = rng.choice(meta["n_nodes"], size=GNN_MINIBATCH_SEEDS, replace=False).astype(np.int32)
+        blk = sample_fanout(csr, seeds, GNN_FANOUT, reddit["feats"], rng)
+        mask = np.zeros(len(blk["node_ids"]), np.float32)
+        mask[: blk["n_seeds"]] = 1.0
+        return {"feats": blk["feats"], "src": blk["src"], "dst": blk["dst"],
+                "labels": reddit["labels"][blk["node_ids"]], "label_mask": mask, "edge_mask": blk["edge_mask"]}
+
+    shapes = {"full_graph_sm": lambda i: full_batch(cora), "minibatch_lg": sampled,
+              "molecule": lambda i: random_small_graphs(np.random.default_rng([3, i]), 128, 30, 64, 64)}
+    for shape, make in shapes.items():
+        cfg = config_for_shape(shape)
+        params = gnn.gat_init(0, cfg, device=dev)
+        host = {"layers": [{k: v.detach().cpu().clone() for k, v in layer.items()} for layer in params["layers"]]}
+        opt = gnn_optimizer()
+        card_state, host_state = opt.init(params), opt.init(host)
+        b0 = make(0)
+
+        def loss_of(tree):
+            if "y" in b0:
+                logits = gnn.gat_forward_batched(tree, cfg, b0["feats"], b0["src"], b0["dst"])
+                return torch.mean(torch.square(logits.sum(-1) - torch.as_tensor(b0["y"], device=logits.device)))
+            return gnn.gat_loss(tree, cfg, b0["feats"], b0["src"], b0["dst"], b0["labels"],
+                                label_mask=b0["label_mask"], edge_mask=b0["edge_mask"])
+
+        p_ok, parity = cpu_step_parity(lambda: gnn_train_step(cfg, params, card_state, b0)[2],
+                                       lambda: gnn_train_step(cfg, host, host_state, b0)[2],
+                                       params, host, lambda: loss_of(params), lambda: loss_of(host))
+        state = opt.init(params)
+        step_s, sample_s, losses, edges = [], [], [], []
+        for i in range(1, 5):
+            t0 = time.perf_counter()
+            b = make(i)
+            sample_s.append(time.perf_counter() - t0)
+            edges.append(int(np.size(b["src"])))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = gnn_train_step(cfg, params, state, b)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        row = {"phase": "train_gnn", "arch": "gat-cora", "shape": shape, "d_in": cfg.d_in,
+               "n_classes": cfg.n_classes, "edges": edges[-1], "parity_ok": p_ok, "parity": parity,
+               "tolerance": TRAIN_STEP_TOL, "warmup_step_s": step_s[0], "step_s": step_s[1:],
+               "edges_per_s": float(np.median(edges[1:])) / float(np.median(step_s[1:])), "losses": losses}
+        if shape == "minibatch_lg":
+            row.update({"graph_nodes": meta["n_nodes"], "graph_edges": meta["n_edges"], "generate_s": gen_s,
+                        "csr_s": csr_s, "sample_s": sample_s[1:], "fanout": list(GNN_FANOUT),
+                        "seeds": GNN_MINIBATCH_SEEDS, "block_nodes": int(len(b["feats"]))})
+        row["ok"] = p_ok and all(np.isfinite(losses))
+        ok &= row["ok"]
+        lines.append(row)
+        del params, host, state
+        torch.cuda.empty_cache()
+    del csr, reddit
+    gc.collect()
+    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A10: the reference shards "
+                  "its 61.9 M edges over the mesh, and its (E, H, D) fp32 messages and their gradients come to "
+                  "about 40 GB"})
+    return ok, lines
+
+
+def train_phase(dev):
+    """Phase 14: B11 against its plain version, its row and the forward
+    row with the log-sum-exp, the full-width gradient check, llama3-8b
+    training with save and resume, the recsys and GAT steps; each phase
+    line is printed as its part ends.  Returns (ok, kernel rows, launches
+    by row)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    b_ok, cases, raised = check_attention_bwd()
+    emit({"phase": "train_attention", "seconds": time.perf_counter() - t_phase, "cases": len(cases), "ok": b_ok,
+          "tolerances": {"lse": LSE_TOL, "grad": BWD_TOL}, "uninstantiated_widths_raise": raised,
+          "max_abs_err_by_dtype": {dt: max(max(r[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
+                                       for r in cases if r["dtype"] == dt) for dt in ("float32", "bfloat16")},
+          "failed": [r for r in cases if not r["ok"]]})
+    t0 = time.perf_counter()
+    r_ok, bwd_row, lse_row = attention_bwd_rows()
+    emit({"phase": "train_attention_rows", "seconds": time.perf_counter() - t0, "ok": r_ok,
+          **{f"{r['name']}_ms": r["ms"] for r in (bwd_row, lse_row)}})
+    t0 = time.perf_counter()
+    g_ok, g_line = full_width_grads(dev)
+    emit({**g_line, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    l_ok, l_line, step_launches = lm_train(dev)
+    emit({**l_line, "seconds": time.perf_counter() - t0})
+    rs_ok, rs_lines = recsys_train(dev)
+    for line in rs_lines:
+        emit(line)
+    gn_ok, gn_lines = gnn_train(dev)
+    for line in gn_lines:
+        emit(line)
+    torch.cuda.empty_cache()
+    ok = b_ok and r_ok and g_ok and l_ok and rs_ok and gn_ok
+    emit({"phase": "train", "seconds": time.perf_counter() - t_phase, "ok": ok,
+          "checks": {"attention_bwd_cases": b_ok, "attention_rows": r_ok, "full_width_grads": g_ok,
+                     "llama3_8b_train": l_ok, "recsys_train": rs_ok, "gnn_train": gn_ok}})
+    launches = {"flash_attention_bwd": step_launches["flash_attention_bwd"],
+                "flash_attention_lse": step_launches["flash_attention"]}
+    return ok, [bwd_row, lse_row], launches
+
+
 def run(args) -> int:
     import torch
 
@@ -3000,8 +3779,14 @@ def run(args) -> int:
           "models_ok": zoo_ok, "flash_rows_ok": zf_ok})
     ok &= zoo_ok and zf_ok and all(n > 0 for n in zoo_launches.values())
     launches.update(zoo_launches)
+    # 14. training: B11 and its rows, the full-width gradient check,
+    #     llama3-8b with save and resume, the recsys and GAT steps, each
+    #     step's launch counts read around it
+    tr_ok, tr_rows, tr_launches = train_phase(dev)
+    ok &= tr_ok and all(n > 0 for n in tr_launches.values())
+    launches.update(tr_launches)
     rows = []
-    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows]:
+    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

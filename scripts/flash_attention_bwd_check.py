@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""A short first call after a change to ``csrc/flash_attention_bwd.cu``
+(B11, the gradient of attention): build it and the forward, print what
+ptxas says of every instantiation, and hold the kernel to its plain
+version on the card, as ``chip_smoke.py``'s phase 14 does.
+
+    python3 scripts/flash_attention_bwd_check.py     # one CUDA card, ~1 min with the build
+
+Cases (``chip_smoke.BWD_CASES``): every head width the backward takes
+(16, 32, 128), fp32 and bf16, causal, windowed and unmasked, Hq / Hkv of
+1, 4 and 8, ragged S, a query offset (rows with no key among them).
+Each case runs the forward with the log-sum-exp written (against
+``attention_ref``'s, ``LSE_TOL``), ``flash_attention_bwd`` against
+``attention_bwd_ref`` on the same inputs, output and log-sum-exp
+(``BWD_TOL``), and the autograd path against the same; D 192 and the
+(192, 128) pair must raise.  Then the ``flash_attention_bwd`` row at
+llama3-8b's prefill shape (B 4, Hq 32, Hkv 8, S 4096, D 128, causal,
+bf16: back to back and queued, the plain version, SDPA's backward, the
+bound) and the ``flash_attention_lse`` row (the forward with the
+log-sum-exp written and not).  Prints one JSON line a case and a row,
+and exits nonzero if any check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("flash_attention_bwd_check: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+
+    obs.enable(trace=False, metrics_on=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": chip_smoke.bwd_ptxas()}), flush=True)
+    ok, rows, raised = chip_smoke.check_attention_bwd()
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"uninstantiated_widths_raise": raised}), flush=True)
+    r_ok, bwd_row, lse_row = chip_smoke.attention_bwd_rows()
+    print(json.dumps(bwd_row), flush=True)
+    print(json.dumps(lse_row), flush=True)
+    ok &= r_ok
+    print(json.dumps({"ok": ok, "tolerances": {"lse": chip_smoke.LSE_TOL, "grad": chip_smoke.BWD_TOL}}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,11 +4,11 @@ Each arch module registers an ``ArchSpec`` carrying its full config, a
 reduced same-family config for CPU tests, its shape table and its
 documented skips.  ``_ensure_loaded`` imports the configs the port can
 run: the five LMs (``llama3_8b``, ``gemma3_27b``, ``granite_20b``,
-``grok1_314b``, ``deepseek_v2_236b``) and the four recsys rankers
-``bst``, ``deepfm``, ``dien`` and ``autoint``.  The reference's GNN
-config (gat-cora) waits with ``models/gnn.py`` (ROADMAP A11b);
-laf_dbscan's launch config (``LAFClusterConfig`` and its entry) waits
-for A10.  Its ``StreamConfig`` is ported as a plain dataclass in
+``grok1_314b``, ``deepseek_v2_236b``), the four recsys rankers
+``bst``, ``deepfm``, ``dien`` and ``autoint``, and the GNN
+``gat_cora`` (its ``ogb_products`` shape, edge-sharded in the
+reference, waits for A10 with the mesh).  laf_dbscan's launch config
+(``LAFClusterConfig`` and its entry) waits for A10.  Its ``StreamConfig`` is ported as a plain dataclass in
 ``configs/laf_dbscan.py``, outside the registry.
 """
 
@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Mapping
 
 __all__ = [
     "ShapeSpec", "ArchSpec", "register", "get_arch", "list_archs", "REGISTRY",
-    "LM_SHAPES", "FULL_ATTENTION_SKIP", "RECSYS_SHAPES",
+    "LM_SHAPES", "FULL_ATTENTION_SKIP", "RECSYS_SHAPES", "GNN_SHAPES",
 ]
 
 
@@ -66,7 +66,7 @@ def list_archs():
 
 def _ensure_loaded():
     from . import (  # noqa: F401  (each registers on first import)
-        autoint, bst, deepfm, deepseek_v2_236b, dien, gemma3_27b, granite_20b, grok1_314b, llama3_8b,
+        autoint, bst, deepfm, deepseek_v2_236b, dien, gat_cora, gemma3_27b, granite_20b, grok1_314b, llama3_8b,
     )
 
 
@@ -86,6 +86,26 @@ FULL_ATTENTION_SKIP = (
     "regime is reserved for sub-quadratic/hybrid archs per the assignment "
     "(DESIGN.md §4)."
 )
+
+GNN_SHAPES: Dict[str, ShapeSpec] = {
+    "full_graph_sm": ShapeSpec(
+        "full_graph_sm", "train", {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}
+    ),
+    "minibatch_lg": ShapeSpec(
+        "minibatch_lg",
+        "train",
+        {
+            "n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+            "fanout1": 15, "fanout2": 10, "d_feat": 602,
+        },
+    ),
+    "ogb_products": ShapeSpec(
+        "ogb_products", "train", {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}
+    ),
+    "molecule": ShapeSpec(
+        "molecule", "train", {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 64}
+    ),
+}
 
 RECSYS_SHAPES: Dict[str, ShapeSpec] = {
     "train_batch": ShapeSpec("train_batch", "train", {"batch": 65536}),

@@ -76,6 +76,12 @@
 // tile's steps in order (TC), and the decode mapping fits two blocks an
 // SM (Dec<T, D>).
 //
+// For training, each prefill mapping also writes a query's fp32
+// log-sum-exp of the scaled scores (m + log l from its running max and
+// normalizer, +inf where no key was left) when the caller passes an lse
+// buffer: the one input the backward (flash_attention_bwd.cu, B11) needs
+// beyond q, k, v and the output.  Serving passes none.
+//
 // Left for later: no cluster multicast of K/V across the GQA group, no
 // FP8, no persistent blocks, no store of the output through TMA.
 #include <cuda.h>
@@ -97,7 +103,15 @@ struct Params {
   int n_split, split_tiles;  // decode: splits of Sk and 64-key tiles per split
   float* part_ml;            // decode scratch (B, Hq, n_split, 2): m, l
   float* part_acc;           // decode scratch (B, Hq, n_split, D)
+  float* lse;                // prefill, optional (B, Hq, Sq): log-sum-exp of the scaled scores, for the backward
 };
+
+// a row's natural log-sum-exp from its running max m (natural units) and
+// normalizer l; +inf where no key was left, so that the backward's
+// exp(s - lse) is 0 on it
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
 
 __device__ __forceinline__ bool keep(int qp, int kp, int sk, int causal, int window) {
   return kp < sk && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
@@ -268,6 +282,7 @@ __global__ void __launch_bounds__(NT) prefill_fp32_kernel(Params p) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ob[(long long)(q0 + r) * D + tx + 16 * j] = acc[i][j] / den;
+    if (p.lse != nullptr && tx == 0) p.lse[(long long)(b * p.Hq + h) * p.Sq + q0 + r] = row_lse(m[i], l[i]);
   }
 }
 
@@ -769,6 +784,9 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const int qi = q0 + row + 8 * hr;
     if (qi >= p.Sq) continue;
     const float den = fmaxf(lr, 1e-30f);
+    // m is in base-2 units of the scaled scores
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[(long long)(b * p.Hq + h) * p.Sq + qi] = row_lse(m[hr] * (1.f / LOG2E), lr);
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)qi * DV + 8 * j + 2 * (lane % 4)) =
@@ -1116,8 +1134,10 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 // caller pads v to D.  Decode (Sq == 1) runs n_split splits of
 // split_tiles 64-key tiles each; with n_split > 1, part_ml (B, Hq,
 // n_split, 2) and part_acc (B, Hq, n_split, D) are fp32 scratch and a
-// second kernel merges them.  Returns cudaGetLastError() after the
-// launches.
+// second kernel merges them.  lse, when not null, receives each query's
+// fp32 log-sum-exp of the scaled scores (B, Hq, Sq) from the prefill
+// mappings (Sq > 1; the decode mapping writes none).  Returns
+// cudaGetLastError() after the launches.
 constexpr int kPadV = -1;
 
 extern "C" int flash_attention_launch(
@@ -1127,14 +1147,16 @@ extern "C" int flash_attention_launch(
     long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss,
     int causal, int window, int q_offset, float scale,
-    int n_split, int split_tiles, void* part_ml, void* part_acc, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (dtype != 0 && dtype != 1))
+    int n_split, int split_tiles, void* part_ml, void* part_acc, void* lse, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (dtype != 0 && dtype != 1) ||
+      (lse != nullptr && Sq == 1))
     return (int)cudaErrorInvalidValue;
   if (Sq == 1 && (n_split < 1 || split_tiles < 1 || (long long)n_split * split_tiles * DBK < Sk ||
                   (n_split > 1 && (part_ml == nullptr || part_acc == nullptr))))
     return (int)cudaErrorInvalidValue;
   Params p{q, k, v, out, B, Hq, Hkv, Sq, Sk, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, causal, window, q_offset,
-           scale, n_split, split_tiles, static_cast<float*>(part_ml), static_cast<float*>(part_acc)};
+           scale, n_split, split_tiles, static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+           static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Dv != D) {
     if (D == 192 && Dv == 128 && dtype == 1 && Sq > 1) return (int)launch_prefill_tc<192, 128>(p, s);

@@ -1,2 +1,3 @@
-"""Seeded synthetic datasets (numpy copy of the LAF part of
-``repro.data.synthetic``)."""
+"""Seeded synthetic datasets and the host data pipeline (numpy copies of
+``repro.data.synthetic``, ``repro.data.pipeline`` and
+``repro.data.graph_sampler``)."""

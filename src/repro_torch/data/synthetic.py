@@ -1,6 +1,7 @@
 """Synthetic dataset generators (numpy copy of the LAF-DBSCAN part of
-``repro.data.synthetic`` and of its ``token_stream`` and ``ctr_batch``:
-same draws from the same seeds).
+``repro.data.synthetic`` and of its ``token_stream``, ``ctr_batch``,
+``powerlaw_graph`` and ``random_small_graphs``: same draws from the same
+seeds).
 
 The paper evaluates on normalized high-dimensional neural embeddings
 (NYT bag-of-words 256-d, Glove 200-d, MS-MARCO passage embeddings
@@ -24,6 +25,8 @@ __all__ = [
     "train_test_split",
     "token_stream",
     "ctr_batch",
+    "powerlaw_graph",
+    "random_small_graphs",
 ]
 
 
@@ -140,3 +143,25 @@ def ctr_batch(
     if seq_len:
         out["hist"] = rng.integers(0, vocab_sizes[0], size=(batch, seq_len)).astype(np.int32)
     return out
+
+
+def powerlaw_graph(rng: np.random.Generator, n_nodes: int, n_edges: int, d_feat: int):
+    """Random graph with power-law-ish degree: preferential src sampling."""
+    w = 1.0 / (np.arange(1, n_nodes + 1) ** 0.8)
+    w /= w.sum()
+    src = rng.choice(n_nodes, size=n_edges, p=w).astype(np.int32)
+    dst = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    feats = rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    labels = rng.integers(0, 7, size=n_nodes).astype(np.int32)
+    return {"src": src, "dst": dst, "feats": feats, "labels": labels}
+
+
+def random_small_graphs(
+    rng: np.random.Generator, batch: int, n_nodes: int, n_edges: int, d_feat: int
+):
+    """Batched molecule-style small graphs (padded dense edge lists)."""
+    src = rng.integers(0, n_nodes, size=(batch, n_edges)).astype(np.int32)
+    dst = rng.integers(0, n_nodes, size=(batch, n_edges)).astype(np.int32)
+    feats = rng.standard_normal((batch, n_nodes, d_feat)).astype(np.float32)
+    y = rng.standard_normal((batch,)).astype(np.float32)
+    return {"src": src, "dst": dst, "feats": feats, "y": y}

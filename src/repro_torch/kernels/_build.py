@@ -23,7 +23,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp", "flash_attention", "embedding_bag", "popcount")
+SOURCES = ("hamming_filter", "label_prop", "range_count", "rmi_mlp", "flash_attention", "embedding_bag", "popcount",
+           "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,7 +50,10 @@ _SIGNATURES = {
         "rmi_mlp_launch": [P, I, I, I, *[P] * 10, I, I, I, I, I, P, P],
     },
     "flash_attention": {
-        "flash_attention_launch": [P, P, P, P, I, *[I] * 7, *[L] * 9, I, I, I, F, I, I, P, P, P],
+        "flash_attention_launch": [P, P, P, P, I, *[I] * 7, *[L] * 9, I, I, I, F, I, I, P, P, P, P],
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch": [*[P] * 10, I, *[I] * 6, I, I, I, F, P],
     },
     "embedding_bag": {
         "embedding_bag_launch": [P, P, P, I, I, I, I, I, I, P],

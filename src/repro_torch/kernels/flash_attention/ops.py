@@ -27,6 +27,19 @@ at its own widths.  The launcher alone knows which mappings take a pair:
 where it answers ``_PAD_V`` (today the fp32 prefill and the decode
 mapping), the call is made again with v zero-padded to D and the output
 cut back to Dv.
+
+Training: when grad mode is on and q, k or v requires a gradient,
+``flash_attention`` runs through an ``autograd.Function`` whose forward
+is the same launch with the per-query log-sum-exp written (the prefill
+mappings only: Sq > 1) and whose backward is ``flash_attention_bwd``,
+the B11 kernel (``csrc/flash_attention_bwd.cu``: dQ, dK, dV, the GQA
+group sums taken in place, three launches a call, counted once).  On a
+CPU tensor the same Function runs ``ref.py``'s ``attention_ref`` (with
+the log-sum-exp) and ``attention_bwd_ref``.  The backward is
+instantiated at ``BWD_DIMS`` with v as wide as q and k; MLA's D 192 and
+(192, 128) pair raise on the card (queued: B11b).  Serving
+(``inference_mode``, or nothing requiring a gradient) writes no
+log-sum-exp and launches exactly as before.
 """
 
 from __future__ import annotations
@@ -38,14 +51,16 @@ import torch.nn.functional as F
 
 from ...obs import metrics as _metrics
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS", "DECODE_TILE", "DECODE_GROUP",
-           "SMS"]
+__all__ = ["flash_attention", "flash_attention_bwd", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS",
+           "BWD_DIMS", "DECODE_TILE", "DECODE_GROUP", "SMS"]
 
-LAUNCHES = {"flash_attention": "kernel.flash_attention.launches"}
+LAUNCHES = {"flash_attention": "kernel.flash_attention.launches",
+            "flash_attention_bwd": "kernel.flash_attention_bwd.launches"}
 HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
 HEAD_PAIRS = ((192, 128),)      # (D, Dv) pairs with v narrower than q/k: MLA's (bf16 prefill at its own widths)
+BWD_DIMS = (16, 32, 128)        # head widths the backward kernel is instantiated for (v as wide as q and k)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAD_V = -1        # the launcher's answer where its mapping is not instantiated on (D, Dv)
 DECODE_TILE = 64   # keys per decode tile (csrc/flash_attention.cu DBK)
@@ -97,7 +112,13 @@ def _operand(t):
     return t.contiguous()
 
 
-def _launch(q, k, v, causal, window, scale, q_offset):
+def _window_arg(window, q_offset, sq):
+    """The launchers' window: -1 where none, or where it is wider than
+    the last query's position (it then masks nothing)."""
+    return -1 if window is None or window > q_offset + sq - 1 else int(window)
+
+
+def _launch(q, k, v, causal, window, scale, q_offset, lse=None):
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if d not in HEAD_DIMS:
@@ -106,8 +127,7 @@ def _launch(q, k, v, causal, window, scale, q_offset):
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
-    # a window wider than the last query's position masks nothing
-    w = -1 if window is None or window > q_offset + sq - 1 else int(window)
+    w = _window_arg(window, q_offset, sq)
     n_split, split_tiles, part_ml, part_acc = 1, 1, None, None
     if sq == 1:
         n_split, split_tiles = decode_splits(b, hkv, hq // hkv, sk)
@@ -120,10 +140,10 @@ def _launch(q, k, v, causal, window, scale, q_offset):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(bool(causal)), w, q_offset, scale, n_split, split_tiles,
         None if part_ml is None else part_ml.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        None if lse is None else lse.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err == _PAD_V:  # this mapping (fp32, or decode) takes the pair with v padded to D
-        return _launch(q, k, F.pad(v, (0, d - dv)), causal, window, scale, q_offset)[..., :dv]
+        return _launch(q, k, F.pad(v, (0, d - dv)), causal, window, scale, q_offset, lse)[..., :dv]
     _build.check(err, "flash_attention")
     _metrics.counter(LAUNCHES["flash_attention"]).inc()
     return out
@@ -136,12 +156,94 @@ def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q
     (on the card, bf16 prefill's P·V is P_hi·V + P_lo·V on the tensor
     cores: P to about 16 bits), ``scale`` = 1/sqrt(D) unless given,
     query ``i`` at position ``q_offset + i`` (``Sk - Sq`` unless given).
-    A query with no key left by the mask gives 0."""
+    A query with no key left by the mask gives 0.  Differentiable when
+    grad mode is on and an operand requires a gradient (the backward is
+    ``flash_attention_bwd``)."""
     _check(q, k, v, window)
     q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Attention.apply(q, k, v, bool(causal), window, scale, q_offset)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
     return _launch(q, k, v, causal, window, scale, q_offset)
+
+
+def _check_bwd(q, k, v):
+    d, dv = q.shape[-1], v.shape[-1]
+    if d != dv or d not in BWD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd takes head widths {BWD_DIMS} with v as wide as q and k, got (D, Dv) = "
+            f"({d}, {dv}); MLA's 192 and (192, 128) wait for B11b")
+    if q.shape[2] == 1:
+        raise NotImplementedError("flash_attention_bwd: the decode mapping (Sq = 1) writes no log-sum-exp")
+
+
+def _contiguous(t):
+    """``t`` contiguous with a 16-byte aligned start (the backward reads
+    whole 16-byte row pieces); else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window=None, scale=None, q_offset=None):
+    """(dq, dk, dv) of ``flash_attention``'s output for the upstream
+    gradient ``dout``, from the forward's inputs, its output ``out`` and
+    its fp32 log-sum-exp ``lse`` (B, Hq, Sq); each in its input's dtype.
+    A CPU ``q`` runs ``attention_bwd_ref``; a CUDA one launches
+    ``csrc/flash_attention_bwd.cu`` (three kernels, one count) or raises:
+    at head widths outside ``BWD_DIMS``, with v narrower than q and k,
+    or at Sq = 1."""
+    q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window, scale=scale,
+                                 q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_bwd(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (_contiguous(t) for t in (q, k, v, out, dout.to(q.dtype)))
+    lse = _contiguous(lse.to(torch.float32))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    err = _build.load("flash_attention_bwd").flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+        b, hq, hkv, sq, sk, d, int(bool(causal)), _window_arg(window, q_offset, sq), q_offset, scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attention_bwd")
+    _metrics.counter(LAUNCHES["flash_attention_bwd"]).inc()
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward writes the
+    log-sum-exp and saves (q, k, v, out, lse); the backward is
+    ``flash_attention_bwd``.  Under ``torch.utils.checkpoint`` the
+    recomputed forward's context is the one the backward reads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        if q.device.type == "cpu":
+            out, lse = attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset,
+                                     return_lse=True)
+        else:
+            _check_bwd(q, k, v)  # raise before the forward's launch, not after it
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+            out = _launch(q, k, v, causal, window, scale, q_offset, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale, q_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window, scale=scale,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None

@@ -1,8 +1,8 @@
 """Model zoo of the port (counterpart of ``repro.models``): the shared
 layers, the decoder-only transformer's serving path (GQA/MQA, sliding
 windows with a ring-buffer decode, MoE FFNs in ``moe``, MLA attention
-in ``mla``) and the recsys rankers (DeepFM, AutoInt, DIEN, BST) with
-their user towers and retrieval scoring."""
+in ``mla``), the recsys rankers (DeepFM, AutoInt, DIEN, BST) with
+their user towers and retrieval scoring, and the GAT (``gnn``)."""
 
 from .recsys import (  # noqa: F401
     AutoIntConfig, BSTConfig, DeepFMConfig, DIENConfig,

@@ -13,7 +13,10 @@ weights across instead.
 ``blockwise_attention`` is the reference's exact attention; in the port
 it runs ``kernels.flash_attention`` (the hand-written kernel on a CUDA
 tensor, its plain version on a CPU one), which the reference names as
-its TPU-executed twin.
+its TPU-executed twin.  It is differentiable: under grad mode the
+kernel writes each query's log-sum-exp and its backward is the B11
+kernel (``flash_attention_bwd``); the padding below is differentiated
+by autograd like any other operation.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..kernels.flash_attention import flash_attention
@@ -224,6 +228,13 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return torch.mean(logz - gold)
 
 
+def _chunk_nll(w_head, hc, lc):
+    """Summed token NLL of one chunk: hc (B, C, D), lc (B, C)."""
+    lf = (hc @ w_head.to(hc.dtype)).to(torch.float32)
+    gold = torch.gather(lf, -1, lc[..., None].long())[..., 0]
+    return torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+
+
 def chunked_cross_entropy(
     w_head: torch.Tensor,     # (D, V)
     h: torch.Tensor,          # (B, S, D) final hidden states
@@ -233,15 +244,22 @@ def chunked_cross_entropy(
 ) -> torch.Tensor:
     """LM loss without the full (B, S, V) fp32 logits: a loop over
     sequence chunks, each chunk's logits alive only inside its turn.
-    (The reference's ``shard_logits`` hook pins a sharding; the port
-    runs on one device and has none.)"""
+    Under grad mode each chunk runs under ``torch.utils.checkpoint``, so
+    the backward recomputes its logits instead of keeping them (the
+    reference's ``jax.checkpoint(body)``; llama3-8b's (8, 4096, 128256)
+    fp32 logits would otherwise be 16.8 GB).  (The reference's
+    ``shard_logits`` hook pins a sharding; the port runs on one device
+    and has none.)"""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    remat = torch.is_grad_enabled() and (h.requires_grad or w_head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s, chunk):
-        lf = (h[:, c : c + chunk] @ w_head.to(h.dtype)).to(torch.float32)
-        gold = torch.gather(lf, -1, labels[:, c : c + chunk, None].long())[..., 0]
-        total = total + torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+        hc, lc = h[:, c : c + chunk], labels[:, c : c + chunk]
+        if remat:
+            total = total + checkpoint(_chunk_nll, w_head, hc, lc, use_reentrant=False, preserve_rng_state=False)
+        else:
+            total = total + _chunk_nll(w_head, hc, lc)
     return total / (b * s)

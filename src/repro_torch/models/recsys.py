@@ -19,6 +19,17 @@ steps are PyTorch operations (cuBLAS and its element-wise kernels), as
 the reference leaves them to XLA.  fp32 products run with TF32 off
 (``exact_fp32``), since the reference is fp32.  The GRU scans of DIEN
 are Python loops over the sequence.
+
+Each model has one forward body, differentiable (``_deepfm_logits``
+and its kin); ``recsys_logits(params, cfg, batch)`` runs it in the
+caller's grad mode, as the reference's train step calls its forward
+(``launch.steps.recsys_train_step``), and the serving entry points
+(``*_forward``, ``*_user_embedding``, ``retrieval_scores``) run under
+``torch.inference_mode()``.  BST trains through its ``take`` path (the
+forward's gathers), never the ``embedding_bag`` kernel, as the
+reference's ``bst_forward`` does.  Parameters are made with
+``requires_grad`` off (serving); ``model.requires_grad_(True)`` makes
+them trainable.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ __all__ = [
     "AutoIntConfig", "AutoInt", "autoint_init", "autoint_forward", "autoint_user_embedding",
     "DIENConfig", "DIEN", "dien_init", "dien_forward", "dien_user_embedding",
     "BSTConfig", "BST", "bst_init", "bst_forward", "bst_user_embedding",
-    "retrieval_scores", "recsys_from_jax",
+    "retrieval_scores", "recsys_from_jax", "recsys_logits",
 ]
 
 
@@ -157,9 +168,7 @@ def deepfm_init(seed_or_generator, cfg: DeepFMConfig, device=None) -> DeepFM:
         })
 
 
-@torch.inference_mode()
-def deepfm_forward(params: DeepFM, cfg: DeepFMConfig, ids) -> torch.Tensor:
-    """ids (B, F) -> CTR logits (B,)."""
+def _deepfm_logits(params: DeepFM, cfg: DeepFMConfig, ids) -> torch.Tensor:
     exact_fp32()
     ids = _ids(ids, params["bias"].device).long()
     emb = lookup_fields(params["tables"], ids)                     # (B, F, D)
@@ -169,6 +178,12 @@ def deepfm_forward(params: DeepFM, cfg: DeepFMConfig, ids) -> torch.Tensor:
     fm1 = torch.cat([t[ids[:, f]] for f, t in enumerate(params["first_order"])], dim=1).sum(dim=1)
     deep = mlp_apply(params["mlp"], emb.reshape(emb.shape[0], -1))[:, 0]
     return (fm1 + fm2 + deep).to(torch.float32) + params["bias"]
+
+
+@torch.inference_mode()
+def deepfm_forward(params: DeepFM, cfg: DeepFMConfig, ids) -> torch.Tensor:
+    """ids (B, F) -> CTR logits (B,)."""
+    return _deepfm_logits(params, cfg, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +237,17 @@ def _field_attention(p, cfg: AutoIntConfig, x):
     return torch.relu(o + dense(p["wres"], x))
 
 
-@torch.inference_mode()
-def autoint_forward(params: AutoInt, cfg: AutoIntConfig, ids) -> torch.Tensor:
+def _autoint_logits(params: AutoInt, cfg: AutoIntConfig, ids) -> torch.Tensor:
     exact_fp32()
     x = lookup_fields(params["tables"], ids)                        # (B, F, D)
     for p in params["attn_layers"]:
         x = _field_attention(p, cfg, x)
     return dense(params["head"], x.reshape(x.shape[0], -1))[:, 0].to(torch.float32)
+
+
+@torch.inference_mode()
+def autoint_forward(params: AutoInt, cfg: AutoIntConfig, ids) -> torch.Tensor:
+    return _autoint_logits(params, cfg, ids)
 
 
 # ---------------------------------------------------------------------------
@@ -297,9 +316,7 @@ def _interests(params: DIEN, cfg: DIENConfig, emb):
     return torch.stack(states, dim=0)
 
 
-@torch.inference_mode()
-def dien_forward(params: DIEN, cfg: DIENConfig, hist, target) -> torch.Tensor:
-    """hist (B, L) item ids; target (B,) item ids -> CTR logits (B,)."""
+def _dien_logits(params: DIEN, cfg: DIENConfig, hist, target) -> torch.Tensor:
     exact_fp32()
     table = params["item_table"]
     emb = table[_ids(hist, table.device).long()]                      # (B, L, D)
@@ -321,6 +338,12 @@ def dien_forward(params: DIEN, cfg: DIENConfig, hist, target) -> torch.Tensor:
         h = _gru_cell(params["augru"], h, interests[t], att=att[t])
     feat = torch.cat([h, tgt], dim=-1)
     return mlp_apply(params["mlp"], feat)[:, 0].to(torch.float32)
+
+
+@torch.inference_mode()
+def dien_forward(params: DIEN, cfg: DIENConfig, hist, target) -> torch.Tensor:
+    """hist (B, L) item ids; target (B,) item ids -> CTR logits (B,)."""
+    return _dien_logits(params, cfg, hist, target)
 
 
 # ---------------------------------------------------------------------------
@@ -364,9 +387,7 @@ def bst_init(seed_or_generator, cfg: BSTConfig, device=None) -> BST:
                     "mlp": mlp_init(gen, [seq_total * d, *cfg.mlp_dims, 1], cfg.dtype, device=dev)})
 
 
-@torch.inference_mode()
-def bst_forward(params: BST, cfg: BSTConfig, hist, target) -> torch.Tensor:
-    """hist (B, L) item ids; target (B,) item ids -> CTR logits (B,)."""
+def _bst_logits(params: BST, cfg: BSTConfig, hist, target) -> torch.Tensor:
     exact_fp32()
     dev = params["item_table"].device
     hist, target = _ids(hist, dev).long(), _ids(target, dev).long()
@@ -389,6 +410,28 @@ def bst_forward(params: BST, cfg: BSTConfig, hist, target) -> torch.Tensor:
         ff = F.leaky_relu(dense(p["ff1"], xn).to(torch.float32), 0.01)
         x = x + dense(p["ff2"], ff.to(x.dtype))
     return mlp_apply(params["mlp"], x.reshape(b, -1))[:, 0].to(torch.float32)
+
+
+@torch.inference_mode()
+def bst_forward(params: BST, cfg: BSTConfig, hist, target) -> torch.Tensor:
+    """hist (B, L) item ids; target (B,) item ids -> CTR logits (B,)."""
+    return _bst_logits(params, cfg, hist, target)
+
+
+def recsys_logits(params: ParamTree, cfg, batch) -> torch.Tensor:
+    """The model's CTR logits (B,) for a batch dict (``ids`` for DeepFM
+    and AutoInt, ``hist`` and ``target`` for DIEN and BST), in the
+    caller's grad mode: the forward the reference's train step
+    differentiates (``_recsys_model_fns``' ``fwd``)."""
+    if isinstance(cfg, DeepFMConfig):
+        return _deepfm_logits(params, cfg, batch["ids"])
+    if isinstance(cfg, AutoIntConfig):
+        return _autoint_logits(params, cfg, batch["ids"])
+    if isinstance(cfg, DIENConfig):
+        return _dien_logits(params, cfg, batch["hist"], batch["target"])
+    if isinstance(cfg, BSTConfig):
+        return _bst_logits(params, cfg, batch["hist"], batch["target"])
+    raise TypeError(f"not a recsys config: {type(cfg).__name__}")
 
 
 # ---------------------------------------------------------------------------

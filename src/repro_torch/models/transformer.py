@@ -25,10 +25,23 @@ ring buffers, whose valid slots are read as a prefix without a mask (a
 softmax does not depend on the slots' order).  MLA's absorbed decode is
 plain fp32 PyTorch, as the reference's jnp.  The GEMMs are
 ``torch.matmul`` (cuBLAS), as the reference leaves them to XLA.
-Serving functions run under ``torch.inference_mode()``.
 
-Not ported yet: training (gradients; ``transformer_loss`` is forward
-only), the reference's sharding hooks (``shard_act`` and friends).
+One forward body (``_hidden``) serves both paths.  The serving entry
+points (``transformer_hidden``, ``transformer_forward``,
+``transformer_prefill``, the decode steps) run it under
+``torch.inference_mode()``; ``transformer_loss`` (training) runs it in
+the caller's grad mode, and with ``cfg.remat`` each layer under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+scan body): its activations are recomputed in the backward, the
+``flash_attention`` kernel among them (two forward launches a GQA layer
+and step, one backward).  Parameters are made with ``requires_grad``
+off (serving); ``model.requires_grad_(True)`` makes them trainable, and
+``launch.steps.lm_train_step`` does so.  Gradients exist for every
+layer kind (GQA, windowed, MoE, MLA); on the card the attention
+backward takes the head widths of ``flash_attention``'s ``BWD_DIMS``
+(MLA's 192 raises: B11b).
+
+Not ported: the reference's sharding hooks (``shard_act`` and friends).
 """
 
 from __future__ import annotations
@@ -40,9 +53,10 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .layers import apply_rope, blockwise_attention, cross_entropy_loss, dense, rmsnorm, swiglu
+from .layers import apply_rope, blockwise_attention, chunked_cross_entropy, cross_entropy_loss, dense, rmsnorm, swiglu
 from .mla import MLAConfig, mla_attention, mla_decode_step, mla_shapes
 from .moe import MoEConfig, moe_apply, moe_shapes
 
@@ -71,7 +85,7 @@ class TransformerConfig:
     mla: Optional[MLAConfig] = None
     dtype: torch.dtype = torch.bfloat16
     kv_block: int = 1024             # the reference's attention KV chunk; the kernel tiles itself
-    remat: bool = True               # the reference's checkpointing switch; no training here
+    remat: bool = True               # recompute each layer's activations in the backward (training)
 
     @property
     def attn_dim(self) -> int:
@@ -288,38 +302,50 @@ def _tokens(tokens, device):
     return torch.as_tensor(tokens, device=device).long()
 
 
-@torch.inference_mode()
-def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
-    """Backbone forward -> final hidden states (B, S, D) after ln_f.
-    ``moe_aux``, a list, receives each MoE layer's aux dict in layer
-    order (the reference drops them)."""
+def _hidden(params: Transformer, cfg: TransformerConfig, tokens, moe_aux: Optional[list] = None):
+    """The backbone in the caller's grad mode -> final hidden states (B,
+    S, D) after ln_f; with grad enabled and ``cfg.remat`` each layer
+    runs under ``torch.utils.checkpoint`` (``moe_aux`` is then left
+    empty: a recomputed layer would append its aux twice)."""
     _check_supported(cfg)
     tokens = _tokens(tokens, params.embed.device)
     b, s = tokens.shape
     h = params.embed.to(cfg.dtype)[tokens]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    for p in params.prefix_layers:
-        h = _layer_forward(p, cfg, h, positions, None, moe_aux)
-    for p, window in zip(params.layers, _windows(cfg)):
-        h = _layer_forward(p, cfg, h, positions, window, moe_aux)
+    remat = cfg.remat and torch.is_grad_enabled()
+    layers = [(p, None) for p in params.prefix_layers] + list(zip(params.layers, _windows(cfg)))
+    for p, window in layers:
+        if remat:
+            h = checkpoint(_layer_forward, p, cfg, h, positions, window, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _layer_forward(p, cfg, h, positions, window, moe_aux)
     return rmsnorm(params.ln_f, h)
+
+
+@torch.inference_mode()
+def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
+    """Backbone forward -> final hidden states (B, S, D) after ln_f.
+    ``moe_aux``, a list, receives each MoE layer's aux dict in layer
+    order (the reference drops them)."""
+    return _hidden(params, cfg, tokens, moe_aux)
 
 
 @torch.inference_mode()
 def transformer_forward(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
     """Forward -> logits (B, S, V)."""
-    return dense(params.lm_head, transformer_hidden(params, cfg, tokens, moe_aux=moe_aux))
+    return dense(params.lm_head, _hidden(params, cfg, tokens, moe_aux))
 
 
-@torch.inference_mode()
 def transformer_loss(params: Transformer, cfg: TransformerConfig, tokens, labels, *, ce_chunk: Optional[int] = None):
-    """Mean next-token cross-entropy (forward only: the port does not
-    train yet)."""
-    h = transformer_hidden(params, cfg, tokens)
+    """Mean next-token cross-entropy, in the caller's grad mode (the
+    training objective: differentiable with respect to every parameter
+    that requires a gradient).  ``ce_chunk``: the loss over sequence
+    chunks of that length, each recomputed in the backward
+    (``chunked_cross_entropy``); else over the whole (B, S, V) logits."""
+    h = _hidden(params, cfg, tokens)
     labels = _tokens(labels, h.device)
     if ce_chunk:
-        from .layers import chunked_cross_entropy
-
         return chunked_cross_entropy(params.lm_head, h, labels, chunk=ce_chunk)
     return cross_entropy_loss(dense(params.lm_head, h), labels)
 
@@ -328,7 +354,7 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, tokens, labels
 def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
     """Prefill: full-sequence forward returning the last position's
     logits (B, V).  As in the reference, it fills no cache."""
-    h = transformer_hidden(params, cfg, tokens, moe_aux=moe_aux)
+    h = _hidden(params, cfg, tokens, moe_aux)
     return dense(params.lm_head, h[:, -1])
 
 

@@ -1,5 +1,5 @@
-"""``repro_torch.train`` — the host-side training plane the streaming
-slice needs (port of part of ``repro.train``): atomic, checksummed
-checkpoints (``checkpoint``) and the retry / straggler policies
-(``fault_tolerance``).  The trainer, optimizer and schedules are queued
-with the model zoo's training (ROADMAP A11b, its training half)."""
+"""``repro_torch.train`` — the training plane (port of ``repro.train``):
+atomic, checksummed checkpoints (``checkpoint``), the retry / straggler
+policies (``fault_tolerance``), learning-rate schedules (``schedule``),
+optimizers on trees of tensors (``optimizer``), gradient codecs with
+error feedback (``compression``) and the training loop (``trainer``)."""

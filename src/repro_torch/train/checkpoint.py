@@ -25,6 +25,13 @@ package wrote restores in the other.  Properties:
   * keep-k GC that never deletes the newest complete step;
   * async: ``AsyncCheckpointer`` copies the tree to the host, then
     writes on a background thread, one write in flight.
+
+numpy has no bfloat16: a bf16 tensor is written as its raw 16-bit words
+(``uint16``) with ``bfloat16`` in the manifest, as the reference's
+manifest names it, so its checksum is over the same bytes;
+``restore_checkpoint`` returns such a leaf as those words, and
+``to_tensor`` (what the trainer uses to load a leaf back) reads them as
+bf16.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import shutil
 import threading
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, List, Optional
 
@@ -49,6 +57,7 @@ __all__ = [
     "AsyncCheckpointer",
     "gc_checkpoints",
     "CheckpointCorruptError",
+    "to_tensor",
 ]
 
 
@@ -94,12 +103,42 @@ def _unflatten(template, leaves):
 
 def _to_host(x) -> np.ndarray:
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
     return np.asarray(x)
 
 
+def _dtype_name(x, host: np.ndarray) -> str:
+    return "bfloat16" if torch.is_tensor(x) and x.dtype == torch.bfloat16 else str(host.dtype)
+
+
+def to_tensor(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A restored leaf as a tensor of ``like``'s dtype and device: a bf16
+    leaf's 16-bit words (or an array of a 2-byte bf16 dtype) are read
+    as bf16, bit for bit."""
+    a = a if a.flags.c_contiguous else np.array(a)  # (np.ascontiguousarray would make a 0-d leaf 1-d)
+    if like.dtype == torch.bfloat16 and a.dtype.itemsize == 2 and a.dtype.kind not in "f":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    elif like.dtype == torch.bfloat16 and a.dtype.itemsize == 2:  # float16 would be a conversion, not a read
+        raise TypeError(f"a {a.dtype} leaf does not restore into a bfloat16 tensor")
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
 def _crc(a: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(a).tobytes())
+    return zlib.crc32(np.ascontiguousarray(a))  # the array's bytes, read in place
+
+
+def _crcs(arrays) -> List[int]:
+    """Each array's crc32, on a few threads (``zlib.crc32`` releases the
+    GIL, so the leaves of a large training state are summed in parallel)."""
+    if len(arrays) < 2:
+        return [_crc(a) for a in arrays]
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return list(pool.map(_crc, arrays))
 
 
 def _fsync_file(path: Path) -> None:
@@ -139,9 +178,9 @@ def save_checkpoint(
         "step": step,
         "n_leaves": len(flat),
         "paths": paths,
-        "dtypes": [str(a.dtype) for a in arrays],
+        "dtypes": [_dtype_name(x, a) for x, a in zip(flat, arrays)],
         "shapes": [list(a.shape) for a in arrays],
-        "checksums": [_crc(a) for a in arrays],
+        "checksums": _crcs(arrays),
         "shards": [],
         "written_at": time.time(),
     }
@@ -215,8 +254,7 @@ def restore_checkpoint(root: str | Path, step: Optional[int] = None, *, template
     if any(leaf is None for leaf in leaves):
         raise CheckpointCorruptError(f"{d}: manifest shards do not cover all leaves")
     if verify and checksums is not None:
-        for i, (leaf, want) in enumerate(zip(leaves, checksums)):
-            got = _crc(leaf)
+        for i, (got, want) in enumerate(zip(_crcs(leaves), checksums)):
             if got != want:
                 raise CheckpointCorruptError(
                     f"{d}: leaf {i} ({manifest['paths'][i]}) checksum mismatch "
@@ -273,7 +311,9 @@ class AsyncCheckpointer:
     def save(self, step: int, tree: Any):
         self.wait()  # one in flight
         flat, _ = _flatten_with_paths(tree)
-        host_tree = _unflatten(tree, [_to_host(x) for x in flat])
+        # a copy of every leaf: the caller goes on updating its tensors in place
+        host_tree = _unflatten(tree, [x.detach().to("cpu", copy=True) if torch.is_tensor(x) else np.array(x)
+                                      for x in flat])
 
         def work():
             try:

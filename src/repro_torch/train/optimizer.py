@@ -1,0 +1,245 @@
+"""Optimizers (port of ``repro.train.optimizer``): the reference's
+optax-style pairs on trees of tensors.
+
+An optimizer is a pair of functions:
+    init(params)                  -> opt_state
+    update(grads, state, params)  -> (updates, new_state)
+with ``apply_updates(params, updates)`` adding them in.  A tree is a
+dict, list or tuple of tensors nested as deep as needed, flattened as
+``jax.tree_util`` flattens the same structure (dict keys sorted), so a
+state written by either package's checkpoint restores in the other;
+``param_tree(module)`` gives a module's parameters as such a tree (a
+flat dict by parameter name).
+
+Where the port differs in form, not in value:
+
+* updates run in place under ``torch.no_grad()``: ``update`` writes the
+  new moments into the state's own tensors (and returns the same state
+  dict with a new ``step``), ``apply_updates`` adds into the parameters,
+  ``clip_by_global_norm`` scales the gradient leaves themselves;
+* ``step`` is a 0-d int32 tensor on the host (the schedules read it
+  there, so a step costs no device sync), the moments live with their
+  parameters.
+
+The state trees keep the reference's keys and order (``{"m", "v",
+"step"}``, ``{"mu", "step"}``); weight decay applies to every leaf, as
+in the reference; the update math is fp32 and the state has
+``state_dtype``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Tuple
+
+import torch
+from torch import nn
+
+__all__ = [
+    "Optimizer", "sgd", "adam", "adamw", "adamw_update_params", "clip_by_global_norm", "global_norm",
+    "apply_updates", "chain_clip", "tree_leaves", "tree_map", "param_tree",
+]
+
+PyTree = Any
+F32 = torch.float32
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree_util``'s order: dict keys sorted, sequences in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest``, called in ``tree_leaves``' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def param_tree(module: nn.Module) -> dict:
+    """A module's parameters as a tree: ``{name: parameter}``, the same
+    tensors (an in-place update of the tree updates the module)."""
+    return dict(module.named_parameters())
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[PyTree], PyTree]
+    update: Callable[..., Tuple[PyTree, PyTree]]
+
+
+def _lr_fn(lr):
+    return lr if callable(lr) else (lambda _: torch.tensor(lr, dtype=F32))
+
+
+def _scalar(x) -> float:
+    """A 0-d fp32 value as a Python float (exact: fp32 values are doubles)."""
+    return float(torch.as_tensor(x, dtype=F32))
+
+
+def _step0() -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32)
+
+
+@torch.no_grad()
+def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
+    """``params += updates`` in place, each update cast to its
+    parameter's dtype first (as the reference's ``p + u.astype(p.dtype)``);
+    returns ``params``."""
+    for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+        if u is not None:
+            p.add_(u.to(p.dtype))
+    return params
+
+
+@torch.no_grad()
+def global_norm(tree: PyTree) -> torch.Tensor:
+    """sqrt(sum over leaves of sum(x^2)), in fp32 (a 0-d tensor on the leaves' device)."""
+    total = None
+    for x in tree_leaves(tree):
+        sq = torch.sum(torch.square(x.to(F32)))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(tree: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
+    """Scale the leaves by min(1, max_norm / max(norm, 1e-12)) in place;
+    returns (the same tree, the norm before scaling).  A bf16 leaf is
+    rounded to bf16 after the scaling (the reference's clipped bf16
+    leaves come out fp32)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    leaves = tree_leaves(tree)
+    if leaves:
+        torch._foreach_mul_(leaves, scale)
+    return tree, norm
+
+
+def sgd(lr, momentum: float = 0.0) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        return {"mu": tree_map(lambda p: torch.zeros_like(p, dtype=F32), params), "step": _step0()}
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        mus = tree_leaves(state["mu"])
+        for m, g in zip(mus, tree_leaves(grads)):
+            m.mul_(momentum).add_(g.to(F32))
+        lr_t = _scalar(lr_fn(step))
+        updates = tree_map(lambda m: m * -lr_t, state["mu"])
+        return updates, {"mu": state["mu"], "step": step}
+
+    return Optimizer(init, update)
+
+
+class _Adam:
+    """The reference's ``_adam_core`` arithmetic on one leaf, in fp32 and
+    in its order: m1 = b1 m + (1 - b1) g, v1 = b2 v + (1 - b2) g^2 (both
+    stored in the state dtype and read back), u = (-lr (m1 / b1t)) /
+    (sqrt(v1 / b2t) + eps) - (lr wd) p."""
+
+    def __init__(self, step, lr_fn, b1, b2, eps, weight_decay):
+        sf = step.to(F32)
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+        self.b1t = _scalar(1.0 - torch.tensor(b1, dtype=F32) ** sf)
+        self.b2t = _scalar(1.0 - torch.tensor(b2, dtype=F32) ** sf)
+        lr_t = torch.as_tensor(lr_fn(step), dtype=F32)
+        self.lr = _scalar(lr_t)
+        self.lr_wd = _scalar(lr_t * weight_decay) if weight_decay else 0.0
+
+    def moments(self, g, m, v):
+        """m, v updated in place; returns their fp32 values as stored."""
+        gf = g.to(F32)
+        if m.dtype == F32:
+            m.mul_(self.b1).add_(gf, alpha=1 - self.b1)
+            v.mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2)
+            return m, v
+        m.copy_(m.to(F32).mul_(self.b1).add_(gf, alpha=1 - self.b1))
+        v.copy_(v.to(F32).mul_(self.b2).addcmul_(gf, gf, value=1 - self.b2))
+        return m.to(F32), v.to(F32)
+
+    def step_of(self, mf, vf, p):
+        u = (mf / self.b1t).mul_(-self.lr).div_(torch.sqrt(vf / self.b2t).add_(self.eps))
+        if self.wd and p is not None:
+            u.sub_(p.to(F32), alpha=self.lr_wd)
+        return u
+
+
+def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype=F32) -> Optimizer:
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p, dtype=state_dtype)
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params), "step": _step0()}
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        a = _Adam(step, lr_fn, b1, b2, eps, weight_decay)
+        ms, vs, gs = tree_leaves(state["m"]), tree_leaves(state["v"]), tree_leaves(grads)
+        ps = tree_leaves(params) if (weight_decay and params is not None) else [None] * len(ms)
+        us = []
+        for g, m, v, p in zip(gs, ms, vs, ps):
+            us.append(a.step_of(*a.moments(g, m, v), p))
+        it = iter(us)
+        updates = tree_map(lambda _: next(it), state["m"])
+        return updates, {"m": state["m"], "v": state["v"], "step": step}
+
+    return Optimizer(init, update)
+
+
+def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
+    return _adam_core(lr, b1, b2, eps, weight_decay=0.0)
+
+
+def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, state_dtype=F32) -> Optimizer:
+    """``state_dtype=torch.bfloat16`` halves the optimizer state (the
+    100B+-scale trade); the update math stays fp32."""
+    return _adam_core(lr, b1, b2, eps, weight_decay=weight_decay, state_dtype=state_dtype)
+
+
+@torch.no_grad()
+def adamw_update_params(params: PyTree, grads: PyTree, state: PyTree, *, lr, b1=0.9, b2=0.95, eps=1e-8,
+                        weight_decay=0.1, chunk_threshold_bytes: int = 256 * 2**20):
+    """Fused AdamW: each parameter and its m and v updated in one pass,
+    in place, with the fp32 update math chunked over the leading axis of
+    a leaf larger than ``chunk_threshold_bytes`` (fp32), as the
+    reference's ``lax.map``: the fp32 working set is one slice.  Returns
+    (params, new state); equals ``adamw``'s update + ``apply_updates``.
+    The state keeps its own dtype (the reference's ``state_dtype``
+    argument: here the state's tensors carry it)."""
+    lr_fn = _lr_fn(lr)
+    step = state["step"] + 1
+    a = _Adam(step, lr_fn, b1, b2, eps, weight_decay)
+
+    def leaf(p, g, m, v):
+        u = a.step_of(*a.moments(g, m, v), p)
+        p.copy_((p.to(F32) + u).to(p.dtype))
+
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])):
+        if p.dim() >= 2 and p.numel() * 4 > chunk_threshold_bytes and p.shape[0] > 1:
+            for i in range(p.shape[0]):
+                leaf(p[i], g[i], m[i], v[i])
+        else:
+            leaf(p, g, m, v)
+    return params, {"m": state["m"], "v": state["v"], "step": step}
+
+
+def chain_clip(optimizer: Optimizer, max_norm: float) -> Optimizer:
+    """Wrap an optimizer with global-norm gradient clipping."""
+
+    def update(grads, state, params=None):
+        clipped, _ = clip_by_global_norm(grads, max_norm)
+        return optimizer.update(clipped, state, params)
+
+    return Optimizer(optimizer.init, update)

@@ -566,3 +566,141 @@ def test_gpu_head_pair_matches_plain(dtype, metrics_on):
         x, y = torch.zeros((1, 2, 8, d), device=dev, dtype=dtype), torch.zeros((1, 2, 8, dv), device=dev, dtype=dtype)
         with pytest.raises(ValueError, match="v width"):
             flash_attention(x, x, y)
+
+
+# ---------------------------------------------------------------------------
+# the gradient (B11): attention_bwd_ref, the autograd Function's CPU path
+# and the card's kernel, against jax.grad of blockwise_attention
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention.ops import BWD_DIMS, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E402
+
+TOL_GRAD = 2e-5  # fp32 gradients: sums over at most ~50 keys in other orders
+
+# (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_offset)
+GRAD_CASES = [
+    (2, 4, 2, 24, 24, 16, 16, True, None, None),    # GQA, causal
+    (1, 4, 1, 9, 33, 32, 32, True, 7, None),         # MQA, window, Sq < Sk right-aligned
+    (1, 2, 2, 12, 20, 8, 8, True, None, 3),          # a query offset
+    (1, 4, 4, 10, 10, 16, 16, True, None, -4),       # rows with no key left
+    (2, 6, 2, 15, 31, 24, 16, False, None, None),    # Dv != D, padded widths (24 -> 32)
+    (1, 2, 1, 7, 7, 12, 12, True, 3, None),          # window, a width padded to 16
+]
+
+
+def _grad_inputs(case, seed):
+    b, hq, hkv, sq, sk, d, dv = case[:7]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv), (b, hq, sq, dv))]
+
+
+def _jax_grads(q, k, v, g, causal, window, q_offset):
+    def f(q, k, v):
+        out = jax_blockwise(q, k, v, causal=causal, window=window, q_offset=q_offset, kv_block=8)
+        return jnp.sum(out * g)
+
+    return [np.asarray(x) for x in jax.grad(f, argnums=(0, 1, 2))(q, k, v)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_gradient_matches_jax(case):
+    """``blockwise_attention``'s gradient through the autograd Function
+    (its CPU path: ``attention_ref`` with the log-sum-exp, then
+    ``attention_bwd_ref``) and ``attention_bwd_ref`` alone, against
+    ``jax.grad`` of the reference's ``blockwise_attention``."""
+    causal, window, q_offset = case[7:]
+    q, k, v, g = _grad_inputs(case, seed=sum(case[:7]))
+    want = _jax_grads(q, k, v, g, causal, window, q_offset)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = blockwise_attention(tq, tk, tv, causal=causal, window=window, q_offset=q_offset)
+    (out * torch.from_numpy(g)).sum().backward()
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=TOL_GRAD, atol=TOL_GRAD)
+    if case[5] == case[6]:  # the plain backward alone, at the inputs' own width
+        sq, sk = q.shape[2], k.shape[2]
+        off = sk - sq if q_offset is None else q_offset
+        tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+        o, lse = attention_ref(tq, tk, tv, causal=causal, window=window, q_offset=off, return_lse=True)
+        got = attention_bwd_ref(tq, tk, tv, o, lse, tg, causal=causal, window=window, q_offset=off)
+        for a, w in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), w, rtol=TOL_GRAD, atol=TOL_GRAD)
+
+
+def test_log_sum_exp_of_the_plain_version():
+    """``attention_ref(..., return_lse=True)``: the log-sum-exp of each
+    query's scaled, masked scores (fp64 by hand), +inf on a row with no
+    key left; the output unchanged."""
+    q, k, v, _ = _grad_inputs((1, 2, 1, 6, 6, 8, 8), seed=3)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = attention_ref(tq, tk, tv, causal=True, q_offset=-2, return_lse=True)
+    assert torch.equal(out, attention_ref(tq, tk, tv, causal=True, q_offset=-2))
+    s = np.einsum("bhqd,bkd->bhqk", q.astype(np.float64), k[:, 0].astype(np.float64)) / math.sqrt(8)
+    qpos = np.arange(6)[:, None] - 2
+    keep = np.arange(6)[None, :] <= qpos
+    with np.errstate(divide="ignore"):
+        want = np.where(keep.any(-1), np.log(np.where(keep, np.exp(s), 0).sum(-1)), np.inf)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert np.isinf(lse.numpy()[..., :2]).all() and np.isfinite(lse.numpy()[..., 2:]).all()
+
+
+def test_gradient_path_needs_grad_mode():
+    """Without grad mode, or with no operand requiring a gradient, the
+    call is the serving path (no graph); with one, the output carries
+    the Function's backward."""
+    q, k, v, _ = _grad_inputs((1, 2, 2, 5, 5, 16, 16), seed=5)
+    tq = torch.tensor(q, requires_grad=True)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    assert flash_attention(tq, tk, tv, causal=True).grad_fn is not None
+    with torch.no_grad():
+        assert flash_attention(tq, tk, tv, causal=True).grad_fn is None
+    with torch.inference_mode():
+        assert flash_attention(tq, tk, tv, causal=True).grad_fn is None
+    assert flash_attention(tq.detach(), tk, tv, causal=True).grad_fn is None
+    assert BWD_DIMS == (16, 32, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_attention_gradient_matches_plain(dtype, metrics_on):
+    """The B11 kernel on the card against ``attention_bwd_ref`` on the
+    same inputs, output and log-sum-exp, at each instantiated width: one
+    backward launch a call; the autograd path's gradients too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    launches = metrics.counter(LAUNCHES["flash_attention_bwd"])
+    tol = 1e-4 if dtype == torch.float32 else TOL_BF16
+    for case in [(2, 8, 2, 70, 70, 16, 16, True, None, None), (1, 4, 1, 130, 200, 32, 32, True, 50, None),
+                 (2, 8, 8, 129, 129, 128, 128, False, None, None), (1, 4, 4, 64, 100, 128, 128, True, None, -10)]:
+        causal, window, q_offset = case[7:]
+        q, k, v, g = (torch.from_numpy(a).to(dev, dtype) for a in _grad_inputs(case, seed=sum(case[:7])))
+        off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention(ql, kl, vl, causal=causal, window=window, q_offset=off)
+        before = launches.value
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert launches.value == before + 1
+        _, lse = attention_ref(q, k, v, causal=causal, window=window, q_offset=off, return_lse=True)
+        want = attention_bwd_ref(q, k, v, out.detach(), lse, g, causal=causal, window=window, q_offset=off)
+        direct = flash_attention_bwd(q, k, v, out.detach(), lse, g, causal=causal, window=window, q_offset=off)
+        for got, d, w in zip((ql.grad, kl.grad, vl.grad), direct, want):
+            w = w.float().cpu().numpy()
+            scale = np.sqrt(np.mean(w ** 2))
+            np.testing.assert_allclose(got.float().cpu().numpy(), w, rtol=tol, atol=tol * scale, err_msg=str(case))
+            np.testing.assert_allclose(d.float().cpu().numpy(), w, rtol=tol, atol=tol * scale, err_msg=str(case))
+
+
+@pytest.mark.gpu
+def test_gpu_attention_gradient_raises_past_its_widths():
+    """No fallback: the backward at D 192 and at MLA's (192, 128) pair
+    raises on the card (B11b), before the forward launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for d, dv in ((192, 192), (192, 128)):
+        q = torch.zeros((1, 2, 64, d), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        v = torch.zeros((1, 2, 64, dv), device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="B11b"):
+            flash_attention(q, q.detach(), v, causal=True)

@@ -52,14 +52,13 @@ def _close(got, want, rtol, atol):
 
 
 def test_list_archs_names_the_five_configs():
-    """The recsys rankers and the LMs: every arch of the reference's
-    registry but gat-cora (the GNN, not ported yet) and laf_dbscan (its
-    launch config, A10)."""
+    """The recsys rankers, the LMs and the GNN: every arch of the
+    reference's registry but laf_dbscan (its launch config, A10)."""
     from repro.configs.registry import list_archs as jax_list_archs
 
-    assert list_archs() == ["autoint", "bst", "deepfm", "deepseek-v2-236b", "dien", "gemma3-27b", "granite-20b",
-                            "grok-1-314b", "llama3-8b"]
-    assert set(list_archs()) == set(jax_list_archs()) - {"gat-cora", "laf_dbscan"}
+    assert list_archs() == ["autoint", "bst", "deepfm", "deepseek-v2-236b", "dien", "gat-cora", "gemma3-27b",
+                            "granite-20b", "grok-1-314b", "llama3-8b"]
+    assert set(list_archs()) == set(jax_list_archs()) - {"laf_dbscan"}
 
 
 @pytest.mark.parametrize("name", RECSYS)
@@ -221,3 +220,89 @@ def test_inits_take_a_generator_of_their_device():
     assert a["blocks"][0]["ln1"]["scale"].eq(1).all() and a["mlp"][0]["b"].eq(0).all()
     with pytest.raises(TypeError, match="recsys"):
         tr.recsys_from_jax({}, object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# training: gradients and one train step against the reference
+# ---------------------------------------------------------------------------
+
+from repro.train import optimizer as jopt  # noqa: E402
+
+from repro_torch.launch.steps import recsys_optimizer, recsys_train_step  # noqa: E402
+from repro_torch.train.optimizer import tree_leaves  # noqa: E402
+
+TOL_GRAD = 1e-4   # relative L2 of each parameter's gradient
+TOL_STEP = 1e-6   # parameters after one AdamW step, of their scale (|g| >= 1e-6; else 2 lr)
+
+
+def _ref_leaf(tree, name):
+    x = tree
+    for part in name.split("."):
+        x = x[int(part)] if isinstance(x, (list, tuple)) else x[part]
+    return np.asarray(x)
+
+
+def _fwd(name, jcfg):
+    return {"deepfm": lambda p, b: jr.deepfm_forward(p, jcfg, b["ids"]),
+            "autoint": lambda p, b: jr.autoint_forward(p, jcfg, b["ids"]),
+            "dien": lambda p, b: jr.dien_forward(p, jcfg, b["hist"], b["target"]),
+            "bst": lambda p, b: jr.bst_forward(p, jcfg, b["hist"], b["target"])}[name]
+
+
+def _train_inputs(name):
+    cfg, jcfg, inputs = _reduced_shapes(name)
+    label = np.random.default_rng(11).integers(0, 2, next(iter(inputs.values())).shape[0]).astype(np.float32)
+    return cfg, jcfg, {**inputs, "label": label}
+
+
+@pytest.mark.parametrize("name", RECSYS)
+def test_recsys_gradients_match_jax(name):
+    """``bce_loss(recsys_logits(...))`` and every parameter's gradient
+    against ``jax.value_and_grad`` of the reference's loss (BST through
+    its ``take`` path)."""
+    cfg, jcfg, batch = _train_inputs(name)
+    jparams = _reference_params(name, jcfg, seed=5)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    fwd = _fwd(name, jcfg)
+    want_loss, want = jax.jit(jax.value_and_grad(lambda p: jr.bce_loss(fwd(p, jbatch), jbatch["label"])))(jparams)
+    params = tr.recsys_from_jax(jparams, cfg, device="cpu")
+    params.requires_grad_(True)
+    loss = tr.bce_loss(tr.recsys_logits(params, cfg, batch), batch["label"])
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-6)
+    names = [n for n, _ in params.named_parameters()]
+    assert len(names) == len(jax.tree_util.tree_leaves(want))
+    for n, p in params.named_parameters():
+        w = _ref_leaf(want, n)
+        rel = np.linalg.norm(p.grad.numpy() - w) / max(np.linalg.norm(w), 1e-30)
+        assert rel <= TOL_GRAD, (n, rel)
+
+
+@pytest.mark.parametrize("name", RECSYS)
+def test_recsys_train_step_matches_the_reference_step(name):
+    """One ``recsys_train_step`` (``adamw(lr=1e-3)``) against the
+    reference's ``build_recsys_train`` step body: the loss and the
+    updated parameters; the serving forward builds no graph."""
+    cfg, jcfg, batch = _train_inputs(name)
+    jparams = _reference_params(name, jcfg, seed=6)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    fwd = _fwd(name, jcfg)
+
+    def jstep(p):
+        loss, grads = jax.value_and_grad(lambda q: jr.bce_loss(fwd(q, jbatch), jbatch["label"]))(p)
+        opt = jopt.adamw(lr=1e-3)
+        updates, _ = opt.update(grads, opt.init(p), p)
+        return jopt.apply_updates(p, updates), loss, grads
+
+    want_p, want_loss, want_g = jax.jit(jstep)(jparams)
+    params = tr.recsys_from_jax(jparams, cfg, device="cpu")
+    tree = dict(params.named_parameters())
+    tree, state, metrics = recsys_train_step(params, cfg, tree, recsys_optimizer().init(tree), batch)
+    np.testing.assert_allclose(metrics["loss"].item(), float(want_loss), rtol=1e-6)
+    assert int(state["step"]) == 1
+    for n, p in params.named_parameters():
+        w, g = _ref_leaf(want_p, n), _ref_leaf(want_g, n)
+        atol = np.where(np.abs(g) >= 1e-6, TOL_STEP * max(1.0, float(np.abs(w).max())), 2e-3)
+        assert (np.abs(p.detach().numpy() - w) <= atol).all(), n
+    serve_in = [batch[k] for k in (("ids",) if "ids" in batch else ("hist", "target"))]
+    assert getattr(tr, f"{name}_forward")(params, cfg, *serve_in).grad_fn is None
