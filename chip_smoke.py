@@ -2812,10 +2812,18 @@ BWD_CASES = [
     (1, 8, 8, 513, 513, 128, True, 100, None), (1, 4, 4, 100, 260, 32, True, None, None),
     (1, 4, 1, 64, 200, 16, True, None, -20), (2, 8, 2, 65, 333, 128, False, None, None),
     (1, 4, 4, 257, 257, 32, True, 64, None),
+    # the bf16 mapping's 128-key tile and 64-query step at their edges
+    (1, 8, 1, 128, 128, 128, True, None, None), (1, 4, 4, 127, 127, 128, True, None, None),
+    (2, 4, 1, 257, 257, 128, True, 90, None), (1, 4, 2, 129, 129, 16, True, None, -30),
 ]
 LSE_TOL = "|kernel - plain| <= 1e-4 (1 + |plain|), fp32 lse; +inf on the same rows"
 BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2^-7 |plain| + 1e-3 rms(plain) "
-           "(one bf16 step of the value: both sum in fp32 and round once)")
+           "(one bf16 step of the value: both sum in fp32 and round once; the bf16 kernel takes P and dS as two "
+           "bf16 terms, and adds dQ into its fp32 accumulator atomically, in an order that changes from run to "
+           "run, so two calls' dQ may differ in the last bits, within this bound; dK and dV are equal bit for bit)")
+# B11's kernels by name (bf16: the tensor-core launch and its two small kernels; fp32: the CUDA-core ones)
+BWD_KERNELS = ("attn_bwd_stats_kernel", "attn_bwd_tc_kernel", "attn_bwd_dq_kernel", "delta_kernel", "dkdv_kernel",
+               "dq_kernel")
 BWD_ROW = (4, 32, 8, 4096, 128)   # B, Hq, Hkv, S, D: the forward row's shape, causal, bf16
 # full-width gradients through the kernels against the same step through attention_ref with autograd
 GRAD_CHECK = (2, 1, 1024)         # layers, batch, tokens
@@ -2926,19 +2934,22 @@ def check_attention_bwd():
 
 
 def bwd_ptxas():
-    return {**ptxas_entries("flash_attention_bwd", "dkdv_kernel"), **ptxas_entries("flash_attention_bwd", "dq_kernel"),
-            **ptxas_entries("flash_attention_bwd", "delta_kernel")}
+    out = {}
+    for kernel in BWD_KERNELS:
+        out.update(ptxas_entries("flash_attention_bwd", kernel))
+    return out
 
 
 def attention_bwd_rows():
     """The ``flash_attention_bwd`` row at the forward row's shape (B 4,
     Hq 32, Hkv 8, S 4096, D 128, causal, bf16): against the plain version
-    on the same inputs, its time back to back and queued, the plain
-    version's, SDPA's backward (its forward plus ``backward()`` less its
-    forward) and the bound (2.5 x the forward's FLOP on bf16 tensor
-    cores); and the D 128 forward with the log-sum-exp written (training's
-    forward) beside the same launch without it.  Returns (ok, bwd row,
-    lse row)."""
+    on the same inputs, a second call against the first (dK and dV bit
+    for bit, dQ's run-to-run gap), its time back to back and queued, the
+    plain version's, SDPA's backward (its forward plus ``backward()``
+    less its forward), the bound (2.5 x the forward's FLOP on bf16 tensor
+    cores) and the two-term floor (8/5 of it); and the D 128 forward with
+    the log-sum-exp written (training's forward) beside the same launch
+    without it.  Returns (ok, bwd row, lse row)."""
     import torch
     import torch.nn.functional as F
 
@@ -2962,7 +2973,14 @@ def attention_bwd_rows():
         o, e, _ = bwd_grad_gap(a, w, torch.bfloat16)
         ok &= o
         errs.append(e)
-    del got, want
+    del want
+    # a second call: dK and dV bit for bit, dQ (atomic adds in a run's own order) within BWD_TOL of the first
+    again = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    dkdv_equal = all(bool(torch.equal(a, b2)) for a, b2 in zip(got[1:], again[1:]))
+    dq_ok, dq_gap, _ = bwd_grad_gap(again[0], got[0], torch.bfloat16)
+    dq_differ = int((again[0] != got[0]).sum())
+    ok &= dkdv_equal and dq_ok
+    del got, again
     bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     t1 = time_ms(bwd, reps=3, warmup=1)
     queued = queued_ms(bwd, reps=3)
@@ -2989,8 +3007,13 @@ def attention_bwd_rows():
                "library_ms": fb - f_only, "library_fwd_bwd_ms": fb, "library_fwd_ms": f_only,
                "library": "F.scaled_dot_product_attention(enable_gqa=True): forward + backward() less its forward",
                "flops": 2.5 * fwd_flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+               # three of the five products take P or dS as two bf16 terms: 8 product-units for 5
+               "two_term_floor_ms": bound_ms(n_bytes, 2.5 * fwd_flops * 8 / 5, BF16_FLOPS)[0],
                "bound_fp32_cuda_cores_ms": bound_ms(n_bytes, 2.5 * fwd_flops, FP32_FLOPS)[0],
-               "tflops_counted": 2.5 * fwd_flops / ((t1 + t2) / 2) / 1e9, "ptxas": bwd_ptxas()}
+               "second_call": {"dk_dv_bit_equal": dkdv_equal, "dq_max_abs_diff": dq_gap,
+                               "dq_elements_differing": dq_differ, "dq_within_tolerance": dq_ok},
+               "tflops_counted": 2.5 * fwd_flops / ((t1 + t2) / 2) / 1e9, "ptxas": bwd_ptxas(),
+               "build_notes": build_notes("flash_attention_bwd")}
     # the forward with the log-sum-exp written, beside the same launch without it
     fwd_lse = lambda: ops._launch(q, k, v, True, None, scale, 0, lse)
     fwd_none = lambda: ops._launch(q, k, v, True, None, scale, 0)
@@ -3119,7 +3142,7 @@ def full_width_grads(dev):
 def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt):
     """One ``lm_train_step`` under ``torch.profiler``: (its result, the
     split of its device time).  The trace's kernels are summed by class:
-    B11 (``delta``, ``dkdv``, ``dq``), the attention forward (the prefill
+    B11 (``BWD_KERNELS``), the attention forward (the prefill
     launches: forward and remat recompute), the GEMMs (cuBLAS and
     CUTLASS kernels) and the rest (norms, activations, the loss, the
     embedding's scatter, the clip and the optimizer's elementwise
@@ -3147,7 +3170,7 @@ def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt
         ev[3].record()
 
     wall, busy, union, kernels = device_busy(run, top=1 << 30)
-    classes = {"flash_attention_bwd": ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+    classes = {"flash_attention_bwd": BWD_KERNELS,
                "flash_attention_fwd": ("prefill_",),
                "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas")}
     by = {c: 0.0 for c in (*classes, "other")}

@@ -2,7 +2,10 @@
 """A short first call after a change to ``csrc/flash_attention_bwd.cu``
 (B11, the gradient of attention): build it and the forward, print what
 ptxas says of every instantiation, and hold the kernel to its plain
-version on the card, as ``chip_smoke.py``'s phase 14 does.
+version on the card, as ``chip_smoke.py``'s phase 14 does.  Both of its
+mappings run: bf16 the tensor-core launch (``attn_bwd_stats_kernel``,
+``attn_bwd_tc_kernel``, ``attn_bwd_dq_kernel``), fp32 the CUDA-core FMA
+kernels (``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``).
 
     python3 scripts/flash_attention_bwd_check.py     # one CUDA card, ~1 min with the build
 
@@ -15,10 +18,13 @@ Each case runs the forward with the log-sum-exp written (against
 (``BWD_TOL``), and the autograd path against the same; D 192 and the
 (192, 128) pair must raise.  Then the ``flash_attention_bwd`` row at
 llama3-8b's prefill shape (B 4, Hq 32, Hkv 8, S 4096, D 128, causal,
-bf16: back to back and queued, the plain version, SDPA's backward, the
-bound) and the ``flash_attention_lse`` row (the forward with the
-log-sum-exp written and not).  Prints one JSON line a case and a row,
-and exits nonzero if any check fails.
+bf16: back to back and queued, a second call against the first, the
+plain version, SDPA's backward, the bound and the two-term floor) and
+the ``flash_attention_lse`` row (the forward with the log-sum-exp
+written and not), then the bf16 row's kernels under the profiler (the
+stats, the tensor-core launch, the cast, the accumulator's zero fill).
+Prints one JSON line a case and a row, and exits nonzero if any check
+fails.
 """
 
 from __future__ import annotations
@@ -58,8 +64,27 @@ def main() -> int:
     print(json.dumps(bwd_row), flush=True)
     print(json.dumps(lse_row), flush=True)
     ok &= r_ok
+    print(json.dumps({"flash_attention_bwd_split_ms": bwd_split(chip_smoke)}), flush=True)
     print(json.dumps({"ok": ok, "tolerances": {"lse": chip_smoke.LSE_TOL, "grad": chip_smoke.BWD_TOL}}), flush=True)
     return 0 if ok else 1
+
+
+def bwd_split(chip_smoke):
+    """One bf16 call at the row's shape under the profiler: [name, ms,
+    count] for each of its kernels (the stats, the tensor-core launch, the
+    cast) and the accumulator's zero fill."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    b, hq, hkv, s, d = chip_smoke.BWD_ROW
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, dout = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                     for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d)))
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    out = ops._launch(q, k, v, True, None, d ** -0.5, 0, lse)
+    ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    return chip_smoke.device_busy(lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True), top=6)[3]
 
 
 if __name__ == "__main__":

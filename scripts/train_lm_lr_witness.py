@@ -27,6 +27,14 @@ Each run prints one JSON line: the loss and the gradient norm before each
 update, the step seconds, and the share of the bf16 parameters each
 update changed.  The last line compares ``plain_8mb`` with ``kernel_8mb``.
 Exits nonzero if a run fails or a loss is not finite.
+
+``--leaf-norms`` runs none of these: from the same weights and batch it
+takes the first step's gradients at 1 and at 8 microbatches (accumulated
+as ``lm_train_step`` does, no update) and prints each leaf's norm at both,
+the leaves that carry the gap between the two global norms, and, for the
+embedding, the bf16 gradient against an fp32 scatter-add of the same
+tokens' gradients (the gradient at the gathered rows, captured at the
+first layer's input).
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--warmups", type=int, nargs="*", default=[10, 100])
+    ap.add_argument("--leaf-norms", action="store_true", help="the gradient norms a leaf at 1 and 8 microbatches")
     args = ap.parse_args()
 
     import torch
@@ -76,6 +85,8 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("llama3-8b").make_config(), n_layers=args.layers)
     batch = lm_batches(0, 8, 4096, cfg.vocab)(0)
     chunk = lm_ce_chunk(cfg)
+    if args.leaf_norms:
+        return leaf_norms(cfg, batch, chunk)
 
     def run(name, n_mb, opt, plain=False):
         kernel_fn = layers.flash_attention
@@ -126,6 +137,65 @@ def main() -> int:
                       "warmups_fall": {r: v["losses"][-1] < v["losses"][0] for r, v in out.items()
                                        if r.startswith("warmup_")}}), flush=True)
     return 0 if all(math.isfinite(x) for v in out.values() for x in v["losses"]) else 1
+
+
+def leaf_norms(cfg, batch, chunk, dev="cuda") -> int:
+    """Each leaf's gradient norm at 1 and 8 microbatches, and the
+    embedding's bf16 gradient against an fp32 scatter of the same
+    tokens' gradients (see the module's docstring)."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import transformer_init, transformer_loss
+
+    model = transformer_init(0, cfg, device=dev).requires_grad_(True)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+    labels = torch.from_numpy(batch["labels"]).to(dev).long()
+    layer_forward, armed, rows = transformer._layer_forward, [False], {}
+
+    def capture(p, c, h, *args, **kw):  # the gradient at the gathered rows h = embed[tokens]
+        if armed[0] and h.requires_grad:
+            armed[0] = False
+            h.register_hook(lambda g: rows.__setitem__("dh", g.detach()))
+        return layer_forward(p, c, h, *args, **kw)
+
+    transformer._layer_forward = capture
+    out = {}
+    try:
+        for n_mb in (1, 8):
+            acc, emb32 = {}, torch.zeros(model.embed.shape, dtype=torch.float32, device=dev)
+            for i in range(n_mb):  # lm_train_step's split: row r of microbatch i is batch row r * n_mb + i
+                for p in model.parameters():
+                    p.grad = None
+                armed[0] = True
+                transformer_loss(model, cfg, tokens[i::n_mb], labels[i::n_mb], ce_chunk=chunk).backward()
+                for n, p in model.named_parameters():
+                    acc[n] = p.grad.float() if n not in acc else acc[n] + p.grad.float()
+                emb32.index_add_(0, tokens[i::n_mb].reshape(-1), rows.pop("dh").float().reshape(-1, cfg.d_model))
+            grads = {n: g / n_mb for n, g in acc.items()}
+            emb32 /= n_mb
+            eg = grads["embed"]
+            counts = torch.bincount(tokens.reshape(-1), minlength=cfg.vocab)
+            top = [int(t) for t in torch.argsort(counts, descending=True)[:3]]
+            out[n_mb] = {"norms": {n: float(g.norm()) for n, g in grads.items()},
+                         "global_norm": float(torch.sqrt(sum(g.pow(2).sum() for g in grads.values()))),
+                         "embed_fp32_scatter_norm": float(emb32.norm()),
+                         "embed_vs_fp32_rel_l2": float((eg - emb32).norm() / emb32.norm()),
+                         "embed_rows": {t: {"count": int(counts[t]), "bf16_norm": float(eg[t].norm()),
+                                            "fp32_norm": float(emb32[t].norm())} for t in top}}
+            print(json.dumps({"microbatches": n_mb, "global_norm": out[n_mb]["global_norm"],
+                              **{k: v for k, v in out[n_mb].items() if k not in ("norms", "global_norm")}}),
+                  flush=True)
+            del acc, grads, emb32
+    finally:
+        transformer._layer_forward = layer_forward
+    n1, n8 = out[1]["norms"], out[8]["norms"]
+    gap = sorted(((n8[n] ** 2 - n1[n] ** 2, n) for n in n1), key=lambda x: -abs(x[0]))
+    total = out[8]["global_norm"] ** 2 - out[1]["global_norm"] ** 2
+    print(json.dumps({"leaf_norms": {n: [n1[n], n8[n]] for n in n1},
+                      "gap_of_squared_global_norm": total,
+                      "largest_leaf_shares": [(n, d / total if total else None) for d, n in gap[:5]]}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -15,46 +15,94 @@
 // keeps k_pos > q_pos - window, keys past Sk and queries past Sq are
 // masked.  A row that the forward found no key for has lse = +inf, and
 // every one of its (query, key) pairs is masked, so its p is 0 and its
-// gradients 0.
-//
-// Three launches, one stream, one wrapper call:
-// * delta_kernel: D_i = sum_d dO[i, d] O[i, d] in fp32, a warp a row;
-// * dkdv_kernel: a block per (64-key tile, b, kv head), 256 threads.  The
-//   tile's K and V stay in shared memory; the block loops over the
-//   group's query heads (GQA: Hq / Hkv of them) and the query tiles the
-//   mask leaves, recomputes P and dS for each and accumulates dV and dK
-//   for its keys in registers, so the group sum is taken in place and
-//   dK and dV are written once, without atomics;
-// * dq_kernel: a block per (64-query tile, b, query head), the heaviest
-//   causal tiles first; Q, dO, lse and D stay in shared memory while the
-//   key tiles the mask leaves stream through, and dQ accumulates in
-//   registers.
-// Both recompute S and dP (7 products where the fused FA-2 has 5, the
-// price of writing dQ without atomics).  Every product runs in fp32 on
-// the CUDA cores (FMA), operands staged in shared memory as fp32 (bf16
-// inputs widened on load); each thread holds a 4 x 4 block of a tile's
-// scores and a 4 x D/16 block of its accumulators.  Outputs are in the
-// inputs' type.  Head widths D: 16, 32, 128 with v as wide as q and k
+// gradients 0.  Head widths D: 16, 32, 128 with v as wide as q and k
 // (MLA's D 192 and (192, 128) pair wait for B11b).  Operands are
 // contiguous (B, H, S, D), rows 16-byte aligned; the wrapper copies
-// others.
+// others.  Outputs are in the inputs' type.  Two mappings, chosen
+// statically by dtype; neither falls back to the other.
+//
+// * bf16: one tensor-core launch, bracketed by two small kernels.  Bound:
+//   operations (at B 4, Hq 32, Hkv 8, S 4096, D 128, causal the five
+//   products are 1.37e12 FLOP, 1.39 ms on bf16 tensor cores).
+//   - attn_bwd_stats_kernel: a warp a query row, (lse log2 e, D) in fp32
+//     into the wrapper's scratch, rows padded to a multiple of 64
+//     (lse2 = +inf past Sq, so a padded row's p is 0 without a test).
+//   - attn_bwd_tc_kernel: a block per (128-key tile, b, kv head), key tile
+//     0 (the heaviest under a causal mask) first; two warpgroups of 64 keys
+//     each and no producer warpgroup (dK and dV alone take 128 registers a
+//     thread; thread 0 issues the copies itself, so the block may use
+//     255).  It loads the K and V tiles once by TMA (4-d tensor maps over
+//     (D, S, H, B), zero fill past the ragged edge, swizzle 128, 64 or 32
+//     bytes for D 128, 32, 16), then the Q and dO tiles of 64 queries,
+//     with their (lse2, D) pairs (a bulk copy), through a 2-stage ring behind
+//     mbarriers (step i + 1's copies issued as step i starts), over the kv
+//     head's query group (GQA: Hq / Hkv heads) and the query tiles the mask
+//     leaves.  Per step, each warpgroup, with M = its keys (so that P^T and
+//     dS^T come out in the A-fragment layout):
+//       S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in
+//       shared memory); P^T = exp2(S^T scale log2 e - lse2) and dS^T =
+//       P^T o (dP^T - D) in fp32 registers (exp on the special-function
+//       unit; the mask tested only on tiles that cross the diagonal or the
+//       window's edge: keys past Sk are zero rows of K and V, and their dK
+//       and dV are not written); dS^T, both terms, into shared memory as
+//       key rows (a buffer by step parity); the two warpgroups meet at a
+//       named barrier; then one chain of products: dV += P^T dO (A from
+//       registers, the dO tile read again as MN-major B), dK += dS^T Q (A
+//       the buffer's own 64 key rows, K-major) and dQ_part = dS K (A the
+//       same buffer read as MN-major, i.e. transposed; K as MN-major B), at
+//       D 128 each warpgroup half of dQ_part's columns over all 128 keys,
+//       at D 16 and 32 all columns over its own 64 keys.  dK and dV stay in
+//       fp32 registers over the whole walk (the group sum taken in place)
+//       and are written once, no atomics.  dQ is not recomputed: dQ_part
+//       (fp32) is added into the wrapper's zeroed fp32 (B, Hq, Sq_pad, D)
+//       accumulator by 16-byte RED.ADD.F32 (lanes pair up by a shuffle).
+//     Five products where the FMA mapping below runs seven.  Tried on the
+//     card and not kept (scripts/flash_attention_bwd_check.py, queued ms
+//     at B 4, Hq 32, Hkv 8, S 4096, D 128, causal): a producer warpgroup
+//     beside the two (ptxas sizes a 384-thread block at 168 registers
+//     whatever setmaxnreg gives at run time: 136 bytes spilled; 7.27 with
+//     scalar adds); dK with dS^T from registers and dQ as a second chain
+//     (6.16: 168 bytes spilled where this layout spills 60).
+//     scripts/flash_attention_bwd_variants.py times this kernel beside
+//     copies with scalar adds and with none.
+//   - attn_bwd_dq_kernel: dQ = scale acc in bf16.
+//   Why two terms: the A operands P and dS are fp32 values; each runs as
+//   hi + lo bf16 fragments (hi = bf16(x), lo = bf16(x - hi)), two wgmma
+//   into one fp32 accumulator, so dV, dK and dQ take P and dS to about 16
+//   bits (the forward's P.V does the same: rounded once, P misses one
+//   bf16 step of the fp32-P value on 224,501 of 2,097,152 outputs).  So
+//   three of the five products count twice, a floor of 8/5 of the bound.
+//   The adds into dQ's accumulator land in an order that changes from run
+//   to run, so dQ may differ between two calls in its last bits; dK and dV
+//   are reproducible bit for bit.
+// * fp32: delta_kernel, dkdv_kernel and dq_kernel on the CUDA cores (fp32
+//   FMA: tensor cores would need TF32).  dkdv: a block per (64-key tile, b,
+//   kv head), 256 threads; the tile's K and V stay in shared memory, the
+//   block loops over the group's query heads and the query tiles the mask
+//   leaves, recomputes P and dS for each and accumulates dV and dK in
+//   registers, written once.  dq: a block per (64-query tile, b, query
+//   head), the heaviest causal tiles first; Q, dO, lse and D stay in
+//   shared memory while the key tiles the mask leaves stream through.  Both
+//   recompute S and dP (seven products, the price of writing dQ without
+//   atomics); operands staged in shared memory as fp32, each thread a 4 x
+//   4 block of a tile's scores and a 4 x D/16 block of its accumulators.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;        // queries per tile
-constexpr int BN = 64;        // keys per tile
-constexpr int NT = 256;       // threads per block: 16 x 16
-constexpr int LP = BN + 4;    // pitch of a (query, key) tile in shared memory
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
   const void* q; const void* k; const void* v; const void* o; const void* dout;
   const float* lse;           // (B, Hq, Sq): the forward's log-sum-exp of the scaled scores
-  float* delta;               // (B, Hq, Sq) scratch: rowsum(dO o O)
+  float* delta;               // fp32 mapping: (B, Hq, Sq) scratch, rowsum(dO o O)
+  float* stats;               // bf16 mapping: (B, Hq, Sq_pad, 2) scratch, (lse log2 e, rowsum(dO o O))
+  float* dq_acc;              // bf16 mapping: (B, Hq, Sq_pad, D) fp32, zeroed by the caller
   void* dq; void* dk; void* dv;
-  int B, Hq, Hkv, Sq, Sk;
+  int B, Hq, Hkv, Sq, Sk, Sq_pad;
   int causal, window, q_offset;
   float scale;
 };
@@ -64,51 +112,596 @@ __device__ __forceinline__ bool keep(int qp, int kp, int sk, int causal, int win
   return kp < sk && (!causal || kp <= qp) && (window < 0 || kp > qp - window);
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+// ---------------------------------------------------------------------------
+// mbarriers, TMA and wgmma (flash_attention.cu's, copied)
+// ---------------------------------------------------------------------------
 
-// 16 bytes of a row as fp32
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float (&x)[4]) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&x)[8]) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte aligned address at or after p (the swizzle's repeat)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-d tensor map at coordinates (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to shared memory
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// four consecutive fp32 values added into global memory (16-byte aligned), no return
+__device__ __forceinline__ void red_add4(float* p, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+// this thread's writes to shared memory, made visible to the tensor cores' reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier 1 over n_threads of the block
+__device__ __forceinline__ void warpgroups_sync(int n_threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n_threads) : "memory");
+}
+
+// 2^x on the special-function unit (flushes results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, layout 1/2/3 = 128/64/32-byte swizzle (the tensor map's)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the fence or the wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) pin(r[i]);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) { return *reinterpret_cast<uint32_t*>(&x); }
+
+// x = hi + lo in bf16, as wgmma A fragments: hi = bf16(x), lo = bf16(x - hi)
+// (x to about 16 bits).  Columns 16 kc .. 16 kc + 15 of an fp32
+// accumulator fragment are its registers 8 kc .. 8 kc + 7, already in
+// A-fragment order, so a tile's values become the A operand of the next
+// product in place.
+template <int NK>
+__device__ __forceinline__ void split_hi_lo(const float (&x)[8 * NK], uint32_t (&hi)[NK][4], uint32_t (&lo)[NK][4]) {
+#pragma unroll
+  for (int kc = 0; kc < NK; ++kc)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float a = x[8 * kc + 2 * t], c = x[8 * kc + 2 * t + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+      hi[kc][t] = bits(h);
+      lo[kc][t] = bits(__floats2bfloat162_rn(a - __low2float(h), c - __high2float(h)));
+    }
+}
+
+// wgmma m64nNk16, bf16 inputs, fp32 accumulators (see the PTX ISA's
+// wgmma.mma_async).  SS: d (64 x N) (+)= A (64 x 16, smem) . B (16 x N,
+// smem); TA, TB 0: K-major, 1: MN-major; accumulate 0 overwrites d.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// RS: d (64 x N) += A (64 x 16 bf16, registers) . B (16 x N bf16, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TN = 128;                          // keys per block: two warpgroups of 64
+constexpr int TM = 64;                           // queries per step
+constexpr int TC_THREADS = 256;                  // two warpgroups; thread 0 also issues the copies
+constexpr int NST = 2;                           // stages of the (Q, dO, (lse2, D)) ring
+constexpr int PAD = 64;                          // query rows of the scratch and dQ's accumulator (ops.py BWD_PAD)
+constexpr int DS_ROW = TM * 2;                   // bytes of a key's row of one dS term: 64 queries, the swizzle span
+constexpr int DS_TERM = TN * DS_ROW;             // one dS^T term: 128 key rows
+constexpr int DS_BUF = 2 * DS_TERM;              // hi and lo
+static_assert(TM == PAD, "a step's (lse2, D) pairs are one bulk copy inside the padded rows");
+
+// geometry: rows stored as swizzled TMA boxes of BOXD elements (ROWB
+// bytes, the swizzle span); K and V tiles of TN rows, Q and dO of TM
+template <int D> struct TC {
+  static constexpr int ROWB = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int BOXD = ROWB / 2;
+  static constexpr int BOXK = TN * ROWB;
+  static constexpr int BOXQ = TM * ROWB;
+  static constexpr int TILE_K = D / BOXD * BOXK;
+  static constexpr int TILE_Q = D / BOXD * BOXQ;
+  static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  // dQ_part: at D 128 each warpgroup takes a 64-column box over all 128
+  // keys (32 accumulators); narrower, all D columns over its own 64 keys
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int NQ = SPLIT ? D / 2 : D;
+  static constexpr size_t smem = 1024 + 2 * (size_t)TILE_K + 2 * NST * (size_t)TILE_Q + 2 * (size_t)DS_BUF;
+};
+
+// acc (64 x 64) = A . B^T over D: A 64 rows of a K-major tile of boxes
+// BOXK bytes apart (K or V: this warpgroup's keys), B a K-major tile of
+// boxes BOXQ apart (Q or dO); a 16-wide step is 32 bytes along the
+// swizzled row
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a_addr, uint32_t b_addr) {
+  using C = TC<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk * 32) % C::ROWB, box = kk * 32 / C::ROWB;
+    wgmma_ss<0, 0>(acc, gmma_desc(a_addr + box * C::BOXK + col, 16, 8 * C::ROWB, C::LAYOUT),
+                gmma_desc(b_addr + box * C::BOXQ + col, 16, 8 * C::ROWB, C::LAYOUT), kk > 0);
+  }
+}
+
+// acc (64 x D) += (hi + lo) . B over the step's 64 queries, A from
+// registers, B the Q or dO tile as MN-major (D contiguous): a 16-query
+// step is 16 rows, and the leading byte offset steps from one box of D to
+// the next
+template <int D>
+__device__ __forceinline__ void issue_grad(float (&acc)[D / 2], const uint32_t (&hi)[TM / 16][4],
+                                           const uint32_t (&lo)[TM / 16][4], uint32_t b_addr) {
+  using C = TC<D>;
+#pragma unroll
+  for (int kc = 0; kc < TM / 16; ++kc) {
+    const uint64_t db = gmma_desc(b_addr + kc * 16 * C::ROWB, C::BOXQ, 8 * C::ROWB, C::LAYOUT);
+    wgmma_rs(acc, hi[kc], db);
+    wgmma_rs(acc, lo[kc], db);
+  }
+}
+
+// dK += (dS_hi + dS_lo)^T . Q over the step's 64 queries: A this
+// warpgroup's 64 key rows of the dS buffer (K-major: a 16-query step is
+// 32 bytes along the swizzled row), B the Q tile as MN-major
+template <int D>
+__device__ __forceinline__ void issue_dk(float (&acc)[D / 2], uint32_t ds_rows, uint32_t q_addr) {
+  using C = TC<D>;
+#pragma unroll
+  for (int kc = 0; kc < TM / 16; ++kc) {
+    const uint64_t db = gmma_desc(q_addr + kc * 16 * C::ROWB, C::BOXQ, 8 * C::ROWB, C::LAYOUT);
+    wgmma_ss<0, 1>(acc, gmma_desc(ds_rows + kc * 32, 16, 8 * DS_ROW, 1), db, 1);
+    wgmma_ss<0, 1>(acc, gmma_desc(ds_rows + DS_TERM + kc * 32, 16, 8 * DS_ROW, 1), db, 1);
+  }
+}
+
+// dQ_part (64 queries x NQ) = (dS_hi + dS_lo) . K: A the dS buffer read
+// as dS (MN-major: the queries of a key are contiguous; a 16-key step is
+// 16 rows), B the resident K tile as MN-major (16 rows a step).  SPLIT:
+// columns [64 w, 64 w + 64) (K's box w) over all 128 keys; else all
+// columns over warpgroup w's 64 keys.
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&acc)[TC<D>::NQ / 2], uint32_t ds_addr, uint32_t k_addr, int w) {
+  using C = TC<D>;
+  constexpr int STEPS = (C::SPLIT ? TN : TN / 2) / 16;
+  const uint32_t a0 = ds_addr + (C::SPLIT ? 0 : w * (TN / 2) * DS_ROW);
+  const uint32_t b0 = k_addr + (C::SPLIT ? w * C::BOXK : w * (TN / 2) * C::ROWB);
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    const uint64_t db = gmma_desc(b0 + kk * 16 * C::ROWB, C::BOXK, 8 * C::ROWB, C::LAYOUT);
+    wgmma_ss<1, 1>(acc, gmma_desc(a0 + kk * 16 * DS_ROW, DS_TERM, 8 * DS_ROW, 1), db, kk > 0);
+    wgmma_ss<1, 1>(acc, gmma_desc(a0 + DS_TERM + kk * 16 * DS_ROW, DS_TERM, 8 * DS_ROW, 1), db, 1);
+  }
+}
+
+// P^T and dS^T of a (64-key, 64-query) tile in place: s holds S^T (key
+// rows kp and kp + 8, query columns qc + 8 j + {0, 1}, positions), dp
+// holds dP^T; st the queries' (lse2, D) pairs from the tile's first;
+// EDGE: the tile crosses the diagonal or the window's edge
+template <bool EDGE>
+__device__ __forceinline__ void probs_t(float (&s)[32], float (&dp)[32], const float2* st, int kp, int qc, int lane,
+                                        const Params& p, float sl2) {
+#pragma unroll
+  for (int j = 0; j < TM / 8; ++j) {
+    const float4 sv = *reinterpret_cast<const float4*>(st + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float l2 = e ? sv.z : sv.x, dl = e ? sv.w : sv.y;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int idx = 4 * j + 2 * hr + e;
+        float pr = ex2(fmaf(s[idx], sl2, -l2));
+        if (EDGE && !keep(qc + 8 * j + e, kp + 8 * hr, p.Sk, p.causal, p.window)) pr = 0.f;
+        s[idx] = pr;
+        dp[idx] = pr * (dp[idx] - dl);
+      }
     }
   }
-};
+}
+
+// dS^T of warpgroup w's 64 keys (fragments as split_hi_lo leaves them:
+// this thread's keys row and row + 8, queries 16 kc + 8 (t / 2) + 2 (lane
+// % 4) + {0, 1}, a packed pair) into a dS buffer: per term 128 key rows of
+// the 64 queries, 128 bytes in TMA's 128-byte swizzle (16-byte chunk c of
+// key row k at chunk c ^ (k % 8)); w's keys are rows 64 w .. 64 w + 63.
+// dK reads it as dS^T (K-major), dQ as dS (MN-major).
+__device__ __forceinline__ void store_ds(uint8_t* buf, const uint32_t (&hi)[TM / 16][4],
+                                         const uint32_t (&lo)[TM / 16][4], int w, int row, int lane) {
+  const int x = row & 7;  // rows row and row + 8 share their place in the swizzle
+#pragma unroll
+  for (int kc = 0; kc < TM / 16; ++kc)
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int k = (TN / 2) * w + row + 8 * (t & 1), chunk = 2 * kc + (t >> 1);
+      uint8_t* at = buf + k * DS_ROW + ((chunk ^ x) << 4) + 4 * (lane % 4);
+      *reinterpret_cast<uint32_t*>(at) = hi[kc][t];
+      *reinterpret_cast<uint32_t*>(at + DS_TERM) = lo[kc][t];
+    }
+}
+
+// a warpgroup's fp32 accumulator (64 x D) into rows [r0, r0 + 64) of a
+// contiguous (rows, D) bf16 operand, times `mul`; rows at or past n_rows
+// are not written.  This thread holds rows r0 + row and r0 + row + 8,
+// columns 8 j + 2 (lane % 4) + {0, 1}.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&acc)[D / 2], int r0, int row, int lane,
+                                           int n_rows, float mul) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + row + 8 * hr;
+    if (r >= n_rows) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(base + (long long)r * D + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hr] * mul, acc[4 * j + 2 * hr + 1] * mul);
+  }
+}
+
+// (lse2, D) of every padded query row, a warp a row
+template <int D>
+__global__ void __launch_bounds__(256) attn_bwd_stats_kernel(Params p) {
+  const long long rows = (long long)p.B * p.Hq * p.Sq_pad;
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long bh = row / p.Sq_pad;
+  const int i = (int)(row % p.Sq_pad);
+  float acc = 0.f, l2 = __int_as_float(0x7f800000);
+  if (i < p.Sq) {
+    const long long at = bh * p.Sq + i;
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + at * D;
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(p.dout) + at * D;
+    for (int d = lane; d < D; d += 32) acc = fmaf(__bfloat162float(o[d]), __bfloat162float(g[d]), acc);
+#pragma unroll
+    for (int s = 16; s >= 1; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    l2 = p.lse[at] * LOG2E;  // +inf stays +inf
+  }
+  if (lane == 0) reinterpret_cast<float2*>(p.stats)[row] = make_float2(l2, acc);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    attn_bwd_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap, Params p) {
+  using C = TC<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + C::TILE_K;
+  uint8_t* qs = vs + C::TILE_K;             // NST Q tiles
+  uint8_t* gs = qs + NST * C::TILE_Q;       // NST dO tiles
+  uint8_t* ds = gs + NST * C::TILE_Q;       // two dS buffers, by step parity
+  __shared__ __align__(16) float2 st[NST][TM];
+  __shared__ __align__(8) uint64_t kv_full, full[NST], empty[NST];
+
+  const int k0 = blockIdx.x * TN;  // key tile 0 sees every query under a causal mask: the heaviest first
+  const int bg = blockIdx.y, b = bg / p.Hkv, g = bg % p.Hkv;
+  const int rep = p.Hq / p.Hkv;
+  const int off = p.q_offset;
+
+  // the query tiles that hold an unmasked (query, key) pair with this key tile
+  const int k_last = min(k0 + TN, p.Sk) - 1;
+  int qt_lo = 0, qt_hi = (p.Sq + TM - 1) / TM - 1;
+  if (p.causal && k0 - off > 0) qt_lo = (k0 - off) / TM;
+  if (p.window >= 0) {
+    const long long last = (long long)k_last + p.window - 1 - off;  // the last query position a key here reaches
+    qt_hi = last < 0 ? -1 : (int)min((long long)qt_hi, last / TM);
+  }
+  const int n_qt = max(qt_hi - qt_lo + 1, 0), n_steps = rep * n_qt;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // step i's Q and dO tiles and (lse2, D) pairs into stage i % NST
+  auto load_step = [&](int i) {
+    const int s = i % NST, h = g * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * TM;
+    mbar_expect_tx(&full[s], 2 * C::TILE_Q + TM * (int)sizeof(float2));
+    for (int x = 0; x < D / C::BOXD; ++x)
+      tma_load(qs + s * C::TILE_Q + x * C::BOXQ, &qmap, &full[s], x * C::BOXD, q0, h, b);
+    for (int x = 0; x < D / C::BOXD; ++x)
+      tma_load(gs + s * C::TILE_Q + x * C::BOXQ, &gmap, &full[s], x * C::BOXD, q0, h, b);
+    bulk_load(st[s], p.stats + 2 * ((long long)(b * p.Hq + h) * p.Sq_pad + q0), TM * sizeof(float2), &full[s]);
+  };
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_THREADS);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(&kv_full, 2 * C::TILE_K);
+    for (int x = 0; x < D / C::BOXD; ++x) tma_load(ks + x * C::BOXK, &kmap, &kv_full, x * C::BOXD, k0, g, b);
+    for (int x = 0; x < D / C::BOXD; ++x) tma_load(vs + x * C::BOXK, &vmap, &kv_full, x * C::BOXD, k0, g, b);
+    for (int i = 0; i < NST && i < n_steps; ++i) load_step(i);
+  }
+  __syncthreads();
+
+  // warpgroup w owns keys kw .. kw + 63; this thread holds key rows row
+  // and row + 8 of them (and dQ_part's query rows row, row + 8)
+  const int w = warp / 4;
+  const int row = 16 * (warp % 4) + lane / 4;
+  const int kw = k0 + (TN / 2) * w;
+  const float sl2 = p.scale * LOG2E;
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs), ds_addr = smem_u32(ds);
+  const uint32_t kw_addr = k_addr + w * (TN / 2) * C::ROWB, vw_addr = v_addr + w * (TN / 2) * C::ROWB;
+  const int cq = C::SPLIT ? C::NQ * w : 0;  // dQ_part's first column
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+
+  mbar_wait(&kv_full, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int sx = i % NST, h = g * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * TM;
+    if (tid == 0 && i >= 1 && i + 1 < n_steps) {  // step i + 1 into the stage that step i - 1 released
+      mbar_wait(&empty[(i + 1) % NST], ((i - 1) / NST) & 1);
+      load_step(i + 1);
+    }
+    // a step's scores, fragments and dQ_part live only inside it, each
+    // zeroed just before the product that overwrites it: a value held for
+    // the wgmma's read-write operands from an earlier point would keep
+    // its registers busy
+    float s[32], dp[32], dq[C::NQ / 2];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    uint32_t phi[TM / 16][4], plo[TM / 16][4], shi[TM / 16][4], slo[TM / 16][4];
+    mbar_wait(&full[sx], (i / NST) & 1);
+    const uint32_t q_addr = smem_u32(qs + sx * C::TILE_Q), g_addr = smem_u32(gs + sx * C::TILE_Q);
+    // S^T = K Q^T, dP^T = V dO^T
+    pin(s), pin(dp);
+    wgmma_fence();
+    issue_scores<D>(s, kw_addr, q_addr);
+    issue_scores<D>(dp, vw_addr, g_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s), pin(dp);
+    const int qa = q0 + off;  // the tile's first query position
+    if ((p.causal && kw + TN / 2 - 1 > qa) || (p.window >= 0 && kw <= qa + TM - 1 - p.window))
+      probs_t<true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
+    else
+      probs_t<false>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
+    split_hi_lo(s, phi, plo);
+    split_hi_lo(dp, shi, slo);
+    // dS^T to shared memory for dK and dQ (the buffer two steps back is
+    // free: both warpgroups waited for its products before the last barrier)
+    const uint32_t dsb = (i & 1) * DS_BUF;
+    store_ds(ds + dsb, shi, slo, w, row, lane);
+    fence_async_shared();
+    warpgroups_sync(TC_THREADS);  // both warpgroups' dS^T are in the buffer
+    // dV += P^T dO, dK += dS^T Q, dQ_part = dS K, one chain
+#pragma unroll
+    for (int j = 0; j < C::NQ / 2; ++j) dq[j] = 0.f;
+    pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
+    wgmma_fence();
+    issue_grad<D>(dv, phi, plo, g_addr);
+    issue_dk<D>(dk, ds_addr + dsb + w * (TN / 2) * DS_ROW, q_addr);
+    issue_dq<D>(dq, ds_addr + dsb, k_addr, w);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
+    mbar_arrive(&empty[sx]);  // this step's Q, dO and (lse2, D) are read
+    // lanes 2m and 2m + 1 hold columns c, c + 1 and c + 2, c + 3 of rows
+    // row and row + 8; one exchange gives the even lane row's four and the
+    // odd lane row + 8's, each added as one 16-byte RED (a quarter of the
+    // scalar adds)
+    const int odd = lane & 1, r = row + 8 * odd;
+    float* acc = p.dq_acc + ((long long)(b * p.Hq + h) * p.Sq_pad + q0 + r) * D + cq + 2 * (lane % 4) - 2 * odd;
+#pragma unroll
+    for (int j = 0; j < C::NQ / 8; ++j) {
+      const float a0 = dq[4 * j], a1 = dq[4 * j + 1], b0 = dq[4 * j + 2], b1 = dq[4 * j + 3];  // row, row + 8
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+      if (q0 + r < p.Sq) red_add4(acc + 8 * j, odd ? r0 : a0, odd ? r1 : a1, odd ? b0 : r0, odd ? b1 : r1);
+    }
+  }
+
+  const long long kv_base = (long long)bg * p.Sk * D;
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + kv_base, dk, kw, row, lane, p.Sk, p.scale);
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + kv_base, dv, kw, row, lane, p.Sk, 1.f);
+}
+
+// dQ = scale acc in bf16 over rows [0, Sq) of each (b, h): four columns a thread
+__global__ void __launch_bounds__(256) attn_bwd_dq_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ dq,
+                                                          long long n4, int sq, int sq_pad, int d, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const long long per = (long long)sq * d / 4;
+  const float4 x = reinterpret_cast<const float4*>(acc)[i / per * ((long long)sq_pad * d / 4) + i % per];
+  uint2 u;
+  u.x = bits(__floats2bfloat162_rn(x.x * scale, x.y * scale));
+  u.y = bits(__floats2bfloat162_rn(x.z * scale, x.w * scale));
+  reinterpret_cast<uint2*>(dq)[i] = u;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64;        // queries per tile
+constexpr int BN = 64;        // keys per tile
+constexpr int NT = 256;       // threads per block: 16 x 16
+constexpr int LP = BN + 4;    // pitch of a (query, key) tile in shared memory
 
 // rows [row0, row0 + 64) of a contiguous (S, D) operand into shared rows
-// of pitch D + 4 as fp32; rows at or past n_rows are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* base, int row0, int n_rows) {
-  constexpr int V = Vec<T>::N, CPR = D / V, LD = D + 4;
+// of pitch D + 4; rows at or past n_rows are zero
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base, int row0, int n_rows) {
+  constexpr int CPR = D / 4, LD = D + 4;
   for (int idx = threadIdx.x; idx < BM * CPR; idx += NT) {
-    const int r = idx / CPR, c = (idx % CPR) * V;
-    float x[V];
-    if (row0 + r < n_rows) {
-      Vec<T>::load(base + (long long)(row0 + r) * D + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; e += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + c + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    const int r = idx / CPR, c = (idx % CPR) * 4;
+    const float4 x = row0 + r < n_rows ? *reinterpret_cast<const float4*>(base + (long long)(row0 + r) * D + c)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
   }
 }
 
@@ -172,16 +765,16 @@ __device__ __forceinline__ void load_rows_stats(float* lse_s, float* del_s, cons
 }
 
 // D_i = rowsum(dO o O), a warp a row
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) delta_kernel(Params p) {
   const long long rows = (long long)p.B * p.Hq * p.Sq;
   const long long row = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* o = static_cast<const T*>(p.o) + row * D;
-  const T* g = static_cast<const T*>(p.dout) + row * D;
+  const float* o = static_cast<const float*>(p.o) + row * D;
+  const float* g = static_cast<const float*>(p.dout) + row * D;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_float(o[d]), to_float(g[d]), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(o[d], g[d], acc);
 #pragma unroll
   for (int s = 16; s >= 1; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) p.delta[row] = acc;
@@ -195,7 +788,7 @@ template <int D> struct Smem {
   static constexpr size_t dq = sizeof(float) * (4 * 64 * LD + BM * LP + 2 * BM);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
   constexpr int LD = D + 4, DJ = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -213,8 +806,8 @@ __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
   const int bg = blockIdx.y, b = bg / p.Hkv, g = bg % p.Hkv;
   const int rep = p.Hq / p.Hkv;
   const long long kv_base = (long long)bg * p.Sk * D;
-  load_tile<T, D>(Ks, static_cast<const T*>(p.k) + kv_base, k0, p.Sk);
-  load_tile<T, D>(Vs, static_cast<const T*>(p.v) + kv_base, k0, p.Sk);
+  load_tile<D>(Ks, static_cast<const float*>(p.k) + kv_base, k0, p.Sk);
+  load_tile<D>(Vs, static_cast<const float*>(p.v) + kv_base, k0, p.Sk);
 
   // the query tiles that hold an unmasked (query, key) pair with this key tile
   const int off = p.q_offset;
@@ -234,13 +827,13 @@ __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
 
   for (int hh = 0; hh < rep; ++hh) {
     const long long bh = (long long)b * p.Hq + g * rep + hh;
-    const T* qb = static_cast<const T*>(p.q) + bh * p.Sq * D;
-    const T* gb = static_cast<const T*>(p.dout) + bh * p.Sq * D;
+    const float* qb = static_cast<const float*>(p.q) + bh * p.Sq * D;
+    const float* gb = static_cast<const float*>(p.dout) + bh * p.Sq * D;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
       const int q0 = qt * BM;
       __syncthreads();  // the previous tile's accumulation is done with Qs, dOs, Ps, dSs
-      load_tile<T, D>(Qs, qb, q0, p.Sq);
-      load_tile<T, D>(dOs, gb, q0, p.Sq);
+      load_tile<D>(Qs, qb, q0, p.Sq);
+      load_tile<D>(dOs, gb, q0, p.Sq);
       load_rows_stats(lse_s, del_s, p.lse + bh * p.Sq, p.delta + bh * p.Sq, q0, p.Sq);
       __syncthreads();
       float s[4][4], dp[4][4];
@@ -270,21 +863,21 @@ __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
     }
   }
 
-  T* dkb = static_cast<T*>(p.dk) + kv_base;
-  T* dvb = static_cast<T*>(p.dv) + kv_base;
+  float* dkb = static_cast<float*>(p.dk) + kv_base;
+  float* dvb = static_cast<float*>(p.dv) + kv_base;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 16 * i;
     if (key >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      store(dkb + (long long)key * D + tx + 16 * j, dk[i][j] * p.scale);
-      store(dvb + (long long)key * D + tx + 16 * j, dv[i][j]);
+      dkb[(long long)key * D + tx + 16 * j] = dk[i][j] * p.scale;
+      dvb[(long long)key * D + tx + 16 * j] = dv[i][j];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
   constexpr int LD = D + 4, DJ = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -303,8 +896,8 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
   const int b = (int)(bh / p.Hq), h = (int)(bh % p.Hq);
   const int g = h / (p.Hq / p.Hkv);
   const long long kv_base = ((long long)b * p.Hkv + g) * p.Sk * D;
-  load_tile<T, D>(Qs, static_cast<const T*>(p.q) + bh * p.Sq * D, q0, p.Sq);
-  load_tile<T, D>(dOs, static_cast<const T*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
+  load_tile<D>(Qs, static_cast<const float*>(p.q) + bh * p.Sq * D, q0, p.Sq);
+  load_tile<D>(dOs, static_cast<const float*>(p.dout) + bh * p.Sq * D, q0, p.Sq);
   load_rows_stats(lse_s, del_s, p.lse + bh * p.Sq, p.delta + bh * p.Sq, q0, p.Sq);
 
   // the key tiles that hold an unmasked key for some query of this tile (the forward's)
@@ -321,13 +914,13 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  const T* kb = static_cast<const T*>(p.k) + kv_base;
-  const T* vb = static_cast<const T*>(p.v) + kv_base;
+  const float* kb = static_cast<const float*>(p.k) + kv_base;
+  const float* vb = static_cast<const float*>(p.v) + kv_base;
   for (int t = t_lo; t <= t_hi; ++t) {
     const int k0 = t * BN;
     __syncthreads();  // the previous tile's dS . K is done with Ks, Vs, dSs
-    load_tile<T, D>(Ks, kb, k0, p.Sk);
-    load_tile<T, D>(Vs, vb, k0, p.Sk);
+    load_tile<D>(Ks, kb, k0, p.Sk);
+    load_tile<D>(Vs, vb, k0, p.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
     tile_dots<D>(s, Qs, Ks, tx, ty);
@@ -349,53 +942,122 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
     }
   }
 
-  T* dqb = static_cast<T*>(p.dq) + bh * p.Sq * D;
+  float* dqb = static_cast<float*>(p.dq) + bh * p.Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store(dqb + (long long)qi * D + tx + 16 * j, acc[i][j] * p.scale);
+    for (int j = 0; j < DJ; ++j) dqb[(long long)qi * D + tx + 16 * j] = acc[i][j] * p.scale;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const long long rows = (long long)p.B * p.Hq * p.Sq;
-  delta_kernel<T, D><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(p);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a 4-d map over (D, S, H, B) of a contiguous bf16 operand, boxes of
+// (box_d, box_s) swizzled over rows of `rowb` bytes
+cudaError_t make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, int box_d, int box_s, int rowb) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2, (cuuint64_t)H * S * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, (cuuint32_t)box_s, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = rowb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                               : rowb == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  using C = TC<D>;
+  const long long rows = (long long)p.B * p.Hq * p.Sq_pad;
+  attn_bwd_stats_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
   cudaError_t e = cudaGetLastError();
+  CUtensorMap qm, km, vm, gm;
+  if (e == cudaSuccess) e = make_map(&qm, p.q, D, p.Sq, p.Hq, p.B, C::BOXD, TM, C::ROWB);
+  if (e == cudaSuccess) e = make_map(&km, p.k, D, p.Sk, p.Hkv, p.B, C::BOXD, TN, C::ROWB);
+  if (e == cudaSuccess) e = make_map(&vm, p.v, D, p.Sk, p.Hkv, p.B, C::BOXD, TN, C::ROWB);
+  if (e == cudaSuccess) e = make_map(&gm, p.dout, D, p.Sq, p.Hq, p.B, C::BOXD, TM, C::ROWB);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::dkdv);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::dq);
+    e = cudaFuncSetAttribute(attn_bwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
   if (e != cudaSuccess) return e;
-  dkdv_kernel<T, D><<<dim3((p.Sk + BN - 1) / BN, p.B * p.Hkv), NT, Smem<D>::dkdv, stream>>>(p);
+  attn_bwd_tc_kernel<D><<<dim3((p.Sk + TN - 1) / TN, p.B * p.Hkv), TC_THREADS, C::smem, stream>>>(qm, km, vm, gm, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dq_kernel<T, D><<<dim3((p.Sq + BM - 1) / BM, p.B * p.Hq), NT, Smem<D>::dq, stream>>>(p);
+  const long long n4 = (long long)p.B * p.Hq * p.Sq * D / 4;
+  attn_bwd_dq_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      p.dq_acc, static_cast<__nv_bfloat16*>(p.dq), n4, p.Sq, p.Sq_pad, D, p.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fp32(const Params& p, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.Hq * p.Sq;
+  delta_kernel<D><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)), NT, 0, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::dkdv);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Smem<D>::dq);
+  if (e != cudaSuccess) return e;
+  dkdv_kernel<D><<<dim3((p.Sk + BN - 1) / BN, p.B * p.Hkv), NT, Smem<D>::dkdv, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dq_kernel<D><<<dim3((p.Sq + BM - 1) / BM, p.B * p.Hq), NT, Smem<D>::dq, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
-  return dtype == 1 ? launch<__nv_bfloat16, D>(p, stream) : launch<float, D>(p, stream);
+  return dtype == 1 ? launch_tc<D>(p, stream) : launch_fp32<D>(p, stream);
 }
 
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16.  q, o, dout, dq (B, Hq, Sq, D); k, v, dk, dv
-// (B, Hkv, Sk, D); lse and delta (B, Hq, Sq) fp32, delta scratch; all
-// contiguous.  window -1: none.  Returns cudaGetLastError() after the
-// three launches.
+// (B, Hkv, Sk, D); lse (B, Hq, Sq) fp32; all contiguous.  scratch: fp32,
+// (B, Hq, Sq) for fp32, (B, Hq, Sq_pad, 2) for bf16 with Sq_pad = Sq
+// rounded up to a multiple of 64.  dq_acc: bf16 only, fp32 (B, Hq,
+// Sq_pad, D), zeroed by the caller (null for fp32).  window -1: none.
+// Returns cudaGetLastError() after the three launches.
 extern "C" int flash_attention_bwd_launch(
-    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse, void* delta,
-    void* dq, void* dk, void* dv, int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+    const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse, void* scratch,
+    void* dq_acc, void* dq, void* dk, void* dv, int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     int causal, int window, int q_offset, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (dtype != 0 && dtype != 1) ||
-      (long long)B * Hq > 65535 || (long long)B * Hkv > 65535)
+      (long long)B * Hq > 65535 || (long long)B * Hkv > 65535 || (dtype == 1 && dq_acc == nullptr))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta), dq, dk, dv,
-           B, Hq, Hkv, Sq, Sk, causal, window, q_offset, scale};
+  float* f = static_cast<float*>(scratch);
+  Params p{q, k, v, o, dout, static_cast<const float*>(lse), dtype == 0 ? f : nullptr, dtype == 1 ? f : nullptr,
+           static_cast<float*>(dq_acc), dq, dk, dv, B, Hq, Hkv, Sq, Sk, (Sq + PAD - 1) / PAD * PAD,
+           causal, window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return (int)launch<16>(p, dtype, s);

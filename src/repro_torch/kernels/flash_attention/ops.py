@@ -33,7 +33,10 @@ Training: when grad mode is on and q, k or v requires a gradient,
 is the same launch with the per-query log-sum-exp written (the prefill
 mappings only: Sq > 1) and whose backward is ``flash_attention_bwd``,
 the B11 kernel (``csrc/flash_attention_bwd.cu``: dQ, dK, dV, the GQA
-group sums taken in place, three launches a call, counted once).  On a
+group sums taken in place, three launches a call, counted once).  Its
+mapping is chosen statically by dtype: bf16 runs the tensor-core launch
+(dK and dV in registers, dQ added into an fp32 accumulator that the
+wrapper allocates zeroed, then cast), fp32 the CUDA-core FMA kernels.  On a
 CPU tensor the same Function runs ``ref.py``'s ``attention_ref`` (with
 the log-sum-exp) and ``attention_bwd_ref``.  The backward is
 instantiated at ``BWD_DIMS`` with v as wide as q and k; MLA's D 192 and
@@ -54,13 +57,14 @@ from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS",
-           "BWD_DIMS", "DECODE_TILE", "DECODE_GROUP", "SMS"]
+           "BWD_DIMS", "BWD_PAD", "DECODE_TILE", "DECODE_GROUP", "SMS"]
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches",
             "flash_attention_bwd": "kernel.flash_attention_bwd.launches"}
 HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
 HEAD_PAIRS = ((192, 128),)      # (D, Dv) pairs with v narrower than q/k: MLA's (bf16 prefill at its own widths)
 BWD_DIMS = (16, 32, 128)        # head widths the backward kernel is instantiated for (v as wide as q and k)
+BWD_PAD = 64                    # bf16 backward: query rows of its scratch and dQ accumulator, padded to a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAD_V = -1        # the launcher's answer where its mapping is not instantiated on (D, Dv)
 DECODE_TILE = 64   # keys per decode tile (csrc/flash_attention.cu DBK)
@@ -193,7 +197,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
     gradient ``dout``, from the forward's inputs, its output ``out`` and
     its fp32 log-sum-exp ``lse`` (B, Hq, Sq); each in its input's dtype.
     A CPU ``q`` runs ``attention_bwd_ref``; a CUDA one launches
-    ``csrc/flash_attention_bwd.cu`` (three kernels, one count) or raises:
+    ``csrc/flash_attention_bwd.cu`` (three kernels, one count; bf16 on the
+    tensor cores, its dQ summed by atomic adds in an order that changes
+    from call to call, fp32 on the CUDA cores) or raises:
     at head widths outside ``BWD_DIMS``, with v narrower than q and k,
     or at Sq = 1."""
     q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
@@ -209,10 +215,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
     q, k, v, out, dout = (_contiguous(t) for t in (q, k, v, out, dout.to(q.dtype)))
     lse = _contiguous(lse.to(torch.float32))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:  # (lse log2 e, D) pairs, and dQ's fp32 accumulator, rows padded
+        sq_pad = -(-sq // BWD_PAD) * BWD_PAD
+        scratch = torch.empty((b, hq, sq_pad, 2), dtype=torch.float32, device=q.device)
+        dq_acc = torch.zeros((b, hq, sq_pad, d), dtype=torch.float32, device=q.device)
+    else:  # rowsum(dO o O)
+        scratch, dq_acc = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device), None
     err = _build.load("flash_attention_bwd").flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+        scratch.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _DTYPES[q.dtype],
         b, hq, hkv, sq, sk, d, int(bool(causal)), _window_arg(window, q_offset, sq), q_offset, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

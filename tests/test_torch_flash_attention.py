@@ -661,6 +661,17 @@ def test_gradient_path_needs_grad_mode():
     assert BWD_DIMS == (16, 32, 128)
 
 
+# the bf16 mapping's tiles at their edges: S across the 128-key tile and the
+# 64-query step, a window's edge inside a tile, a negative query offset
+# (rows with no key), Hq / Hkv of 1, 4 and 8
+GPU_GRAD_EDGES = [
+    (1, 4, 4, 127, 127, 128, 128, True, None, None), (1, 4, 1, 128, 128, 128, 128, True, None, None),
+    (2, 8, 1, 129, 129, 128, 128, True, None, None), (1, 4, 4, 257, 257, 128, 128, False, None, None),
+    (1, 8, 2, 300, 300, 128, 128, True, 70, None), (1, 4, 2, 129, 129, 32, 32, True, 40, None),
+    (1, 2, 2, 129, 129, 16, 16, True, None, -20), (1, 8, 1, 200, 257, 128, 128, True, None, -30),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_attention_gradient_matches_plain(dtype, metrics_on):
@@ -673,7 +684,8 @@ def test_gpu_attention_gradient_matches_plain(dtype, metrics_on):
     launches = metrics.counter(LAUNCHES["flash_attention_bwd"])
     tol = 1e-4 if dtype == torch.float32 else TOL_BF16
     for case in [(2, 8, 2, 70, 70, 16, 16, True, None, None), (1, 4, 1, 130, 200, 32, 32, True, 50, None),
-                 (2, 8, 8, 129, 129, 128, 128, False, None, None), (1, 4, 4, 64, 100, 128, 128, True, None, -10)]:
+                 (2, 8, 8, 129, 129, 128, 128, False, None, None), (1, 4, 4, 64, 100, 128, 128, True, None, -10),
+                 *GPU_GRAD_EDGES]:
         causal, window, q_offset = case[7:]
         q, k, v, g = (torch.from_numpy(a).to(dev, dtype) for a in _grad_inputs(case, seed=sum(case[:7])))
         off = k.shape[2] - q.shape[2] if q_offset is None else q_offset
@@ -704,3 +716,117 @@ def test_gpu_attention_gradient_raises_past_its_widths():
         v = torch.zeros((1, 2, 64, dv), device="cuda", dtype=torch.bfloat16)
         with pytest.raises(NotImplementedError, match="B11b"):
             flash_attention(q, q.detach(), v, causal=True)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_two_term_p_and_ds_hold_the_backward_gate(capsys):
+    """The bf16 backward's rounding, emulated in plain torch on every
+    ``BWD_CASES`` case with bf16 inputs: P and dS as bf16 hi + lo (hi =
+    bf16(x), lo = bf16(x - hi)), the products summed in fp32 and rounded
+    to bf16 once, against ``attention_bwd_ref`` under ``BWD_TOL``'s bf16
+    gate (``chip_smoke.bwd_grad_gap``).  P and dS rounded once to bf16 are
+    counted beside it (printed, not asserted)."""
+    smoke = _chip_smoke()
+    misses = {}
+    for i, (b, hq, hkv, sq, sk, d, causal, window, off) in enumerate(smoke.BWD_CASES):
+        rng = np.random.default_rng(100 + i)
+        q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+                      for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)))
+        off = sk - sq if off is None else off
+        out, lse = attention_ref(q, k, v, causal=causal, window=window, q_offset=off, return_lse=True)
+        want = attention_bwd_ref(q, k, v, out, lse, g, causal=causal, window=window, q_offset=off)
+        rep, scale = hq // hkv, d ** -0.5
+        qf, gf = (t.float().reshape(b, hkv, rep, sq, d) for t in (q, g))
+        kf, vf = k.float(), v.float()
+        keep = torch.ones((sq, sk), dtype=torch.bool)
+        qpos, kpos = torch.arange(sq)[:, None] + off, torch.arange(sk)[None, :]
+        if causal:
+            keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * scale
+        p = torch.exp(s - lse.reshape(b, hkv, rep, sq, 1)).masked_fill(~keep, 0.0)
+        delta = (gf * out.float().reshape(b, hkv, rep, sq, d)).sum(-1, keepdim=True)
+        ds = p * (torch.einsum("bgrqd,bgkd->bgrqk", gf, vf) - delta)
+
+        def grads(pp, dd):
+            dq = torch.einsum("bgrqk,bgkd->bgrqd", dd, kf) * scale
+            dk = torch.einsum("bgrqk,bgrqd->bgkd", dd, qf) * scale
+            dv = torch.einsum("bgrqk,bgrqd->bgkd", pp, gf)
+            return dq.reshape(b, hq, sq, d).to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+        def two(x):
+            hi = x.to(torch.bfloat16).float()
+            return hi + (x - hi).to(torch.bfloat16).float()
+
+        def one(x):
+            return x.to(torch.bfloat16).float()
+
+        for got, w in zip(grads(two(p), two(ds)), want):
+            assert smoke.bwd_grad_gap(got, w, torch.bfloat16)[0], smoke.BWD_CASES[i]
+        misses[i] = sum(not smoke.bwd_grad_gap(got, w, torch.bfloat16)[0]
+                        for got, w in zip(grads(one(p), one(ds)), want))
+    with capsys.disabled():
+        print(f"\none-term P and dS: gradients (dq, dk, dv) outside BWD_TOL per BWD_CASES case: {misses}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_attention_gradient_is_reproducible(dtype):
+    """Two calls on the same inputs: dK and dV equal bit for bit (written
+    once from registers); dQ too in fp32, and in bf16 (atomic adds into
+    the fp32 accumulator, in a run's own order) within ``BWD_TOL``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    smoke = _chip_smoke()
+    case = (2, 8, 2, 300, 300, 128, 128, True, None, None)
+    q, k, v, g = (torch.from_numpy(a).to("cuda", dtype) for a in _grad_inputs(case, seed=7))
+    out, lse = attention_ref(q, k, v, causal=True, return_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    second = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    if dtype == torch.float32:
+        assert torch.equal(first[0], second[0])
+    else:
+        assert smoke.bwd_grad_gap(second[0], first[0], dtype)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_attention_gradient_runs_its_dtypes_mapping(dtype):
+    """The mapping is chosen by dtype, with no fallback: a bf16 call
+    launches the tensor-core kernel and never the CUDA-core FMA kernels
+    (``dkdv_kernel``, ``dq_kernel``, ``delta_kernel``); an fp32 call the
+    reverse (the profiler's kernel names)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    case = (1, 8, 2, 200, 200, 128, 128, True, None, None)
+    q, k, v, g = (torch.from_numpy(a).to("cuda", dtype) for a in _grad_inputs(case, seed=3))
+    out, lse = attention_ref(q, k, v, causal=True, return_lse=True)
+    flash_attention_bwd(q, k, v, out, lse, g, causal=True)  # built and loaded outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    fma = [n for n in names if re.search(r"::(dkdv_kernel|dq_kernel|delta_kernel)<", n)]
+    tc = [n for n in names if "attn_bwd_" in n]
+    if dtype == torch.bfloat16:
+        assert not fma and any("attn_bwd_tc_kernel" in n for n in tc), names
+    else:
+        assert not tc and len({re.search(r"::(\w+)<", n).group(1) for n in fma}) == 3, names
+
