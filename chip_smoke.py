@@ -217,19 +217,22 @@ Phases (each prints one JSON line; any failure exits nonzero):
    queued beside ``scaled_dot_product_attention`` with its bound;
 14. train: the training half.  B11 (``flash_attention_bwd``, the
    gradient of attention) against ``attention_bwd_ref`` on the card at
-   every instantiated width (16, 32, 128), fp32 and bf16, causal,
-   windowed and unmasked, Hq / Hkv 1, 4 and 8, ragged S, a query offset
-   (``BWD_CASES``; the forward's log-sum-exp within ``LSE_TOL``, the
-   gradients within ``BWD_TOL``, the autograd path too), D 192 and the
-   (192, 128) pair raising; its row at the forward row's shape (B 4, Hq
-   32, Hkv 8, S 4096, D 128, causal, bf16: back to back and queued, the
-   plain version, SDPA's backward as the library, the bound 2.5 x the
-   forward's FLOP on bf16 tensor cores, ptxas) and the
-   ``flash_attention_lse`` row (that forward with the log-sum-exp
-   written, beside it not written).  llama3-8b at full width, 2 layers,
-   1 x 1,024 tokens, bf16: every parameter's gradient through the
-   kernels against the same loss through ``attention_ref`` with
-   autograd (``GRAD_REL_L2``).  llama3-8b training at full width, 8 of
+   every instantiated width (16, 32, 128, 192) and MLA's (192, 128)
+   pair, fp32 and bf16, causal, windowed and unmasked, Hq / Hkv 1, 4 and
+   8, ragged S, a query offset (``BWD_CASES``; the forward's log-sum-exp
+   within ``LSE_TOL``, the gradients within ``BWD_TOL``, the autograd
+   path too), the decode mapping (Sq = 1) raising; its rows at the
+   forward row's shape (B 4, Hq 32, Hkv 8, S 4096, D 128, causal, bf16)
+   and at deepseek-v2's training shape (``flash_attention_bwd_mla``: B
+   2, Hq = Hkv = 128, S 4096, the (192, 128) pair): back to back and
+   queued, a second call's dK and dV bit for bit and dQ's gap, the plain
+   version, SDPA's backward at the same widths as the library, the bound
+   (the five products on bf16 tensor cores) and the two-term floor,
+   ptxas; and the ``flash_attention_lse`` row (that forward with the
+   log-sum-exp written, beside it not written).  llama3-8b at full
+   width, 2 layers, 1 x 1,024 tokens, bf16: every parameter's gradient
+   through the kernels against the same loss through ``attention_ref``
+   with autograd (``GRAD_REL_L2``; ``model_grads``).  llama3-8b training at full width, 8 of
    32 layers (2,795,573,248 parameters: bf16 weights and grads, fp32
    AdamW state), B 8 x 4,096 (``train_4k``'s sequence; batch cut from
    256), ``lm_batches(0, 8, 4096, 128256)``'s batch 0 repeated, remat,
@@ -243,7 +246,21 @@ Phases (each prints one JSON line; any failure exits nonzero):
    fingerprinted against the saved ones: bit for bit) and stepped once
    (its loss against the uninterrupted run's, ``RESUME_TOL``); the loss
    must fall; the launches of a step: ``flash_attention`` 16 (forward
-   and remat recompute), ``flash_attention_bwd`` 8.  The recsys
+   and remat recompute), ``flash_attention_bwd`` 8.  The zoo's training
+   (``ZOO_TRAIN``), each at full width with its depth cut from its
+   training state: deepseek-v2 (2 of 60 layers: the dense prefix + 1
+   MoE, MLA at (192, 128)), grok-1 (1 of 64) and gemma3-27b (6 of 62: 5
+   local + the first global), B 2 x 4,096, bf16, remat, one microbatch,
+   the full model's optimizer policy (bf16 AdamW state and ``ce_chunk``
+   256 above 1e11 parameters, else fp32 and 512) behind the same
+   warmup: first the gradient check on the drawn weights at 1 x 2,048
+   tokens (MoE at the no-drop capacity, the positions whose experts flip
+   between the two passes counted and left out of both losses, at least
+   90% kept), then a warm-up step and three timed steps (the last
+   profiled) on one repeated batch: the loss finite and falling, the
+   launches of each step (2 ``flash_attention`` and 1
+   ``flash_attention_bwd`` a layer), tokens/s, peak memory, MoE drop
+   fractions at the published capacity.  The recsys
    rankers' ``train_batch`` at full width (bst, DeepFM, AutoInt, DIEN;
    65,536 rows of ``ctr_batches``, DIEN's halved until its GRU steps
    fit), and GAT's ``full_graph_sm`` (Cora's sizes), ``minibatch_lg``
@@ -354,6 +371,10 @@ KERNELS = {
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "(no Pallas kernel) the gradient of `blockwise_attention`, `src/repro/models/layers.py:94`, "
                             "taken by `jax.value_and_grad` at `src/repro/launch/steps.py:261`"),
+    "flash_attention_bwd_mla": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "(no Pallas kernel) the gradient of `blockwise_attention`, "
+                                "`src/repro/models/layers.py:94`, taken by `jax.value_and_grad` at "
+                                "`src/repro/launch/steps.py:261`; at MLA's (192, 128) pair, `src/repro/models/mla.py:94`"),
     "flash_attention_lse": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
                             "_make_kernel :30; the prefill with the log-sum-exp written: training's forward and "
@@ -2805,16 +2826,22 @@ def check_zoo_flash(zoo_launches):
 # phase 14: training (the attention gradient B11, llama3-8b, recsys, GAT)
 # ---------------------------------------------------------------------------
 
-# B11 against attention_bwd_ref: (B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset)
+# B11 against attention_bwd_ref: (B, Hq, Hkv, Sq, Sk, D, Dv, causal, window, q_offset)
 BWD_CASES = [
-    (2, 4, 4, 70, 70, 16, True, None, None), (2, 8, 1, 200, 200, 32, True, None, None),
-    (1, 8, 2, 300, 300, 128, True, None, None), (2, 4, 1, 129, 129, 128, False, None, None),
-    (1, 8, 8, 513, 513, 128, True, 100, None), (1, 4, 4, 100, 260, 32, True, None, None),
-    (1, 4, 1, 64, 200, 16, True, None, -20), (2, 8, 2, 65, 333, 128, False, None, None),
-    (1, 4, 4, 257, 257, 32, True, 64, None),
+    (2, 4, 4, 70, 70, 16, 16, True, None, None), (2, 8, 1, 200, 200, 32, 32, True, None, None),
+    (1, 8, 2, 300, 300, 128, 128, True, None, None), (2, 4, 1, 129, 129, 128, 128, False, None, None),
+    (1, 8, 8, 513, 513, 128, 128, True, 100, None), (1, 4, 4, 100, 260, 32, 32, True, None, None),
+    (1, 4, 1, 64, 200, 16, 16, True, None, -20), (2, 8, 2, 65, 333, 128, 128, False, None, None),
+    (1, 4, 4, 257, 257, 32, 32, True, 64, None),
     # the bf16 mapping's 128-key tile and 64-query step at their edges
-    (1, 8, 1, 128, 128, 128, True, None, None), (1, 4, 4, 127, 127, 128, True, None, None),
-    (2, 4, 1, 257, 257, 128, True, 90, None), (1, 4, 2, 129, 129, 16, True, None, -30),
+    (1, 8, 1, 128, 128, 128, 128, True, None, None), (1, 4, 4, 127, 127, 128, 128, True, None, None),
+    (2, 4, 1, 257, 257, 128, 128, True, 90, None), (1, 4, 2, 129, 129, 16, 16, True, None, -30),
+    # q/k 192 (B11b): v at 192, and MLA's (192, 128) pair; the tile's and the
+    # step's edges, a window, a negative offset, Hq / Hkv of 1 and 4
+    (1, 4, 1, 127, 127, 192, 192, True, None, None), (2, 4, 4, 257, 257, 192, 192, True, 90, None),
+    (1, 4, 4, 129, 129, 192, 192, True, None, -20), (1, 4, 1, 128, 128, 192, 128, True, None, None),
+    (1, 4, 4, 129, 129, 192, 128, True, None, None), (2, 4, 4, 257, 257, 192, 128, True, 100, None),
+    (1, 4, 2, 200, 200, 192, 128, True, None, -30), (1, 8, 8, 64, 300, 192, 128, False, None, None),
 ]
 LSE_TOL = "|kernel - plain| <= 1e-4 (1 + |plain|), fp32 lse; +inf on the same rows"
 BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2^-7 |plain| + 1e-3 rms(plain) "
@@ -2825,6 +2852,7 @@ BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2
 BWD_KERNELS = ("attn_bwd_stats_kernel", "attn_bwd_tc_kernel", "attn_bwd_dq_kernel", "delta_kernel", "dkdv_kernel",
                "dq_kernel")
 BWD_ROW = (4, 32, 8, 4096, 128)   # B, Hq, Hkv, S, D: the forward row's shape, causal, bf16
+BWD_MLA_ROW = (2, 128, 128, 4096, 192, 128)  # B, Hq, Hkv, S, D, Dv: deepseek-v2's training shape, causal, bf16
 # full-width gradients through the kernels against the same step through attention_ref with autograd
 GRAD_CHECK = (2, 1, 1024)         # layers, batch, tokens
 GRAD_REL_L2 = 0.05                # per leaf, bf16: the kernel's P.V is two bf16 terms, the plain P fp32
@@ -2838,6 +2866,16 @@ TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 8, 4096
 # section 6)
 TRAIN_LM_WARMUP = 100
 RESUME_TOL = 1e-4                 # |resumed - uninterrupted| / |loss| at the first step after the restore
+# the zoo's training at full width, each depth cut from its training state
+# (bf16 weights and grads + AdamW's m and v in the full model's state dtype)
+# to fit one card; train_4k's 4,096 tokens a row, one microbatch
+ZOO_TRAIN = {
+    # name: (layers kept, batch rows, why these layers)
+    "deepseek-v2-236b": (2, 2, "2 of 60: the dense prefix + 1 MoE layer (MLA at (192, 128), 160 experts top-6)"),
+    "grok-1-314b": (1, 2, "1 of 64 (8 experts top-2, GQA at D 128): 52.2 GB of state; a second layer passes 80 GB"),
+    "gemma3-27b": (6, 2, "6 of 62: 5 local (window 1,024) + the first global (layer 5), the fewest with a global"),
+}
+ZOO_GRAD_TOKENS = 2048            # the gradient check's 1 x 2,048 tokens: the window masks beyond 1,024
 # recsys and GAT steps held to a CPU copy
 RECSYS_TRAIN_BATCH, TRAIN_PARITY_ROWS = 65536, 512
 TRAIN_GRAD_REL_L2 = 1e-4          # per leaf, fp32 on both: the CPU tests' bound against JAX
@@ -2875,13 +2913,13 @@ def bwd_case(c, dtype, seed):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
 
-    b, hq, hkv, sq, sk, d, causal, window, off = c
+    b, hq, hkv, sq, sk, d, dv, causal, window, off = c
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def draw(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
 
-    q, k, v, dout = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, d), draw(b, hq, sq, d)
+    q, k, v, dout = draw(b, hq, sq, d), draw(b, hkv, sk, d), draw(b, hkv, sk, dv), draw(b, hq, sq, dv)
     q_offset = sk - sq if off is None else off
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device="cuda")
     out = ops._launch(q, k, v, causal, window, d ** -0.5, q_offset, lse)
@@ -2889,7 +2927,7 @@ def bwd_case(c, dtype, seed):
     fin = lse_ref.isfinite()
     ok = bool(torch.equal(fin, lse.isfinite()))
     ok &= bool(((lse - lse_ref)[fin].abs() <= 1e-4 * (1 + lse_ref[fin].abs())).all())
-    row = {"case": dict(zip(("B", "Hq", "Hkv", "Sq", "Sk", "D", "causal", "window", "q_offset"), c)),
+    row = {"case": dict(zip(("B", "Hq", "Hkv", "Sq", "Sk", "D", "Dv", "causal", "window", "q_offset"), c)),
            "dtype": str(dtype).split(".")[-1], "lse_ok": ok,
            "lse_max_abs_err": float((lse - lse_ref)[fin].abs().max()) if fin.any() else 0.0,
            "rows_without_keys": int((~fin).sum())}
@@ -2907,10 +2945,11 @@ def bwd_case(c, dtype, seed):
 
 
 def check_attention_bwd():
-    """B11 held to its plain version at every instantiated width, both
-    dtypes and every mask of ``BWD_CASES``; the widths it does not take
-    (192, MLA's (192, 128)) raise before the forward launches.  Returns
-    (ok, case rows, raises)."""
+    """B11 held to its plain version at every instantiated width (16, 32,
+    128, 192 and MLA's (192, 128) pair), both dtypes and every mask of
+    ``BWD_CASES``; the decode mapping (Sq = 1), which writes no
+    log-sum-exp, raises before the forward launches.  Returns (ok, case
+    rows, raises)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
@@ -2921,15 +2960,13 @@ def check_attention_bwd():
             o, row = bwd_case(c, dtype, seed=i)
             rows.append(row)
             ok &= o
-    raised = {}
-    for d, dv in ((192, 192), (192, 128)):
-        q = torch.randn(1, 2, 64, d, device="cuda", dtype=torch.bfloat16, requires_grad=True)
-        v = torch.randn(1, 2, 64, dv, device="cuda", dtype=torch.bfloat16)
-        try:
-            ops.flash_attention(q, q.detach(), v, causal=True)
-            raised[f"{d}_{dv}"] = False
-        except NotImplementedError:
-            raised[f"{d}_{dv}"] = True
+    q = torch.randn(1, 2, 1, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.randn(1, 2, 64, 128, device="cuda", dtype=torch.bfloat16)
+    try:
+        ops.flash_attention(q, kv, kv, causal=True)
+        raised = {"sq_1": False}
+    except NotImplementedError:
+        raised = {"sq_1": True}
     return ok and all(raised.values()), rows, raised
 
 
@@ -2940,32 +2977,31 @@ def bwd_ptxas():
     return out
 
 
-def attention_bwd_rows():
-    """The ``flash_attention_bwd`` row at the forward row's shape (B 4,
-    Hq 32, Hkv 8, S 4096, D 128, causal, bf16): against the plain version
-    on the same inputs, a second call against the first (dK and dV bit
-    for bit, dQ's run-to-run gap), its time back to back and queued, the
-    plain version's, SDPA's backward (its forward plus ``backward()``
-    less its forward), the bound (2.5 x the forward's FLOP on bf16 tensor
-    cores) and the two-term floor (8/5 of it); and the D 128 forward with
-    the log-sum-exp written (training's forward) beside the same launch
-    without it.  Returns (ok, bwd row, lse row)."""
+def bwd_row(name, shape, seed):
+    """A ``flash_attention_bwd`` row at ``shape`` (B, Hq, Hkv, S, D, Dv;
+    causal, bf16): against the plain version on the same inputs, a second
+    call against the first (dK and dV bit for bit, dQ's run-to-run gap),
+    its time back to back and queued, the plain version's, SDPA's backward
+    at the same widths (its forward plus ``backward()`` less its forward),
+    the bound (the five products, 2 pairs (D + Dv + Dv + D + D) FLOP, on
+    bf16 tensor cores) and the two-term floor (P and dS as two terms in
+    dV, dK and dQ: 2 pairs (D + Dv + 2 Dv + 2 D + 2 D)).  Returns (ok, row,
+    the inputs (q, k, v, dout, out, lse))."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
-    b, hq, hkv, s, d = BWD_ROW
-    g = torch.Generator(device="cuda").manual_seed(11)
+    b, hq, hkv, s, d, dv = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def draw(*shape):
-        return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+    def draw(*shp):
+        return torch.randn(shp, generator=g, device="cuda", dtype=torch.float32).to(torch.bfloat16)
 
-    q, k, v, dout = draw(b, hq, s, d), draw(b, hkv, s, d), draw(b, hkv, s, d), draw(b, hq, s, d)
-    scale = d ** -0.5
+    q, k, v, dout = draw(b, hq, s, d), draw(b, hkv, s, d), draw(b, hkv, s, dv), draw(b, hq, s, dv)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-    out = ops._launch(q, k, v, True, None, scale, 0, lse)
+    out = ops._launch(q, k, v, True, None, d ** -0.5, 0, lse)
     got = ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     want = attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
     ok, errs = True, []
@@ -2987,33 +3023,60 @@ def attention_bwd_rows():
     t2 = time_ms(bwd, reps=3, warmup=0)
     plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout, causal=True), reps=1, warmup=1)
     ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    gqa = hq != hkv
 
     def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True).backward(dout)
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=gqa).backward(dout)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=gqa)
+
+    fb, f_only = time_ms(sdpa_fwd_bwd, reps=5), time_ms(sdpa_fwd, reps=5)
+    del ql, kl, vl
+    pairs = b * hq * s * (s + 1) // 2
+    flops = 2.0 * pairs * (3 * d + 2 * dv)
+    n_bytes = 2 * (2 * b * hq * s * (d + dv) + 2 * b * hkv * s * (d + dv)) + 4 * b * hq * s  # q, dq, o, dO; k, dk, v, dv; lse
+    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    row = {"name": name, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "Dv": dv, "causal": True,
+                                   "dtype": "bfloat16"},
+           "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tolerance": BWD_TOL,
+           "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": queued, "plain_ms": plain,
+           "library_ms": fb - f_only, "library_fwd_bwd_ms": fb, "library_fwd_ms": f_only,
+           "library": f"F.scaled_dot_product_attention(enable_gqa={gqa}), v at Dv: forward + backward() less its "
+                      "forward",
+           "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
+           "two_term_floor_ms": bound_ms(n_bytes, 2.0 * pairs * (5 * d + 3 * dv), BF16_FLOPS)[0],
+           "bound_fp32_cuda_cores_ms": bound_ms(n_bytes, flops, FP32_FLOPS)[0],
+           "second_call": {"dk_dv_bit_equal": dkdv_equal, "dq_max_abs_diff": dq_gap,
+                           "dq_elements_differing": dq_differ, "dq_within_tolerance": dq_ok},
+           "tflops_counted": flops / ((t1 + t2) / 2) / 1e9, "ptxas": bwd_ptxas(),
+           "build_notes": build_notes("flash_attention_bwd")}
+    return ok, row, (q, k, v, dout, out, lse)
+
+
+def attention_bwd_rows():
+    """The ``flash_attention_bwd`` rows (``bwd_row``): at the forward
+    row's shape (``BWD_ROW``: B 4, Hq 32, Hkv 8, S 4096, D 128, causal,
+    bf16) and, as ``flash_attention_bwd_mla``, at deepseek-v2's training
+    shape (``BWD_MLA_ROW``: B 2, Hq = Hkv = 128, S 4096, the (192, 128)
+    pair); and the D 128 forward with the log-sum-exp written (training's
+    forward) beside the same launch without it.  Returns (ok, [bwd row,
+    lse row, mla row])."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ok, bwd, (q, k, v, dout, out, lse) = bwd_row("flash_attention_bwd", (*BWD_ROW, BWD_ROW[4]), seed=11)
+    b, hq, hkv, s, d = BWD_ROW
+    scale = d ** -0.5
 
     def sdpa_fwd():
         with torch.no_grad():
             F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-    fb, f_only = time_ms(sdpa_fwd_bwd, reps=5), time_ms(sdpa_fwd, reps=5)
-    pairs = b * hq * s * (s + 1) // 2
-    fwd_flops = 4.0 * pairs * d
-    n_bytes = 2 * (3 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s  # q, o, dO, dq; k, v, dk, dv; lse
-    b_ms, b_by = bound_ms(n_bytes, 2.5 * fwd_flops, BF16_FLOPS)
-    bwd_row = {"name": "flash_attention_bwd", "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
-                                                        "causal": True, "dtype": "bfloat16"},
-               "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tolerance": BWD_TOL,
-               "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": queued, "plain_ms": plain,
-               "library_ms": fb - f_only, "library_fwd_bwd_ms": fb, "library_fwd_ms": f_only,
-               "library": "F.scaled_dot_product_attention(enable_gqa=True): forward + backward() less its forward",
-               "flops": 2.5 * fwd_flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
-               # three of the five products take P or dS as two bf16 terms: 8 product-units for 5
-               "two_term_floor_ms": bound_ms(n_bytes, 2.5 * fwd_flops * 8 / 5, BF16_FLOPS)[0],
-               "bound_fp32_cuda_cores_ms": bound_ms(n_bytes, 2.5 * fwd_flops, FP32_FLOPS)[0],
-               "second_call": {"dk_dv_bit_equal": dkdv_equal, "dq_max_abs_diff": dq_gap,
-                               "dq_elements_differing": dq_differ, "dq_within_tolerance": dq_ok},
-               "tflops_counted": 2.5 * fwd_flops / ((t1 + t2) / 2) / 1e9, "ptxas": bwd_ptxas(),
-               "build_notes": build_notes("flash_attention_bwd")}
     # the forward with the log-sum-exp written, beside the same launch without it
     fwd_lse = lambda: ops._launch(q, k, v, True, None, scale, 0, lse)
     fwd_none = lambda: ops._launch(q, k, v, True, None, scale, 0)
@@ -3028,16 +3091,20 @@ def attention_bwd_rows():
     plain_f = time_ms(lambda: attention_ref(q, k, v, causal=True, return_lse=True), reps=2, warmup=1)
     del ref, lse_ref
     lib_f = time_ms(sdpa_fwd, reps=5)
+    fwd_flops = 4.0 * (b * hq * s * (s + 1) // 2) * d
     fb_ms, fb_by = bound_ms(2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s, fwd_flops, BF16_FLOPS)
-    lse_row = {"name": "flash_attention_lse", "shape": bwd_row["shape"], **gap, "lse_max_abs_err": lse_err,
+    lse_row = {"name": "flash_attention_lse", "shape": bwd["shape"], **gap, "lse_max_abs_err": lse_err,
                "ms": (w1 + w2) / 2, "ms_turns": [w1, w2], "queued_ms": qw,
                "ms_lse_not_written": (n1 + n2) / 2, "ms_lse_not_written_turns": [n1, n2],
                "queued_ms_lse_not_written": qn, "plain_ms": plain_f, "library_ms": lib_f,
                "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16, causal (no log-sum-exp out)",
                "bound_ms": fb_ms, "bound_by": fb_by}
-    del q, k, v, dout, out, out2, lse, ql, kl, vl
+    del q, k, v, dout, out, out2, lse
     torch.cuda.empty_cache()
-    return ok and ok_f, bwd_row, lse_row
+    ok_m, mla, inputs = bwd_row("flash_attention_bwd_mla", BWD_MLA_ROW, seed=12)
+    del inputs
+    torch.cuda.empty_cache()
+    return ok and ok_f and ok_m, [bwd, lse_row, mla]
 
 
 def fingerprint(tree, chunk: int = 1 << 26):
@@ -3087,55 +3154,105 @@ def synced_step(step_fn, launches: list):
     return fn
 
 
-def full_width_grads(dev):
-    """llama3-8b at full width, ``GRAD_CHECK``'s 2 layers, 1 x 1,024
-    tokens, bf16: every parameter's gradient through the kernels (the
+def grad_check_loss(model, h, labels, keep):
+    """The gradient check's loss: mean next-token cross-entropy over the
+    positions ``keep`` (B, S) marks, the head over ``_hidden``'s states
+    there (``cross_entropy_loss``: fp32 log-softmax)."""
+    from repro_torch.models.layers import cross_entropy_loss, dense
+
+    return cross_entropy_loss(dense(model.lm_head, h[keep]), labels[keep])
+
+
+def leaf_rel_l2(got, want):
+    """|got - want| / |want| (L2, fp32), summed over ``row_blocks`` so that
+    no whole-leaf fp32 copy is made."""
+    import torch
+
+    from repro_torch.train.optimizer import row_blocks
+
+    num = den = torch.zeros((), dtype=torch.float64, device=want.device)
+    for a, w in zip(row_blocks(got.contiguous()), row_blocks(want.contiguous())):
+        wf = w.float()
+        num = num + (a.float() - wf).square().sum().double()
+        den = den + wf.square().sum().double()
+    return float(num.sqrt() / den.sqrt().clamp_min(1e-30))
+
+
+def model_grads(name, cfg, b, s, dev, model=None):
+    """Every parameter's gradient of one loss through the kernels (the
     forward twice a layer with remat, B11 once) against the same loss
-    through ``attention_ref`` with autograd, relative L2 per leaf."""
+    through ``attention_ref`` with autograd, relative L2 per leaf
+    (``GRAD_REL_L2``): ``cfg``'s model (``model``, or drawn by
+    ``transformer_init(0, cfg)``), ``lm_batches(1, b, s, V)``'s batch 0.
+    MoE runs at the no-drop capacity ``n_experts / top_k``; the positions
+    whose experts differ between the two passes (``route_log``: a route
+    flip, the router seeing inputs one rounding apart near a tie) are left
+    out of both losses (``grad_check_loss``), and at least 90% of them
+    must remain: with the MoE layer last, a flip changes only its own
+    position's output.  On the CPU both passes are plain versions (the
+    kernels' wrappers run theirs) and launch nothing.  Returns (ok,
+    line)."""
     import dataclasses
 
     import torch
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import lm_batches
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import layers
-    from repro_torch.models.transformer import transformer_init, transformer_loss
+    from repro_torch.models import transformer as tt
     from repro_torch.obs import metrics
 
-    n_layers, b, s = GRAD_CHECK
-    cfg = dataclasses.replace(get_arch("llama3-8b").make_config(), n_layers=n_layers)
-    model = transformer_init(0, cfg, device=dev).requires_grad_(True)
+    if model is None:
+        model = tt.transformer_init(0, cfg, device=dev)
+    model.requires_grad_(True)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     batch = lm_batches(1, b, s, cfg.vocab)(0)
     tokens, labels = (torch.from_numpy(batch[k]).to(dev) for k in ("tokens", "labels"))
+    names, leaves = zip(*model.named_parameters())
 
-    def grads():
-        for p in model.parameters():
-            p.grad = None
-        loss = transformer_loss(model, cfg, tokens, labels, ce_chunk=512)
-        loss.backward()
-        return float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()}
+    def forward():
+        with route_log() as log:
+            h = tt._hidden(model, cfg, tokens)
+        return h, (torch.stack([c.reshape(b, s, -1) for c in log.calls]) if log.calls else None)
 
+    # both forwards first (the flips decide both losses); each backward
+    # runs while its own attention is in place (remat recomputes the layer)
     metrics.reset()
-    loss_k, g_k = grads()
-    launches = {n: metrics.counter(f"kernel.{n}.launches").value for n in ("flash_attention", "flash_attention_bwd")}
+    h_k, r_k = forward()
     kernel_fn = layers.flash_attention
     layers.flash_attention = lambda q, k, v, **kw: attention_ref(q, k, v, **kw)  # the plain path, autograd
     try:
-        loss_p, g_p = grads()
+        h_p, r_p = forward()
+        flips = torch.zeros((b, s), dtype=torch.bool, device=h_k.device)
+        if r_k is not None:
+            flips = (r_k != r_p).any(-1).any(0)
+        keep = ~flips
+        loss_p = grad_check_loss(model, h_p, labels, keep)
+        g_p = torch.autograd.grad(loss_p, leaves, materialize_grads=True)
     finally:
         layers.flash_attention = kernel_fn
-    rel = {n: float((g_k[n].float() - g_p[n].float()).norm() / g_p[n].float().norm().clamp_min(1e-30)) for n in g_p}
-    ok = max(rel.values()) <= GRAD_REL_L2 and all(bool(g.isfinite().all()) for g in g_k.values())
-    ok &= launches == {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}
+    del h_p
+    loss_k = grad_check_loss(model, h_k, labels, keep)
+    g_k = torch.autograd.grad(loss_k, leaves, materialize_grads=True)
+    del h_k
+    launches = {n: metrics.counter(f"kernel.{n}.launches").value for n in ("flash_attention", "flash_attention_bwd")}
+    rel = {n: leaf_rel_l2(a, w) for n, a, w in zip(names, g_k, g_p)}
+    finite = all(bool(g.isfinite().all()) for g in g_k)
+    del g_k, g_p
+    n_att = cfg.n_layers if dev.type == "cuda" else 0
+    kept = int(keep.sum())
+    ok = max(rel.values()) <= GRAD_REL_L2 and finite and 10 * kept >= 9 * keep.numel()
+    ok &= launches == {"flash_attention": 2 * n_att, "flash_attention_bwd": n_att}
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    line = {"phase": "train_grads", "arch": "llama3-8b", "n_layers": n_layers, "batch": b, "tokens": s,
-            "dtype": "bfloat16", "loss_kernel": loss_k, "loss_plain": loss_p, "leaves": len(rel),
-            "max_rel_l2": max(rel.values()), "median_rel_l2": float(np.median(list(rel.values()))),
-            "worst_leaves": worst, "tolerance": f"per leaf relative L2 <= {GRAD_REL_L2}", "launches": launches,
-            "ok": ok}
-    del model, g_k, g_p
-    torch.cuda.empty_cache()
+    line = {"phase": "train_grads", "arch": name, "n_layers": cfg.n_layers, "batch": b, "tokens": s,
+            "dtype": str(cfg.dtype).split(".")[-1], "loss_kernel": float(loss_k.detach()), "loss_plain": float(loss_p.detach()),
+            "capacity_factor": None if cfg.moe is None else cfg.moe.capacity_factor,
+            "route_flips": int(flips.sum()), "positions_kept": kept, "positions": keep.numel(),
+            "leaves": len(rel), "max_rel_l2": max(rel.values()), "median_rel_l2": float(np.median(list(rel.values()))),
+            "worst_leaves": worst, "tolerance": f"per leaf relative L2 <= {GRAD_REL_L2}; >= 90% of positions kept",
+            "launches": launches, "ok": ok}
     return ok, line
 
 
@@ -3147,17 +3264,17 @@ def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt
     CUTLASS kernels) and the rest (norms, activations, the loss, the
     embedding's scatter, the clip and the optimizer's elementwise
     kernels).  CUDA events bound the optimizer on the device timeline:
-    ``opt.update`` (the AdamW math) and ``apply_updates`` after it; the
-    forward, backward and clip come before."""
+    ``opt.apply`` (the AdamW math, each leaf added as it is computed);
+    the forward, backward and clip come before."""
     import torch
 
     from repro_torch.train.optimizer import Optimizer
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
-    def update(grads, st, p=None):
+    def apply(grads, st, p):
         ev[1].record()
-        out = opt.update(grads, st, p)
+        out = opt.apply(grads, st, p)
         ev[2].record()
         return out
 
@@ -3166,8 +3283,7 @@ def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt
     def run():
         ev[0].record()
         res["out"] = step_fn(model, cfg, params, state, batch, n_microbatches=n_mb, ce_chunk=chunk,
-                             opt=Optimizer(opt.init, update))
-        ev[3].record()
+                             opt=Optimizer(opt.init, opt.update, apply))
 
     wall, busy, union, kernels = device_busy(run, top=1 << 30)
     classes = {"flash_attention_bwd": BWD_KERNELS,
@@ -3177,13 +3293,12 @@ def profiled_lm_step(step_fn, model, cfg, params, state, batch, n_mb, chunk, opt
     for name, ms, _ in kernels:
         c = next((c for c, keys in classes.items() if any(k in name.lower() for k in keys)), "other")
         by[c] += ms / 1e3
-    step_s = ev[0].elapsed_time(ev[3]) / 1e3
     split = {"wall_s": wall, "device_busy_s": busy, "device_busy_union_s": union,
              "idle_share": None if union is None else 1.0 - union / wall, "kernels_s": by,
              "busy_share": None if not busy else {c: v / busy for c, v in by.items()},
-             "events_s": {"step": step_s, "forward_backward_clip": ev[0].elapsed_time(ev[1]) / 1e3,
-                          "adamw_update": ev[1].elapsed_time(ev[2]) / 1e3,
-                          "apply_updates": ev[2].elapsed_time(ev[3]) / 1e3},
+             "events_s": {"step": ev[0].elapsed_time(ev[2]) / 1e3,
+                          "forward_backward_clip": ev[0].elapsed_time(ev[1]) / 1e3,
+                          "adamw_apply": ev[1].elapsed_time(ev[2]) / 1e3},
              "top_kernels": kernels[:12]}
     return res["out"], split
 
@@ -3289,6 +3404,99 @@ def lm_train(dev):
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt, ignore_errors=True)
     return ok, line, launches[1]
+
+
+def zoo_train(name, dev):
+    """One zoo model's training at full width, ``ZOO_TRAIN``'s depth and
+    batch x 4,096 (``train_4k``'s sequence), bf16, remat,
+    ``lm_batches(0, B, 4096, V)``'s batch 0 repeated, one microbatch,
+    clip 1.0, ``adamw`` behind ``warmup_linear(3e-4, TRAIN_LM_WARMUP,
+    10000)`` with the full model's policy (state dtype and ``ce_chunk``:
+    the cut config's parameter count would flip it).  First the gradient
+    check on the drawn weights (``model_grads`` at 1 x
+    ``ZOO_GRAD_TOKENS``), then a warm-up step and three timed steps
+    through ``lm_train_step`` (the last under the profiler), the
+    launches of each step read around it; MoE at the published capacity,
+    each layer's drop fraction read from a forward of the batch after the
+    steps.  Returns (ok, line, launches a step)."""
+    import dataclasses
+    import functools
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.steps import lm_ce_chunk, lm_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.optimizer import adamw, param_tree
+    from repro_torch.train.schedule import warmup_linear
+
+    t_model = time.perf_counter()
+    full = get_arch(name).make_config()
+    n_layers, batch, why = ZOO_TRAIN[name]
+    cfg = dataclasses.replace(full, n_layers=n_layers, remat=True)
+    huge = full.param_count() > 1e11
+    state_dtype = torch.bfloat16 if huge else torch.float32
+    opt = adamw(lr=warmup_linear(3e-4, TRAIN_LM_WARMUP, 10_000), state_dtype=state_dtype)
+    chunk = lm_ce_chunk(full)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tt.transformer_init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {"phase": "train_lm", "arch": name, "dtype": str(cfg.dtype), "n_layers": n_layers,
+            "published_layers": full.n_layers, "params": n_params, "batch": batch, "seq": TRAIN_LM_SEQ,
+            "microbatches": 1, "ce_chunk": chunk, "remat": True,
+            "optimizer": f"adamw(lr=warmup_linear(3e-4, {TRAIN_LM_WARMUP}, 10000)), "
+                         f"{str(state_dtype).split('.')[-1]} state, clip 1.0",
+            "policy": {"state_dtype": str(state_dtype).split(".")[-1], "ce_chunk": chunk,
+                       "reason": f"the full model's {full.param_count():.3e} parameters "
+                                 f"{'>' if huge else '<='} 1e11 (lm_optimizer, lm_ce_chunk); one microbatch "
+                                 f"on one card"},
+            "capacity_factor": None if cfg.moe is None else cfg.moe.capacity_factor,
+            "reduced": {"n_layers": why, "global_batch": f"{batch} of train_4k's 256 (one microbatch)"},
+            "init_s": init_s}
+    t0 = time.perf_counter()
+    g_ok, g_line = model_grads(name, cfg, 1, ZOO_GRAD_TOKENS, dev, model)
+    line["grads"] = {**g_line, "seconds": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = param_tree(model)
+    state = opt.init(params)
+    batch0 = lm_batches(0, batch, TRAIN_LM_SEQ, cfg.vocab)(0)
+    launches = []
+    step = synced_step(functools.partial(lm_train_step, model, cfg, n_microbatches=1, ce_chunk=chunk, opt=opt),
+                       launches)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch0)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    (_, state, m), split = profiled_lm_step(lm_train_step, model, cfg, params, state, batch0, 1, chunk, opt)
+    losses.append(float(m["loss"]))
+    step_s.append(split["events_s"]["step"])
+    peak = torch.cuda.max_memory_allocated()
+    if cfg.moe is not None:
+        aux = []
+        tt.transformer_prefill(model, cfg, torch.from_numpy(batch0["tokens"]).to(dev), moe_aux=aux)
+        line["drop_fraction_by_layer"] = [float(x["drop_fraction"]) for x in aux]
+    expect = {"flash_attention": 2 * n_layers, "flash_attention_bwd": n_layers}
+    line.update({"losses": losses, "warmup_step_s": step_s[0], "step_s_timed": step_s[1:],
+                 "tokens_per_s": batch * TRAIN_LM_SEQ / float(np.median(step_s[1:])), "peak_mem_bytes": peak,
+                 "launches_a_step": launches[1:], "launches_expected": expect,
+                 "grad_norm_last": float(m["grad_norm"]), "profiled_step": split})
+    checks = {"losses_finite_and_falling": bool(all(np.isfinite(losses)) and losses[-1] < losses[0]),
+              "launches": all(x == expect for x in launches), "grads": g_ok}
+    line.update({"checks": checks, "ok": all(checks.values()), "seconds": time.perf_counter() - t_model})
+    del model, params, state, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line["ok"], line, launches[-1]
 
 
 def cpu_step_parity(card_step, cpu_step, card_params, cpu_params, card_loss_fn, cpu_loss_fn):
@@ -3518,30 +3726,42 @@ def gnn_train(dev):
 
 
 def train_phase(dev):
-    """Phase 14: B11 against its plain version, its row and the forward
+    """Phase 14: B11 against its plain version, its rows and the forward
     row with the log-sum-exp, the full-width gradient check, llama3-8b
-    training with save and resume, the recsys and GAT steps; each phase
-    line is printed as its part ends.  Returns (ok, kernel rows, launches
-    by row)."""
+    training with save and resume, the zoo's training (``ZOO_TRAIN``),
+    the recsys and GAT steps; each phase line is printed as its part
+    ends.  Returns (ok, kernel rows, launches by row)."""
+    import dataclasses
+
     import torch
+
+    from repro_torch.configs import get_arch
 
     t_phase = time.perf_counter()
     b_ok, cases, raised = check_attention_bwd()
     emit({"phase": "train_attention", "seconds": time.perf_counter() - t_phase, "cases": len(cases), "ok": b_ok,
-          "tolerances": {"lse": LSE_TOL, "grad": BWD_TOL}, "uninstantiated_widths_raise": raised,
+          "tolerances": {"lse": LSE_TOL, "grad": BWD_TOL}, "decode_mapping_raises": raised,
           "max_abs_err_by_dtype": {dt: max(max(r[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
                                        for r in cases if r["dtype"] == dt) for dt in ("float32", "bfloat16")},
           "failed": [r for r in cases if not r["ok"]]})
     t0 = time.perf_counter()
-    r_ok, bwd_row, lse_row = attention_bwd_rows()
+    r_ok, rows = attention_bwd_rows()
     emit({"phase": "train_attention_rows", "seconds": time.perf_counter() - t0, "ok": r_ok,
-          **{f"{r['name']}_ms": r["ms"] for r in (bwd_row, lse_row)}})
+          **{f"{r['name']}_ms": r["ms"] for r in rows}})
     t0 = time.perf_counter()
-    g_ok, g_line = full_width_grads(dev)
+    n_layers, b, s = GRAD_CHECK
+    g_ok, g_line = model_grads("llama3-8b", dataclasses.replace(get_arch("llama3-8b").make_config(),
+                                                               n_layers=n_layers), b, s, dev)
     emit({**g_line, "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     l_ok, l_line, step_launches = lm_train(dev)
     emit({**l_line, "seconds": time.perf_counter() - t0})
+    z_ok, zoo_launches = True, {}
+    for name in ZOO_TRAIN:
+        m_ok, line, zoo_launches[name] = zoo_train(name, dev)
+        emit(line)
+        z_ok &= m_ok
     rs_ok, rs_lines = recsys_train(dev)
     for line in rs_lines:
         emit(line)
@@ -3549,13 +3769,14 @@ def train_phase(dev):
     for line in gn_lines:
         emit(line)
     torch.cuda.empty_cache()
-    ok = b_ok and r_ok and g_ok and l_ok and rs_ok and gn_ok
+    ok = b_ok and r_ok and g_ok and l_ok and z_ok and rs_ok and gn_ok
     emit({"phase": "train", "seconds": time.perf_counter() - t_phase, "ok": ok,
           "checks": {"attention_bwd_cases": b_ok, "attention_rows": r_ok, "full_width_grads": g_ok,
-                     "llama3_8b_train": l_ok, "recsys_train": rs_ok, "gnn_train": gn_ok}})
+                     "llama3_8b_train": l_ok, "zoo_train": z_ok, "recsys_train": rs_ok, "gnn_train": gn_ok}})
     launches = {"flash_attention_bwd": step_launches["flash_attention_bwd"],
-                "flash_attention_lse": step_launches["flash_attention"]}
-    return ok, [bwd_row, lse_row], launches
+                "flash_attention_lse": step_launches["flash_attention"],
+                "flash_attention_bwd_mla": zoo_launches["deepseek-v2-236b"]["flash_attention_bwd"]}
+    return ok, rows, launches
 
 
 def run(args) -> int:

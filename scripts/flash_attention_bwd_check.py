@@ -10,18 +10,20 @@ kernels (``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``).
     python3 scripts/flash_attention_bwd_check.py     # one CUDA card, ~1 min with the build
 
 Cases (``chip_smoke.BWD_CASES``): every head width the backward takes
-(16, 32, 128), fp32 and bf16, causal, windowed and unmasked, Hq / Hkv of
-1, 4 and 8, ragged S, a query offset (rows with no key among them).
+(16, 32, 128, 192) and MLA's (192, 128) pair, fp32 and bf16, causal,
+windowed and unmasked, Hq / Hkv of 1, 4 and 8, ragged S, a query offset
+(rows with no key among them).
 Each case runs the forward with the log-sum-exp written (against
 ``attention_ref``'s, ``LSE_TOL``), ``flash_attention_bwd`` against
 ``attention_bwd_ref`` on the same inputs, output and log-sum-exp
-(``BWD_TOL``), and the autograd path against the same; D 192 and the
-(192, 128) pair must raise.  Then the ``flash_attention_bwd`` row at
-llama3-8b's prefill shape (B 4, Hq 32, Hkv 8, S 4096, D 128, causal,
-bf16: back to back and queued, a second call against the first, the
-plain version, SDPA's backward, the bound and the two-term floor) and
-the ``flash_attention_lse`` row (the forward with the log-sum-exp
-written and not), then the bf16 row's kernels under the profiler (the
+(``BWD_TOL``), and the autograd path against the same; Sq = 1 must
+raise.  Then the ``flash_attention_bwd`` row at llama3-8b's prefill
+shape (B 4, Hq 32, Hkv 8, S 4096, D 128, causal, bf16: back to back and
+queued, a second call against the first, the plain version, SDPA's
+backward, the bound and the two-term floor), the ``flash_attention_lse``
+row (the forward with the log-sum-exp written and not) and the
+``flash_attention_bwd_mla`` row (deepseek-v2's training shape: B 2, Hq =
+Hkv = 128, S 4096, the (192, 128) pair), then the bf16 row's kernels under the profiler (the
 stats, the tensor-core launch, the cast, the accumulator's zero fill).
 Prints one JSON line a case and a row, and exits nonzero if any check
 fails.
@@ -59,10 +61,10 @@ def main() -> int:
     ok, rows, raised = chip_smoke.check_attention_bwd()
     for row in rows:
         print(json.dumps(row), flush=True)
-    print(json.dumps({"uninstantiated_widths_raise": raised}), flush=True)
-    r_ok, bwd_row, lse_row = chip_smoke.attention_bwd_rows()
-    print(json.dumps(bwd_row), flush=True)
-    print(json.dumps(lse_row), flush=True)
+    print(json.dumps({"decode_mapping_raises": raised}), flush=True)
+    r_ok, rows = chip_smoke.attention_bwd_rows()
+    for row in rows:
+        print(json.dumps(row), flush=True)
     ok &= r_ok
     print(json.dumps({"flash_attention_bwd_split_ms": bwd_split(chip_smoke)}), flush=True)
     print(json.dumps({"ok": ok, "tolerances": {"lse": chip_smoke.LSE_TOL, "grad": chip_smoke.BWD_TOL}}), flush=True)

@@ -29,18 +29,18 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ADDS = """      if (q0 + r < p.Sq) red_add4(acc + 8 * j, odd ? r0 : a0, odd ? r1 : a1, odd ? b0 : r0, odd ? b1 : r1);"""
-SCALAR = """      if (q0 + row < p.Sq) {
-        float* at = acc + 8 * j + 2 * odd - 8 * odd * D;  // row row, this lane's own two columns
-        atomicAdd(at, a0);
-        atomicAdd(at + 1, a1);
-      }
-      if (q0 + row + 8 < p.Sq) {
-        float* at = acc + 8 * j + 2 * odd + 8 * (1 - odd) * D;  // row row + 8
-        atomicAdd(at, b0);
-        atomicAdd(at + 1, b1);
-      }"""
-NONE = """      if (a0 == 12345.f) acc[8 * j] = r0 + r1 + b1;  // no add"""
+ADDS = """    if (q0 + r < p.Sq) red_add4(acc + 8 * j, odd ? r0 : a0, odd ? r1 : a1, odd ? b0 : r0, odd ? b1 : r1);"""
+SCALAR = """    if (q0 + row < p.Sq) {
+      float* at = acc + 8 * j + 2 * odd - 8 * odd * D;  // row row, this lane's own two columns
+      atomicAdd(at, a0);
+      atomicAdd(at + 1, a1);
+    }
+    if (q0 + row + 8 < p.Sq) {
+      float* at = acc + 8 * j + 2 * odd + 8 * (1 - odd) * D;  // row row + 8
+      atomicAdd(at, b0);
+      atomicAdd(at + 1, b1);
+    }"""
+NONE = """    if (a0 == 12345.f) acc[8 * j] = r0 + r1 + b1;  // no add"""
 
 
 def main() -> int:
@@ -101,7 +101,7 @@ def main() -> int:
         acc = torch.zeros((b, hq, sq_pad, d), dtype=torch.float32, device="cuda")
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                  scratch.data_ptr(), acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1,
-                 b, hq, hkv, s, s, d, 1, -1, 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+                 b, hq, hkv, s, s, d, d, 1, -1, 0, d ** -0.5, torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention_bwd variant")
         return dq, dk, dv
 

@@ -53,7 +53,7 @@ _SIGNATURES = {
         "flash_attention_launch": [P, P, P, P, I, *[I] * 7, *[L] * 9, I, I, I, F, I, I, P, P, P, P],
     },
     "flash_attention_bwd": {
-        "flash_attention_bwd_launch": [*[P] * 11, I, *[I] * 6, I, I, I, F, P],
+        "flash_attention_bwd_launch": [*[P] * 11, I, *[I] * 7, I, I, I, F, P],
     },
     "embedding_bag": {
         "embedding_bag_launch": [P, P, P, I, I, I, I, I, I, P],

@@ -39,8 +39,10 @@ mapping is chosen statically by dtype: bf16 runs the tensor-core launch
 wrapper allocates zeroed, then cast), fp32 the CUDA-core FMA kernels.  On a
 CPU tensor the same Function runs ``ref.py``'s ``attention_ref`` (with
 the log-sum-exp) and ``attention_bwd_ref``.  The backward is
-instantiated at ``BWD_DIMS`` with v as wide as q and k; MLA's D 192 and
-(192, 128) pair raise on the card (queued: B11b).  Serving
+instantiated at ``BWD_DIMS`` with v as wide as q and k and at the pairs
+of ``BWD_PAIRS`` (MLA's (192, 128)): bf16 runs the pair at its own
+widths; the fp32 mapping answers ``_PAD_V`` there, and the call is made
+again with v, the output and dO zero-padded to D, dV cut back.  Serving
 (``inference_mode``, or nothing requiring a gradient) writes no
 log-sum-exp and launches exactly as before.
 """
@@ -57,13 +59,14 @@ from .. import _build
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS",
-           "BWD_DIMS", "BWD_PAD", "DECODE_TILE", "DECODE_GROUP", "SMS"]
+           "BWD_DIMS", "BWD_PAIRS", "BWD_PAD", "DECODE_TILE", "DECODE_GROUP", "SMS"]
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches",
             "flash_attention_bwd": "kernel.flash_attention_bwd.launches"}
 HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
 HEAD_PAIRS = ((192, 128),)      # (D, Dv) pairs with v narrower than q/k: MLA's (bf16 prefill at its own widths)
-BWD_DIMS = (16, 32, 128)        # head widths the backward kernel is instantiated for (v as wide as q and k)
+BWD_DIMS = (16, 32, 128, 192)   # head widths the backward kernel is instantiated for (v as wide as q and k)
+BWD_PAIRS = ((192, 128),)       # (D, Dv) pairs the backward takes: MLA's (bf16 at its own widths, fp32 v padded)
 BWD_PAD = 64                    # bf16 backward: query rows of its scratch and dQ accumulator, padded to a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAD_V = -1        # the launcher's answer where its mapping is not instantiated on (D, Dv)
@@ -177,10 +180,10 @@ def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q
 
 def _check_bwd(q, k, v):
     d, dv = q.shape[-1], v.shape[-1]
-    if d != dv or d not in BWD_DIMS:
+    if (d, dv) not in BWD_PAIRS and (d != dv or d not in BWD_DIMS):
         raise NotImplementedError(
-            f"flash_attention_bwd takes head widths {BWD_DIMS} with v as wide as q and k, got (D, Dv) = "
-            f"({d}, {dv}); MLA's 192 and (192, 128) wait for B11b")
+            f"flash_attention_bwd takes head widths {BWD_DIMS} with v as wide as q and k, or (D, Dv) in "
+            f"{BWD_PAIRS}; got ({d}, {dv})")
     if q.shape[2] == 1:
         raise NotImplementedError("flash_attention_bwd: the decode mapping (Sq = 1) writes no log-sum-exp")
 
@@ -199,9 +202,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
     A CPU ``q`` runs ``attention_bwd_ref``; a CUDA one launches
     ``csrc/flash_attention_bwd.cu`` (three kernels, one count; bf16 on the
     tensor cores, its dQ summed by atomic adds in an order that changes
-    from call to call, fp32 on the CUDA cores) or raises:
-    at head widths outside ``BWD_DIMS``, with v narrower than q and k,
-    or at Sq = 1."""
+    from call to call, fp32 on the CUDA cores) or raises: at head widths
+    outside ``BWD_DIMS``, with v narrower than q and k but for
+    ``BWD_PAIRS``, or at Sq = 1.  ``out`` and ``dout`` are v's width."""
     q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
@@ -210,8 +213,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_bwd(q, k, v)
+    return _launch_bwd(q, k, v, out, lse, dout, causal, window, scale, q_offset)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, window, scale, q_offset):
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, d_v = k.shape[1], k.shape[2], v.shape[3]
     q, k, v, out, dout = (_contiguous(t) for t in (q, k, v, out, dout.to(q.dtype)))
     lse = _contiguous(lse.to(torch.float32))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -225,9 +232,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         scratch.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _DTYPES[q.dtype],
-        b, hq, hkv, sq, sk, d, int(bool(causal)), _window_arg(window, q_offset, sq), q_offset, scale,
+        b, hq, hkv, sq, sk, d, d_v, int(bool(causal)), _window_arg(window, q_offset, sq), q_offset, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if err == _PAD_V:  # this mapping (fp32) takes the pair with v, the output and dO padded to D
+        pad = (0, d - d_v)
+        dq, dk, dv = _launch_bwd(q, k, F.pad(v, pad), F.pad(out, pad), lse, F.pad(dout, pad), causal, window, scale,
+                                 q_offset)
+        return dq, dk, dv[..., :d_v].contiguous()
     _build.check(err, "flash_attention_bwd")
     _metrics.counter(LAUNCHES["flash_attention_bwd"]).inc()
     return dq, dk, dv

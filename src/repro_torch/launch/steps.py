@@ -10,7 +10,9 @@ device and keeps only the bodies: loss, gradients, the optimizer.
   says), microbatches accumulated in fp32 when ``lm_microbatches`` asks
   for more than one (bf16 above 1e11 parameters, as the reference),
   ``clip_by_global_norm(1.0)``, ``adamw(lr=3e-4)`` (bf16 state above
-  1e11 parameters), ``apply_updates``;
+  1e11 parameters), ``apply_updates`` (through the optimizer's ``apply``
+  where it has one: each leaf's update added as soon as it is computed,
+  over blocks of rows, bit for bit the same);
 * ``recsys_train_step`` (``build_recsys_train`` ``:655-661``):
   ``bce_loss`` of ``recsys_logits``, ``adamw(lr=1e-3)``;
 * ``gnn_train_step`` (``build_gnn_train`` ``:503-549``): the molecule
@@ -134,9 +136,12 @@ def lm_train_step(model: nn.Module, cfg: TransformerConfig, params, opt_state, b
         loss = loss / n_mb
         grads = [g / n_mb for g in grads]
     grads, gnorm = clip_by_global_norm(grads, 1.0)
-    updates, opt_state = opt.update(_unflatten(params, grads), opt_state, params)
-    del grads
-    apply_updates(params, updates)
+    grads = _unflatten(params, grads)
+    if opt.apply is not None:  # each leaf's update added as it is computed: no tree of fp32 updates held
+        opt_state = opt.apply(grads, opt_state, params)
+    else:
+        updates, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, updates)
     return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
 

@@ -38,8 +38,8 @@ and step, one backward).  Parameters are made with ``requires_grad``
 off (serving); ``model.requires_grad_(True)`` makes them trainable, and
 ``launch.steps.lm_train_step`` does so.  Gradients exist for every
 layer kind (GQA, windowed, MoE, MLA); on the card the attention
-backward takes the head widths of ``flash_attention``'s ``BWD_DIMS``
-(MLA's 192 raises: B11b).
+backward takes the head widths of ``flash_attention``'s ``BWD_DIMS`` and
+MLA's (192, 128) pair (``BWD_PAIRS``).
 
 Not ported: the reference's sharding hooks (``shard_act`` and friends).
 """

@@ -4,7 +4,12 @@ optax-style pairs on trees of tensors.
 An optimizer is a pair of functions:
     init(params)                  -> opt_state
     update(grads, state, params)  -> (updates, new_state)
-with ``apply_updates(params, updates)`` adding them in.  A tree is a
+with ``apply_updates(params, updates)`` adding them in.  Adam and AdamW
+also carry ``apply(grads, state, params) -> new_state``: the same update
+added into each parameter as soon as its leaf is computed, over blocks of
+rows, so that no tree of fp32 updates (4 bytes a parameter) and no
+whole-leaf fp32 copy is held; it equals ``update`` + ``apply_updates``
+bit for bit.  A tree is a
 dict, list or tuple of tensors nested as deep as needed, flattened as
 ``jax.tree_util`` flattens the same structure (dict keys sorted), so a
 state written by either package's checkpoint restores in the other;
@@ -30,14 +35,14 @@ in the reference; the update math is fp32 and the state has
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
 __all__ = [
     "Optimizer", "sgd", "adam", "adamw", "adamw_update_params", "clip_by_global_norm", "global_norm",
-    "apply_updates", "chain_clip", "tree_leaves", "tree_map", "param_tree",
+    "apply_updates", "chain_clip", "tree_leaves", "tree_map", "param_tree", "row_blocks", "CHUNK_BYTES",
 ]
 
 PyTree = Any
@@ -73,6 +78,24 @@ def param_tree(module: nn.Module) -> dict:
 class Optimizer:
     init: Callable[[PyTree], PyTree]
     update: Callable[..., Tuple[PyTree, PyTree]]
+    apply: Optional[Callable[..., PyTree]] = None  # update + apply_updates in place, leaf by leaf
+
+
+CHUNK_BYTES = 256 * 2**20  # a leaf's fp32 working set in the fused updates: blocks of rows up to this
+
+
+def row_blocks(x: torch.Tensor, threshold_bytes: int = CHUNK_BYTES) -> list:
+    """``x`` as views of blocks of rows (``x.view(-1, x.shape[-1])``: an
+    update written into a block is written into ``x``), each at most
+    ``threshold_bytes`` as fp32 and at least one row; ``[x]`` when the
+    whole leaf is under it (or is a scalar).  The AdamW math is
+    elementwise, so updating the blocks one by one equals updating the
+    leaf."""
+    if x.dim() == 0 or x.numel() * 4 <= threshold_bytes:
+        return [x]
+    rows = x.view(-1, x.shape[-1])
+    per = max(1, threshold_bytes // (4 * x.shape[-1]))
+    return list(torch.split(rows, per))
 
 
 def _lr_fn(lr):
@@ -101,10 +124,11 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
 
 @torch.no_grad()
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt(sum over leaves of sum(x^2)), in fp32 (a 0-d tensor on the leaves' device)."""
+    """sqrt(sum over leaves of sum(x^2)), in fp32 (a 0-d tensor on the leaves' device);
+    one fp32 copy of a leaf at a time, squared in place."""
     total = None
     for x in tree_leaves(tree):
-        sq = torch.sum(torch.square(x.to(F32)))
+        sq = torch.sum(x.to(F32, copy=True).square_())
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -195,7 +219,18 @@ def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype=F32) -> Optimizer:
         updates = tree_map(lambda _: next(it), state["m"])
         return updates, {"m": state["m"], "v": state["v"], "step": step}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def apply(grads, state, params):
+        step = state["step"] + 1
+        a = _Adam(step, lr_fn, b1, b2, eps, weight_decay)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
+                              tree_leaves(params)):
+            for gb, mb, vb, pb in zip(*(row_blocks(x, CHUNK_BYTES) for x in (g.contiguous(), m, v, p))):
+                u = a.step_of(*a.moments(gb, mb, vb), pb if weight_decay else None)
+                pb.add_(u.to(pb.dtype))  # apply_updates' rounding: u cast to the parameter's dtype, then added
+        return {"m": state["m"], "v": state["v"], "step": step}
+
+    return Optimizer(init, update, apply)
 
 
 def adam(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8) -> Optimizer:
@@ -210,28 +245,23 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, state_dtype=F32)
 
 @torch.no_grad()
 def adamw_update_params(params: PyTree, grads: PyTree, state: PyTree, *, lr, b1=0.9, b2=0.95, eps=1e-8,
-                        weight_decay=0.1, chunk_threshold_bytes: int = 256 * 2**20):
+                        weight_decay=0.1, chunk_threshold_bytes: int = CHUNK_BYTES):
     """Fused AdamW: each parameter and its m and v updated in one pass,
-    in place, with the fp32 update math chunked over the leading axis of
-    a leaf larger than ``chunk_threshold_bytes`` (fp32), as the
-    reference's ``lax.map``: the fp32 working set is one slice.  Returns
-    (params, new state); equals ``adamw``'s update + ``apply_updates``.
-    The state keeps its own dtype (the reference's ``state_dtype``
-    argument: here the state's tensors carry it)."""
+    in place, with the fp32 update math run over blocks of rows of a leaf
+    larger than ``chunk_threshold_bytes`` (fp32; ``row_blocks``), as the
+    reference's ``lax.map`` over slices: the fp32 working set is one
+    block.  Returns (params, new state); equals ``adamw``'s update +
+    ``apply_updates`` but that the parameter is added in fp32 and rounded
+    once (the reference's ``(p + u).astype(p.dtype)``).  The state keeps
+    its own dtype (the reference's ``state_dtype`` argument: here the
+    state's tensors carry it)."""
     lr_fn = _lr_fn(lr)
     step = state["step"] + 1
     a = _Adam(step, lr_fn, b1, b2, eps, weight_decay)
-
-    def leaf(p, g, m, v):
-        u = a.step_of(*a.moments(g, m, v), p)
-        p.copy_((p.to(F32) + u).to(p.dtype))
-
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"])):
-        if p.dim() >= 2 and p.numel() * 4 > chunk_threshold_bytes and p.shape[0] > 1:
-            for i in range(p.shape[0]):
-                leaf(p[i], g[i], m[i], v[i])
-        else:
-            leaf(p, g, m, v)
+        for pb, gb, mb, vb in zip(*(row_blocks(x, chunk_threshold_bytes) for x in (p, g.contiguous(), m, v))):
+            u = a.step_of(*a.moments(gb, mb, vb), pb)
+            pb.copy_((pb.to(F32) + u).to(pb.dtype))
     return params, {"m": state["m"], "v": state["v"], "step": step}
 
 

@@ -573,7 +573,7 @@ def test_gpu_head_pair_matches_plain(dtype, metrics_on):
 # and the card's kernel, against jax.grad of blockwise_attention
 # ---------------------------------------------------------------------------
 
-from repro_torch.kernels.flash_attention.ops import BWD_DIMS, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import BWD_DIMS, BWD_PAIRS, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref  # noqa: E402
 
 TOL_GRAD = 2e-5  # fp32 gradients: sums over at most ~50 keys in other orders
@@ -586,6 +586,11 @@ GRAD_CASES = [
     (1, 4, 4, 10, 10, 16, 16, True, None, -4),       # rows with no key left
     (2, 6, 2, 15, 31, 24, 16, False, None, None),    # Dv != D, padded widths (24 -> 32)
     (1, 2, 1, 7, 7, 12, 12, True, 3, None),          # window, a width padded to 16
+    (1, 4, 2, 11, 11, 192, 192, True, None, None),   # q/k 192 (B11b), v as wide
+    (1, 2, 2, 9, 14, 192, 192, False, None, None),   # 192, unmasked, Sq < Sk
+    (1, 4, 4, 13, 13, 192, 128, True, None, None),   # MLA's (192, 128) pair
+    (2, 2, 1, 10, 17, 192, 128, False, None, None),  # the pair, unmasked, GQA
+    (1, 4, 2, 15, 15, 192, 128, True, 5, None),      # the pair, a window
 ]
 
 
@@ -618,7 +623,7 @@ def test_attention_gradient_matches_jax(case):
     (out * torch.from_numpy(g)).sum().backward()
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), w, rtol=TOL_GRAD, atol=TOL_GRAD)
-    if case[5] == case[6]:  # the plain backward alone, at the inputs' own width
+    if case[5] == case[6] or case[5:7] in BWD_PAIRS:  # the plain backward alone, at the inputs' own widths
         sq, sk = q.shape[2], k.shape[2]
         off = sk - sq if q_offset is None else q_offset
         tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
@@ -658,7 +663,7 @@ def test_gradient_path_needs_grad_mode():
     with torch.inference_mode():
         assert flash_attention(tq, tk, tv, causal=True).grad_fn is None
     assert flash_attention(tq.detach(), tk, tv, causal=True).grad_fn is None
-    assert BWD_DIMS == (16, 32, 128)
+    assert BWD_DIMS == (16, 32, 128, 192) and BWD_PAIRS == ((192, 128),)
 
 
 # the bf16 mapping's tiles at their edges: S across the 128-key tile and the
@@ -669,6 +674,7 @@ GPU_GRAD_EDGES = [
     (2, 8, 1, 129, 129, 128, 128, True, None, None), (1, 4, 4, 257, 257, 128, 128, False, None, None),
     (1, 8, 2, 300, 300, 128, 128, True, 70, None), (1, 4, 2, 129, 129, 32, 32, True, 40, None),
     (1, 2, 2, 129, 129, 16, 16, True, None, -20), (1, 8, 1, 200, 257, 128, 128, True, None, -30),
+    (1, 4, 1, 129, 129, 192, 192, True, None, None), (1, 4, 4, 127, 200, 192, 128, True, 70, None),
 ]
 
 
@@ -706,16 +712,35 @@ def test_gpu_attention_gradient_matches_plain(dtype, metrics_on):
 
 
 @pytest.mark.gpu
-def test_gpu_attention_gradient_raises_past_its_widths():
-    """No fallback: the backward at D 192 and at MLA's (192, 128) pair
-    raises on the card (B11b), before the forward launches."""
+def test_gpu_attention_gradient_raises_past_its_widths(metrics_on):
+    """B11b: the backward takes D 192 and MLA's (192, 128) pair on the
+    card (one launch, against the plain version, bf16 and fp32); past its
+    mappings it still raises, with no fallback: the decode mapping (Sq =
+    1) writes no log-sum-exp, before the forward launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for d, dv in ((192, 192), (192, 128)):
-        q = torch.zeros((1, 2, 64, d), device="cuda", dtype=torch.bfloat16, requires_grad=True)
-        v = torch.zeros((1, 2, 64, dv), device="cuda", dtype=torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="B11b"):
-            flash_attention(q, q.detach(), v, causal=True)
+    launches = metrics.counter(LAUNCHES["flash_attention_bwd"])
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 1e-4 if dtype == torch.float32 else TOL_BF16
+        for d, dv in ((192, 192), (192, 128)):
+            case = (1, 4, 2, 150, 150, d, dv, True, None, None)
+            q, k, v, g = (torch.from_numpy(a).to("cuda", dtype) for a in _grad_inputs(case, seed=d + dv))
+            _, lse = attention_ref(q, k, v, causal=True, return_lse=True)
+            out = flash_attention(q, k, v, causal=True)
+            before = launches.value
+            got = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
+            torch.cuda.synchronize()
+            assert launches.value == before + 1
+            want = attention_bwd_ref(q, k, v, out, lse, g, causal=True)
+            for a, w in zip(got, want):
+                assert a.shape == w.shape
+                w = w.float().cpu().numpy()
+                np.testing.assert_allclose(a.float().cpu().numpy(), w, rtol=tol, atol=tol * np.sqrt(np.mean(w ** 2)),
+                                           err_msg=str((dtype, d, dv)))
+    q = torch.zeros((1, 2, 1, 128), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    kv = torch.zeros((1, 2, 64, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Sq = 1"):
+        flash_attention(q, kv, kv, causal=True)
 
 
 def _chip_smoke():
@@ -738,15 +763,15 @@ def test_two_term_p_and_ds_hold_the_backward_gate(capsys):
     counted beside it (printed, not asserted)."""
     smoke = _chip_smoke()
     misses = {}
-    for i, (b, hq, hkv, sq, sk, d, causal, window, off) in enumerate(smoke.BWD_CASES):
+    for i, (b, hq, hkv, sq, sk, d, dv, causal, window, off) in enumerate(smoke.BWD_CASES):
         rng = np.random.default_rng(100 + i)
         q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
-                      for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d)))
+                      for shape in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv), (b, hq, sq, dv)))
         off = sk - sq if off is None else off
         out, lse = attention_ref(q, k, v, causal=causal, window=window, q_offset=off, return_lse=True)
         want = attention_bwd_ref(q, k, v, out, lse, g, causal=causal, window=window, q_offset=off)
         rep, scale = hq // hkv, d ** -0.5
-        qf, gf = (t.float().reshape(b, hkv, rep, sq, d) for t in (q, g))
+        qf, gf = q.float().reshape(b, hkv, rep, sq, d), g.float().reshape(b, hkv, rep, sq, dv)
         kf, vf = k.float(), v.float()
         keep = torch.ones((sq, sk), dtype=torch.bool)
         qpos, kpos = torch.arange(sq)[:, None] + off, torch.arange(sk)[None, :]
@@ -756,7 +781,7 @@ def test_two_term_p_and_ds_hold_the_backward_gate(capsys):
             keep &= kpos > qpos - window
         s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * scale
         p = torch.exp(s - lse.reshape(b, hkv, rep, sq, 1)).masked_fill(~keep, 0.0)
-        delta = (gf * out.float().reshape(b, hkv, rep, sq, d)).sum(-1, keepdim=True)
+        delta = (gf * out.float().reshape(b, hkv, rep, sq, dv)).sum(-1, keepdim=True)
         ds = p * (torch.einsum("bgrqd,bgkd->bgrqk", gf, vf) - delta)
 
         def grads(pp, dd):

@@ -33,6 +33,7 @@ from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import lm_batches
 from repro_torch.launch import steps
 from repro_torch.models import transformer as tt
+from repro_torch.train import optimizer as topt
 from repro_torch.train.optimizer import param_tree
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,6 +154,80 @@ def test_lm_train_step_matches_the_reference_step():
     assert int(state["step"]) == int(want_s["step"]) == 1
     _check_params({n: p.detach().numpy() for n, p in model.named_parameters()},
                   {n: _ref_leaf(want_p, n) for n in grads}, grads)
+
+
+def _bits(tree):
+    return [t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32).clone()
+            for t in topt.tree_leaves(tree)]
+
+
+@pytest.mark.parametrize("dtype,state_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                               (torch.bfloat16, torch.bfloat16)], ids=["fp32", "bf16", "bf16-state"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_lm_train_step_applies_each_leaf_as_the_old_step(name, dtype, state_dtype):
+    """``lm_train_step`` adds each leaf's AdamW update as soon as it is
+    computed (the optimizer's ``apply``): two steps give the parameters
+    and the optimizer state of the old path (the whole tree of fp32
+    updates from ``update``, then ``apply_updates``) bit for bit, in fp32
+    and bf16, with fp32 and bf16 state, for every family."""
+    cfg = dataclasses.replace(get_arch(name).make_reduced_config(), dtype=dtype)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dtype=dtype))
+    batch = lm_batches(6, 2, 16, cfg.vocab)(0)
+    opt = topt.adamw(lr=3e-4, state_dtype=state_dtype)
+    assert opt.apply is not None
+    outs = []
+    for o in (opt, topt.Optimizer(opt.init, opt.update)):
+        model = tt.transformer_init(0, cfg, device="cpu")
+        params = param_tree(model)
+        state = o.init(params)
+        for _ in range(2):
+            params, state, _ = steps.lm_train_step(model, cfg, params, state, batch, ce_chunk=8, opt=o)
+        outs.append(_bits((params, state["m"], state["v"])))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("state_dtype", [torch.float32, torch.bfloat16], ids=["fp32-state", "bf16-state"])
+def test_row_block_chunking_equals_the_unchunked_update(monkeypatch, state_dtype):
+    """``row_blocks`` cuts a leaf larger than the threshold into blocks of
+    rows (an expert stack's 3-d leaf as rows of its last axis, at least one
+    row a block): AdamW's ``apply`` and ``adamw_update_params`` over the
+    blocks equal the same over whole leaves bit for bit, and ``apply``
+    equals ``update`` + ``apply_updates``."""
+    rng = np.random.default_rng(9)
+    shapes = {"stack": (3, 5, 7), "embed": (11, 6), "bias": (6,), "scale": ()}
+    params = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()} for _ in range(3)]
+    blocks = topt.row_blocks(torch.zeros(3, 5, 7), threshold_bytes=4 * 7 * 2)
+    assert [tuple(b.shape) for b in blocks] == [(2, 7)] * 7 + [(1, 7)]
+    assert len(topt.row_blocks(torch.zeros(3, 5, 7), threshold_bytes=1)) == 15
+
+    def run(chunk, fn):
+        monkeypatch.setattr(topt, "CHUNK_BYTES", chunk)
+        tree = {k: torch.from_numpy(v.copy()).to(torch.bfloat16) for k, v in params.items()}
+        opt = topt.adamw(lr=1e-2, state_dtype=state_dtype)
+        state = opt.init(tree)
+        for g in grads:
+            gt = {k: torch.from_numpy(v) for k, v in g.items()}
+            state = fn(opt, gt, state, tree, chunk)
+        return _bits((tree, state["m"], state["v"]))
+
+    def apply(opt, g, state, tree, chunk):
+        return opt.apply(g, state, tree)
+
+    def old(opt, g, state, tree, chunk):
+        u, state = opt.update(g, state, tree)
+        topt.apply_updates(tree, u)
+        return state
+
+    def fused(opt, g, state, tree, chunk):
+        return topt.adamw_update_params(tree, g, state, lr=1e-2, chunk_threshold_bytes=chunk)[1]
+
+    whole = run(2 ** 30, apply)
+    for got in (run(8, apply), run(56, apply), run(2 ** 30, old)):
+        assert all(torch.equal(a, b) for a, b in zip(got, whole))
+    fused_whole = run(2 ** 30, fused)
+    assert all(torch.equal(a, b) for a, b in zip(run(8, fused), fused_whole))
 
 
 def test_lm_train_step_two_microbatches_equal_one():
@@ -284,6 +359,60 @@ def test_train_lm_example_runs_on_the_cpu_and_needs_a_card_otherwise(tmp_path):
     if not torch.cuda.is_available():
         out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
         assert out.returncode != 0 and "device='cpu'" in out.stderr
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_gradient_check_runs_on_the_cpu(name):
+    """``chip_smoke.model_grads`` (phase 14's full-width gradient check)
+    at each family's reduced config on the CPU, where both passes are
+    plain versions: no position flips its experts (MoE at the no-drop
+    capacity), every leaf within 1e-6, no launch; its masked loss and
+    ``route_log``'s routes (B, S, k) a MoE layer run as on the card."""
+    smoke = _chip_smoke()
+    cfg = get_arch(name).make_reduced_config()
+    ok, line = smoke.model_grads(name, cfg, 2, 16, torch.device("cpu"))
+    assert ok, line
+    assert line["route_flips"] == 0 and line["positions_kept"] == line["positions"] == 32
+    assert line["max_rel_l2"] <= 1e-6 and line["leaves"] == len(list(tt.transformer_init(0, cfg, device="cpu")
+                                                                      .parameters()))
+    assert line["launches"] == {"flash_attention": 0, "flash_attention_bwd": 0}
+    if cfg.moe is not None:
+        assert line["capacity_factor"] == cfg.moe.n_experts / cfg.moe.top_k
+        model = tt.transformer_init(0, cfg, device="cpu")
+        tokens, _ = _tokens(cfg)
+        with torch.no_grad(), smoke.route_log() as log:
+            tt._hidden(model, cfg, tokens)
+        assert len(log.calls) == cfg.n_layers - cfg.n_dense_layers
+        assert all(c.reshape(2, 16, -1).shape[-1] == cfg.moe.top_k for c in log.calls)
+
+
+def test_gradient_check_loss_leaves_out_the_masked_positions():
+    """The check's loss is the mean cross-entropy of the kept positions
+    alone: a masked position's logits get no gradient, and the loss
+    equals the plain mean over the kept rows."""
+    smoke = _chip_smoke()
+    cfg = get_arch("grok-1-314b").make_reduced_config()
+    model = tt.transformer_init(0, cfg, device="cpu")
+    tokens, labels = _tokens(cfg)
+    h = tt._hidden(model, cfg, tokens).detach().requires_grad_(True)
+    labels = torch.from_numpy(labels).long()
+    keep = torch.ones(labels.shape, dtype=torch.bool)
+    keep[0, 3] = keep[1, 10] = False
+    loss = smoke.grad_check_loss(model, h, labels, keep)
+    loss.backward()
+    assert h.grad[0, 3].abs().max() == 0 and h.grad[1, 10].abs().max() == 0 and h.grad[0, 4].abs().max() > 0
+    logits = (h[keep] @ model.lm_head).double()
+    want = (torch.logsumexp(logits, -1) - logits.gather(-1, labels[keep][:, None])[:, 0]).mean()
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-6)
 
 
 @pytest.mark.gpu
