@@ -269,7 +269,40 @@ Phases (each prints one JSON line; any failure exits nonzero):
    ``molecule`` (128 graphs): each one step on a small batch held to a
    CPU copy (``TRAIN_STEP_TOL``: every gradient, relative L2 per leaf,
    then the loss and the updated parameters), then a warm-up and three timed steps
-   (rows/s, edges/s).  ``ogb_products`` waits for A10.
+   (rows/s, edges/s).  ``ogb_products`` waits for A10b;
+15. plane: the sharded index plane (``repro_torch.distributed``) on the
+   whole MS-150k set (152,185 x 768) at eps 0.55, tau 5, alpha 1.5, with
+   phase 3's estimator's predictions computed once and handed to every
+   rank.  The reference is the port's single-device ``laf_dbscan`` on
+   the card (warmed, then timed).  Then world 1 over NCCL in this
+   process (``init_device_mesh("cuda", (1,))``), world 2 over gloo as two
+   spawned ranks sharing this card (``testing.ranks``; the kernels were
+   built in phase 2, so no rank builds), and, with two or more cards,
+   world min(cards, 4) over NCCL a rank a card.  Each rank clusters
+   through ``RandomProjectionBackend(mesh=)`` with device telemetry on,
+   then timed with it off (counts set to 0 just before each and read
+   just after), then sweeps its slab words and runs the sharded
+   fixpoint on them.  Each must hold: labels, core mask,
+   ``n_range_queries`` and rounds equal to the single-device run's; its
+   slab words byte-equal (sha256) to its block of the single-device
+   slab; one ``laf.cluster.host_syncs`` a clustering; the fixpoint's
+   outputs and per-round frontier, changed and hops equal to
+   ``packed_cluster_labels`` on the single-device slab (shard wins equal
+   to the frontier on one rank, at least it on several); the plane
+   sweep's occupancy triples, summed over the ranks, equal to a
+   single-device count sweep's against the database padded as the plane
+   pads it; launches: one ``label_prop_fixpoint`` on one rank, 64
+   ``label_prop_rect`` and 64 ``label_prop_update`` (every round
+   enqueued) on several, ``hamming_filter_bitmap_stats`` with telemetry
+   on.  One line a world: seconds against the single-device run's,
+   rounds, launches, the ``plane.*`` counters and peak memory of each
+   rank, the fixpoint's time at 64 rounds and at the active rounds only
+   (the idle rounds' cost), whether the collectives stage CUDA tensors
+   through the host (gloo).  The rows ``label_prop_rect_plane``,
+   ``label_prop_update_plane`` and ``hamming_filter_bitmap_stats_plane``
+   hold those kernels to their plain versions at the shapes world 2's
+   first rank gives them.  No fallback: a failed collective, kernel or
+   build on any rank fails the phase.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -379,6 +412,16 @@ KERNELS = {
                             "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
                             "_make_kernel :30; the prefill with the log-sum-exp written: training's forward and "
                             "its remat recompute)"),
+    "label_prop_rect_plane": ("src/repro_torch/csrc/label_prop.cu",
+                              "src/repro/kernels/label_prop/kernel.py:104 (label_prop_rect_pallas -> :130; each "
+                              "round of the sharded fixpoint, src/repro/kernels/label_prop/ops.py:200-203)"),
+    "label_prop_update_plane": ("src/repro_torch/csrc/label_prop.cu",
+                                "src/repro/kernels/label_prop/ops.py:211-214 (jnp: the sharded fixpoint's "
+                                "scatter-min + pointer jump after the round's pmin; no Pallas kernel)"),
+    "hamming_filter_bitmap_stats_plane": ("src/repro_torch/csrc/hamming_filter.cu",
+                                          "src/repro/kernels/hamming_filter/kernel.py:150 "
+                                          "(_filter_count_bitmap_stats_kernel -> :253; the sharded sweep's "
+                                          "telemetry, src/repro/distributed/index_plane.py:419-427)"),
     "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
                           "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
                           "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
@@ -393,7 +436,7 @@ TOL_RMI = 2e-5
 EXACT_KERNELS = ("range_count", "range_count_bitmap")
 # the observability path: every kernel of the main path, plus the count
 # stats body behind band()'s occupancy measurement; the bitmap stats body
-# is reached only by the mesh plane, which is not ported yet
+# is reached only by the sharded plane's telemetry sweep (phase 15)
 OBS_KERNELS = RP_KERNELS + ("hamming_filter_count_stats",)
 STATS_KERNELS = ("hamming_filter_count_stats", "hamming_filter_bitmap_stats")
 # decode == prefill / forward at full width in bf16, compared in fp32:
@@ -3719,9 +3762,9 @@ def gnn_train(dev):
         torch.cuda.empty_cache()
     del csr, reddit
     gc.collect()
-    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A10: the reference shards "
-                  "its 61.9 M edges over the mesh, and its (E, H, D) fp32 messages and their gradients come to "
-                  "about 40 GB"})
+    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A10b (DTensor): the "
+                  "reference shards its 61.9 M edges over the mesh, and its (E, H, D) fp32 messages and their "
+                  "gradients come to about 40 GB"})
     return ok, lines
 
 
@@ -3777,6 +3820,379 @@ def train_phase(dev):
                 "flash_attention_lse": step_launches["flash_attention"],
                 "flash_attention_bwd_mla": zoo_launches["deepseek-v2-236b"]["flash_attention_bwd"]}
     return ok, rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sharded index plane
+# ---------------------------------------------------------------------------
+
+PLANE_KERNELS = ("hamming_filter", "hamming_filter_bitmap_stats", "label_prop_rect", "label_prop_update",
+                 "label_prop_fixpoint", "col_reduce", "row_popcount")
+PLANE_MAX_ITERS = 64   # packed_cluster_fixpoint's rounds: every one is enqueued above one rank
+PLANE_WORLDS_MAX = 4   # one NCCL rank a card, on a machine with two or more
+
+
+def sha256_of(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(t.cpu().numpy()).tobytes()).hexdigest()
+
+
+def plane_run(mesh, data, p, dev) -> dict:
+    """One rank's part of phase 15 on a ``DeviceMesh`` (every rank makes
+    the same calls): LAF-DBSCAN through ``RandomProjectionBackend(mesh=)``
+    with device telemetry on (also the warm-up), then timed with it off,
+    each with the counts set to 0 just before and read just after; then
+    the rank's slab words and the sharded fixpoint on them, with its time
+    at 64 rounds and at the active rounds only (the idle rounds' cost)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.laf_dbscan import laf_dbscan
+    from repro_torch.distributed.index_plane import sharded_cluster_labels
+    from repro_torch.distributed.sharding import plane_axes
+    from repro_torch.index.random_projection import RandomProjectionBackend
+    from repro_torch.obs import device as obs_device
+    from repro_torch.obs import metrics
+
+    eps, tau, alpha, pred = p["eps"], p["tau"], p["alpha"], p["pred"]
+    n = data.shape[0]
+    ax = plane_axes(mesh)
+    was = obs_device.device_enabled()
+    out = {"rank": dist.get_rank(), "index": ax.index, "world": ax.size, "backend": dist.get_backend(),
+           "device": str(dev)}
+    bk = RandomProjectionBackend(device=dev, mesh=mesh)
+
+    def clustering(telemetry):
+        (obs_device.enable_device if telemetry else obs_device.disable_device)()
+        metrics.reset()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = laf_dbscan(data, eps, tau, alpha, pred, backend=bk)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        g = metrics.snapshot()
+        row = {"seconds": secs, "labels": res.labels, "core": res.core, "n_range_queries": res.n_range_queries,
+               "n_clusters": res.n_clusters, "host_syncs": g.get("laf.cluster.host_syncs", 0),
+               "rounds": g.get("laf.cluster.last_rounds"), "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+               "launches": {k: g.get(f"kernel.{k}.launches", 0) for k in PLANE_KERNELS},
+               "plane": {k: v for k, v in g.items() if k.startswith("plane.")},
+               "phases_s": {k.split(".")[-1][:-2]: v for k, v in g.items() if k.startswith("laf.phase.")},
+               "telemetry": {k: v for k, v in g.items() if k.startswith("laf.telemetry.")}}
+        if telemetry:
+            row["sweep_stats"] = obs_device.last_sweep_stats()
+        return row
+
+    out["T"] = clustering(True)
+    out["A"] = clustering(False)
+    exec_idx = np.nonzero(pred >= alpha * tau)[0]
+    slab, plan = bk.query_bitmap_device(exec_idx, eps)
+    out["slab_sha"], out["slab_shape"] = sha256_of(slab), list(slab.shape)
+    rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=dev)
+    rows[: len(exec_idx)] = torch.from_numpy(exec_idx).to(dev)
+    fx = sharded_cluster_labels(slab, rows, tau, mesh=mesh, axes=bk._plan.axes, n=n, telemetry=True)
+    rounds = int(fx[4])
+    out["fix"] = {"rounds": rounds, "tele": fx[5].cpu().numpy(), "labels": sha256_of(fx[0][:n]),
+                  "owner": sha256_of(fx[1][:n]), "col_sum": sha256_of(fx[2][:n]), "counts": sha256_of(fx[3])}
+
+    def fixpoint(max_iters):
+        return lambda: sharded_cluster_labels(slab, rows, tau, mesh=mesh, axes=bk._plan.axes, n=n,
+                                              max_iters=max_iters, telemetry=False)
+
+    out["fixpoint_ms"] = host_ms(fixpoint(PLANE_MAX_ITERS), reps=3, warmup=1)[0]
+    out["fixpoint_active_ms"] = host_ms(fixpoint(max(rounds, 1)), reps=3, warmup=1)[0]
+    (obs_device.enable_device if was else obs_device.disable_device)()
+    return out
+
+
+def plane_rank(rank, world, p):
+    """A spawned rank of phase 15: its card (``cuda:0`` for every rank
+    when ``p["share"]``, else ``cuda:rank``), the mesh, the data."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import obs
+
+    obs.enable(trace=False, metrics_on=True)  # the launch counts are counters
+    dev = torch.device("cuda", 0 if p["share"] else rank)
+    torch.cuda.set_device(dev)
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    return plane_run(mesh, np.load(p["data"]), p, dev)
+
+
+def plane_expectations(bk, slab, exec_idx, eps, world):
+    """What a world's ranks must hold, from the single-device run: each
+    shard's block of the single-device slab (zero words past it) by
+    sha256, and the per-chunk occupancy of a single-device count sweep
+    against the database padded with zero rows as the plane pads it."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.distributed.index_plane import shard_plan
+    from repro_torch.index.sweep import sweep_counts
+    from repro_torch.obs import device as obs_device
+
+    n = bk.n_points
+    plan = shard_plan(SimpleNamespace(mesh_dim_names=("data",), shape=(world,)), n, tile=bk.db_tile)
+    w_loc = plan.n_local // 32
+    padded = torch.nn.functional.pad(slab, (0, w_loc * world - slab.shape[1]))
+    shas = [sha256_of(padded[:, k * w_loc : (k + 1) * w_loc]) for k in range(world)]
+    del padded
+    t_lo, t_hi = bk.band(eps)
+    q, q_sig = bk._gather(exec_idx)
+    db = torch.nn.functional.pad(bk.data_device, (0, 0, 0, plan.n_pad))
+    db_sig = torch.nn.functional.pad(bk._sigs_dev, (0, 0, 0, plan.n_pad))
+    was = obs_device.device_enabled()
+    obs_device.enable_device()
+    sweep_counts(q, q_sig, db, db_sig, n, eps, t_lo, t_hi, chunk=bk.chunk, chunks_per_launch=bk.chunks_per_launch,
+                 q_tile=bk.q_tile, db_tile=bk.db_tile)
+    (obs_device.enable_device if was else obs_device.disable_device)()
+    return {"plan": plan, "slab_shas": shas, "sweep_stats": obs_device.last_sweep_stats().copy()}
+
+
+def plane_kernel_rows(bk, slab, exec_idx, eps, tau, plan, clock_hz):
+    """The three kernels the plane puts on a path, against their plain
+    versions at the shapes world 2 gives them on its first rank: K2 over
+    that rank's words of the slab (the global labels' first slice), the
+    update over the plane's global columns, and the Hamming filter's
+    bitmap ``_stats`` body over one sweep launch's queries against that
+    rank's rows (256-row chunks).  Exact equality; times back to back
+    and queued."""
+    import torch
+
+    from repro_torch.index.signatures import popcount32
+    from repro_torch.kernels.hamming_filter import hamming_filter_into
+    from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
+    from repro_torch.kernels.label_prop import label_prop_rect
+    from repro_torch.kernels.label_prop.ops import fixpoint_inputs
+    from repro_torch.kernels.label_prop.ref import BIG, label_prop_rect_ref, label_prop_update_ref
+
+    n, dev = bk.n_points, slab.device
+    w_loc, cap = plan.n_local // 32, plan.n_padded
+    block = torch.nn.functional.pad(slab, (0, w_loc * plan.n_shards - slab.shape[1]))[:, :w_loc].contiguous()
+    r = block.shape[0]
+    rows = torch.full((r,), n, dtype=torch.int32, device=dev)
+    rows[: len(exec_idx)] = torch.from_numpy(exec_idx).to(dev)
+    _, _, _, _, pos, init = fixpoint_inputs(block, rows, tau, n=n, cap=cap)
+    big_rows = torch.full((r,), BIG, dtype=torch.int32, device=dev)
+    lab = init[: w_loc * 32]
+    m = label_prop_rect(big_rows, lab, block)
+    m_out = torch.empty_like(m)
+    stats = slab_stats(block)
+    out = []
+    b_ms, b_by = bound_ms(4 * (r * w_loc + 32 * w_loc + 2 * r))
+    out.append({
+        "name": "label_prop_rect_plane", "shape": [r, w_loc], **stats,
+        "max_abs_err": int((m.long() - label_prop_rect_ref(big_rows, lab, block).long()).abs().max()),
+        "ms": time_ms(lambda: label_prop_rect(big_rows, lab, block, out=m_out)),
+        "device_ms": queued_ms(lambda: label_prop_rect(big_rows, lab, block, out=m_out)),
+        "plain_ms": time_ms(lambda: label_prop_rect_ref(big_rows, lab, block), reps=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+    })
+    update, u = make_update({"init": init, "pos": pos}, m)
+    update()
+    b_ms, b_by = bound_ms(4 * (3 * cap + r))
+    out.append({
+        "name": "label_prop_update_plane", "shape": [cap],
+        "max_abs_err": int((u.long() - label_prop_update_ref(init, m, pos).long()).abs().max()),
+        "ms": time_ms(update), "device_ms": queued_ms(update),
+        "plain_ms": time_ms(lambda: label_prop_update_ref(init, m, pos)), "bound_ms": b_ms, "bound_by": b_by,
+    })
+    t_lo, t_hi = bk.band(eps)
+    q, q_sig = bk._gather(exec_idx[: bk.chunk * bk.chunks_per_launch])  # one sweep launch's queries
+    nq = q.shape[0]
+    db, db_sig = bk.data_device[: plan.n_local], bk._sigs_dev[: plan.n_local]
+    nd, d, w = db.shape[0], db.shape[1], q_sig.shape[1]
+    words = -(-nd // 32)
+    chunk = bk.chunk
+
+    def body():
+        counts = torch.zeros(nq, dtype=torch.int32, device=dev)
+        bm = torch.zeros((nq, words), dtype=torch.int32, device=dev)
+        st = torch.zeros((-(-nq // chunk), 3), dtype=torch.int32, device=dev)
+        hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bm, stats=st, chunk_rows=chunk)
+        return counts, bm, st
+
+    kc, kb, ks = body()
+    pc, pb, ps = hamming_filter_ref(q, db, q_sig, db_sig, eps, t_lo, t_hi, stats_chunk=chunk)
+    pairs = flipped_pairs(kb, pb)
+    margin = pair_margin(pairs, q, db, eps)
+    tol = 2 * (d - 1) * 2.0 ** -24
+    b_ms, b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + words)) + 12 * ks.shape[0],
+                          2 * nq * nd * 32 * w, INT8_OPS)
+    out.append({
+        "name": "hamming_filter_bitmap_stats_plane", "shape": [nq, nd, d, w],
+        "max_abs_err": int((kc - pc).abs().max()), "triples_equal_plain": bool(torch.equal(ks, ps)),
+        "bit_flips": len(pairs), "flip_max_margin": margin, "tolerance": tol,
+        "ms": time_ms(body), "device_ms": queued_ms(body),
+        "plain_ms": time_ms(lambda: hamming_filter_ref(q, db, q_sig, db_sig, eps, t_lo, t_hi, stats_chunk=chunk),
+                            reps=2, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by + " (int8 tensor cores)", "popc_ms": popc_ms(nq, nd, w, clock_hz),
+    })
+    ok = out[0]["max_abs_err"] == 0 and out[1]["max_abs_err"] == 0
+    ok &= bool(torch.equal(ks, ps)) and margin <= tol and bool(torch.equal(
+        kc - pc, popcount32(kb).sum(1) - popcount32(pb).sum(1)))
+    return ok, out
+
+
+def plane_check(world_rows, ref, expect, max_iters=PLANE_MAX_ITERS):
+    """One world's ranks against the single-device run; returns (ok,
+    what failed)."""
+    bad = []
+    for o in world_rows:
+        k, world = o["index"], o["world"]
+        for run in ("A", "T"):
+            got = o[run]
+            if not (np.array_equal(got["labels"], ref["labels"]) and np.array_equal(got["core"], ref["core"])
+                    and got["n_range_queries"] == ref["n_range_queries"]):
+                bad.append(f"rank {k} run {run}: labels, core or n_range_queries")
+            if got["rounds"] != ref["rounds"] or got["host_syncs"] != 1:
+                bad.append(f"rank {k} run {run}: rounds {got['rounds']} / host syncs {got['host_syncs']}")
+        if o["slab_sha"] != expect["slab_shas"][k]:
+            bad.append(f"rank {k}: slab words differ from the single-device slab's block")
+        fx = o["fix"]
+        if any(fx[f] != ref["fix"][f] for f in ("labels", "owner", "col_sum", "counts")) or \
+                fx["rounds"] != ref["fix"]["rounds"]:
+            bad.append(f"rank {k}: the sharded fixpoint's outputs")
+        tele, want = fx["tele"], ref["fix"]["tele"]
+        if not np.array_equal(tele[:3], want[:3]) or not (
+                np.array_equal(tele[3], want[3]) if world == 1 else (tele[3] >= tele[0]).all()):
+            bad.append(f"rank {k}: per-round telemetry")
+        if not np.array_equal(o["T"]["sweep_stats"], expect["sweep_stats"]):
+            bad.append(f"rank {k}: the plane sweep's occupancy triples")
+        la, lt = o["A"]["launches"], o["T"]["launches"]
+        want_l = ({"label_prop_fixpoint": 1, "label_prop_rect": 0, "label_prop_update": 0} if world == 1 else
+                  {"label_prop_fixpoint": 0, "label_prop_rect": max_iters, "label_prop_update": max_iters})
+        if any(la[x] != v for x, v in want_l.items()) or la["hamming_filter"] == 0 or \
+                lt["hamming_filter_bitmap_stats"] == 0 or la["row_popcount"] != 1 or la["col_reduce"] != 1:
+            bad.append(f"rank {k}: launches {la} / telemetry run {lt}")
+    return not bad, bad
+
+
+def plane_line(world_rows, ref, expect, backend):
+    """The phase line of one world."""
+    rows = sorted(world_rows, key=lambda o: o["index"])
+    a, t = rows[0]["A"], rows[0]["T"]
+    return {
+        "phase": "plane", "world": len(rows), "backend": backend, "device": [o["device"] for o in rows],
+        "seconds": [o["A"]["seconds"] for o in rows], "single_device_seconds": ref["seconds"],
+        "telemetry_on_seconds": [o["T"]["seconds"] for o in rows],
+        "rounds": a["rounds"], "n_clusters": a["n_clusters"], "n_padded": expect["plan"].n_padded,
+        "slab_shape": [o["slab_shape"] for o in rows],
+        "launches": {k: a["launches"][k] for k in ("label_prop_rect", "label_prop_update", "label_prop_fixpoint",
+                                                   "hamming_filter", "row_popcount", "col_reduce")},
+        "launches_telemetry_on": {k: t["launches"][k] for k in ("hamming_filter_bitmap_stats", "label_prop_rect",
+                                                                 "label_prop_update")},
+        "phases_s": [o["A"]["phases_s"] for o in rows], "single_device_phases_s": ref["phases_s"],
+        "plane": [o["A"]["plane"] for o in rows], "plane_telemetry_on": [o["T"]["plane"] for o in rows],
+        "peak_mem_bytes": [o["A"]["peak_mem_bytes"] for o in rows],
+        "single_device_peak_mem_bytes": ref["peak_mem_bytes"],
+        "fixpoint_ms": [o["fixpoint_ms"] for o in rows], "fixpoint_active_rounds_ms":
+            [o["fixpoint_active_ms"] for o in rows],
+        "idle_round_ms": [(o["fixpoint_ms"] - o["fixpoint_active_ms"]) / max(PLANE_MAX_ITERS - o["fix"]["rounds"], 1)
+                          for o in rows],
+        "single_device_fixpoint_ms": ref["fixpoint_ms"],
+        "shard_wins": [int(o["fix"]["tele"][3].sum()) for o in rows],
+        "frontier": int(rows[0]["fix"]["tele"][0].sum()),
+        "collectives_stage_through_host": backend == "gloo",
+    }
+
+
+def plane_phase(data, pred, eps, tau, alpha, dev, clock_hz):
+    """Phase 15: LAF-DBSCAN on the sharded index plane, at world 1 over
+    NCCL in this process, world 2 over gloo as two spawned ranks sharing
+    this card, and, with two or more cards, world min(cards, 4) over NCCL
+    a rank a card; each held to the single-device run on the card (the
+    same data and predictions).  Returns (ok, kernel rows, launches of
+    the plane's world-2 path)."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.laf_dbscan import laf_dbscan
+    from repro_torch.index.random_projection import RandomProjectionBackend
+    from repro_torch.kernels.label_prop import packed_cluster_labels
+    from repro_torch.obs import device as obs_device
+    from repro_torch.obs import metrics
+    from repro_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    n = data.shape[0]
+    exec_idx = np.nonzero(pred >= alpha * tau)[0]
+    bk = RandomProjectionBackend(device=dev).fit(data)
+    was = obs_device.device_enabled()
+    obs_device.enable_device()
+    laf_dbscan(data, eps, tau, alpha, pred, backend=bk)  # warm-up, as each rank's telemetry run
+    obs_device.disable_device()
+    metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = laf_dbscan(data, eps, tau, alpha, pred, backend=bk)
+    torch.cuda.synchronize()
+    g = metrics.snapshot()
+    ref = {"seconds": time.perf_counter() - t0, "labels": res.labels, "core": res.core,
+           "n_range_queries": res.n_range_queries, "rounds": g.get("laf.cluster.last_rounds"),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "phases_s": {k.split(".")[-1][:-2]: v for k, v in g.items() if k.startswith("laf.phase.")}}
+    slab, plan = bk.query_bitmap_device(exec_idx, eps)
+    rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=dev)
+    rows[: len(exec_idx)] = torch.from_numpy(exec_idx).to(dev)
+    fx = packed_cluster_labels(slab, rows, tau, n=n, telemetry=True)
+    cap = fx[0].shape[0]
+    ref["fix"] = {"rounds": int(fx[4]), "tele": fx[5].cpu().numpy(), "labels": sha256_of(fx[0][:n]),
+                  "owner": sha256_of(fx[1][:n]), "col_sum": sha256_of(fx[2][:n]), "counts": sha256_of(fx[3])}
+    ref["fixpoint_ms"] = host_ms(lambda: packed_cluster_labels(slab, rows, tau, n=n, telemetry=False), reps=3,
+                                 warmup=1)[0]
+    del fx
+    worlds = [(1, "nccl"), (2, "gloo")]
+    if torch.cuda.device_count() >= 2:
+        worlds.append((min(torch.cuda.device_count(), PLANE_WORLDS_MAX), "nccl"))
+    expect = {w: plane_expectations(bk, slab, exec_idx, eps, w) for w, _ in worlds}
+    k_ok, k_rows = plane_kernel_rows(bk, slab, exec_idx, eps, tau, expect[2]["plan"], clock_hz)
+    del slab, rows
+    bk = None
+    torch.cuda.empty_cache()
+    emit({"phase": "plane_reference", "seconds": time.perf_counter() - t_phase, "n": n, "n_exec": len(exec_idx),
+          "cap": cap, "seconds_single_device": ref["seconds"], "rounds": ref["rounds"],
+          "fixpoint_ms": ref["fixpoint_ms"], "kernels_ok": k_ok})
+    ok, launches = k_ok, {}
+    with tempfile.TemporaryDirectory(prefix="plane-") as tmp:
+        path = os.path.join(tmp, "data.npy")
+        np.save(path, data)
+        p = {"data": path, "pred": pred, "eps": eps, "tau": tau, "alpha": alpha}
+        for world, backend in worlds:
+            t0 = time.perf_counter()
+            if world == 1:
+                dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store1"), 1), rank=0,
+                                        world_size=1, timeout=timedelta(seconds=300))
+                try:
+                    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+                    got = [plane_run(mesh, data, p, dev)]
+                finally:
+                    dist.destroy_process_group()
+            else:
+                got = run_ranks(plane_rank, world, dict(p, share=backend == "gloo"), backend=backend,
+                                timeout=300)
+            w_ok, bad = plane_check(got, ref, expect[world])
+            line = plane_line(got, ref, expect[world], backend)
+            emit({**line, "wall_s": time.perf_counter() - t0, "ok": w_ok, "failed": bad})
+            ok &= w_ok
+            if world == 2:
+                a, t = got[0]["A"]["launches"], got[0]["T"]["launches"]
+                launches = {"label_prop_rect_plane": a["label_prop_rect"],
+                            "label_prop_update_plane": a["label_prop_update"],
+                            "hamming_filter_bitmap_stats_plane": t["hamming_filter_bitmap_stats"]}
+    (obs_device.enable_device if was else obs_device.disable_device)()
+    torch.cuda.empty_cache()
+    emit({"phase": "plane", "seconds": time.perf_counter() - t_phase, "ok": ok,
+          "worlds": [f"{w} {b}" for w, b in worlds]})
+    return ok, k_rows, launches
 
 
 def run(args) -> int:
@@ -4029,8 +4445,16 @@ def run(args) -> int:
     tr_ok, tr_rows, tr_launches = train_phase(dev)
     ok &= tr_ok and all(n > 0 for n in tr_launches.values())
     launches.update(tr_launches)
+    # 15. the sharded index plane: the whole MS-150k set on world 1 (NCCL)
+    #     and world 2 (gloo, two ranks on this card), each held to the
+    #     single-device run; each run's counts read around it
+    plane_pred = pipe.estimator.predict_counts(data, eps, reference_n=len(data))
+    pl_ok, pl_rows, pl_launches = plane_phase(data, plane_pred, eps, tau, alpha, dev, clock_hz)
+    ok &= pl_ok and all(n > 0 for n in pl_launches.values())
+    launches.update(pl_launches)
     rows = []
-    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows]:
+    for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows,
+              *pl_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,

@@ -3,8 +3,9 @@ and CUDA.
 
 A second package beside the JAX/Pallas reference (``repro``), with the
 same layout (``core/``, ``core/cardinality/``, ``index/``,
-``kernels/<name>/``, ``data/``, ``obs/``, ``models/``, ``configs/``) so
-each module's counterpart is found under the same path.  The TPU
+``kernels/<name>/``, ``data/``, ``obs/``, ``models/``, ``configs/``,
+``distributed/``) so each module's counterpart is found under the same
+path.  The TPU
 kernels are hand-written CUDA C++ for Hopper (``csrc/*.cu``), built by
 ``nvcc`` at first use into ``build/repro_torch/`` and bound with
 ``ctypes`` (``repro_torch.kernels._build``).

@@ -7,9 +7,8 @@ run: the five LMs (``llama3_8b``, ``gemma3_27b``, ``granite_20b``,
 ``grok1_314b``, ``deepseek_v2_236b``), the four recsys rankers
 ``bst``, ``deepfm``, ``dien`` and ``autoint``, and the GNN
 ``gat_cora`` (its ``ogb_products`` shape, edge-sharded in the
-reference, waits for A10 with the mesh).  laf_dbscan's launch config
-(``LAFClusterConfig`` and its entry) waits for A10.  Its ``StreamConfig`` is ported as a plain dataclass in
-``configs/laf_dbscan.py``, outside the registry.
+reference, waits for A10b with DTensor), and ``laf_dbscan``, the
+paper's own workload (``LAFClusterConfig``, family ``cluster``).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ class ShapeSpec:
 @dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str          # lm | gnn | recsys
+    family: str          # lm | gnn | recsys | cluster
     make_config: Callable[[], Any]
     make_reduced_config: Callable[[], Any]
     shapes: Mapping[str, ShapeSpec]
@@ -66,7 +65,8 @@ def list_archs():
 
 def _ensure_loaded():
     from . import (  # noqa: F401  (each registers on first import)
-        autoint, bst, deepfm, deepseek_v2_236b, dien, gat_cora, gemma3_27b, granite_20b, grok1_314b, llama3_8b,
+        autoint, bst, deepfm, deepseek_v2_236b, dien, gat_cora, gemma3_27b, granite_20b, grok1_314b, laf_dbscan,
+        llama3_8b,
     )
 
 

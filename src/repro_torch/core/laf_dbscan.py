@@ -17,7 +17,11 @@ unpack -> union-find pass over the same hits, the parity oracle.  A
 device failure of the cluster pass (a refused launch, among them
 ``label_prop_fixpoint``'s cooperative launch when its grid cannot be
 resident, or a ``testing.faults`` plan firing at ``cluster.launch``)
-raises; the host pass never stands in for it.
+raises; the host pass never stands in for it.  A backend sharded over
+a ``DeviceMesh`` (``RandomProjectionBackend(mesh=)``) runs the pass on
+the index plane (``distributed.index_plane.sharded_cluster_labels``):
+every rank sweeps its columns, runs the fixpoint and makes the one host
+copy; the results are the same on every rank.
 
 Spans (``obs.enable(trace=True)``) follow the reference's:
 ``laf.cluster`` around the engine, ``laf.fit_index``, ``laf.pass1`` ⊃
@@ -202,12 +206,14 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
 
     _faults.maybe_fail("cluster.launch", n=int(n), n_exec=int(len(exec_idx)))
     n_exec = len(exec_idx)
+    mesh = getattr(bk, "mesh", None) if native else None
     with _span("laf.pass1", n=n, n_exec=int(n_exec), block_size=block_size, device=True):
         # uploaded before the sweep: a host->device copy waits for the stream
         exec_t = torch.from_numpy(exec_idx).to(device=bk.device, dtype=torch.int32)
         if native:
             with _span("laf.sweep", rows=int(n_exec), synced=False):
-                slab, plan = bk.query_bitmap_device(exec_t, eps)
+                # a sharded backend gathers its queries on the host
+                slab, plan = bk.query_bitmap_device(exec_t if mesh is None else exec_idx, eps)
             rows = torch.full((plan.nq_padded,), n, dtype=torch.int32, device=bk.device)
             rows[:n_exec] = exec_t
         else:
@@ -222,12 +228,21 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
     telemetry = _obs_device.device_enabled()
     lp_span = _span("laf.label_prop", rows=int(rows.shape[0]), n=n, telemetry=telemetry)
     with lp_span:
-        outs = packed_cluster_labels(slab, rows, tau, n=n, telemetry=telemetry)
+        if mesh is not None:
+            from ..distributed.index_plane import sharded_cluster_labels
+
+            outs = sharded_cluster_labels(slab, rows, tau, mesh=mesh, axes=bk._plan.axes, n=n,
+                                          telemetry=telemetry)
+        else:
+            outs = packed_cluster_labels(slab, rows, tau, n=n, telemetry=telemetry)
         labels_d, owner_d, col_sum_d, counts_d, rounds_d = outs[:5]
         clock.mark("label_prop")
         parts = [labels_d[:n], owner_d[:n], col_sum_d[:n], counts_d[:n_exec], rounds_d.view(1)]
+        sweep_stats = _obs_device.take_deferred_sweep_stats() if telemetry else None
         if telemetry:
             parts.append(outs[5].view(-1))  # the per-round counts ride the same copy
+        if sweep_stats is not None:
+            parts.append(sweep_stats.view(-1))  # and the plane sweep's occupancy
         # THE host sync of the cluster pass: every result in one copy
         flat = torch.cat(parts).cpu().numpy()
         _metrics.counter("laf.cluster.host_syncs").inc()
@@ -237,7 +252,11 @@ def _cluster_pass_device(bk, eps, tau, exec_idx, n, native, block_size, clock):
     _metrics.gauge("laf.cluster.last_rounds").set(rounds)
     _metrics.counter("laf.cluster.rounds").inc(rounds)
     if telemetry:
-        tele = flat[3 * n + n_exec + 1 :].reshape(len(_obs_device.CLUSTER_ROUND_FIELDS), -1)
+        t0 = 3 * n + n_exec + 1
+        t1 = t0 + outs[5].numel()
+        tele = flat[t0:t1].reshape(len(_obs_device.CLUSTER_ROUND_FIELDS), -1)
+        if sweep_stats is not None:
+            _obs_device.harvest_sweep_telemetry(flat[t1:].reshape(-1, 3))
         per_round = _obs_device.harvest_cluster_telemetry(tele, rounds)
         _obs_device.emit_round_spans(getattr(lp_span, "_rec", None), per_round)
 

@@ -1,5 +1,5 @@
 """Signed-random-projection ANN range backend (port of
-``repro.index.random_projection``, single device).
+``repro.index.random_projection``).
 
 Per query: XOR + popcount between packed sign signatures splits pairs
 on the Hamming band ``(t_lo, t_hi)`` — sure accepts below ``t_lo``,
@@ -17,9 +17,20 @@ Two evaluators of that one contract:
 * ``oracle=True``: the host numpy path (``_tile_hits`` /
   ``_tile_counts``), the in-package parity oracle.
 
+Sharded (``mesh=`` a ``DeviceMesh``, ``mesh_axes=`` default its data
+axes, ``pipeline_depth=``): the database rows and signature table are
+co-sharded over the mesh by ``distributed.index_plane.shard_database``
+at ``fit`` and after every ``partial_fit`` append (``_reshard``); every
+sweep runs the plane (``index.sweep`` under ``mesh=``).  The host copy
+of the rows and signatures stays whole on every rank: queries and
+column subsets are gathered on the host and uploaded whole, and the
+signatures are signed on the device in the same blocks as on one device,
+so their bits are the same.  Every rank must make the same calls.
+
 Device faults: a sweep that fails (a refused launch, or a
-``testing.faults`` plan firing at ``sweep.launch``) raises to the
-caller.  Nothing retries it or falls back to the host oracle.
+``testing.faults`` plan firing at ``sweep.launch``, or ``plane.launch``
+under ``mesh=``) raises to the caller.  Nothing retries it or falls back
+to the host oracle.
 
 ``suggest_margin`` / ``record_occupancy`` price the Hamming band with
 the kernel's ``[accept, band, reject]`` occupancy counters (or one host
@@ -57,6 +68,8 @@ from .sweep import DEFAULT_CHUNKS_PER_LAUNCH, sweep_bitmap, sweep_bitmap_device,
 
 __all__ = ["RandomProjectionBackend", "suggest_margin", "record_occupancy"]
 
+_SIGN_BLOCK = 65536  # rows a block, sign_signatures' own default
+
 
 @register_backend
 class RandomProjectionBackend(RangeBackend):
@@ -77,6 +90,9 @@ class RandomProjectionBackend(RangeBackend):
         chunks_per_launch: int = DEFAULT_CHUNKS_PER_LAUNCH,
         oracle: bool = False,
         device=None,
+        mesh=None,
+        mesh_axes=None,
+        pipeline_depth: int = 2,
     ):
         if verify not in ("band", "full"):
             raise ValueError(f"verify must be 'band' or 'full', got {verify!r}")
@@ -92,6 +108,15 @@ class RandomProjectionBackend(RangeBackend):
         self.chunks_per_launch = int(chunks_per_launch)
         self.oracle = bool(oracle)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axes = mesh_axes
+        self.pipeline_depth = int(pipeline_depth)
+        # the plane: this rank's row blocks and their plan (mesh only);
+        # the host signature buffer, whole on every rank
+        self._db_plane: Optional[torch.Tensor] = None
+        self._sig_plane: Optional[torch.Tensor] = None
+        self._plan = None
+        self._sigs_buf_host: Optional[np.ndarray] = None
         self.projection: Optional[np.ndarray] = None
         self._data: Optional[np.ndarray] = None
         self._data_dev: Optional[torch.Tensor] = None
@@ -120,6 +145,11 @@ class RandomProjectionBackend(RangeBackend):
             return self
         self.projection = make_projection(data.shape[1], self.n_bits, self.seed)
         self._data = data
+        if self.mesh is not None:
+            self._data_buf, self._sigs_buf_host = data, self._sign_host(data)
+            self._set_views(data.shape[0])
+            self._data = data  # the array itself, so a refit on it is a no-op
+            return self
         self._data_dev = torch.from_numpy(data).to(self.device)
         self._sigs_dev = sign_signatures(self._data_dev, self.projection, device=self.device)
         self._sigs_host = None
@@ -143,36 +173,67 @@ class RandomProjectionBackend(RangeBackend):
             _metrics.counter("index.capacity_doublings").inc()
             cap = max(2 * self._data_buf.shape[0], n + b)
             cap = -(-cap // self.db_tile) * self.db_tile
-            d, words = self._data.shape[1], self._sigs_dev.shape[1]
+            d, words = self._data.shape[1], self.n_bits // 32
             data_buf = np.zeros((cap, d), dtype=np.float32)
             data_buf[:n] = self._data
-            data_dev = torch.zeros((cap, d), dtype=torch.float32, device=self.device)
-            data_dev[:n] = self._data_dev
-            sigs_dev = torch.zeros((cap, words), dtype=torch.int32, device=self.device)
-            sigs_dev[:n] = self._sigs_dev
-            self._data_buf, self._data_buf_dev, self._sigs_buf_dev = data_buf, data_dev, sigs_dev
-        new = torch.from_numpy(rows).to(self.device)
+            if self.mesh is not None:
+                sigs_buf = np.zeros((cap, words), dtype=np.int32)
+                sigs_buf[:n] = self._sigs_buf_host[:n]
+                self._data_buf, self._sigs_buf_host = data_buf, sigs_buf
+            else:
+                data_dev = torch.zeros((cap, d), dtype=torch.float32, device=self.device)
+                data_dev[:n] = self._data_dev
+                sigs_dev = torch.zeros((cap, words), dtype=torch.int32, device=self.device)
+                sigs_dev[:n] = self._sigs_dev
+                self._data_buf, self._data_buf_dev, self._sigs_buf_dev = data_buf, data_dev, sigs_dev
         self._data_buf[n : n + b] = rows
-        self._data_buf_dev[n : n + b] = new
-        self._sigs_buf_dev[n : n + b] = sign_signatures(new, self.projection, device=self.device)
+        if self.mesh is not None:
+            self._sigs_buf_host[n : n + b] = self._sign_host(rows)
+        else:
+            new = torch.from_numpy(rows).to(self.device)
+            self._data_buf_dev[n : n + b] = new
+            self._sigs_buf_dev[n : n + b] = sign_signatures(new, self.projection, device=self.device)
         self._set_views(n + b)
         return self
 
+    def _sign_host(self, rows: np.ndarray) -> np.ndarray:
+        """(len(rows), words) int32 signatures signed on the device, in the
+        blocks ``sign_signatures`` signs a device table in, read back."""
+        out = np.empty((rows.shape[0], self.n_bits // 32), dtype=np.int32)
+        for s in range(0, rows.shape[0], _SIGN_BLOCK):
+            out[s : s + _SIGN_BLOCK] = sign_signatures(
+                rows[s : s + _SIGN_BLOCK], self.projection, device=self.device).cpu().numpy()
+        return out
+
     def _set_views(self, n: int) -> None:
         self._data = self._data_buf[:n]
+        if self.mesh is not None:
+            self._sigs_host = self._sigs_buf_host[:n].view(np.uint32)
+            self._reshard()
+            return
         self._data_dev = self._data_buf_dev[:n]
         self._sigs_dev = self._sigs_buf_dev[:n]
         self._sigs_host = None
+
+    def _reshard(self) -> None:
+        """Place this rank's row blocks of the rows and signatures on the
+        plane (the plan depends on n, so every append re-pads them)."""
+        from ..distributed.index_plane import shard_database
+
+        self._db_plane, self._sig_plane, self._plan = shard_database(
+            self.mesh, self._data, self._sigs_buf_host[: self._data.shape[0]], self.mesh_axes,
+            tile=self.db_tile, device=self.device)
 
     def state_export(self):
         """Capacity-faithful snapshot in the reference's keys and dtypes:
         the whole capacity buffers (rows, uint32 signatures), the live
         row count, the projection and the config echo."""
         assert self._data is not None, "call fit() first"
+        sigs_buf = self._sigs_buf_host if self.mesh is not None else self._sigs_buf_dev.cpu().numpy()
         return {
             "n": np.int64(self._data.shape[0]),
             "data_buf": np.ascontiguousarray(self._data_buf),
-            "sigs_buf": self._sigs_buf_dev.cpu().numpy().view(np.uint32),
+            "sigs_buf": sigs_buf.view(np.uint32),
             "projection": np.ascontiguousarray(self.projection),
             "n_bits": np.int64(self.n_bits),
             "seed": np.int64(self.seed),
@@ -186,8 +247,11 @@ class RandomProjectionBackend(RangeBackend):
             raise ValueError(f"snapshot db_tile={int(state['db_tile'])} != backend db_tile={self.db_tile}")
         self._data_buf = np.ascontiguousarray(state["data_buf"], dtype=np.float32)
         sigs = np.ascontiguousarray(state["sigs_buf"], dtype=np.uint32).view(np.int32)
-        self._data_buf_dev = torch.from_numpy(self._data_buf).to(self.device)
-        self._sigs_buf_dev = torch.from_numpy(sigs).to(self.device)
+        if self.mesh is not None:
+            self._sigs_buf_host = sigs.copy()
+        else:
+            self._data_buf_dev = torch.from_numpy(self._data_buf).to(self.device)
+            self._sigs_buf_dev = torch.from_numpy(sigs).to(self.device)
         self.projection = np.ascontiguousarray(state["projection"], dtype=np.float32)
         self.seed = int(state["seed"])
         self._set_views(int(state["n"]))
@@ -195,12 +259,17 @@ class RandomProjectionBackend(RangeBackend):
 
     @property
     def data_device(self) -> torch.Tensor:
+        if self.mesh is not None:  # the rank holds its row block only: upload the rows
+            return super().data_device
         assert self._data_dev is not None, "call fit() first"
         return self._data_dev
 
     @property
     def signatures(self) -> np.ndarray:
         """Packed uint32 signatures on the host (copied once, lazily)."""
+        if self.mesh is not None:
+            assert self._sigs_host is not None, "call fit() first"
+            return self._sigs_host
         assert self._sigs_dev is not None, "call fit() first"
         if self._sigs_host is None:
             self._sigs_host = self._sigs_dev.cpu().numpy().view(np.uint32)
@@ -295,8 +364,19 @@ class RandomProjectionBackend(RangeBackend):
         return hit
 
     # -- sweep engine ------------------------------------------------------
+    @property
+    def _launch_site(self) -> str:
+        """Fault-injection site of this backend's device sweeps."""
+        return "plane.launch" if self.mesh is not None else "sweep.launch"
+
     def _gather(self, idx):
-        """(rows, signatures) on the device for host or device indices."""
+        """(rows, signatures) on the device for host or device indices;
+        under ``mesh=`` gathered on the host (host indices) and uploaded."""
+        if self.mesh is not None:
+            idx = np.asarray(idx, dtype=np.int64)
+            q = torch.from_numpy(np.ascontiguousarray(self._data[idx])).to(self.device)
+            q_sig = torch.from_numpy(np.ascontiguousarray(self._sigs_host[idx]).view(np.int32)).to(self.device)
+            return q, q_sig
         if not torch.is_tensor(idx):
             idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
         t = idx.to(device=self.device, dtype=torch.int64)
@@ -305,24 +385,34 @@ class RandomProjectionBackend(RangeBackend):
     def _sweep_kw(self):
         return dict(chunk=self.chunk, chunks_per_launch=self.chunks_per_launch, q_tile=self.q_tile)
 
+    def _db(self):
+        """The sweep's database operands: the whole table, or under
+        ``mesh=`` this rank's blocks with the plane's keywords."""
+        if self.mesh is None:
+            return self._data_dev, self._sigs_dev, {}
+        return self._db_plane, self._sig_plane, dict(mesh=self.mesh, axes=self._plan.axes,
+                                                     depth=self.pipeline_depth)
+
     def query_bitmap_device(self, rows, eps: float):
-        """Packed adjacency slab for ``rows`` (host or device indices) as
-        a device tensor, no host sync: ``(slab, plan)`` from
-        ``index.sweep.sweep_bitmap_device``."""
+        """Packed adjacency slab for ``rows`` (host or device indices; host
+        under ``mesh=``) as a device tensor, no host sync: ``(slab, plan)``
+        from ``index.sweep.sweep_bitmap_device`` (under ``mesh=`` this
+        rank's words)."""
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
+        db, db_sig, plane = self._db()
         return sweep_bitmap_device(
-            q, q_sig, self._data_dev, self._sigs_dev, self.n_points, eps, t_lo, t_hi,
-            **self._sweep_kw(),
+            q, q_sig, db, db_sig, self.n_points, eps, t_lo, t_hi, db_tile=self.db_tile,
+            **self._sweep_kw(), **plane,
         )
 
     def _sweep_hits_packed(self, rows, eps):
-        _faults.maybe_fail("sweep.launch", op="hits")
+        _faults.maybe_fail(self._launch_site, op="hits")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
+        db, db_sig, plane = self._db()
         return sweep_bitmap(
-            q, q_sig, self._data_dev, self._sigs_dev, self.n_points, eps, t_lo, t_hi,
-            **self._sweep_kw(),
+            q, q_sig, db, db_sig, self.n_points, eps, t_lo, t_hi, **self._sweep_kw(), **plane,
         )
 
     # -- queries -----------------------------------------------------------
@@ -355,7 +445,10 @@ class RandomProjectionBackend(RangeBackend):
         if self.oracle:
             words = pack_bitmap(self._host_query_hits(rows, eps)).view(np.int32)
             return torch.from_numpy(words).to(self.device)
-        _faults.maybe_fail("sweep.launch", op="hits")
+        if self.mesh is not None:
+            raise NotImplementedError("a sharded backend's packed rows are rank-local: "
+                                      "use query_bitmap_device")
+        _faults.maybe_fail(self._launch_site, op="hits")
         return self.query_bitmap_device(rows, eps)[0][: len(rows)]
 
     def query_hits_subset(self, rows: np.ndarray, cols: np.ndarray, eps: float) -> np.ndarray:
@@ -364,7 +457,7 @@ class RandomProjectionBackend(RangeBackend):
         cols = np.asarray(cols, dtype=np.int64)
         if self.oracle:
             return self._host_query_hits_subset(rows, cols, eps)
-        _faults.maybe_fail("sweep.launch", op="subset")
+        _faults.maybe_fail(self._launch_site, op="subset")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
         db, db_sig = self._gather(cols)
@@ -381,12 +474,13 @@ class RandomProjectionBackend(RangeBackend):
         rows = np.asarray(rows, dtype=np.int64)
         if self.oracle:
             return self._host_query_counts(rows, eps)
-        _faults.maybe_fail("sweep.launch", op="counts")
+        _faults.maybe_fail(self._launch_site, op="counts")
         t_lo, t_hi = self.band(eps)
         q, q_sig = self._gather(rows)
+        db, db_sig, plane = self._db()
         return sweep_counts(
-            q, q_sig, self._data_dev, self._sigs_dev, self.n_points, eps, t_lo, t_hi,
-            db_tile=self.db_tile, **self._sweep_kw(),
+            q, q_sig, db, db_sig, self.n_points, eps, t_lo, t_hi,
+            db_tile=self.db_tile, **self._sweep_kw(), **plane,
         )
 
 
@@ -414,8 +508,10 @@ def suggest_margin(
     ``max_band_frac`` (default: the backend's own).  Occupancy is
     measured on a deterministic row sample: through
     ``hamming_filter_count(..., return_stats=True)`` (the kernel's
-    ``[accept, band, reject]`` counters) on the backend's device, through
-    one host Hamming sweep on the oracle.
+    ``[accept, band, reject]`` counters) on the backend's device (under
+    ``mesh=`` against each rank's row block, the triples summed over the
+    ranks: every rank must call it), through one host Hamming sweep on
+    the oracle.
 
     Returns the chosen margin, or ``(margin, rows)`` with the per-margin
     ``{margin, t_lo, t_hi, band_frac, accept_frac}`` table when
@@ -432,9 +528,10 @@ def suggest_margin(
     sigs = backend.signatures
 
     dev = not backend.oracle
+    group = None
     if dev:
         q, q_sig = backend._gather(rows)
-        db, db_sig = backend._data_dev, backend._sigs_dev
+        db, db_sig, _ = backend._db()
         # the counters run on the reference's *padded* tile grid; pad rows
         # and cols are zero-signature pairs whose Hamming distance to a
         # real row is that row's popcount: classify and subtract them, so
@@ -444,6 +541,14 @@ def suggest_margin(
         db_pop = hamming_numpy(sigs, zero)[:, 0].astype(np.int64)
         q_pad = (-len(rows)) % backend.q_tile
         db_pad = (-n) % backend.db_tile
+        if backend.mesh is not None:
+            # each rank counts against its tile-aligned row block and the
+            # triples are summed over the ranks: the plane's zero rows
+            # are the pad rows
+            from ..distributed.sharding import plane_axes
+
+            group = plane_axes(backend.mesh, backend._plan.axes).group
+            db_pad = backend._plan.n_pad
     else:
         ham = hamming_numpy(sigs[rows], sigs)
 
@@ -457,6 +562,10 @@ def suggest_margin(
                 q, db, q_sig, db_sig, eps, t_hi, t_lo=t_lo,
                 q_tile=backend.q_tile, db_tile=backend.db_tile, return_stats=True,
             )
+            if group is not None:
+                from ..distributed.index_plane import plane_collective
+
+                plane_collective("sum", stats, group)
             stats = stats.cpu().numpy().astype(np.int64).reshape(-1, 3).sum(axis=0)
             acc, bnd = int(stats[0]), int(stats[1])
             if q_pad or db_pad:

@@ -33,6 +33,7 @@ __all__ = [
     "collision_fraction",
     "hamming_band",
     "sign_signatures",
+    "shard_signatures",
 ]
 
 
@@ -132,3 +133,33 @@ def sign_signatures(data, proj, *, device=None, block: int = 65536) -> torch.Ten
     for s in range(0, data.shape[0], block):
         out[s : s + block] = pack_bits((data[s : s + block] @ proj) >= 0.0)
     return out
+
+
+def _pad_block(x, lo: int, rows: int, device) -> torch.Tensor:
+    """Rows ``[lo, lo + rows)`` of ``x`` (array or tensor) on ``device``,
+    zero rows past its end."""
+    x = torch.as_tensor(x)
+    out = torch.zeros((rows, *x.shape[1:]), dtype=x.dtype, device=device)
+    take = x[lo : min(lo + rows, x.shape[0])]
+    out[: take.shape[0]] = take.to(device)
+    return out
+
+
+def shard_signatures(mesh, sigs, axes=None, *, n_padded: int, device=None) -> torch.Tensor:
+    """This rank's row block of a packed signature table co-sharded with
+    the database rows it summarizes (the counterpart of the reference's
+    ``shard_signatures``, ``P(axes, None)``): the table is zero-padded to
+    ``n_padded`` rows (zero words: the rows ``_pad_col_hits`` corrects)
+    and shard k's block, rows ``[k * n_local, (k + 1) * n_local)`` with k
+    the flattened index over ``axes`` (default: the mesh's data axes),
+    is placed on ``device`` (``None`` = cuda).  ``sigs`` is an int32
+    tensor or a uint32 / int32 array."""
+    from ..distributed.sharding import plane_axes
+
+    ax = plane_axes(mesh, axes)
+    if n_padded % ax.size:
+        raise ValueError(f"n_padded={n_padded} is not a multiple of {ax.size} shards")
+    if not torch.is_tensor(sigs):
+        sigs = torch.from_numpy(np.ascontiguousarray(sigs).view(np.int32))
+    n_local = n_padded // ax.size
+    return _pad_block(sigs, ax.index * n_local, n_local, resolve_device(device))

@@ -32,6 +32,16 @@ reference's four per-round counts, ``obs.device.CLUSTER_ROUND_FIELDS``,
 into an int32 ``(4, max_iters)`` device tensor from inside the
 fixpoint's update step, returned as a sixth output for the caller's one
 host copy.
+
+``packed_cluster_fixpoint(col_off=, group=)`` is the sharded mode of the
+index plane (``distributed.index_plane.sharded_cluster_labels``): the
+slab is this rank's words of a column-sharded slab, the labels are the
+global ``cap`` columns on every rank.  A collective cannot run inside
+the cooperative launch, so on a group of several ranks each round is
+three launches: ``label_prop_rect`` over the rank's label slice, a MIN
+all-reduce of the row minima, ``label_prop_update``.  All ``max_iters``
+rounds are enqueued, gated by the flags on the device, with no host
+read; the ranks hold the same labels and flags, so they stay in step.
 """
 
 from __future__ import annotations
@@ -307,17 +317,23 @@ def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds
     return (labels, rounds) if with_rounds else labels
 
 
-def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):
+def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int, group=None):
     """Loop-invariant inputs of the fixpoint, all on the slab's device:
     ``(rows int32, valid_r, counts, core_r, pos, init)`` — row validity,
-    exact neighbor counts (``row_popcount``), the tau core test per row, the
+    exact neighbor counts (``row_popcount``; with ``group`` the rank's
+    words' counts summed over its ranks), the tau core test per row, the
     slab row of each core column (-1 elsewhere: the scatter target map)
     and the initial labels (own index on core columns, INT32_MAX else)."""
     dev = bitmap.device
     r = bitmap.shape[0]
     rows = rows.to(device=dev, dtype=torch.int32).contiguous()
     valid_r = rows < n
-    counts = torch.where(valid_r, row_popcount(bitmap), 0)
+    counts = row_popcount(bitmap)
+    if group is not None:
+        from ...distributed.index_plane import plane_collective
+
+        plane_collective("sum", counts, group)
+    counts = torch.where(valid_r, counts, 0)
     core_r = valid_r & (counts >= int(tau))
     safe_rows = rows.clamp(max=cap - 1).long()
     core_c = torch.zeros(cap, dtype=torch.int32, device=dev).scatter_reduce_(
@@ -330,9 +346,19 @@ def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int):
 
 
 def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: int = 64,
-                            telemetry=None):
+                            telemetry=None, col_off: int = 0, group=None):
     """The cluster pass over an (R, W) slab with W*32 == cap whose bits
     for columns >= n are clear.
+
+    Sharded mode (``group``, a process group of several ranks): the slab
+    is this rank's words, columns ``[col_off, col_off + 32 W)`` of
+    ``cap``; the counts are summed over the group, each round's row minima
+    MIN-reduced (module docstring), and ``owner`` / ``col_sum`` cover the
+    rank's columns only (``sharded_cluster_labels`` gathers them).  The
+    per-round ``shard_wins`` are the rows whose rank-local minimum beats
+    their label, summed over the group once after the loop (on one rank
+    they equal the frontier).  A group of one rank, or none, is the one
+    cooperative launch.
 
     ``rows`` (R,) holds the database index of each slab row (sentinel
     >= n on padding rows); every core point must be a slab row, which is
@@ -348,18 +374,27 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     """
     _check_slab(bitmap)
     r, w = bitmap.shape
-    if w * 32 != cap:
+    if group is not None:
+        import torch.distributed as dist
+
+        group = group if dist.get_world_size(group) > 1 else None
+    if group is None and w * 32 != cap:
         raise ValueError(f"slab width {w} words does not cover cap={cap}")
+    if group is not None and (col_off % 32 or col_off < 0 or col_off + w * 32 > cap):
+        raise ValueError(f"a {w}-word slab at column {col_off} does not fit cap={cap}")
     if telemetry is None:
         telemetry = _obs_device.device_enabled()
     dev = bitmap.device
-    rows, valid_r, counts, core_r, pos, init = fixpoint_inputs(bitmap, rows, tau, n=n, cap=cap)
+    rows, valid_r, counts, core_r, pos, init = fixpoint_inputs(bitmap, rows, tau, n=n, cap=cap, group=group)
     bufs = (init, torch.empty(cap, dtype=torch.int32, device=dev))
     m = torch.empty(r, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
     flags[0] = 1
     tele = _obs_device.cluster_telemetry_init(max_iters, dev) if telemetry else None
-    label_prop_fixpoint(bitmap, bufs, m, pos, flags, tele=tele)
+    if group is None:
+        label_prop_fixpoint(bitmap, bufs, m, pos, flags, tele=tele)
+    else:
+        _sharded_rounds(bitmap, bufs, m, pos, flags, tele, rows, core_r, col_off, group)
     rounds = flags[:max_iters].sum(dtype=torch.int32)
     labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])
     owner, col_sum = col_reduce(
@@ -367,6 +402,30 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     )
     outs = (labels, owner, col_sum, counts, rounds)
     return outs + (tele,) if telemetry else outs
+
+
+def _sharded_rounds(bitmap, bufs, m, pos, flags, tele, rows, core_r, col_off, group) -> None:
+    """Every round of the sharded fixpoint, enqueued, gated by ``flags``
+    on the device: K2 over the rank's label slice into ``m``, the MIN
+    all-reduce of ``m``, the update into the other buffer (its fourth
+    telemetry row is replaced by the summed gather wins)."""
+    from ...distributed.index_plane import plane_collective
+
+    r, w = bitmap.shape
+    cap, max_iters = pos.shape[0], flags.shape[0] - 1
+    big_rows = torch.full((r,), BIG, dtype=torch.int32, device=bitmap.device)
+    safe_rows = rows.clamp(max=cap - 1).long()
+    wins = torch.zeros(max_iters, dtype=torch.int32, device=bitmap.device) if tele is not None else None
+    for it in range(max_iters):
+        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
+        label_prop_rect(big_rows, lab[col_off : col_off + w * 32], bitmap, out=m, flag=flags[it : it + 1])
+        if wins is not None:  # rows whose rank-local minimum beats their label (0 on a gated round)
+            wins[it] = (core_r & (m < lab[safe_rows])).sum(dtype=torch.int32) * flags[it]
+        plane_collective("min", m, group)
+        label_prop_update(lab, m, pos, nxt, flags, it, tele=tele)
+    if wins is not None:
+        plane_collective("sum", wins, group)
+        tele[3].copy_(wins)
 
 
 def packed_cluster_labels(bitmap, rows, tau, *, n: int, max_iters: int = 64, telemetry=None):

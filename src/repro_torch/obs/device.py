@@ -48,6 +48,8 @@ __all__ = [
     "harvest_sweep_telemetry",
     "emit_round_spans",
     "last_sweep_stats",
+    "defer_sweep_stats",
+    "take_deferred_sweep_stats",
 ]
 
 # default round budget of the cluster fixpoint (``max_iters=64`` of
@@ -66,6 +68,8 @@ _state = _State()
 _lock = threading.Lock()
 # last harvested per-chunk sweep occupancy (host ndarray (n_chunks, 3))
 _last_sweep_stats = None
+# a device occupancy slab waiting for its pass's host copy
+_deferred_sweep_stats = None
 
 
 def enable_device() -> None:
@@ -136,6 +140,23 @@ def last_sweep_stats():
     ``(n_chunks, 3)``) or None."""
     with _lock:
         return _last_sweep_stats
+
+
+def defer_sweep_stats(stats: torch.Tensor) -> None:
+    """Leave a sweep's device ``(n_chunks, 3)`` occupancy slab for the
+    pass that reads its results: the sharded plane's bitmap sweep has no
+    host copy of its own, so its slab rides the cluster pass's."""
+    global _deferred_sweep_stats
+    with _lock:
+        _deferred_sweep_stats = stats
+
+
+def take_deferred_sweep_stats() -> Optional[torch.Tensor]:
+    """The deferred slab (then cleared), or None."""
+    global _deferred_sweep_stats
+    with _lock:
+        out, _deferred_sweep_stats = _deferred_sweep_stats, None
+    return out
 
 
 def emit_round_spans(

@@ -12,10 +12,16 @@ subclass, so it reaches the caller exactly as a real launch failure
 Sites (stable names — tests and ``REPRO_FAULTS`` plans reference them):
 
 * ``sweep.launch``   — the device sweep (hits, counts, subset)
+* ``plane.launch``   — the same sweeps of a backend sharded over a mesh
+  (``RandomProjectionBackend(mesh=)``; ops ``hits``, ``counts``,
+  ``subset``).  Each rank installs the same seeded plan and makes the
+  same calls, so every rank raises at the same call, before any
+  collective of that call: no rank is left waiting in one
 * ``cluster.launch`` — the one-launch device-resident clustering
 
-(the reference's ``plane.launch``, ``chunk.launch`` and ``dryrun.cell``
-belong to paths the port does not have yet: ROADMAP A10, A12)
+(the reference's ``chunk.launch`` belongs to its per-chunk dispatch,
+which the port does not have; ``dryrun.cell`` to its dry-run, ROADMAP
+A12)
 
 Plans are **seeded and deterministic**: site ``s``'s k-th eligible call
 fails iff the k-th draw of ``default_rng([seed, crc32(s)])`` falls

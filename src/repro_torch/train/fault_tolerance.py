@@ -9,8 +9,9 @@
   slow steps are logged, and after ``k`` consecutive violations the
   policy recommends ejecting the slow host.
 
-The reference's ``plan_elastic_remesh`` plans a JAX mesh; it waits for
-the multi-GPU slice (ROADMAP A10).
+* ``plan_elastic_remesh`` — given a device loss, picks the largest
+  (data, model) mesh that fits the survivors and returns the checkpoint
+  resharding plan (a pure function of the survivor count).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
 
-__all__ = ["GuardedStep", "StragglerPolicy", "StepResult"]
+__all__ = ["GuardedStep", "StragglerPolicy", "plan_elastic_remesh", "StepResult"]
 
 
 @dataclass
@@ -112,3 +113,33 @@ class StragglerPolicy:
             "ewma_s": self.ewma_s,
         }
 
+
+def plan_elastic_remesh(
+    n_devices_alive: int,
+    *,
+    prefer_model: int = 16,
+    min_model: int = 4,
+) -> Tuple[Tuple[int, int], dict]:
+    """Largest (data, model) mesh fitting the survivors.
+
+    Keeps the model axis at ``prefer_model`` when possible (TP degree is
+    architecture-matched), shrinking data parallelism first; only if even
+    one data replica does not fit does the model axis shrink.
+    Returns ((data, model), plan) where plan documents the restore path.
+    """
+    model = prefer_model
+    while model >= min_model:
+        data = n_devices_alive // model
+        if data >= 1:
+            used = data * model
+            plan = {
+                "devices_used": used,
+                "devices_idle": n_devices_alive - used,
+                "action": "restore latest checkpoint with new mesh shardings "
+                          "(restore_checkpoint(..., shardings=new)); global "
+                          "batch preserved via gradient accumulation "
+                          f"x{max(1, 16 // max(data, 1))}",
+            }
+            return (data, model), plan
+        model //= 2
+    raise ValueError(f"cannot build a mesh from {n_devices_alive} devices")

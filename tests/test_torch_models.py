@@ -62,7 +62,7 @@ def _close(got, want, tol):
 
 def test_registry_and_llama3_configs_match_jax():
     assert list_archs() == ["autoint", "bst", "deepfm", "deepseek-v2-236b", "dien", "gat-cora", "gemma3-27b",
-                            "granite-20b", "grok-1-314b", "llama3-8b"]
+                            "granite-20b", "grok-1-314b", "laf_dbscan", "llama3-8b"]
     spec, jspec = get_arch("llama3-8b"), jax_get_arch("llama3-8b")
     assert spec.family == jspec.family and dict(spec.skips) == dict(jspec.skips)
     assert {k: (s.kind, dict(s.meta)) for k, s in spec.shapes.items()} == \
@@ -75,8 +75,9 @@ def test_registry_and_llama3_configs_match_jax():
         theirs = {k: v for k, v in dataclasses.asdict(jcfg).items() if k != "dtype"}
         assert ours == theirs
         assert cfg.param_count() == jcfg.param_count()
+    assert get_arch("laf_dbscan").family == "cluster"  # ported with the sharded plane
     with pytest.raises(KeyError):
-        get_arch("laf_dbscan")  # its launch config waits for A10
+        get_arch("no-such-arch")
 
 
 def test_token_stream_matches_jax():

@@ -52,13 +52,13 @@ def _close(got, want, rtol, atol):
 
 
 def test_list_archs_names_the_five_configs():
-    """The recsys rankers, the LMs and the GNN: every arch of the
-    reference's registry but laf_dbscan (its launch config, A10)."""
+    """The recsys rankers, the LMs, the GNN and laf_dbscan: every arch
+    of the reference's registry."""
     from repro.configs.registry import list_archs as jax_list_archs
 
     assert list_archs() == ["autoint", "bst", "deepfm", "deepseek-v2-236b", "dien", "gat-cora", "gemma3-27b",
-                            "granite-20b", "grok-1-314b", "llama3-8b"]
-    assert set(list_archs()) == set(jax_list_archs()) - {"laf_dbscan"}
+                            "granite-20b", "grok-1-314b", "laf_dbscan", "llama3-8b"]
+    assert set(list_archs()) == set(jax_list_archs())
 
 
 @pytest.mark.parametrize("name", RECSYS)
