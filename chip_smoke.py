@@ -303,6 +303,31 @@ Phases (each prints one JSON line; any failure exits nonzero):
    hold those kernels to their plain versions at the shapes world 2's
    first rank gives them.  No fallback: a failed collective, kernel or
    build on any rank fails the phase.
+16. tooling (``tooling_phase``): the launch lowerings, the dry run and
+   laf-lint on the card.  ``build_laf_cluster`` and
+   ``build_one_launch_cluster`` at ``ms_150k`` (phase 3's data and
+   estimator, the random-projection index, world 1 over NCCL) run on the
+   card with the launch counts set to 0 just before and read just after:
+   the frontier round (4,096 rows, 16 Hamming launches, 3 ``rmi_mlp``)
+   on its first 32 rows equals the same cell run on CPU copies through
+   the plain versions (the pairs within 2 (d-1) 2^-24 of 1 - eps that
+   flip and the signature bits that flip counted, every count difference
+   inside them; predictions within ``TOL_RMI``), and the one-launch cell
+   on the frontier's Hamming slab equals ``packed_cluster_labels`` on the
+   same slab, exactly.  The same two cells traced on fake tensors
+   (``launch.trace_analysis``) launch each operator as often as the
+   card's counters say; the line prints the trace's peak live bytes
+   beside the card's (``max_memory_allocated`` over the call plus the
+   arguments) and their ratio.  Then ``python -m repro_torch.analysis
+   --corpus tests/analysis_corpus_torch`` runs in this process on the
+   card (the static checks, LAF104 on two gloo ranks, LAF103's
+   sync-debug probe and LAF105 and LAF108 on CUDA), no library is built
+   after phase 2 (``kernels._build.BUILDS``), the operators' dispatch
+   cost is timed against their raw launch functions, and the full dry
+   run (``python -m repro_torch.launch.dryrun --all --mesh both``: 16
+   cluster records on 256 and 512 fake ranks, every one ``ok``) is
+   written under ``artifacts/dryrun_torch`` with its roofline table
+   printed.  No fallback.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -657,6 +682,7 @@ def check_hamming(bk, exec_idx, eps, k1_rows, clock_hz):
     ``popc_ms`` beside it, the CUDA cores' POPC floor."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.index.signatures import hamming_words, popcount32
     from repro_torch.kernels.hamming_filter import hamming_filter_bitmap, hamming_filter_count
     from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
@@ -684,9 +710,8 @@ def check_hamming(bk, exec_idx, eps, k1_rows, clock_hz):
     plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi), reps=2, warmup=1)
     count_plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=False),
                           reps=2, warmup=1)
-    n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + -(-nd // 32)))
-    b_ms, b_by = bound_ms(n_bytes, 2 * nq * nd * 32 * w, INT8_OPS)
-    count_b_ms, count_b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq), 2 * nq * nd * 32 * w, INT8_OPS)
+    b_ms, b_by = cost.hamming_filter_cost(nq, nd, d, w, bitmap=True).bound_ms()
+    count_b_ms, count_b_by = cost.hamming_filter_cost(nq, nd, d, w, bitmap=False).bound_ms()
     ok = counts_ok and counts_only_ok and margin <= tol
     return ok, {
         "name": "hamming_filter", "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
@@ -833,6 +858,7 @@ def fixpoint_row(name, bitmap, init, pos, square):
     rounds x (K2's bytes + the update's), the section 6 formulas."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.label_prop import label_prop_fixpoint
     from repro_torch.kernels.label_prop.ref import label_prop_fixpoint_ref
 
@@ -870,8 +896,7 @@ def fixpoint_row(name, bitmap, init, pos, square):
         b, mm, f, _ = state(False)
         label_prop_fixpoint_ref(bitmap, b, mm, pos, f, square=square)
 
-    k2_bytes = 4 * (r * w + 32 * w + 2 * r)
-    b_ms, b_by = bound_ms(rounds * (k2_bytes + 4 * (3 * cap + r)))
+    b_ms, b_by = cost.label_prop_fixpoint_cost(r, w, rounds).bound_ms()
     return {
         "name": name, "shape": [r, w], "square": square, "rounds": rounds, "telemetry_sums": tele_sum,
         "max_abs_err": err, "tolerance": "exact: labels, m, flags, telemetry",
@@ -894,6 +919,7 @@ def check_label_prop(inp, before_components):
     spill bytes for each of their instantiations."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.label_prop import col_reduce, label_prop_rect
     from repro_torch.kernels.label_prop.ref import (
         BIG, col_reduce_ref, label_prop_rect_ref, label_prop_update_ref,
@@ -910,7 +936,7 @@ def check_label_prop(inp, before_components):
     m = label_prop_rect(big_rows, init, slab)
     m_ref = label_prop_rect_ref(big_rows, init, slab)
     m_out = torch.empty_like(m)
-    b_ms, b_by = bound_ms(4 * (r * w + 32 * w + 2 * r))
+    b_ms, b_by = cost.label_prop_rect_cost(r, w).bound_ms()
     out.append({
         "name": "label_prop_rect", "shape": [r, w], **stats,
         "max_abs_err": int((m.long() - m_ref.long()).abs().max()),
@@ -923,7 +949,7 @@ def check_label_prop(inp, before_components):
     update, u = make_update(inp, m)
     update()
     u_ref = label_prop_update_ref(init, m, pos)
-    b_ms, b_by = bound_ms(4 * (3 * cap + r))
+    b_ms, b_by = cost.label_prop_update_cost(cap, r).bound_ms()
     out.append({
         "name": "label_prop_update", "shape": [cap], "max_abs_err": int((u.long() - u_ref.long()).abs().max()),
         "ms": time_ms(update), "device_ms": queued_ms(update),
@@ -935,7 +961,7 @@ def check_label_prop(inp, before_components):
     cmin, csum = col_reduce(slab, vals, weights)
     rmin, rsum = col_reduce_ref(slab, vals, weights)
     err = max(int((cmin.long() - rmin.long()).abs().max()), int((csum - rsum).abs().max()))
-    b_ms, b_by = bound_ms(4 * (r * w + 2 * r + 64 * w))
+    b_ms, b_by = cost.col_reduce_cost(r, w).bound_ms()
     out.append({
         "name": "col_reduce", "shape": [r, w], **stats, "max_abs_err": err,
         "ms": time_ms(lambda: col_reduce(slab, vals, weights)),
@@ -959,6 +985,7 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
     import torch.nn.functional as F
 
     from repro_torch import exact_fp32
+    from repro_torch.kernels import cost
     from repro_torch.core.cardinality import featurize, rmi_route
     from repro_torch.kernels.rmi_mlp import rmi_stage_forward
     from repro_torch.kernels.rmi_mlp.ops import pack_stage, stage_launch, stage_params, tma_rows
@@ -1009,11 +1036,10 @@ def check_rmi_mlp(pipe, test, eps, tau, alpha):
                     F.linear(h, m.layers[-1].weight, m.layers[-1].bias)
 
     exact_fp32()
-    n_experts = sum(len(experts) for experts in stages)
-    per_expert = sum(w.shape[1] * w.shape[2] for w in packs[0][0])
-    n_params = sum(int(t.numel()) for ws, bs in packs for t in ws + bs)
-    flops = 2.0 * n * per_expert * n_experts
-    b_ms, b_by = bound_ms(4 * (len(stages) * n * d_in + n_params + n * n_experts), flops)
+    widths = [w.shape[2] for w in packs[0][0][:-1]]
+    predict_cost = cost.rmi_predict_cost(n, d_in, widths, [len(experts) for experts in stages])
+    flops = predict_cost.ops
+    b_ms, b_by = predict_cost.bound_ms()
     t1 = time_ms(predict, reps=5)
     plain_ms = time_ms(lambda: [stage_forward_ref(x, ws, bs) for ws, bs in packs], reps=5)
     library_ms = time_ms(library, reps=5)
@@ -1106,6 +1132,7 @@ def check_components(test, eps, truth, dev):
     versions.  Returns (ok, phase line, kernel rows, launch counts)."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.core.range_query import pack_bitmap_t, range_bitmap
     from repro_torch.core.union_find import compact_labels, label_propagation
     from repro_torch.kernels.label_prop import label_prop_round, label_prop_update, label_propagation_pallas
@@ -1190,7 +1217,7 @@ def check_components(test, eps, truth, dev):
         label_prop_update(init, k, pos, u, flags, 0)
 
     update()
-    b_ms, b_by = bound_ms(4 * (3 * cap + n))
+    b_ms, b_by = cost.label_prop_update_cost(cap, n).bound_ms()
     rows.append({
         "name": "label_prop_update_square", "shape": [cap],
         "max_abs_err": int((u.long() - label_prop_update_ref(init, k, pos).long()).abs().max()),
@@ -1212,6 +1239,7 @@ def check_stats_bodies(bk, exec_idx, eps, k1_rows, clock_hz):
     its twin (twin, body, body, twin)."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.index.signatures import popcount32
     from repro_torch.kernels.hamming_filter import hamming_filter_bitmap, hamming_filter_count, hamming_filter_into
     from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
@@ -1252,8 +1280,7 @@ def check_stats_bodies(bk, exec_idx, eps, k1_rows, clock_hz):
         t2 = time_ms(twin)
         plain = time_ms(lambda: hamming_filter_ref(q, db, qs, dbs, eps, t_lo, t_hi, with_bitmap=bitmap,
                                                    stats_chunk=nq), reps=2, warmup=1)
-        n_bytes = 4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + (n_words if bitmap else 0))) + 12
-        b_ms, b_by = bound_ms(n_bytes, 2 * nq * nd * 32 * w, INT8_OPS)
+        b_ms, b_by = cost.hamming_filter_cost(nq, nd, d, w, bitmap=bitmap, stats_chunks=1).bound_ms()
         rows.append({
             "name": "hamming_filter_bitmap_stats" if bitmap else "hamming_filter_count_stats",
             "shape": [nq, nd, d, w], "max_abs_err": int((kc - pc).abs().max()),
@@ -1974,12 +2001,13 @@ def check_row_popcount(slab):
     behind a sleep, and its byte bound (one read of the slab)."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.popcount import row_popcount
     from repro_torch.kernels.popcount.ref import row_popcount_ref
 
     r, w = slab.shape
     got, want = row_popcount(slab), row_popcount_ref(slab)
-    b_ms, b_by = bound_ms(4 * (r * w + r))
+    b_ms, b_by = cost.row_popcount_cost(r, w).bound_ms()
     return {
         "name": "row_popcount", "shape": [r, w], "max_abs_err": int((got - want).abs().max()),
         "tolerance": "exact", "set_bits": int(want.sum(dtype=torch.int64)),
@@ -3962,6 +3990,7 @@ def plane_kernel_rows(bk, slab, exec_idx, eps, tau, plan, clock_hz):
     and queued."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.index.signatures import popcount32
     from repro_torch.kernels.hamming_filter import hamming_filter_into
     from repro_torch.kernels.hamming_filter.ref import hamming_filter_ref
@@ -3982,7 +4011,7 @@ def plane_kernel_rows(bk, slab, exec_idx, eps, tau, plan, clock_hz):
     m_out = torch.empty_like(m)
     stats = slab_stats(block)
     out = []
-    b_ms, b_by = bound_ms(4 * (r * w_loc + 32 * w_loc + 2 * r))
+    b_ms, b_by = cost.label_prop_rect_cost(r, w_loc).bound_ms()
     out.append({
         "name": "label_prop_rect_plane", "shape": [r, w_loc], **stats,
         "max_abs_err": int((m.long() - label_prop_rect_ref(big_rows, lab, block).long()).abs().max()),
@@ -3993,7 +4022,7 @@ def plane_kernel_rows(bk, slab, exec_idx, eps, tau, plan, clock_hz):
     })
     update, u = make_update({"init": init, "pos": pos}, m)
     update()
-    b_ms, b_by = bound_ms(4 * (3 * cap + r))
+    b_ms, b_by = cost.label_prop_update_cost(cap, r).bound_ms()
     out.append({
         "name": "label_prop_update_plane", "shape": [cap],
         "max_abs_err": int((u.long() - label_prop_update_ref(init, m, pos).long()).abs().max()),
@@ -4020,8 +4049,7 @@ def plane_kernel_rows(bk, slab, exec_idx, eps, tau, plan, clock_hz):
     pairs = flipped_pairs(kb, pb)
     margin = pair_margin(pairs, q, db, eps)
     tol = 2 * (d - 1) * 2.0 ** -24
-    b_ms, b_by = bound_ms(4 * (nq * d + nd * d + (nq + nd) * w + nq * (1 + words)) + 12 * ks.shape[0],
-                          2 * nq * nd * 32 * w, INT8_OPS)
+    b_ms, b_by = cost.hamming_filter_cost(nq, nd, d, w, bitmap=True, stats_chunks=ks.shape[0]).bound_ms()
     out.append({
         "name": "hamming_filter_bitmap_stats_plane", "shape": [nq, nd, d, w],
         "max_abs_err": int((kc - pc).abs().max()), "triples_equal_plain": bool(torch.equal(ks, ps)),
@@ -4195,6 +4223,236 @@ def plane_phase(data, pred, eps, tau, alpha, dev, clock_hz):
     return ok, k_rows, launches
 
 
+TOOLING_CPU_ROWS = 32  # frontier rows held to the CPU copies (the plain Hamming filter: ~3 s for 32 here)
+
+
+def dispatch_cost_us(dev, reps: int = 300) -> dict:
+    """Microseconds an operator call adds over its raw launch function
+    (``custom_op``'s ``_init_fn``), for one op returning a tensor and one
+    mutating its arguments: each timed back to back over ``reps`` calls
+    on tiny operands, the device synchronized at both ends."""
+    import torch
+
+    from repro_torch.kernels.label_prop.ops import _label_prop_rect_op
+    from repro_torch.kernels.popcount.ops import _row_popcount_op
+
+    words = torch.randint(0, 2**31 - 1, (64, 4), dtype=torch.int32, device=dev)
+    labels = torch.arange(128, dtype=torch.int32, device=dev)
+    rows = torch.full((64,), 2**31 - 1, dtype=torch.int32, device=dev)
+    out = torch.empty(64, dtype=torch.int32, device=dev)
+    calls = {"row_popcount": (_row_popcount_op, (words, None, None)),
+             "label_prop_rect": (_label_prop_rect_op, (rows, labels, words, out, None, False))}
+    res = {}
+    for name, (op, a) in calls.items():
+        t = {}
+        for kind, fn in (("op", op), ("raw", op._init_fn), ("op2", op), ("raw2", op._init_fn)):
+            fn(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(*a)
+            torch.cuda.synchronize()
+            t[kind] = (time.perf_counter() - t0) / reps * 1e6
+        res[name] = {"op_us": (t["op"] + t["op2"]) / 2, "raw_us": (t["raw"] + t["raw2"]) / 2,
+                     "added_us": (t["op"] + t["op2"] - t["raw"] - t["raw2"]) / 2}
+    return res
+
+
+def _cell_run(fn, args):
+    """One warm call, then one on zeroed counters: (outputs, launches,
+    seconds, the call's peak bytes over what was allocated before it,
+    ``max_memory_allocated`` after it)."""
+    import torch
+
+    from repro_torch.obs import metrics
+
+    fn(*args)
+    torch.cuda.synchronize()
+    metrics.reset()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in metrics.snapshot("kernel.").items() if k.endswith(".launches") and v}
+    peak = torch.cuda.max_memory_allocated()
+    return out, launches, seconds, peak - before, peak
+
+
+def _arg_bytes(args) -> int:
+    import torch
+
+    total = 0
+    for a in args:
+        ts = list(a.parameters()) if isinstance(a, torch.nn.Module) else [a] if torch.is_tensor(a) else []
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
+
+
+def frontier_parity(dc, dp, near, ham, q_flips, db_flips, gate_near, band):
+    """Hold the card's frontier cell to its CPU copy pair by pair.  ``dc``
+    (rows,) and ``dp`` (n,) are the absolute count and partial-count
+    differences, ``near`` (rows, n) bool the pairs whose dot lies within
+    the tolerance of ``1 - eps``, ``ham`` (rows, n) the CPU copy's
+    Hamming distances, ``q_flips`` (rows,) and ``db_flips`` (n,) the
+    signature bits that the card's signing and the CPU's disagree on,
+    ``gate_near`` (rows,) bool the predictions within tolerance of
+    ``alpha * tau``, ``band`` the cell's ``(t_lo, t_hi)``.  A pair may
+    flip if it is near, or if its distance moves by its k flipped bits
+    across a band edge; a row's count may differ by its row's pairs that
+    may flip, and a partial count by its column's.  A gate on alpha * tau
+    excuses its row's count (0 on one side), never a partial count: the
+    gate does not touch those.  Returns ``(counts_ok, partial_ok,
+    pairs_that_may_flip)``."""
+    t_lo, t_hi = band
+    k = q_flips[:, None] + db_flips[None, :]
+    edge = (ham > t_hi - k) & (ham <= t_hi + k)
+    if t_lo >= 0:
+        edge |= (ham > t_lo - k) & (ham <= t_lo + k)
+    may = near | edge
+    counts_ok = bool(((dc <= may.sum(dim=1)) | gate_near).all())
+    partial_ok = bool((dp <= may.sum(dim=0)).all())
+    return counts_ok, partial_ok, int(may.sum())
+
+
+def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches):
+    """Phase 16 (see the module docstring).  Returns (ok, phase line)."""
+    import contextlib
+    import io
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.analysis.__main__ import main as lint_main
+    from repro_torch.configs.registry import ShapeSpec, get_arch
+    from repro_torch.index.signatures import hamming_words, make_projection, pack_bits, popcount32
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hamming_filter import hamming_filter_bitmap
+    from repro_torch.kernels.label_prop import packed_cluster_labels
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.laf_cluster import (
+        build_laf_cluster, build_one_launch_cluster, frontier_inputs, slab_inputs,
+    )
+    from repro_torch.launch.trace_analysis import analyze_trace
+
+    t_phase = time.perf_counter()
+    n, d = data.shape
+    shape = ShapeSpec("ms_150k", "cluster", {"n_points": n, "dim": d})
+    arch = dryrun.cluster_arch(get_arch("laf_dbscan"))
+    sub = dryrun.cluster_arch(get_arch("laf_dbscan"), frontier=TOOLING_CPU_ROWS, index_device=True)
+    line = {"phase": "tooling", "shape": [n, d]}
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="tooling-") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+                                timeout=timedelta(seconds=300))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            fc = build_laf_cluster(arch, shape, mesh, device=dev)
+            oc = build_one_launch_cluster(arch, shape, mesh, device=dev)
+            f = fc.meta["frontier"]
+            f_args = (est.model,) + frontier_inputs(fc, mesh, data, data[:f], device=dev)
+            (counts, _, pred), f_launches, f_s, f_peak, f_max = _cell_run(fc.step_fn, f_args)
+            # the first rows on CPU copies through the plain versions, and the
+            # same small cell on the card for its partial counts
+            cpu_cell = build_laf_cluster(sub, shape, mesh, device="cpu")
+            card_cell = build_laf_cluster(sub, shape, mesh, device=dev)
+            rows = TOOLING_CPU_ROWS
+            t0 = time.perf_counter()
+            cpu_in = frontier_inputs(cpu_cell, mesh, data, data[:rows], device="cpu")
+            cpu = cpu_cell.step_fn(copy.deepcopy(est.model).cpu(), *cpu_in)
+            cpu_s = time.perf_counter() - t0
+            card = card_cell.step_fn(est.model, f_args[1], f_args[2][:rows].contiguous(), f_args[3])
+            qf = torch.from_numpy(np.ascontiguousarray(data[:rows], np.float32)).to(dev)
+            dots = qf.double() @ f_args[1].double().T
+            tol = 2 * (d - 1) * 2.0 ** -24
+            near = ((dots - (1.0 - eps)).abs() <= tol).cpu()
+            proj = make_projection(d, sub.make_config().index_bits, seed=sub.make_config().index_seed)
+            sig_card = pack_bits((qf @ torch.from_numpy(proj).to(dev)) >= 0.0).cpu()
+            sig_cpu = pack_bits((qf.cpu() @ torch.from_numpy(proj)) >= 0.0)
+            q_flips = popcount32(sig_card ^ sig_cpu).sum(dim=1)
+            db_flips = popcount32(f_args[3].cpu() ^ cpu_in[2]).sum(dim=1)
+            ham = hamming_words(sig_cpu.to(dev), cpu_in[2].to(dev)).cpu()
+            dc = (counts[:rows].cpu().long() - cpu[0].long()).abs()
+            dp = (card[1].cpu().long() - cpu[1].long()).abs()
+            thr = sub.make_config().alpha * sub.make_config().tau
+            gate_near = (cpu[2] - thr).abs() <= TOL_RMI * (1 + thr)
+            pred_ok = bool(((pred[:rows].cpu() - cpu[2]).abs() <= TOL_RMI * (1 + cpu[2].abs())).all())
+            counts_ok, partial_ok, may_flip = frontier_parity(dc, dp, near, ham, q_flips, db_flips, gate_near,
+                                                              card_cell.meta["index_band"])
+            frontier_ok = pred_ok and counts_ok and partial_ok
+            # the one-launch cell on the frontier's Hamming slab
+            q, q_sig = f_args[2], pack_bits((f_args[2] @ torch.from_numpy(proj).to(dev)) >= 0.0)
+            t_lo, t_hi = fc.meta["index_band"]
+            _, slab = hamming_filter_bitmap(q, f_args[1], q_sig, f_args[3], eps, t_hi, t_lo=t_lo)
+            slab_rows = np.arange(f, dtype=np.int32)
+            o_args = slab_inputs(oc, mesh, slab, slab_rows, tau, device=dev)
+            o_out, o_launches, o_s, o_peak, o_max = _cell_run(oc.step_fn, o_args)
+            want = packed_cluster_labels(slab, torch.from_numpy(slab_rows).to(dev), tau, n=n)
+            one_ok = all(bool(torch.equal(a, b)) for a, b in zip(o_out[:5], want[:5]))
+            # the same two cells traced on fake tensors
+            fake_f, fake_o = build_laf_cluster(arch, shape, mesh), build_one_launch_cluster(arch, shape, mesh)
+            tf, to = analyze_trace(fake_f.step_fn, *fake_f.args), analyze_trace(fake_o.step_fn, *fake_o.args)
+        finally:
+            dist.destroy_process_group()
+    f_card_peak, o_card_peak = f_peak + _arg_bytes(f_args), o_peak + _arg_bytes(o_args)
+    trace_ok = tf.launches == f_launches and to.launches == o_launches and not tf.error and not to.error
+    line.update({
+        "frontier": {"seconds": f_s, "launches": f_launches, "rows_held_to_cpu": rows, "cpu_seconds": cpu_s,
+                     "pred_ok": pred_ok, "count_rows_differing": int((dc > 0).sum()),
+                     "pairs_within_tol": int(near.sum()), "tolerance": tol,
+                     "signature_bit_flips": int(q_flips.sum() + db_flips.sum()), "pairs_that_may_flip": may_flip,
+                     "gates_within_tol": int(gate_near.sum()), "partial_abs_diff": int(dp.sum()),
+                     "counts_ok": counts_ok, "partial_ok": partial_ok, "ok": frontier_ok},
+        "one_launch": {"seconds": o_s, "launches": o_launches, "rounds": int(o_out[4]),
+                       "equals_packed_cluster_labels": one_ok},
+        "trace": {"frontier_launches": tf.launches, "one_launch_launches": to.launches,
+                  "launches_equal_card": trace_ok,
+                  "frontier_peak_bytes": tf.peak_live_bytes, "frontier_card_peak_bytes": f_card_peak,
+                  "frontier_max_memory_allocated": f_max, "one_launch_max_memory_allocated": o_max,
+                  "frontier_peak_ratio": tf.peak_live_bytes / f_card_peak,
+                  "one_launch_peak_bytes": to.peak_live_bytes, "one_launch_card_peak_bytes": o_card_peak,
+                  "one_launch_peak_ratio": to.peak_live_bytes / o_card_peak},
+    })
+    ok &= frontier_ok and one_ok and trace_ok
+    # laf-lint on the card, in this process
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(["--corpus", str(ROOT / "tests" / "analysis_corpus_torch"), "--repo-root", str(ROOT)])
+    print(buf.getvalue(), file=sys.stderr)
+    builds = sum(_build.BUILDS.values())
+    line["lint"] = {"rc": rc, "seconds": time.perf_counter() - t0, "report": buf.getvalue().strip().splitlines()[-2:],
+                    "builds_after_phase2": builds - builds_after_phase2}
+    ok &= rc == 0 and builds == builds_after_phase2
+    # the operators' dispatch cost, and what it adds to phase 3's clustering
+    cost_us = dispatch_cost_us(dev)
+    added = max(v["added_us"] for v in cost_us.values())
+    n_launches = sum(phase3_launches.values())
+    line["dispatch"] = {"per_call_us": cost_us, "phase3_launches": n_launches,
+                        "phase3_added_ms_at_most": added * n_launches / 1e3}
+    # the full dry run on fake ranks, and its roofline
+    t0 = time.perf_counter()
+    out_dir = ROOT / "artifacts" / "dryrun_torch"
+    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(out_dir), "--quiet"])
+    tables = roofline.build_table(out_dir)
+    recs = [r for rows_ in tables.values() for r in rows_ if r.arch == "laf_dbscan"]
+    for mesh_name, rows_ in tables.items():
+        print(roofline.to_markdown([r for r in rows_ if r.arch == "laf_dbscan"], mesh_name), file=sys.stderr)
+    line["dryrun"] = {"rc": rc, "seconds": time.perf_counter() - t0, "records": len(recs),
+                      "ok": sum(r.status == "ok" for r in recs),
+                      "roofline": [{k: v for k, v in r.as_dict().items() if k in (
+                          "shape", "mesh", "compute_s", "memory_s", "collective_s", "bound", "mem_gib")}
+                                   for r in recs]}
+    ok &= rc == 0 and len(recs) == 16 and all(r.status == "ok" for r in recs)
+    line["seconds"] = time.perf_counter() - t_phase
+    line["ok"] = ok
+    return ok, line
+
+
 def run(args) -> int:
     import torch
 
@@ -4242,6 +4500,7 @@ def run(args) -> int:
                 print(f"ptxas[{name}]: {line.strip()}", file=sys.stderr)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(p.relative_to(ROOT)) for p in libs.values()]})
+    builds_after_phase2 = sum(_build.BUILDS.values())
 
     # 3. main path at the MS-150k operating point
     eps, tau, alpha = 0.55, 5, 1.5
@@ -4452,6 +4711,12 @@ def run(args) -> int:
     pl_ok, pl_rows, pl_launches = plane_phase(data, plane_pred, eps, tau, alpha, dev, clock_hz)
     ok &= pl_ok and all(n > 0 for n in pl_launches.values())
     launches.update(pl_launches)
+    # 16. the launch lowerings on the card and on fake tensors, laf-lint,
+    #     the full dry run and its roofline
+    tl_ok, tl_line = tooling_phase(data, pipe.estimator, eps, tau, dev, builds_after_phase2,
+                                   {k: launches[k] for k in RP_KERNELS})
+    emit(tl_line)
+    ok &= tl_ok
     rows = []
     for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows,
               *pl_rows]:

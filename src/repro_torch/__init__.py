@@ -13,12 +13,11 @@ kernels are hand-written CUDA C++ for Hopper (``csrc/*.cu``), built by
 Device policy: every entry point takes ``device=``.  ``None`` (the
 default) means ``cuda`` and raises when no card is present;
 ``device="cpu"`` is the explicit opt-in to the CPU, where every kernel
-wrapper runs its plain PyTorch version.  Nothing falls back on its own.
+wrapper runs its plain PyTorch version.  Nothing falls back on its own.  Importing the package root imports no
+torch (``python -m repro_torch.analysis --list-checks`` stays light).
 """
 
 from __future__ import annotations
-
-import torch
 
 __all__ = ["resolve_device", "exact_fp32"]
 
@@ -27,6 +26,8 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
     passes ``device="cpu"`` (or a ``torch.device``).  Raises when a CUDA
     device is asked for (explicitly or by default) and none is present."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -47,5 +48,7 @@ def exact_fp32() -> None:
     bits and would move pairs across those thresholds.  Every function
     whose product decides a hit calls this first.
     """
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -64,6 +64,7 @@ from ..kernels.hamming_filter.ops import (
     hamming_filter_into,
     pad_grid_stats,
 )
+from ..obs import loop_scope as _loop_scope
 from ..obs import metrics as _metrics
 from .sharding import PlaneAxes, axis_size, data_axes, plane_axes
 
@@ -78,6 +79,7 @@ __all__ = [
     "sharded_band_marginals",
     "sharded_sweep_launch",
     "sharded_sweep_marginals",
+    "sweep_marginals_local",
     "sharded_cluster_labels",
     "local_tail_mask",
 ]
@@ -264,15 +266,25 @@ def sharded_sweep_marginals(qs, db, q_sigs, db_sig, eps, t_hi, *, mesh, t_lo=-1,
     returns ``(counts (n_chunks, C), partial (n_local,))``, the partials
     summed over the chunks on this shard."""
     _, ax, db, db_sig = _plane(qs[0], db, q_sigs[0], db_sig, mesh, axes, tile=db_tile)
+    return sweep_marginals_local(qs, db, q_sigs, db_sig, eps, t_lo, t_hi, ax, depth=depth)
+
+
+def sweep_marginals_local(qs, db, q_sigs, db_sig, eps, t_lo, t_hi, ax: PlaneAxes, *, depth: int = 2):
+    """The loop of :func:`sharded_sweep_marginals` over this rank's own
+    blocks ``db`` / ``db_sig`` (all-zero rows are padding and never
+    count), its count all-reduces on ``ax``'s group: ``(counts (n_chunks,
+    C), partial (n_local,))``.  The chunks run inside
+    ``obs.loop_scope("sweep.chunks")``."""
     valid = (db != 0).any(dim=1)
     counts = torch.zeros(qs.shape[:2], dtype=torch.int32, device=qs.device)
     partial = torch.zeros(db.shape[0], dtype=torch.int32, device=qs.device)
     pipe = PlanePipeline(ax, depth)
-    for k in range(qs.shape[0]):
-        c, p = _marginals(qs[k], db, q_sigs[k], db_sig, eps, t_lo, t_hi, valid)
-        counts[k] = c
-        partial += p
-        pipe.submit([counts[k]], 1)
+    with _loop_scope("sweep.chunks"):
+        for k in range(qs.shape[0]):
+            c, p = _marginals(qs[k], db, q_sigs[k], db_sig, eps, t_lo, t_hi, valid)
+            counts[k] = c
+            partial += p
+            pipe.submit([counts[k]], 1)
     pipe.wait()
     return counts, partial
 
@@ -298,7 +310,8 @@ def sharded_sweep_launch(q, q_sig, db, db_sig, eps, t_lo, t_hi, *, counts, pipe:
     if stats is not None:
         stats += pad_grid_stats(q_sig, db_sig, int(t_lo), int(t_hi), chunk=chunk,
                                 n_chunks=stats.shape[0], db_tile=db_tile)
-    pipe.submit([counts if reduce_counts else None, stats],
+    # the triples cross ranks as one flat vector: no collective has a second axis
+    pipe.submit([counts if reduce_counts else None, None if stats is None else stats.view(-1)],
                 stats.shape[0] if stats is not None else n_real)
 
 

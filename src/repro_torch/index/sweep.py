@@ -30,6 +30,16 @@ W_local), and reduces no counts (nothing reads them): with device
 telemetry on it runs the bitmap ``_stats`` body, sums the per-chunk
 triples over the ranks and leaves them for the cluster pass's one host
 copy (``obs.device.defer_sweep_stats``).
+
+With metrics on, each sweep reports its launches' operand signature to
+the ``sweep.launch`` watcher (``obs.watch_recompiles``, counter
+``sweep.recompiles``): the rows a launch covers, its chunk and chunks,
+the database's *capacity* (the rows of the buffer ``db`` is a view of:
+a backend's append slack keeps it fixed between doublings), its width,
+the signature words, the mode and the dtypes.  A steady query shape
+therefore adds one signature per capacity doubling, as the reference's
+jit cache adds one executable.  The host loop over the launches runs
+inside ``obs.loop_scope("sweep.launches")``.
 """
 
 from __future__ import annotations
@@ -50,7 +60,9 @@ from ..kernels.hamming_filter.ops import (
 )
 from ..obs import device as _obs_device
 from ..obs import metrics as _metrics
+from ..obs import loop_scope as _loop_scope
 from ..obs import span as _span
+from ..obs import watch_recompiles
 
 __all__ = [
     "SweepPlan",
@@ -97,43 +109,60 @@ def plan_sweep(
     return SweepPlan(nq, chunk, cpl, n_launches)
 
 
+def capacity_rows(db: torch.Tensor) -> int:
+    """Rows of the buffer ``db`` (rows of one width, row-major) is a view
+    of: a backend's capacity, of which ``db`` holds the live rows."""
+    row_bytes = db.element_size() * max(db.stride(0), 1)
+    return max(db.shape[0], (db.untyped_storage().nbytes() - db.storage_offset() * db.element_size()) // row_bytes)
+
+
+def launch_signature(q, q_sig, db, db_sig, plan, *, bitmap: bool, stats: bool, sharded: bool) -> tuple:
+    """The operand signature of a sweep's launches (module docstring)."""
+    return ("bitmap" if bitmap else "count", stats, sharded, plan.rows_per_launch, plan.chunk, plan.cpl,
+            capacity_rows(db), db.shape[1], db_sig.shape[1], str(q.dtype), str(db.dtype), str(q_sig.dtype))
+
+
 def _run(q, q_sig, db, db_sig, eps, t_lo, t_hi, plan, *, bitmap: bool, tele=None, pipe=None,
          db_tile: int = DEFAULT_DB_TILE, reduce_counts: bool = True):
     """Allocate the slabs once and enqueue every launch; no sync.
     ``tele`` (the per-chunk occupancy slab) switches on the stats body;
     ``pipe`` (a ``PlanePipeline``) runs each launch on the plane."""
+    if _metrics.enabled():  # the counter's only readers run with metrics on
+        watch_recompiles("sweep.launch", "sweep.recompiles").observe(launch_signature(
+            q, q_sig, db, db_sig, plan, bitmap=bitmap, stats=tele is not None, sharded=pipe is not None))
     dev = q.device
     counts = torch.zeros(plan.nq_padded, dtype=torch.int32, device=dev)
     slab = (
         torch.zeros((plan.nq_padded, -(-db.shape[0] // 32)), dtype=torch.int32, device=dev)
         if bitmap else None
     )
-    step = plan.rows_per_launch
     _metrics.counter("sweep.sweeps").inc()
     _metrics.counter("sweep.launches").inc(plan.n_launches)
     _metrics.counter("sweep.slab_alloc").inc()
     attrs = _sharded(pipe)
-    for launch, s in enumerate(range(0, plan.nq, step)):
-        e = min(plan.nq, s + step)
-        # enqueue time only: the sweep's one sync is its host copy
-        with _span("sweep.launch", L=launch, synced=False, **attrs):
-            if pipe is not None:
-                sharded_sweep_launch(
-                    q[s:e], q_sig[s:e], db, db_sig, eps, t_lo, t_hi, counts=counts[s:e],
-                    bitmap=slab[s:e] if bitmap else None, pipe=pipe, chunk=plan.chunk, db_tile=db_tile,
-                    stats=None if tele is None else tele[launch * plan.cpl : (launch + 1) * plan.cpl],
-                    reduce_counts=reduce_counts,
+    step = plan.rows_per_launch
+    with _loop_scope("sweep.launches"):
+        for launch, s in enumerate(range(0, plan.nq, step)):
+            e = min(plan.nq, s + step)
+            # enqueue time only: the sweep's one sync is its host copy
+            with _span("sweep.launch", L=launch, synced=False, **attrs):
+                if pipe is not None:
+                    sharded_sweep_launch(
+                        q[s:e], q_sig[s:e], db, db_sig, eps, t_lo, t_hi, counts=counts[s:e],
+                        bitmap=slab[s:e] if bitmap else None, pipe=pipe, chunk=plan.chunk, db_tile=db_tile,
+                        stats=None if tele is None else tele[launch * plan.cpl : (launch + 1) * plan.cpl],
+                        reduce_counts=reduce_counts,
+                    )
+                    continue
+                stats = None
+                if tele is not None:
+                    c0 = s // plan.chunk
+                    stats = tele[c0 : c0 + -(-(e - s) // plan.chunk)]
+                hamming_filter_into(
+                    q[s:e], db, q_sig[s:e], db_sig, eps, t_lo, t_hi,
+                    counts[s:e], slab[s:e] if bitmap else None,
+                    stats=stats, chunk_rows=plan.chunk,
                 )
-                continue
-            stats = None
-            if tele is not None:
-                c0 = s // plan.chunk
-                stats = tele[c0 : c0 + -(-(e - s) // plan.chunk)]
-            hamming_filter_into(
-                q[s:e], db, q_sig[s:e], db_sig, eps, t_lo, t_hi,
-                counts[s:e], slab[s:e] if bitmap else None,
-                stats=stats, chunk_rows=plan.chunk,
-            )
     if pipe is not None:
         pipe.wait()
     return counts, slab

@@ -7,6 +7,11 @@ go to ``build/repro_torch/`` at the repository root, named by a hash of
 the source and the flags, and are built at first use; ``build_all``
 starts one ``nvcc`` per source in parallel.  Nothing here runs at
 import time.
+
+Every ``nvcc`` run adds one to ``kernel.builds`` and to ``BUILDS[<name>-
+<hash>]``: a library is built once per source hash and process (a later
+``load`` of the same hash finds the file), which laf-lint's LAF105
+holds (``repro_torch.analysis.probe_checks``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "load", "build_all", "check"]
+from ..obs import metrics as _metrics
+
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "BUILDS", "load", "build_all", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -65,6 +72,7 @@ _SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+BUILDS: Dict[str, int] = {}  # library file stem (<name>-<hash>) -> nvcc runs in this process
 
 
 def _nvcc() -> str:
@@ -88,6 +96,8 @@ def _start(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BUILDS[out.stem] = BUILDS.get(out.stem, 0) + 1
+    _metrics.counter("kernel.builds").inc()
     return proc, tmp, out
 
 

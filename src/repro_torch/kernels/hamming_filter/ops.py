@@ -20,9 +20,16 @@ output, on the reference's padded ``q_tile x db_tile`` grid.  The
 kernel counts real pairs only; :func:`pad_grid_stats` adds the pairs of
 the zero pad rows the reference's grid holds, so every triple equals
 the reference's bit for bit.
+
+The CUDA launch is the operator ``repro_torch::hamming_filter``
+(``torch.library.custom_op``): its fake implementation lets a dispatch
+trace under ``FakeTensorMode`` take the CUDA branch with no card, and
+its cost (``kernels.cost.hamming_filter_cost``) is registered beside it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from ...core.range_query import pack_bitmap_t
 from ...index.signatures import popcount32
 from ...obs import metrics as _metrics
 from .. import _build
+from ..cost import hamming_filter_cost, register_op
 from .ref import hamming_filter_ref
 
 __all__ = [
@@ -180,20 +188,48 @@ def hamming_filter_into(q, db, q_sig, db_sig, eps, t_lo, t_hi, counts, bitmap=No
         return
     if -(-nq // ROWS_PER_BLOCK) > 65535:
         raise ValueError("too many query rows for one launch")
+    _hamming_filter_op(q, db, q_sig, db_sig, float(np.float32(1.0 - float(eps))), int(t_lo), int(t_hi),
+                       counts, bitmap, stats, int(chunk_rows) if stats is not None else 0)
+
+
+def _launch_counter(q, db, q_sig, db_sig, one_minus_eps, t_lo, t_hi, counts, bitmap, stats, chunk_rows) -> str:
+    return LAUNCHES if stats is None else STATS_LAUNCHES[bitmap is not None]
+
+
+@torch.library.custom_op("repro_torch::hamming_filter", mutates_args=("counts", "bitmap", "stats"),
+                         device_types="cuda")
+def _hamming_filter_op(q: torch.Tensor, db: torch.Tensor, q_sig: torch.Tensor, db_sig: torch.Tensor,
+                       one_minus_eps: float, t_lo: int, t_hi: int, counts: torch.Tensor,
+                       bitmap: Optional[torch.Tensor], stats: Optional[torch.Tensor], chunk_rows: int) -> None:
+    """One launch of ``csrc/hamming_filter.cu`` on checked operands."""
     lib = _build.load("hamming_filter")
     err = lib.hamming_filter_launch(
         q.data_ptr(), db.data_ptr(), q_sig.data_ptr(), db_sig.data_ptr(),
-        nq, nd, q.shape[1], q_sig.shape[1], float(np.float32(1.0 - float(eps))),
-        int(t_lo), int(t_hi), counts.data_ptr(),
+        q.shape[0], db.shape[0], q.shape[1], q_sig.shape[1], one_minus_eps,
+        t_lo, t_hi, counts.data_ptr(),
         bitmap.data_ptr() if bitmap is not None else None,
         bitmap.stride(0) if bitmap is not None else 0,
         int(bitmap is not None),
         stats.data_ptr() if stats is not None else None,
-        int(chunk_rows) if stats is not None else 0,
+        chunk_rows,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "hamming_filter")
-    _metrics.counter(LAUNCHES if stats is None else STATS_LAUNCHES[bitmap is not None]).inc()
+    _metrics.counter(_launch_counter(q, db, q_sig, db_sig, one_minus_eps, t_lo, t_hi, counts, bitmap, stats,
+                                     chunk_rows)).inc()
+
+
+@_hamming_filter_op.register_fake
+def _(q, db, q_sig, db_sig, one_minus_eps, t_lo, t_hi, counts, bitmap, stats, chunk_rows) -> None:
+    return None
+
+
+register_op(
+    "repro_torch::hamming_filter", _launch_counter,
+    lambda q, db, q_sig, db_sig, one_minus_eps, t_lo, t_hi, counts, bitmap, stats, chunk_rows: hamming_filter_cost(
+        q.shape[0], db.shape[0], q.shape[1], q_sig.shape[1], bitmap=bitmap is not None,
+        stats_chunks=0 if stats is None else stats.shape[0]),
+)
 
 
 def _whole_call_stats(q_sig, db_sig, t_lo, t_hi, q_tile, db_tile):

@@ -47,12 +47,17 @@ read; the ranks hold the same labels and flags, so they stay in step.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from ...obs import device as _obs_device
 from ...obs import metrics as _metrics
+from ...obs import loop_scope as _loop_scope
 from .. import _build
+from ..cost import (
+    col_reduce_cost, label_prop_fixpoint_cost, label_prop_rect_cost, label_prop_update_cost, register_op,
+)
 from ..hamming_filter.ops import _tail_word_mask
 from ..popcount import row_popcount
 from .ref import (
@@ -99,7 +104,6 @@ def _cuda(tensors, what):
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{what}: every operand must be on one CUDA device")
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def label_prop_rect(row_labels, col_labels, bitmap, *, out=None, flag=None):
@@ -122,16 +126,37 @@ def label_prop_rect(row_labels, col_labels, bitmap, *, out=None, flag=None):
 
 
 def _launch_rect(row_labels, col_labels, bitmap, out, flag, name):
-    r, w = bitmap.shape
     operands = [bitmap, row_labels, col_labels, out] + ([flag] if flag is not None else [])
-    stream = _cuda(operands, name)
+    _cuda(operands, name)
+    _label_prop_rect_op(row_labels, col_labels, bitmap, out, flag, name == "label_prop_round")
+    return out
+
+
+@torch.library.custom_op("repro_torch::label_prop_rect", mutates_args=("out",), device_types="cuda")
+def _label_prop_rect_op(row_labels: torch.Tensor, col_labels: torch.Tensor, bitmap: torch.Tensor,
+                        out: torch.Tensor, flag: Optional[torch.Tensor], square: bool) -> None:
+    """One K2 launch on checked operands (``square``: counted as
+    ``label_prop_round``)."""
+    r, w = bitmap.shape
+    name = "label_prop_round" if square else "label_prop_rect"
     err = _build.load("label_prop").label_prop_rect_launch(
         row_labels.data_ptr(), col_labels.data_ptr(), bitmap.data_ptr(), r, w,
-        out.data_ptr(), flag.data_ptr() if flag is not None else None, stream,
+        out.data_ptr(), flag.data_ptr() if flag is not None else None,
+        torch.cuda.current_stream(bitmap.device).cuda_stream,
     )
     _build.check(err, name)
     _metrics.counter(LAUNCHES[name]).inc()
-    return out
+
+
+@_label_prop_rect_op.register_fake
+def _(row_labels, col_labels, bitmap, out, flag, square) -> None:
+    return None
+
+
+register_op("repro_torch::label_prop_rect",
+            lambda row_labels, col_labels, bitmap, out, flag, square:
+            LAUNCHES["label_prop_round" if square else "label_prop_rect"],
+            lambda row_labels, col_labels, bitmap, out, flag, square: label_prop_rect_cost(*bitmap.shape))
 
 
 def _square(bitmap, n):
@@ -178,16 +203,34 @@ def col_reduce(bitmap, row_vals, row_weights):
     _int32_vec(row_weights, r, "row_weights")
     if bitmap.device.type == "cpu":
         return col_reduce_ref(bitmap, row_vals, row_weights)
-    stream = _cuda([bitmap, row_vals, row_weights], "col_reduce")
+    _cuda([bitmap, row_vals, row_weights], "col_reduce")
+    return _col_reduce_op(bitmap, row_vals, row_weights)
+
+
+@torch.library.custom_op("repro_torch::col_reduce", mutates_args=(), device_types="cuda")
+def _col_reduce_op(bitmap: torch.Tensor, row_vals: torch.Tensor,
+                   row_weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One K3 launch on checked operands: (col_min, col_sum)."""
+    r, w = bitmap.shape
     col_min = torch.full((w * 32,), BIG, dtype=torch.int32, device=bitmap.device)
     col_sum = torch.zeros(w * 32, dtype=torch.int32, device=bitmap.device)
     err = _build.load("label_prop").col_reduce_launch(
         bitmap.data_ptr(), row_vals.data_ptr(), row_weights.data_ptr(), r, w,
-        col_min.data_ptr(), col_sum.data_ptr(), stream,
+        col_min.data_ptr(), col_sum.data_ptr(), torch.cuda.current_stream(bitmap.device).cuda_stream,
     )
     _build.check(err, "col_reduce")
     _metrics.counter(LAUNCHES["col_reduce"]).inc()
     return col_min, col_sum
+
+
+@_col_reduce_op.register_fake
+def _(bitmap, row_vals, row_weights):
+    cap = bitmap.shape[1] * 32
+    return bitmap.new_empty((cap,), dtype=torch.int32), bitmap.new_empty((cap,), dtype=torch.int32)
+
+
+register_op("repro_torch::col_reduce", lambda bitmap, row_vals, row_weights: LAUNCHES["col_reduce"],
+            lambda bitmap, row_vals, row_weights: col_reduce_cost(*bitmap.shape))
 
 
 def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
@@ -216,15 +259,31 @@ def label_prop_update(lab, m, pos, out, flags, it: int, *, tele=None) -> None:
             if bool((out != lab).any()):
                 flags[it + 1] = 1
         return
-    stream = _cuda([lab, m, pos, out, flags] + ([tele] if tele is not None else []),
-                   "label_prop_update")
+    _cuda([lab, m, pos, out, flags] + ([tele] if tele is not None else []), "label_prop_update")
+    _label_prop_update_op(lab, m, pos, out, flags, int(it), tele)
+
+
+@torch.library.custom_op("repro_torch::label_prop_update", mutates_args=("out", "flags", "tele"),
+                         device_types="cuda")
+def _label_prop_update_op(lab: torch.Tensor, m: torch.Tensor, pos: torch.Tensor, out: torch.Tensor,
+                          flags: torch.Tensor, it: int, tele: Optional[torch.Tensor]) -> None:
+    """One update launch on checked operands."""
     err = _build.load("label_prop").label_prop_update_launch(
-        lab.data_ptr(), m.data_ptr(), pos.data_ptr(), cap, out.data_ptr(),
-        flags.data_ptr(), int(it), tele.data_ptr() if tele is not None else None,
-        tele.shape[1] if tele is not None else 0, stream,
+        lab.data_ptr(), m.data_ptr(), pos.data_ptr(), lab.shape[0], out.data_ptr(),
+        flags.data_ptr(), it, tele.data_ptr() if tele is not None else None,
+        tele.shape[1] if tele is not None else 0, torch.cuda.current_stream(lab.device).cuda_stream,
     )
     _build.check(err, "label_prop_update")
     _metrics.counter(LAUNCHES["label_prop_update"]).inc()
+
+
+@_label_prop_update_op.register_fake
+def _(lab, m, pos, out, flags, it, tele) -> None:
+    return None
+
+
+register_op("repro_torch::label_prop_update", lambda lab, m, pos, out, flags, it, tele: LAUNCHES["label_prop_update"],
+            lambda lab, m, pos, out, flags, it, tele: label_prop_update_cost(lab.shape[0], m.shape[0]))
 
 
 def _check_tele(tele, rounds):
@@ -253,7 +312,8 @@ def label_prop_fixpoint(bitmap, bufs, m, pos, flags, *, square: bool = False, te
     cap = w * 32
     for b, what in ((bufs[0], "bufs[0]"), (bufs[1], "bufs[1]"), (pos, "pos")):
         _int32_vec(b, cap, what)
-    if bufs[0].data_ptr() == bufs[1].data_ptr():
+    if bufs[0] is bufs[1] or (bufs[0].untyped_storage()._cdata == bufs[1].untyped_storage()._cdata
+                              and bufs[0].storage_offset() == bufs[1].storage_offset()):
         raise ValueError("the two label buffers must be distinct")
     _int32_vec(m, r, "m")
     if square and r > cap:
@@ -266,14 +326,37 @@ def label_prop_fixpoint(bitmap, bufs, m, pos, flags, *, square: bool = False, te
         label_prop_fixpoint_ref(bitmap, bufs, m, pos, flags, square=square, tele=tele)
         return
     operands = [bitmap, bufs[0], bufs[1], m, pos, flags] + ([tele] if tele is not None else [])
-    stream = _cuda(operands, "label_prop_fixpoint")
+    _cuda(operands, "label_prop_fixpoint")
+    _label_prop_fixpoint_op(bitmap, bufs[0], bufs[1], m, pos, flags, bool(square), tele)
+
+
+@torch.library.custom_op("repro_torch::label_prop_fixpoint", mutates_args=("buf0", "buf1", "m", "flags", "tele"),
+                         device_types="cuda")
+def _label_prop_fixpoint_op(bitmap: torch.Tensor, buf0: torch.Tensor, buf1: torch.Tensor, m: torch.Tensor,
+                            pos: torch.Tensor, flags: torch.Tensor, square: bool,
+                            tele: Optional[torch.Tensor]) -> None:
+    """One cooperative fixpoint launch on checked operands."""
+    r, w = bitmap.shape
     err = _build.load("label_prop").label_prop_fixpoint_launch(
-        bitmap.data_ptr(), r, w, int(square), bufs[0].data_ptr(), bufs[1].data_ptr(), m.data_ptr(),
-        pos.data_ptr(), cap, flags.data_ptr(), max_iters,
-        tele.data_ptr() if tele is not None else None, tele.shape[1] if tele is not None else 0, stream,
+        bitmap.data_ptr(), r, w, int(square), buf0.data_ptr(), buf1.data_ptr(), m.data_ptr(),
+        pos.data_ptr(), w * 32, flags.data_ptr(), flags.shape[0] - 1,
+        tele.data_ptr() if tele is not None else None, tele.shape[1] if tele is not None else 0,
+        torch.cuda.current_stream(bitmap.device).cuda_stream,
     )
     _build.check(err, "label_prop_fixpoint")
     _metrics.counter(LAUNCHES["label_prop_fixpoint"]).inc()
+
+
+@_label_prop_fixpoint_op.register_fake
+def _(bitmap, buf0, buf1, m, pos, flags, square, tele) -> None:
+    return None
+
+
+# the rounds run are read on the device; a trace charges max_iters of them
+register_op("repro_torch::label_prop_fixpoint",
+            lambda bitmap, buf0, buf1, m, pos, flags, square, tele: LAUNCHES["label_prop_fixpoint"],
+            lambda bitmap, buf0, buf1, m, pos, flags, square, tele: label_prop_fixpoint_cost(
+                bitmap.shape[0], bitmap.shape[1], flags.shape[0] - 1))
 
 
 def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds: bool = False, device=None):
@@ -309,7 +392,7 @@ def label_propagation_pallas(bitmap, active, *, max_iters: int = 64, with_rounds
     pos = torch.where(act, idx, -1)
     m = torch.empty(n, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
-    flags[0] = 1
+    flags[:1].fill_(1)  # a fill on the device: `flags[0] = 1` would copy from the host and wait
     label_prop_fixpoint(bitmap, bufs, m, pos, flags, square=True)
     rounds = flags[:max_iters].sum(dtype=torch.int32)
     labels = torch.where(rounds % 2 == 0, bufs[0], bufs[1])[:n]
@@ -334,7 +417,8 @@ def fixpoint_inputs(bitmap, rows, tau, *, n: int, cap: int, group=None):
 
         plane_collective("sum", counts, group)
     counts = torch.where(valid_r, counts, 0)
-    core_r = valid_r & (counts >= int(tau))
+    # tau: an int, or a one-element int32 tensor on the slab's device (no host read)
+    core_r = valid_r & (counts >= (tau.reshape(()) if torch.is_tensor(tau) else int(tau)))
     safe_rows = rows.clamp(max=cap - 1).long()
     core_c = torch.zeros(cap, dtype=torch.int32, device=dev).scatter_reduce_(
         0, safe_rows, core_r.to(torch.int32), "amax") > 0
@@ -389,7 +473,7 @@ def packed_cluster_fixpoint(bitmap, rows, tau, *, n: int, cap: int, max_iters: i
     bufs = (init, torch.empty(cap, dtype=torch.int32, device=dev))
     m = torch.empty(r, dtype=torch.int32, device=dev)
     flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
-    flags[0] = 1
+    flags[:1].fill_(1)  # a fill on the device: `flags[0] = 1` would copy from the host and wait
     tele = _obs_device.cluster_telemetry_init(max_iters, dev) if telemetry else None
     if group is None:
         label_prop_fixpoint(bitmap, bufs, m, pos, flags, tele=tele)
@@ -416,13 +500,14 @@ def _sharded_rounds(bitmap, bufs, m, pos, flags, tele, rows, core_r, col_off, gr
     big_rows = torch.full((r,), BIG, dtype=torch.int32, device=bitmap.device)
     safe_rows = rows.clamp(max=cap - 1).long()
     wins = torch.zeros(max_iters, dtype=torch.int32, device=bitmap.device) if tele is not None else None
-    for it in range(max_iters):
-        lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
-        label_prop_rect(big_rows, lab[col_off : col_off + w * 32], bitmap, out=m, flag=flags[it : it + 1])
-        if wins is not None:  # rows whose rank-local minimum beats their label (0 on a gated round)
-            wins[it] = (core_r & (m < lab[safe_rows])).sum(dtype=torch.int32) * flags[it]
-        plane_collective("min", m, group)
-        label_prop_update(lab, m, pos, nxt, flags, it, tele=tele)
+    with _loop_scope("label_prop.rounds"):
+        for it in range(max_iters):
+            lab, nxt = bufs[it % 2], bufs[(it + 1) % 2]
+            label_prop_rect(big_rows, lab[col_off : col_off + w * 32], bitmap, out=m, flag=flags[it : it + 1])
+            if wins is not None:  # rows whose rank-local minimum beats their label (0 on a gated round)
+                wins[it] = (core_r & (m < lab[safe_rows])).sum(dtype=torch.int32) * flags[it]
+            plane_collective("min", m, group)
+            label_prop_update(lab, m, pos, nxt, flags, it, tele=tele)
     if wins is not None:
         plane_collective("sum", wins, group)
         tele[3].copy_(wins)
@@ -517,7 +602,8 @@ def packed_connectivity(bitmap, rows, row_core, core_cols, *, max_iters: int = 6
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev or not stamps.is_contiguous()
                                or stamps.numel() < (1 + 3 * max_iters) * connectivity_grid(r, w)[0]):
         raise ValueError("stamps must be a contiguous int64 (1 + 3 max_iters, blocks) tensor on the slab's device")
-    stream = _cuda([bitmap, rows, row_core, core_cols, labels, m, cmin, flags, row_first, owner], "packed_connectivity")
+    _cuda([bitmap, rows, row_core, core_cols, labels, m, cmin, flags, row_first, owner], "packed_connectivity")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.load("label_prop").packed_connectivity_launch(
         bitmap.data_ptr(), r, w, n, rows.data_ptr(), row_core.data_ptr(), core_cols.data_ptr(), labels[0].data_ptr(),
         labels[1].data_ptr(), m.data_ptr(), cmin.data_ptr(), flags.data_ptr(), row_first.data_ptr(), owner.data_ptr(),

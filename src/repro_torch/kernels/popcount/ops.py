@@ -7,15 +7,19 @@ bitmap), axis=1)``, ``repro/kernels/label_prop/ops.py:174``).  With
 ``lo``/``hi`` ((R,) int32) it counts only bits lo_r <= b < hi_r of row
 r: KNN-BLOCK's candidate windows (``core/baselines.py``).  A CPU tensor
 runs the plain version (``ref.py``); a CUDA tensor launches the kernel
-or raises.
+(the operator ``repro_torch::row_popcount``, its fake implementation and
+its cost ``kernels.cost.row_popcount_cost`` beside it) or raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ...obs import metrics as _metrics
 from .. import _build
+from ..cost import register_op, row_popcount_cost
 from .ref import row_popcount_ref
 
 __all__ = ["row_popcount", "LAUNCHES"]
@@ -45,11 +49,18 @@ def row_popcount(words: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     if words.device.type == "cpu":
         return row_popcount_ref(words, lo, hi)
     r, w = words.shape
-    out = torch.empty(r, dtype=torch.int32, device=words.device)
     if r == 0:
-        return out
+        return torch.empty(r, dtype=torch.int32, device=words.device)
     if w == 0:
-        return out.zero_()
+        return torch.zeros(r, dtype=torch.int32, device=words.device)
+    return _row_popcount_op(words, lo, hi)
+
+
+@torch.library.custom_op("repro_torch::row_popcount", mutates_args=(), device_types="cuda")
+def _row_popcount_op(words: torch.Tensor, lo: Optional[torch.Tensor], hi: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of ``csrc/popcount.cu`` on checked operands."""
+    r, w = words.shape
+    out = torch.empty(r, dtype=torch.int32, device=words.device)
     err = _build.load("popcount").row_popcount_launch(
         words.data_ptr(), r, w, lo.data_ptr() if lo is not None else None,
         hi.data_ptr() if hi is not None else None, out.data_ptr(),
@@ -58,3 +69,12 @@ def row_popcount(words: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     _build.check(err, "row_popcount")
     _metrics.counter(LAUNCHES["row_popcount"]).inc()
     return out
+
+
+@_row_popcount_op.register_fake
+def _(words, lo, hi):
+    return words.new_empty((words.shape[0],), dtype=torch.int32)
+
+
+register_op("repro_torch::row_popcount", lambda words, lo, hi: LAUNCHES["row_popcount"],
+            lambda words, lo, hi: row_popcount_cost(words.shape[0], words.shape[1]))

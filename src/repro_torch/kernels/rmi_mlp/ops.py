@@ -29,12 +29,16 @@ casts inside its kernel).  x reaches the kernel through TMA too:
 does it once for its three stages).
 
 A CPU ``x`` runs the plain version (``ref.py``); a CUDA ``x`` launches
-the kernel or raises.  The kernel masks the ragged batch and the
+the kernel (the operator ``repro_torch::rmi_mlp``, with its fake
+implementation and its cost ``kernels.cost.rmi_mlp_cost`` beside it)
+or raises.  The kernel masks the ragged batch and the
 input-dim tail itself (TMA's zero fill), so nothing is padded into the
 answer.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 import numpy as np
 import torch
@@ -42,6 +46,7 @@ from torch import nn
 
 from ...obs import metrics as _metrics
 from .. import _build
+from ..cost import register_op, rmi_mlp_cost
 from .ref import mlp_forward_ref, stage_forward_ref
 
 __all__ = ["rmi_mlp_forward", "rmi_stage_forward", "stage_params", "pack_stage", "stage_launch",
@@ -111,9 +116,10 @@ def tma_rows(x: torch.Tensor) -> torch.Tensor:
     """``x`` (batch, d) fp32 as the kernel reads it: unit column stride,
     a row stride that is a multiple of 4 floats and a 16-byte aligned
     base; copied into padded rows when it is not so already.  A CPU
-    tensor comes back as it is."""
+    tensor comes back as it is.  (The base is read from the storage
+    offset: the caching allocator aligns every block to 512 bytes.)"""
     x = x.detach().to(torch.float32)
-    if x.device.type != "cuda" or (x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.data_ptr() % 16 == 0):
+    if x.device.type != "cuda" or (x.stride(1) == 1 and x.stride(0) % 4 == 0 and x.storage_offset() % 4 == 0):
         return x
     n, d = x.shape
     buf = torch.empty((n, -(-d // 4) * 4), dtype=torch.float32, device=x.device)
@@ -181,15 +187,22 @@ def stage_launch(packed, x) -> torch.Tensor:
     ws, bs = packed
     x = tma_rows(x)
     _check_shapes(ws, bs, x)
-    e, (n, d_in) = ws[-1].shape[0], x.shape
-    head_w, head_b = ws[-1][:, 0, :], bs[-1]
+    e, n = ws[-1].shape[0], x.shape[0]
     if any(t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous() for t in ws + bs):
         raise ValueError("rmi_mlp: packed operands must be contiguous fp32 on x's device")
-    if any(t.data_ptr() % 16 for t in ws):
-        raise ValueError("rmi_mlp: weight buffers must be 16-byte aligned")
-    out = torch.empty((e, n), dtype=torch.float32, device=x.device)
     if n == 0 or e == 0:
-        return out
+        return torch.empty((e, n), dtype=torch.float32, device=x.device)
+    return _rmi_mlp_op(x, list(ws), list(bs))
+
+
+@torch.library.custom_op("repro_torch::rmi_mlp", mutates_args=(), device_types="cuda")
+def _rmi_mlp_op(x: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> torch.Tensor:
+    """One launch of ``csrc/rmi_mlp.cu`` on checked operands: (E, n) fp32."""
+    if x.data_ptr() % 16 or any(t.data_ptr() % 16 for t in ws):
+        raise ValueError("rmi_mlp: x and the weight buffers must be 16-byte aligned")
+    e, (n, d_in) = ws[-1].shape[0], x.shape
+    head_w, head_b = ws[-1][:, 0, :], bs[-1]
+    out = torch.empty((e, n), dtype=torch.float32, device=x.device)
     h = [w.shape[3] for w in ws[:-1]]
     layer_ptrs = [t.data_ptr() for pair in zip(ws[:-1], bs[:-1]) for t in pair]
     err = _build.load("rmi_mlp").rmi_mlp_launch(
@@ -199,6 +212,16 @@ def stage_launch(packed, x) -> torch.Tensor:
     _build.check(err, "rmi_mlp")
     _metrics.counter(LAUNCHES["rmi_mlp"]).inc()
     return out
+
+
+@_rmi_mlp_op.register_fake
+def _(x, ws, bs):
+    return x.new_empty((ws[-1].shape[0], x.shape[0]), dtype=torch.float32)
+
+
+register_op("repro_torch::rmi_mlp", lambda x, ws, bs: LAUNCHES["rmi_mlp"],
+            lambda x, ws, bs: rmi_mlp_cost(x.shape[0], x.shape[1], [w.shape[3] for w in ws[:-1]],
+                                           ws[-1].shape[0]))
 
 
 def rmi_stage_forward(stacked, x) -> torch.Tensor:

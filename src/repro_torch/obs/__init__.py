@@ -16,16 +16,29 @@ or through the environment: ``REPRO_OBS=1`` enables trace and metrics
 at import time, ``trace`` / ``metrics`` one of them, ``device`` both
 plus the device telemetry.
 
-The reference's recompile accounting (``RecompileWatcher``,
-``watch_recompiles``, ``PAIRED_COUNTERS``, the ``jax.monitoring``
-listener) counts JAX executable-cache growth, which has no counterpart
-in an eager PyTorch program; it is not ported.
+Recompile accounting (the counterpart of the reference's
+``RecompileWatcher``, ``watch_recompiles`` and ``PAIRED_COUNTERS``): an
+eager PyTorch program has no executable cache, so a watcher counts the
+new operand signatures (shapes and dtypes) a watched launch function
+sees, a bounded set per database capacity; the sweep engine's launches
+feed ``sweep.recompiles``, which pairs 1:1 with
+``index.capacity_doublings``.  Kernel builds are counted where they
+happen, ``kernel.builds`` once per source hash
+(``repro_torch.kernels._build``).  The reference's ``jax.monitoring``
+listener has no counterpart.
+
+``loop_scope(name)`` marks the host loops that enqueue device work (the
+sweep's launches, the sharded fixpoint's rounds) so a dispatch trace
+(``repro_torch.launch.trace_analysis``) can tell an op inside a loop
+from one outside it; it records nothing itself.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Optional
+import threading
+from typing import Dict, Hashable, Optional, Tuple
 
 from . import device as device_telemetry
 from . import metrics, slo
@@ -58,6 +71,11 @@ __all__ = [
     "log_event",
     "rate_limited_warn",
     "configure_logging",
+    "RecompileWatcher",
+    "watch_recompiles",
+    "PAIRED_COUNTERS",
+    "loop_scope",
+    "current_loops",
 ]
 
 
@@ -123,6 +141,82 @@ def enable_from_env(environ=None) -> bool:
     else:
         return False
     return True
+
+
+# counters that move in lockstep over a steady-query-shape workload:
+# each new left-counter signature is explained by one right-counter event
+# (the reference's "recompiles pair 1:1 with capacity doublings").
+# laf-lint's LAF105 probe (repro_torch.analysis.probe_checks) runs it,
+# and tests/test_torch_analysis.py runs that probe on the CPU.
+PAIRED_COUNTERS = (
+    ("sweep.recompiles", "index.capacity_doublings"),
+)
+
+
+class RecompileWatcher:
+    """The operand signatures one launch function has seen in this
+    process; ``observe(sig)`` adds one to ``counter`` the first time a
+    signature appears and returns whether it was new.  A signature is any
+    hashable (the sweep's: launch rows, chunk, chunks per launch, the
+    database's capacity rows and words, mode and dtypes).  ``reset()``
+    forgets them, so a probe starts from an empty lattice."""
+
+    __slots__ = ("name", "counter_name", "_seen", "_lock")
+
+    def __init__(self, name: str, counter_name: str):
+        self.name, self.counter_name = name, counter_name
+        self._seen: set = set()
+        self._lock = threading.Lock()
+
+    def observe(self, sig: Hashable) -> bool:
+        with self._lock:
+            if sig in self._seen:
+                return False
+            self._seen.add(sig)
+        metrics.counter(self.counter_name).inc()
+        return True
+
+    @property
+    def signatures(self) -> frozenset:
+        return frozenset(self._seen)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._seen.clear()
+
+
+_watchers: Dict[Tuple[str, str], RecompileWatcher] = {}
+
+
+def watch_recompiles(name: str, counter_name: str) -> RecompileWatcher:
+    """Get or create the watcher of launch function ``name`` feeding
+    ``counter_name``: one per process, as the reference's jit caches are."""
+    key = (name, counter_name)
+    w = _watchers.get(key)
+    if w is None:
+        w = _watchers[key] = RecompileWatcher(name, counter_name)
+    return w
+
+
+_loops = threading.local()
+
+
+@contextlib.contextmanager
+def loop_scope(name: str):
+    """Mark a host loop that enqueues device work (see module docstring)."""
+    stack = getattr(_loops, "stack", None)
+    if stack is None:
+        stack = _loops.stack = []
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def current_loops() -> Tuple[str, ...]:
+    """The loop scopes open on this thread, outermost first."""
+    return tuple(getattr(_loops, "stack", ()))
 
 
 enable_from_env()

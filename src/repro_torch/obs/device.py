@@ -87,10 +87,10 @@ def device_enabled() -> bool:
 def cluster_telemetry_init(max_iters: int = MAX_ROUNDS, device=None) -> torch.Tensor:
     """Zeroed per-round telemetry of one cluster fixpoint: an int32
     ``(4, max_iters)`` tensor on ``device`` (``None`` = cuda, raising
-    without a card), one row per field of ``CLUSTER_ROUND_FIELDS``, one
-    column per round."""
-    return torch.zeros((len(CLUSTER_ROUND_FIELDS), max_iters), dtype=torch.int32,
-                       device=resolve_device(device))
+    without a card; a ``torch.device`` is taken as given: a tensor's),
+    one row per field of ``CLUSTER_ROUND_FIELDS``, one column per round."""
+    device = device if isinstance(device, torch.device) else resolve_device(device)
+    return torch.zeros((len(CLUSTER_ROUND_FIELDS), max_iters), dtype=torch.int32, device=device)
 
 
 def sweep_stats_tile_sum(stats: torch.Tensor) -> torch.Tensor:
