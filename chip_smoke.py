@@ -269,7 +269,8 @@ Phases (each prints one JSON line; any failure exits nonzero):
    ``molecule`` (128 graphs): each one step on a small batch held to a
    CPU copy (``TRAIN_STEP_TOL``: every gradient, relative L2 per leaf,
    then the loss and the updated parameters), then a warm-up and three timed steps
-   (rows/s, edges/s).  ``ogb_products`` waits for A10b;
+   (rows/s, edges/s).  ``ogb_products`` waits for A12b (its shape-only
+   cell and ``build_gnn_train``'s edge sharding);
 15. plane: the sharded index plane (``repro_torch.distributed``) on the
    whole MS-150k set (152,185 x 768) at eps 0.55, tau 5, alpha 1.5, with
    phase 3's estimator's predictions computed once and handed to every
@@ -328,6 +329,34 @@ Phases (each prints one JSON line; any failure exits nonzero):
    cluster records on 256 and 512 fake ranks, every one ``ok``) is
    written under ``artifacts/dryrun_torch`` with its roofline table
    printed.  No fallback.
+17. sharded_lm (``sharded_lm_phase``): the LM steps sharded over the
+   ranks of a ``("data", "model")`` mesh (``launch.steps`` with
+   ``mesh=``: DTensor parameters, optimizer state, activations and KV
+   cache), bf16, weights from ``transformer_init(0, cfg)``: llama3-8b at
+   full width, 2 of 32 layers, and deepseek-v2 at full width, 2 of 60
+   layers (the dense prefix + one MoE layer of 160 experts: expert
+   parallel at model 2).  First the single-device oracles on this card,
+   each freed before the next and before the ranks start: a train step
+   (``lm_loss_and_grads`` at batch 0 of ``lm_batches(0, B, 2048, V)``,
+   then one timed ``lm_train_step``, the full model's optimizer policy,
+   one microbatch) and llama3-8b's serving (a prefill of the train
+   batch, warmed then timed; a 16-token prompt fed a token a step, then
+   8 greedy steps).  Then two gloo ranks sharing this card at mesh (1, 2)
+   (llama3-8b's train step, prefill and decode; deepseek-v2's train
+   step, B 1 x 2,048), two at (2, 1) (llama3-8b's train step, B 2 x
+   2,048), each rank with DTensor's all-gathers staged through
+   ``distributed.sharding.staged_collective`` (the functional all-gather
+   kills a gloo process on CUDA tensors), and llama3-8b's train step at
+   world 1 over NCCL in this process.  Each run is held to its oracle
+   (``SHARDED_TOL``): loss and grad norm, each gradient leaf of the first
+   stacked layer (relative L2, each rank's shard against the host copy,
+   one all-reduce), the prefill and decode logits, MoE route flips
+   counted (at least 90% kept), ``flash_attention`` 4 and
+   ``flash_attention_bwd`` 2 launches a step on every rank, every rank
+   on the card.  Each line: step seconds at each mesh beside the
+   single-device step's, the first (untimed) step's, peak memory a
+   rank, launches a rank, the collectives of a forward and backward by
+   kind (``CommDebugMode``), the staging function's calls.  No fallback.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -3790,9 +3819,9 @@ def gnn_train(dev):
         torch.cuda.empty_cache()
     del csr, reddit
     gc.collect()
-    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A10b (DTensor): the "
-                  "reference shards its 61.9 M edges over the mesh, and its (E, H, D) fp32 messages and their "
-                  "gradients come to about 40 GB"})
+    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A12b: the reference "
+                  "shards its 61.9 M edges over the mesh (build_gnn_train), and its (E, H, D) fp32 messages and "
+                  "their gradients come to about 40 GB"})
     return ok, lines
 
 
@@ -4453,6 +4482,341 @@ def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches
     return ok, line
 
 
+# phase 17: the LM steps sharded over the ranks of a mesh (A10b), each held
+# to the port's single-device step of the same config and weights on this card
+SHARDED_LM = {
+    # name: (layers kept, batch rows, tokens a row, meshes that train it, why these layers)
+    "llama3-8b": (2, 2, 2048, ((1, 2), (2, 1)), "2 of 32"),
+    "deepseek-v2-236b": (2, 1, 2048, ((1, 2),), "2 of 60: the dense prefix + 1 MoE layer of 160 experts "
+                                                "(expert parallel at model 2)"),
+}
+SHARDED_PROMPT, SHARDED_NEW, SHARDED_CACHE = 16, 8, 64  # decode at (1, 2): prompt fed a token a step, greedy steps
+SHARDED_LOSS_REL, SHARDED_NORM_REL = 1e-3, 1e-2
+SHARDED_TOL = (f"bf16 on both: loss |sharded - single| <= {SHARDED_LOSS_REL} |single|, grad norm <= "
+               f"{SHARDED_NORM_REL} |single|, each compared leaf's gradient relative L2 <= {GRAD_REL_L2} (phase 14's "
+               f"bf16 bound; TRAIN_STEP_TOL's 1e-4 and 1e-5 hold fp32 steps on both sides), prefill and decode "
+               f"logits relative L2 <= {LM_REL_L2} and max |diff| <= {LM_MAX_ABS} (PERF.md section 2); MoE positions "
+               f"whose experts flip counted, at least 90% kept")
+
+
+def sharded_cfg(name):
+    """(cut config, full config) of a ``SHARDED_LM`` model: full width,
+    its depth cut, remat on."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch(name).make_config()
+    return dataclasses.replace(full, n_layers=SHARDED_LM[name][0], remat=True), full
+
+
+def compared_leaves(model):
+    """The parameters whose gradients phase 17 compares: every leaf of
+    one stacked layer (the first: attention, norms, the FFN or the MoE's
+    router, experts and shared experts)."""
+    return [n for n, _ in model.named_parameters() if n.startswith("layers.0.")]
+
+
+def counted_sq(x, want):
+    """(sum (x - want)^2, sum want^2) over this rank's shard of a DTensor
+    ``x`` (every element counted on one rank: coordinate 0 of each mesh
+    axis ``x`` is replicated over) against the whole ``want`` on the host,
+    summed over the ranks in one all-reduce; a plain tensor alone."""
+    import torch
+
+    if not hasattr(x, "device_mesh"):
+        w = want.to(x.device, torch.float32)
+        return float(((x.float() - w) ** 2).sum()), float((w ** 2).sum())
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, local = x.device_mesh, x.to_local()
+    shape, off = compute_local_shape_and_global_offset(x.shape, mesh, x.placements)
+    w = want[tuple(slice(o, o + n) for o, n in zip(off, shape))].to(local.device, torch.float32)
+    sums = torch.stack([((local.float() - w) ** 2).sum(), (w ** 2).sum()])
+    if not all(mesh.get_local_rank(i) == 0 for i, p in enumerate(x.placements) if p.is_replicate()):
+        sums.zero_()
+    dist.all_reduce(sums)
+    return float(sums[0]), float(sums[1])
+
+
+def sharded_train(name, mesh, dev, want=None):
+    """One ``SHARDED_LM`` model's train step on ``mesh`` (None: the single
+    device): the weights from ``transformer_init(0, cfg)``, batch 0 of
+    ``lm_batches(0, B, S, V)``, one microbatch, the full model's
+    optimizer policy (``lm_optimizer``, ``lm_ce_chunk``).  First
+    ``lm_loss_and_grads`` (under ``CommDebugMode`` on a mesh: the
+    collectives of a forward and backward by kind; MoE routes logged),
+    then one ``lm_train_step`` timed, its launches and peak memory read
+    around it.  ``want`` (the single-device run's ``grads_path``, loss
+    and routes): each compared leaf's relative L2.  Returns a dict; on
+    one device also the compared leaves' gradients on the host."""
+    import torch
+
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import metrics
+    from repro_torch.train.optimizer import global_norm, param_tree
+
+    cfg, full = sharded_cfg(name)
+    _, b, s, _, _ = SHARDED_LM[name]
+    model = tt.transformer_init(0, cfg, device=dev)
+    model.requires_grad_(True)
+    leaves = compared_leaves(model)
+    if mesh is not None:
+        steps.shard_lm_params(model, cfg, mesh)
+    batch = lm_batches(0, b, s, cfg.vocab)(0)
+    kw = dict(mesh=mesh, n_microbatches=1, ce_chunk=steps.lm_ce_chunk(full))
+    out = {"device": str(dev), "layers": cfg.n_layers, "batch": b, "tokens": s}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if mesh is not None:
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        comm = CommDebugMode()
+        with comm, route_log() as routes:
+            loss, grads = steps.lm_loss_and_grads(model, cfg, batch, **kw)
+        out["comms_fwd_bwd"] = {str(k).split(".")[-1]: int(v) for k, v in comm.get_comm_counts().items()}
+    else:
+        with route_log() as routes:
+            loss, grads = steps.lm_loss_and_grads(model, cfg, batch, **kw)
+    torch.cuda.synchronize(dev)
+    out["first_s"] = time.perf_counter() - t0
+    out["routes"] = [r.cpu().numpy() for r in routes.calls]  # numpy: a rank's result crosses a process
+    names = sorted(n for n, _ in model.named_parameters())
+    by_name = dict(zip(names, grads))
+    out["grad_norm_first"], out["loss_first"] = float(global_norm(grads)), float(loss)
+    if want is None:
+        out["host_grads"] = {n: by_name[n].detach().cpu() for n in leaves}
+    else:
+        ref = torch.load(want["grads_path"], mmap=True)
+        out["leaf_rel_l2"] = {}
+        for n in leaves:
+            d2, w2 = counted_sq(by_name[n], ref[n])
+            out["leaf_rel_l2"][n] = (d2 / max(w2, 1e-30)) ** 0.5
+        del ref
+        flips = total = 0
+        for got, exp in zip(out["routes"], want["routes"]):
+            bad = (got != exp).any(-1)
+            flips, total = flips + int(bad.sum()), total + bad.size
+        out["route_flips"], out["routed_positions"] = flips, total
+    del grads, by_name, loss
+    params = param_tree(model)
+    opt = steps.lm_optimizer(full)
+    state = opt.init(params)
+    metrics.reset()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, state, m = steps.lm_train_step(model, cfg, params, state, batch, opt=opt, **kw)
+    torch.cuda.synchronize(dev)
+    out["step_s"] = time.perf_counter() - t0
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    snap = metrics.snapshot()
+    out["launches"] = {k: snap.get(f"kernel.{k}.launches", 0) for k in ("flash_attention", "flash_attention_bwd")}
+    out["staged_all_gather_calls"] = snap.get("sharded.staged.all_gather.calls", 0)
+    out["loss"], out["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    del model, params, state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_serve(mesh, dev, want=None):
+    """llama3-8b (``SHARDED_LM``'s depth) served at fresh weights: a
+    prefill of the train batch (warmed, then timed) and a decode of
+    ``SHARDED_PROMPT`` prompt tokens fed a token a step, then
+    ``SHARDED_NEW`` steps fed the single-device run's greedy tokens, in a
+    ``SHARDED_CACHE``-slot cache (``shard_lm_cache`` on a mesh); with
+    ``want`` each logit row's gap to the single-device run's."""
+    import torch
+
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tt
+
+    cfg, _ = sharded_cfg("llama3-8b")
+    _, b, s, _, _ = SHARDED_LM["llama3-8b"]
+    model = tt.transformer_init(0, cfg, device=dev)
+    if mesh is not None:
+        steps.shard_lm_params(model, cfg, mesh)
+    tokens = lm_batches(0, b, s, cfg.vocab)(0)["tokens"]
+
+    def full(x):
+        return (x.full_tensor() if hasattr(x, "full_tensor") else x).float()
+
+    out = {}
+    steps.lm_prefill_step(model, cfg, tokens, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits = full(steps.lm_prefill_step(model, cfg, tokens, mesh=mesh))
+    torch.cuda.synchronize(dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    cache = tt.make_cache(cfg, b, SHARDED_CACHE, device=dev)
+    if mesh is not None:
+        cache = steps.shard_lm_cache(cache, cfg, mesh)
+    feed = [tokens[:, t : t + 1] for t in range(SHARDED_PROMPT)]
+    step_logits, step_ms, greedy = [], [], []
+    for t in range(SHARDED_PROMPT + SHARDED_NEW):
+        tok = feed[t] if t < SHARDED_PROMPT else (want["greedy"][t - SHARDED_PROMPT] if want else greedy[-1])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg, cache = steps.lm_decode_step(model, cfg, tok, cache, t, mesh=mesh)
+        lg = full(lg)
+        torch.cuda.synchronize(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if t >= SHARDED_PROMPT - 1:
+            step_logits.append(lg.cpu())
+            greedy.append(lg.argmax(-1, keepdim=True).cpu().numpy())
+    out["decode_step_ms"] = float(np.median(step_ms[1:]))
+    if want is None:
+        out["prefill_logits"], out["decode_logits"], out["greedy"] = logits.cpu(), step_logits, greedy[:-1]
+    else:
+        out["prefill_gap"] = logit_gap(logits.cpu(), want["prefill_logits"])
+        gaps = [logit_gap(g, w) for g, w in zip(step_logits, want["decode_logits"])]
+        out["decode_gap_max"] = [max(g[0] for g in gaps), max(g[1] for g in gaps)]
+        out["greedy_same"] = int(sum(bool((a == b).all()) for a, b in zip(greedy[:-1], want["greedy"])))
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(rank, world, p):
+    """A spawned gloo rank of phase 17 on ``cuda:0`` (the ranks share the
+    card): DTensor's all-gathers through the staging function, the mesh,
+    then each of ``p["runs"]``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import obs
+    from repro_torch.distributed.sharding import stage_gloo_collectives
+
+    obs.enable(trace=False, metrics_on=True)  # the launch counts are counters
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    stage_gloo_collectives("cuda")
+    mesh = init_device_mesh("cuda", p["shape"], mesh_dim_names=("data", "model"))
+    return sharded_runs(mesh, dev, p)
+
+
+def sharded_runs(mesh, dev, p) -> dict:
+    out = {"rank": mesh.get_rank(), "device": str(dev)}
+    for name in p["runs"]:
+        out[name] = sharded_train(name, mesh, dev, p["want"][name])
+    if p.get("serve"):
+        out["serve"] = sharded_serve(mesh, dev, p["want"]["serve"])
+    return out
+
+
+def sharded_check(name, rows, want):
+    """(ok, failed checks) of one model's ranks against the single device."""
+    cfg, _ = sharded_cfg(name)
+    n_attn = cfg.n_layers
+    bad = []
+    r0 = rows[0][name]
+    if abs(r0["loss"] - want["loss"]) > SHARDED_LOSS_REL * abs(want["loss"]):
+        bad.append("loss")
+    if abs(r0["grad_norm"] - want["grad_norm"]) > SHARDED_NORM_REL * abs(want["grad_norm"]):
+        bad.append("grad_norm")
+    if max(r0["leaf_rel_l2"].values()) > GRAD_REL_L2:
+        bad.append("leaf_rel_l2")
+    if 10 * (r0["routed_positions"] - r0["route_flips"]) < 9 * r0["routed_positions"]:
+        bad.append("route_flips")
+    for r in rows:
+        if r[name]["launches"] != {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}:
+            bad.append(f"launches rank {r['rank']}")
+        if not r["device"].startswith("cuda"):
+            bad.append(f"device rank {r['rank']}")
+        if not (np.isfinite(r[name]["loss"]) and np.isfinite(r[name]["grad_norm"])):
+            bad.append(f"finite rank {r['rank']}")
+    return not bad, bad
+
+
+def sharded_line(name, shape, backend, rows, want):
+    ok, bad = sharded_check(name, rows, want)
+    r0 = rows[0][name]
+    cfg, full = sharded_cfg(name)
+    return ok, {
+        "phase": "sharded_lm", "arch": name, "mesh": list(shape), "backend": backend, "world": len(rows),
+        "dtype": str(cfg.dtype), "n_layers": cfg.n_layers, "published_layers": full.n_layers,
+        "batch": r0["batch"], "tokens": r0["tokens"], "reduced": SHARDED_LM[name][4],
+        "step_s": [r[name]["step_s"] for r in rows], "single_device_step_s": want["step_s"],
+        "first_step_s": [r[name]["first_s"] for r in rows],
+        "peak_mem_bytes": [r[name]["peak_mem_bytes"] for r in rows], "single_device_peak_bytes": want["peak_mem_bytes"],
+        "launches": [r[name]["launches"] for r in rows], "comms_fwd_bwd": r0.get("comms_fwd_bwd"),
+        "staged_all_gather_calls": [r[name]["staged_all_gather_calls"] for r in rows],
+        "loss": r0["loss"], "loss_single": want["loss"], "grad_norm": r0["grad_norm"],
+        "grad_norm_single": want["grad_norm"], "max_leaf_rel_l2": max(r0["leaf_rel_l2"].values()),
+        "leaf_rel_l2": r0["leaf_rel_l2"], "route_flips": r0["route_flips"],
+        "routed_positions": r0["routed_positions"], "tolerance": SHARDED_TOL, "ok": ok, "failed": bad}
+
+
+def sharded_lm_phase(dev):
+    """Phase 17: the LM steps sharded over a mesh's ranks (module
+    docstring).  Returns (ok, launches of a sharded llama3-8b train step
+    on rank 0 at (1, 2))."""
+    import gc
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.testing.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    ok, launches = True, {}
+    with tempfile.TemporaryDirectory(prefix="sharded-") as tmp:
+        want = {}
+        for name in SHARDED_LM:  # the single-device oracles, each freed before the next
+            t0 = time.perf_counter()
+            w = sharded_train(name, None, dev)
+            w["grads_path"] = os.path.join(tmp, f"{name}.pt")
+            torch.save(w.pop("host_grads"), w["grads_path"])
+            want[name] = w
+            emit({"phase": "sharded_lm_single", "arch": name, "seconds": time.perf_counter() - t0,
+                  **{k: w[k] for k in ("loss", "grad_norm", "step_s", "first_s", "peak_mem_bytes", "launches")}})
+            gc.collect()
+            torch.cuda.empty_cache()
+        want["serve"] = sharded_serve(None, dev)
+        worlds = [((1, 2), "gloo", ("llama3-8b", "deepseek-v2-236b"), True), ((2, 1), "gloo", ("llama3-8b",), False),
+                  ((1, 1), "nccl", ("llama3-8b",), False)]
+        for shape, backend, runs, serve in worlds:
+            t0 = time.perf_counter()
+            p = {"shape": shape, "runs": runs, "serve": serve, "want": want}
+            if backend == "nccl":  # world 1 in this process
+                dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store1"), 1), rank=0,
+                                        world_size=1, timeout=timedelta(seconds=300))
+                try:
+                    rows = [sharded_runs(init_device_mesh("cuda", shape, mesh_dim_names=("data", "model")), dev, p)]
+                finally:
+                    dist.destroy_process_group()
+            else:
+                rows = run_ranks(sharded_rank, shape[0] * shape[1], p, backend=backend, timeout=600)
+            for name in runs:
+                m_ok, line = sharded_line(name, shape, backend, rows, want[name])
+                emit({**line, "wall_s": time.perf_counter() - t0})
+                ok &= m_ok
+            if serve:
+                sv = rows[0]["serve"]
+                s_ok = (sv["prefill_gap"][0] <= LM_REL_L2 and sv["prefill_gap"][1] <= LM_MAX_ABS
+                        and sv["decode_gap_max"][0] <= LM_REL_L2 and sv["decode_gap_max"][1] <= LM_MAX_ABS)
+                emit({"phase": "sharded_lm_serve", "arch": "llama3-8b", "mesh": list(shape), "backend": backend,
+                      "prefill": [SHARDED_LM["llama3-8b"][1], SHARDED_LM["llama3-8b"][2]],
+                      "prefill_s": sv["prefill_s"], "single_device_prefill_s": want["serve"]["prefill_s"],
+                      "decode_step_ms": sv["decode_step_ms"],
+                      "single_device_decode_step_ms": want["serve"]["decode_step_ms"],
+                      "prefill_gap": sv["prefill_gap"], "decode_gap_max": sv["decode_gap_max"],
+                      "greedy_same": sv["greedy_same"], "greedy_steps": SHARDED_NEW, "ok": s_ok})
+                ok &= s_ok
+            if shape == (1, 2):
+                launches = {f"{k}_sharded": v for k, v in rows[0]["llama3-8b"]["launches"].items()}
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_lm", "seconds": time.perf_counter() - t_phase, "ok": ok})
+    return ok, launches
+
+
 def run(args) -> int:
     import torch
 
@@ -4717,6 +5081,11 @@ def run(args) -> int:
                                    {k: launches[k] for k in RP_KERNELS})
     emit(tl_line)
     ok &= tl_ok
+    # 17. the LM steps sharded over a mesh: llama3-8b at (1, 2) and (2, 1)
+    #     over gloo on this card and world 1 over NCCL, deepseek-v2 at (1, 2),
+    #     each held to the single-device step; each step's counts read around it
+    sh_ok, sh_launches = sharded_lm_phase(dev)
+    ok &= sh_ok and all(n > 0 for n in sh_launches.values())
     rows = []
     for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows,
               *pl_rows]:

@@ -7,7 +7,7 @@ run: the five LMs (``llama3_8b``, ``gemma3_27b``, ``granite_20b``,
 ``grok1_314b``, ``deepseek_v2_236b``), the four recsys rankers
 ``bst``, ``deepfm``, ``dien`` and ``autoint``, and the GNN
 ``gat_cora`` (its ``ogb_products`` shape, edge-sharded in the
-reference, waits for A10b with DTensor), and ``laf_dbscan``, the
+reference, waits for A12b's ``build_gnn_train``), and ``laf_dbscan``, the
 paper's own workload (``LAFClusterConfig``, family ``cluster``).
 """
 

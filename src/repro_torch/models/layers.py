@@ -16,7 +16,10 @@ tensor, its plain version on a CPU one), which the reference names as
 its TPU-executed twin.  It is differentiable: under grad mode the
 kernel writes each query's log-sum-exp and its backward is the B11
 kernel (``flash_attention_bwd``); the padding below is differentiated
-by autograd like any other operation.
+by autograd like any other operation.  On DTensor inputs (a sharded
+step) it runs the kernel on each rank's local heads and batch rows
+(``local_map``), and ``chunked_cross_entropy`` takes the reference's
+``shard_logits`` hook.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention.ops import HEAD_DIMS, HEAD_PAIRS
 
@@ -36,7 +40,7 @@ __all__ = [
     "dense_init", "dense", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
     "rope_frequencies", "apply_rope", "blockwise_attention", "swiglu_init", "swiglu",
     "geglu_init", "geglu", "mlp_init", "mlp_apply", "cross_entropy_loss",
-    "chunked_cross_entropy",
+    "chunked_cross_entropy", "cache_write", "split_heads", "whole",
 ]
 
 # ---------------------------------------------------------------------------
@@ -63,7 +67,22 @@ def dense_init(gen: Optional[torch.Generator], d_in, d_out, dtype=torch.float32,
     return w.mul_(scale).to(dtype)
 
 
+def whole(x, *dims):
+    """``x`` with the dimensions ``dims`` unsplit: a DTensor split on any
+    of them is gathered there (DTensor's view rules refuse to flatten,
+    slice or index a split dimension); a tensor as it is."""
+    if not is_dtensor(x) or not any(p.is_shard(d % x.ndim) for p in x.placements for d in dims):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dims = {d % x.ndim for d in dims}
+    return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_shard() and p.dim in dims else p
+                                               for p in x.placements))
+
+
 def dense(w, x):
+    if x.ndim >= 3:  # the product flattens the leading dimensions: only the first may stay split
+        x = whole(x, *range(1, x.ndim - 1))
     return x @ w.to(x.dtype)
 
 
@@ -150,8 +169,19 @@ def blockwise_attention(
     probabilities are not rounded to the inputs' type in P·V: fp32 (as
     in the TPU kernel), or on the card's bf16 prefill two bf16 terms,
     P_hi·V + P_lo·V (P to about 16 bits), so bf16 results differ by that
-    rounding."""
+    rounding.
+
+    DTensor inputs (``q``, ``k``, ``v`` on one mesh) run as
+    ``_sharded_attention`` says: each rank attends its own batch rows
+    and heads with the kernel, and the output is a DTensor with q's
+    layout."""
     del kv_block
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, valid_len=valid_len)
+    return _attention(q, k, v, causal, window, q_offset, valid_len)
+
+
+def _attention(q, k, v, causal, window, q_offset, valid_len):
     b, hq, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     offset = sk - sq if q_offset is None else int(q_offset)
@@ -167,6 +197,99 @@ def blockwise_attention(
             v = F.pad(v, (0, width - dv))
     out = flash_attention(q, k, v, causal=causal, window=window, scale=1.0 / math.sqrt(d), q_offset=offset)
     return out if out.shape[-1] == dv else out[..., :dv]
+
+
+def split_heads(x, b: int, s: int, n: int, d: int):
+    """(B, S, n*d) -> the (B, n, S, d) view the kernel reads in place.  A
+    DTensor whose last dimension is split over ranks that do not divide
+    ``n`` has that dimension gathered first (DTensor cannot split a
+    dimension into heads that do not divide over its ranks)."""
+    if is_dtensor(x) and n % math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(2)):
+        x = whole(x, 2)
+    return x.view(b, s, n, d).transpose(1, 2)
+
+
+def cache_write(cache, dim: int, pos: int, new):
+    """Write ``new`` (the cache's shape with 1 at ``dim``) at position
+    ``pos`` of ``dim``, in place; returns the cache that attention reads.
+
+    A plain tensor: ``cache`` itself.  A DTensor: ``new`` is laid out as
+    the cache with ``dim`` whole and written into this rank's local
+    shard.  Where ``dim`` (the sequence) is sharded, only the rank that
+    owns ``pos`` writes, and the return is the cache with ``dim``
+    gathered on every rank (the reference's semantics: the layer's keys
+    gathered before attention)."""
+    if not is_dtensor(cache):
+        cache.select(dim, pos).copy_(new.select(dim, 0).to(cache.dtype))
+        return cache
+    from torch.distributed.tensor import Replicate
+
+    mesh, pl = cache.device_mesh, cache.placements
+    unsplit = tuple(Replicate() if p.is_shard(dim) else p for p in pl)
+    value = new.redistribute(mesh, unsplit).to_local().select(dim, 0)
+    local = cache.to_local()
+    owners = [i for i, p in enumerate(pl) if p.is_shard(dim)]
+    if not owners:
+        local.select(dim, pos).copy_(value.to(local.dtype))
+        return cache
+    (axis,) = owners
+    n = mesh.size(axis)
+    if cache.shape[dim] % n:
+        raise ValueError(f"a cache of {cache.shape[dim]} positions does not split over {n} ranks")
+    per = cache.shape[dim] // n
+    if mesh.get_local_rank(axis) == pos // per:
+        local.select(dim, pos % per).copy_(value.to(local.dtype))
+    return cache.redistribute(mesh, unsplit)
+
+
+def _kv_heads_of(hq: int, hkv: int, lo: int, hi: int):
+    """The kv heads that query heads ``[lo, hi)`` read (head i reads
+    ``i // (hq / hkv)``): a slice when they read one head or whole
+    groups, else an index of one kv head a query head."""
+    group = hq // hkv
+    first, last = lo // group, (hi - 1) // group + 1
+    if last - first == 1 or (lo % group == 0 and hi % group == 0):
+        return slice(first, last)
+    return torch.arange(lo, hi) // group
+
+
+def _sharded_attention(q, k, v, *, causal, window, q_offset, valid_len):
+    """Attention on DTensors: the batch over the data axes and the heads
+    over ``"model"`` where they divide (the layout the reference's
+    ``shard_qkv`` pins), k and v over ``"model"`` only where q's heads
+    are and their own divide, else replicated.  Each rank runs the
+    kernel (``flash_attention``, its plain version on a CPU tensor) on
+    plain local tensors: its batch rows, its query heads and the kv
+    heads those read (``_kv_heads_of``).  The output has q's layout.  A
+    replicated k or v whose kv heads the ranks split gets a gradient
+    summed over ``"model"`` (each rank's part: ``Partial``)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import axis_size, data_axes, mesh_coordinate, named
+
+    mesh = q.device_mesh
+    dp = data_axes(mesh)
+    model = axis_size(mesh, "model") if "model" in mesh.mesh_dim_names else 1
+    b, hq, hkv = q.shape[0], q.shape[1], k.shape[1]
+    b_ax = (dp if len(dp) > 1 else dp[0]) if b % axis_size(mesh, dp) == 0 else None
+    q_h = "model" if model > 1 and hq % model == 0 else None
+    kv_h = "model" if q_h and hkv % model == 0 else None
+    q_pl, kv_pl = named(mesh, b_ax, q_h, None, None), named(mesh, b_ax, kv_h, None, None)
+    kv_grad = kv_pl
+    if q_h and not kv_h:
+        kv_grad = tuple(Partial() if n == "model" else p for n, p in zip(mesh.mesh_dim_names, kv_pl))
+
+    def local(ql, kl, vl):
+        if q_h and not kv_h:  # the kv heads this rank's query heads read
+            lo = mesh_coordinate(mesh, "model") * ql.shape[1]
+            heads = _kv_heads_of(hq, hkv, lo, lo + ql.shape[1])
+            kl, vl = kl[:, heads], vl[:, heads]
+        return _attention(ql, kl, vl, causal, window, q_offset, valid_len)
+
+    return local_map(local, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +351,49 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     return torch.mean(logz - gold)
 
 
-def _chunk_nll(w_head, hc, lc):
+def _chunk_nll(w_head, hc, lc, shard_logits=None):
     """Summed token NLL of one chunk: hc (B, C, D), lc (B, C)."""
-    lf = (hc @ w_head.to(hc.dtype)).to(torch.float32)
-    gold = torch.gather(lf, -1, lc[..., None].long())[..., 0]
-    return torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+    logits = dense(w_head, hc)
+    if shard_logits is not None:
+        logits = shard_logits(logits)
+    lf = logits.to(torch.float32)
+    if not is_dtensor(lf):
+        gold = torch.gather(lf, -1, lc[..., None].long())[..., 0]
+        return torch.sum(torch.logsumexp(lf, dim=-1) - gold)
+    # a split vocabulary: the log-sum-exp from a max, a sum and a log (reductions
+    # across the split), the label's logit picked on the rank that holds it
+    m = lf.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    return torch.sum(logz - _gold(lf, lc))
+
+
+def _gold(lf, labels):
+    """The label's logit of DTensor logits lf (B, C, V) whose vocabulary
+    may be split: each rank picks the labels in its own vocabulary range
+    (0 elsewhere), a ``Partial`` sum over the ranks that split it."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = lf.device_mesh
+    vocab = lf.shape[-1]
+    split = [i for i, p in enumerate(lf.placements) if p.is_shard(2)]
+    lab_pl = tuple(Replicate() if p.is_shard(2) else p for p in lf.placements)
+    out_pl = [Partial() if p.is_shard(2) else p for p in lf.placements]
+
+    def pick(ll, lab):
+        lo = 0
+        for i in split:  # this rank's first vocabulary entry (major axis first)
+            per = vocab // math.prod(mesh.size(j) for j in split[: split.index(i) + 1])
+            lo += mesh.get_local_rank(i) * per
+        idx = lab.long() - lo
+        mine = (idx >= 0) & (idx < ll.shape[-1])
+        got = torch.gather(ll, -1, idx.clamp(0, ll.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(mine, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    if any(vocab % mesh.size(i) for i in split):
+        raise ValueError(f"a vocabulary of {vocab} does not split evenly over {[mesh.size(i) for i in split]}")
+    return local_map(pick, out_placements=out_pl, in_placements=(lf.placements, lab_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(lf, labels)
 
 
 def chunked_cross_entropy(
@@ -241,25 +402,28 @@ def chunked_cross_entropy(
     labels: torch.Tensor,     # (B, S)
     *,
     chunk: int = 512,
+    shard_logits=None,
 ) -> torch.Tensor:
     """LM loss without the full (B, S, V) fp32 logits: a loop over
     sequence chunks, each chunk's logits alive only inside its turn.
     Under grad mode each chunk runs under ``torch.utils.checkpoint``, so
     the backward recomputes its logits instead of keeping them (the
     reference's ``jax.checkpoint(body)``; llama3-8b's (8, 4096, 128256)
-    fp32 logits would otherwise be 16.8 GB).  (The reference's
-    ``shard_logits`` hook pins a sharding; the port runs on one device
-    and has none.)"""
+    fp32 logits would otherwise be 16.8 GB).  ``shard_logits`` (the
+    reference's hook) lays out each chunk's (B, C, V) logits, on
+    DTensors: batch over the data axes, vocabulary over ``"model"``."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
+    h = whole(h, 1)  # chunks of the sequence: a split sequence is gathered first
     remat = torch.is_grad_enabled() and (h.requires_grad or w_head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, s, chunk):
         hc, lc = h[:, c : c + chunk], labels[:, c : c + chunk]
         if remat:
-            total = total + checkpoint(_chunk_nll, w_head, hc, lc, use_reentrant=False, preserve_rng_state=False)
+            total = total + checkpoint(_chunk_nll, w_head, hc, lc, shard_logits, use_reentrant=False,
+                                       preserve_rng_state=False)
         else:
-            total = total + _chunk_nll(w_head, hc, lc)
+            total = total + _chunk_nll(w_head, hc, lc, shard_logits)
     return total / (b * s)

@@ -23,7 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .layers import apply_rope, blockwise_attention, dense, rmsnorm
+from ..distributed.sharding import is_dtensor
+from .layers import apply_rope, blockwise_attention, cache_write, dense, rmsnorm, split_heads, whole
 
 __all__ = ["MLAConfig", "mla_shapes", "mla_init", "mla_attention", "mla_decode_step"]
 
@@ -73,21 +74,17 @@ def mla_init(gen: torch.Generator, cfg: MLAConfig, dtype=torch.float32):
     return {k: draw(v, k) for k, v in mla_shapes(cfg, dtype).items()}
 
 
-def _heads(x, b, s, n, d):
-    return x.view(b, s, n, d).transpose(1, 2)
-
-
 def _project_q(params, cfg: MLAConfig, x, positions):
     b, s, _ = x.shape
     q = dense(params["wq_b"], rmsnorm(params["q_norm"], dense(params["wq_a"], x)))
-    q = _heads(q, b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = split_heads(q, b, s, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
     q_rope = apply_rope(q_rope, positions[:, None, :], cfg.rope_theta)
     return q_nope, q_rope  # (B, H, S, nope), (B, H, S, rope)
 
 
 def _compress_kv(params, cfg: MLAConfig, x, positions):
-    ckv = dense(params["wkv_a"], x)  # (B, S, kv_lora + rope)
+    ckv = whole(dense(params["wkv_a"], x), -1)  # (B, S, kv_lora + rope), cut in two below
     c_kv, k_rope = ckv[..., : cfg.kv_lora_rank], ckv[..., cfg.kv_lora_rank :]
     c_kv = rmsnorm(params["kv_norm"], c_kv)
     k_rope = apply_rope(k_rope[:, None], positions[:, None, :], cfg.rope_theta)
@@ -98,13 +95,19 @@ def mla_attention(params, cfg: MLAConfig, x, positions, *, causal=True, kv_block
     """Prefill: x (B, S, d), positions (B, S) -> (out (B, S, d), (c_kv,
     k_rope)).  Scores decompose as q_nope·k_nope + q_rope·k_rope, so the
     concatenated features make one attention problem of width
-    ``qk_nope_dim + qk_rope_dim`` with scale 1/sqrt of that width."""
+    ``qk_nope_dim + qk_rope_dim`` with scale 1/sqrt of that width.
+
+    On DTensors (a sharded step) the reference passes this layer no
+    hook; the port chooses the kernel's local layout explicitly:
+    ``blockwise_attention``'s sharded path, the batch over the data axes
+    and the heads (q, k and v have ``n_heads`` each) over ``"model"``
+    where they divide, else replicated."""
     b, s, _ = x.shape
     h = cfg.n_heads
     q_nope, q_rope = _project_q(params, cfg, x, positions)
     c_kv, k_rope = _compress_kv(params, cfg, x, positions)
-    k_nope = _heads(dense(params["wk_b"], c_kv), b, s, h, cfg.qk_nope_dim)
-    v = _heads(dense(params["wv_b"], c_kv), b, s, h, cfg.v_dim)
+    k_nope = split_heads(dense(params["wk_b"], c_kv), b, s, h, cfg.qk_nope_dim)
+    v = split_heads(dense(params["wv_b"], c_kv), b, s, h, cfg.v_dim)
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope[:, None].expand(b, h, s, cfg.qk_rope_dim)], dim=-1)
     out = blockwise_attention(q_cat, k_cat, v, causal=causal, kv_block=kv_block)
@@ -115,28 +118,52 @@ def mla_attention(params, cfg: MLAConfig, x, positions, *, causal=True, kv_block
 def mla_decode_step(params, cfg: MLAConfig, x, cache_ckv, cache_krope, cur_len: int):
     """Absorbed decode: x (B, 1, d); cache_ckv (B, S, kv_lora) and
     cache_krope (B, S, rope), written in place at ``cur_len`` -> (out
-    (B, 1, d), cache_ckv, cache_krope)."""
+    (B, 1, d), cache_ckv, cache_krope).  On DTensors (a sharded decode)
+    the projections are DTensor ops, the caches are written by
+    ``cache_write`` (a sequence-sharded cache by the rank that owns
+    ``cur_len``, then gathered) and the latent attention runs on each
+    rank's batch rows with ``wk_b`` and ``wv_b`` whole (``local_map``)."""
     b = x.shape[0]
-    h = cfg.n_heads
     cur_len = int(cur_len)
     positions = torch.full((b, 1), cur_len, dtype=torch.long, device=x.device)
     q_nope, q_rope = _project_q(params, cfg, x, positions)      # (B, H, 1, *)
     c_new, krope_new = _compress_kv(params, cfg, x, positions)   # (B, 1, kv_lora), (B, 1, rope)
-    cache_ckv[:, cur_len] = c_new[:, 0].to(cache_ckv.dtype)
-    cache_krope[:, cur_len] = krope_new[:, 0].to(cache_krope.dtype)
-    ckv = cache_ckv[:, : cur_len + 1].to(torch.float32)          # (B, n, kv_lora)
-    krope = cache_krope[:, : cur_len + 1].to(torch.float32)      # (B, n, rope)
+    ckv = cache_write(cache_ckv, 1, cur_len, c_new)
+    krope = cache_write(cache_krope, 1, cur_len, krope_new)
+    args = (q_nope, q_rope, ckv, krope, params["wk_b"], params["wv_b"])
 
+    def attend(qn, qr, ck, kr, wk, wv):
+        return _absorbed_attention(cfg, qn, qr, ck[:, : cur_len + 1], kr[:, : cur_len + 1], wk, wv)
+
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+
+        mesh = x.device_mesh
+        rows = tuple(Replicate() if not p.is_shard(0) else p for p in ckv.placements)  # the batch as the cache's
+        whole = (Replicate(),) * mesh.ndim
+        o = local_map(attend, out_placements=list(rows), in_placements=(rows,) * 4 + (whole, whole),
+                      device_mesh=mesh, redistribute_inputs=True)(*args)
+    else:
+        o = attend(*args)
+    o = o.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.v_dim).to(x.dtype)
+    return dense(params["wo"], o), cache_ckv, cache_krope
+
+
+def _absorbed_attention(cfg: MLAConfig, q_nope, q_rope, ckv, krope, wk_b, wv_b):
+    """The latent attention of one decode step in fp32: q (B, H, 1, *)
+    against the first n rows of the caches ckv (B, n, kv_lora) and krope
+    (B, n, rope) -> (B, H, 1, v)."""
+    h = cfg.n_heads
+    ckv, krope = ckv.to(torch.float32), krope.to(torch.float32)
     # absorb W_uk: q_lat (B, H, 1, kv_lora) = q_nope @ W_uk (per head)
-    wk_b = params["wk_b"].to(torch.float32).view(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
-    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(torch.float32), wk_b)
+    wk = wk_b.to(torch.float32).view(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bhqd,rhd->bhqr", q_nope.to(torch.float32), wk)
     scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     logits = (torch.einsum("bhqr,bkr->bhqk", q_lat, ckv)
               + torch.einsum("bhqd,bkd->bhqk", q_rope.to(torch.float32), krope)) * scale
     probs = torch.softmax(logits, dim=-1)
     # attend in the latent space, then absorb W_uv
     o_lat = torch.einsum("bhqk,bkr->bhqr", probs, ckv)           # (B, H, 1, kv_lora)
-    wv_b = params["wv_b"].to(torch.float32).view(cfg.kv_lora_rank, h, cfg.v_dim)
-    o = torch.einsum("bhqr,rhd->bhqd", o_lat, wv_b)               # (B, H, 1, v)
-    o = o.transpose(1, 2).reshape(b, 1, h * cfg.v_dim).to(x.dtype)
-    return dense(params["wo"], o), cache_ckv, cache_krope
+    wv = wv_b.to(torch.float32).view(cfg.kv_lora_rank, h, cfg.v_dim)
+    return torch.einsum("bhqr,rhd->bhqd", o_lat, wv)              # (B, H, 1, v)

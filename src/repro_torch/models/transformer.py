@@ -41,7 +41,14 @@ layer kind (GQA, windowed, MoE, MLA); on the card the attention
 backward takes the head widths of ``flash_attention``'s ``BWD_DIMS`` and
 MLA's (192, 128) pair (``BWD_PAIRS``).
 
-Not ported: the reference's sharding hooks (``shard_act`` and friends).
+The reference's sharding hooks keep its names and its Identity
+defaults: ``shard_act`` (the (B, S, d) residual), ``shard_qkv`` (q, k,
+v as (B, H, S, D)), ``shard_layer_params`` (a layer's parameters) and
+``shard_logits`` (the loss's chunk logits).  ``launch.steps`` makes them
+for a ``DeviceMesh`` (``lm_train_step(..., mesh=)`` and the serving
+steps): the parameters are then DTensors and each hook redistributes to
+the reference's layout.  The port has no stacked layer axis, so
+``shard_layer_params`` is called on each layer's own tree.
 """
 
 from __future__ import annotations
@@ -56,12 +63,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from .layers import apply_rope, blockwise_attention, chunked_cross_entropy, cross_entropy_loss, dense, rmsnorm, swiglu
+from ..distributed.sharding import is_dtensor
+from .layers import (apply_rope, blockwise_attention, cache_write, chunked_cross_entropy, cross_entropy_loss, dense,
+                     rmsnorm, split_heads, swiglu, whole)
 from .mla import MLAConfig, mla_attention, mla_decode_step, mla_shapes
 from .moe import MoEConfig, moe_apply, moe_shapes
 
+
+def Identity(x):
+    return x
+
+
 __all__ = [
-    "TransformerConfig", "Transformer", "transformer_init", "transformer_from_jax",
+    "Identity", "TransformerConfig", "Transformer", "transformer_init", "transformer_from_jax",
     "transformer_hidden", "transformer_forward", "transformer_loss", "transformer_prefill",
     "make_cache", "transformer_decode_step", "make_cache_windowed", "transformer_decode_step_windowed",
 ]
@@ -259,16 +273,14 @@ def transformer_from_jax(params, cfg: TransformerConfig, device=None) -> Transfo
 # ---------------------------------------------------------------------------
 
 
-def _heads(x, b, s, n, d):
-    """(B, S, n*d) -> the (B, n, S, d) view the kernel reads in place."""
-    return x.view(b, s, n, d).transpose(1, 2)
-
-
-def _gqa_attend(p, cfg: TransformerConfig, h, positions, *, window):
+def _gqa_attend(p, cfg: TransformerConfig, h, positions, *, window, shard_act=Identity, shard_qkv=Identity):
     b, s, _ = h.shape
-    q = _heads(dense(p["wq"], h), b, s, cfg.n_heads, cfg.d_head)
-    k = _heads(dense(p["wk"], h), b, s, cfg.kv_heads, cfg.d_head)
-    v = _heads(dense(p["wv"], h), b, s, cfg.kv_heads, cfg.d_head)
+    q = split_heads(dense(p["wq"], h), b, s, cfg.n_heads, cfg.d_head)
+    k = split_heads(dense(p["wk"], h), b, s, cfg.kv_heads, cfg.d_head)
+    v = split_heads(dense(p["wv"], h), b, s, cfg.kv_heads, cfg.d_head)
+    # the reference's Ulysses layout switch: the residual is sequence-sharded,
+    # attention runs head-sharded with the whole sequence local
+    q, k, v = shard_qkv(q), shard_qkv(k), shard_qkv(v)
     q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
     k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     o = blockwise_attention(q, k, v, causal=True, window=window, kv_block=cfg.kv_block)
@@ -282,27 +294,56 @@ def _ffn(p, cfg: TransformerConfig, x, moe_aux=None):
     if "moe" not in p:
         return swiglu(p["ffn"], x)
     b, s, d = x.shape
+    x = whole(x, 1)  # (B, S) flattens to tokens split as the batch is
     y, aux = moe_apply(p["moe"], cfg.moe, x.reshape(b * s, d))
     if moe_aux is not None:
         moe_aux.append(aux)
     return y.view(b, s, d)
 
 
-def _layer_forward(p, cfg: TransformerConfig, h, positions, window, moe_aux=None):
+def _layer_forward(p, cfg: TransformerConfig, h, positions, window, moe_aux=None, shard_act=Identity,
+                   shard_layer_params=Identity, shard_qkv=Identity):
+    p = shard_layer_params(p)
     x = rmsnorm(p["ln1"], h)
     if cfg.attention == "mla":
         attn_out, _ = mla_attention(p["attn"], cfg.mla, x, positions)
     else:
-        attn_out, _ = _gqa_attend(p["attn"], cfg, x, positions, window=window)
-    h = h + attn_out
-    return h + _ffn(p, cfg, rmsnorm(p["ln2"], h), moe_aux)
+        attn_out, _ = _gqa_attend(p["attn"], cfg, x, positions, window=window, shard_act=shard_act,
+                                  shard_qkv=shard_qkv)
+    # each branch laid out as the residual before the sum, so that the sum's
+    # gradient reaches the branch in its own layout (a DTensor redistribution)
+    h = shard_act(h + shard_act(attn_out))
+    return shard_act(h + shard_act(_ffn(p, cfg, rmsnorm(p["ln2"], h), moe_aux)))
+
+
+def _embed(embed, tokens, dtype):
+    """The rows of ``embed`` (V, D) for ``tokens``, in ``dtype``.  On
+    DTensors each rank looks its own batch rows up in the table gathered
+    over the vocabulary (its split of D kept): a ``local_map``, whose
+    gradient is each rank's scatter of its rows (a ``Partial`` sum over
+    the ranks that split the batch)."""
+    if not is_dtensor(embed):
+        return embed.to(dtype)[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tok = tokens.placements
+    table = tuple(Shard(1) if p.is_shard(1) else Replicate() for p in embed.placements)
+    grad = tuple(t if t.is_shard(1) else (Partial() if b.is_shard(0) else Replicate()) for t, b in zip(table, tok))
+    out = [Shard(0) if b.is_shard(0) else (Shard(2) if t.is_shard(1) else Replicate()) for t, b in zip(table, tok)]
+    return local_map(lambda e, t: e.to(dtype)[t], out_placements=out, in_placements=(table, tok),
+                     in_grad_placements=(grad, tok), device_mesh=embed.device_mesh,
+                     redistribute_inputs=True)(embed, tokens)
 
 
 def _tokens(tokens, device):
+    if is_dtensor(tokens):  # a sharded step's batch: already where its ranks hold it
+        return tokens.long()
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _hidden(params: Transformer, cfg: TransformerConfig, tokens, moe_aux: Optional[list] = None):
+def _hidden(params: Transformer, cfg: TransformerConfig, tokens, moe_aux: Optional[list] = None, *,
+            shard_act=Identity, shard_layer_params=Identity, shard_qkv=Identity):
     """The backbone in the caller's grad mode -> final hidden states (B,
     S, D) after ln_f; with grad enabled and ``cfg.remat`` each layer
     runs under ``torch.utils.checkpoint`` (``moe_aux`` is then left
@@ -310,52 +351,61 @@ def _hidden(params: Transformer, cfg: TransformerConfig, tokens, moe_aux: Option
     _check_supported(cfg)
     tokens = _tokens(tokens, params.embed.device)
     b, s = tokens.shape
-    h = params.embed.to(cfg.dtype)[tokens]
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    h = shard_act(_embed(params.embed, tokens, cfg.dtype))
+    positions = torch.arange(s, device=params.embed.device).expand(b, s)
     remat = cfg.remat and torch.is_grad_enabled()
     layers = [(p, None) for p in params.prefix_layers] + list(zip(params.layers, _windows(cfg)))
+    hooks = dict(shard_act=shard_act, shard_layer_params=shard_layer_params, shard_qkv=shard_qkv)
     for p, window in layers:
         if remat:
             h = checkpoint(_layer_forward, p, cfg, h, positions, window, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **hooks)
         else:
-            h = _layer_forward(p, cfg, h, positions, window, moe_aux)
+            h = _layer_forward(p, cfg, h, positions, window, moe_aux, **hooks)
     return rmsnorm(params.ln_f, h)
 
 
 @torch.inference_mode()
-def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
+def transformer_hidden(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None,
+                       shard_act=Identity, shard_layer_params=Identity, shard_qkv=Identity):
     """Backbone forward -> final hidden states (B, S, D) after ln_f.
     ``moe_aux``, a list, receives each MoE layer's aux dict in layer
     order (the reference drops them)."""
-    return _hidden(params, cfg, tokens, moe_aux)
+    return _hidden(params, cfg, tokens, moe_aux, shard_act=shard_act, shard_layer_params=shard_layer_params,
+                   shard_qkv=shard_qkv)
 
 
 @torch.inference_mode()
-def transformer_forward(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
+def transformer_forward(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None,
+                        shard_act=Identity, shard_layer_params=Identity):
     """Forward -> logits (B, S, V)."""
-    return dense(params.lm_head, _hidden(params, cfg, tokens, moe_aux))
+    return dense(params.lm_head, _hidden(params, cfg, tokens, moe_aux, shard_act=shard_act,
+                                         shard_layer_params=shard_layer_params))
 
 
-def transformer_loss(params: Transformer, cfg: TransformerConfig, tokens, labels, *, ce_chunk: Optional[int] = None):
+def transformer_loss(params: Transformer, cfg: TransformerConfig, tokens, labels, *, ce_chunk: Optional[int] = None,
+                     shard_act=Identity, shard_layer_params=Identity, shard_logits=None, shard_qkv=Identity):
     """Mean next-token cross-entropy, in the caller's grad mode (the
     training objective: differentiable with respect to every parameter
     that requires a gradient).  ``ce_chunk``: the loss over sequence
     chunks of that length, each recomputed in the backward
-    (``chunked_cross_entropy``); else over the whole (B, S, V) logits."""
-    h = _hidden(params, cfg, tokens)
-    labels = _tokens(labels, h.device)
+    (``chunked_cross_entropy``, its logits laid out by
+    ``shard_logits``); else over the whole (B, S, V) logits."""
+    h = _hidden(params, cfg, tokens, shard_act=shard_act, shard_layer_params=shard_layer_params,
+                shard_qkv=shard_qkv)
+    labels = _tokens(labels, params.embed.device)
     if ce_chunk:
-        return chunked_cross_entropy(params.lm_head, h, labels, chunk=ce_chunk)
+        return chunked_cross_entropy(params.lm_head, h, labels, chunk=ce_chunk, shard_logits=shard_logits)
     return cross_entropy_loss(dense(params.lm_head, h), labels)
 
 
 @torch.inference_mode()
-def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None):
+def transformer_prefill(params: Transformer, cfg: TransformerConfig, tokens, *, moe_aux: Optional[list] = None,
+                        shard_act=Identity, shard_layer_params=Identity):
     """Prefill: full-sequence forward returning the last position's
     logits (B, V).  As in the reference, it fills no cache."""
-    h = _hidden(params, cfg, tokens, moe_aux)
-    return dense(params.lm_head, h[:, -1])
+    h = _hidden(params, cfg, tokens, moe_aux, shard_act=shard_act, shard_layer_params=shard_layer_params)
+    return dense(params.lm_head, whole(h, 1)[:, -1])
 
 
 # ---------------------------------------------------------------------------
@@ -397,9 +447,9 @@ def _decode_qkv(a, cfg: TransformerConfig, x, cur_len: int):
     """The step's q (B, Hq, 1, Dh), k and v (B, Hkv, 1, Dh), RoPE at
     position ``cur_len``."""
     b = x.shape[0]
-    q = _heads(dense(a["wq"], x), b, 1, cfg.n_heads, cfg.d_head)
-    k = _heads(dense(a["wk"], x), b, 1, cfg.kv_heads, cfg.d_head)
-    v = _heads(dense(a["wv"], x), b, 1, cfg.kv_heads, cfg.d_head)
+    q = split_heads(dense(a["wq"], x), b, 1, cfg.n_heads, cfg.d_head)
+    k = split_heads(dense(a["wk"], x), b, 1, cfg.kv_heads, cfg.d_head)
+    v = split_heads(dense(a["wv"], x), b, 1, cfg.kv_heads, cfg.d_head)
     pos = torch.full((b, 1), cur_len, dtype=torch.long, device=x.device)
     return apply_rope(q, pos[:, None, :], cfg.rope_theta), apply_rope(k, pos[:, None, :], cfg.rope_theta), v
 
@@ -413,10 +463,11 @@ def _decode_out(p, cfg: TransformerConfig, h, o):
 
 def _gqa_decode_layer(p, cfg: TransformerConfig, h, k_cache, v_cache, cur_len: int, window):
     """h (B, 1, d); k/v_cache (B, Hkv, S, Dh), written in place at
-    ``cur_len``; attention reads the prefix of ``cur_len + 1`` keys."""
+    ``cur_len`` (``layers.cache_write``: on a sequence-sharded DTensor
+    cache by its owning rank, then the layer's keys gathered);
+    attention reads the prefix of ``cur_len + 1`` keys."""
     q, k, v = _decode_qkv(p["attn"], cfg, rmsnorm(p["ln1"], h), cur_len)
-    k_cache[:, :, cur_len] = k[:, :, 0].to(k_cache.dtype)
-    v_cache[:, :, cur_len] = v[:, :, 0].to(v_cache.dtype)
+    k_cache, v_cache = cache_write(k_cache, 2, cur_len, k), cache_write(v_cache, 2, cur_len, v)
     o = blockwise_attention(
         q, k_cache, v_cache, causal=True, window=window,
         q_offset=cur_len, kv_block=cfg.kv_block, valid_len=cur_len + 1,
@@ -431,27 +482,30 @@ def _mla_decode_layer(p, cfg: TransformerConfig, h, ckv, krope, cur_len: int):
 
 
 @torch.inference_mode()
-def transformer_decode_step(params: Transformer, cfg: TransformerConfig, token, cache, cur_len):
+def transformer_decode_step(params: Transformer, cfg: TransformerConfig, token, cache, cur_len, *,
+                            shard_act=Identity):
     """One decode step: token (B, 1), ``cur_len`` tokens already cached
     -> (logits (B, V), cache).
 
     The cache is updated in place (``k_cache[..., cur_len, :] = k``; MLA:
     ``ckv[:, cur_len] = c_kv``) and the same dict is returned; the
-    reference returns a new cache built by ``dynamic_update_slice``."""
+    reference returns a new cache built by ``dynamic_update_slice``.
+    ``shard_act`` lays out the residual after the embedding and after
+    each stacked layer, as the reference's scan body does."""
     _check_supported(cfg)
     cur_len = int(cur_len)
     token = _tokens(token, params.embed.device)
-    h = params.embed.to(cfg.dtype)[token]
+    h = shard_act(_embed(params.embed, token, cfg.dtype))
     if cfg.attention == "mla":
         for i, p in enumerate(params.prefix_layers):
             h = _mla_decode_layer(p, cfg, h, cache["prefix_ckv"][i], cache["prefix_krope"][i], cur_len)
         for i, p in enumerate(params.layers):
-            h = _mla_decode_layer(p, cfg, h, cache["ckv"][i], cache["krope"][i], cur_len)
+            h = shard_act(_mla_decode_layer(p, cfg, h, cache["ckv"][i], cache["krope"][i], cur_len))
     else:
         for i, p in enumerate(params.prefix_layers):
             h = _gqa_decode_layer(p, cfg, h, cache["prefix_k"][i], cache["prefix_v"][i], cur_len, None)
         for i, (p, window) in enumerate(zip(params.layers, _windows(cfg))):
-            h = _gqa_decode_layer(p, cfg, h, cache["k"][i], cache["v"][i], cur_len, window)
+            h = shard_act(_gqa_decode_layer(p, cfg, h, cache["k"][i], cache["v"][i], cur_len, window))
     h = rmsnorm(params.ln_f, h)
     return dense(params.lm_head, h)[:, 0], cache
 

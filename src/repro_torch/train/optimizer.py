@@ -30,6 +30,14 @@ The state trees keep the reference's keys and order (``{"m", "v",
 "step"}``, ``{"mu", "step"}``); weight decay applies to every leaf, as
 in the reference; the update math is fp32 and the state has
 ``state_dtype``.
+
+DTensor leaves (a sharded step's parameters, gradients and moments,
+each gradient, ``m`` and ``v`` with its parameter's placements): the
+updates are elementwise, so Adam's ``apply`` runs on each rank's local
+shards (``to_local()``, views of the DTensors' storage); ``global_norm``
+sums each leaf's local squares on the ranks at coordinate 0 of every
+mesh axis the leaf is replicated over (each element counted once), then
+crosses ranks in one all-reduce.
 """
 
 from __future__ import annotations
@@ -122,14 +130,41 @@ def apply_updates(params: PyTree, updates: PyTree) -> PyTree:
     return params
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage); a tensor itself."""
+    return x.to_local() if hasattr(x, "device_mesh") else x
+
+
+def _counted_here(x) -> bool:
+    """Whether this rank adds a DTensor leaf's local squares to the norm:
+    at coordinate 0 of each mesh axis the leaf is replicated over."""
+    if any(p.is_partial() for p in x.placements):
+        raise ValueError("a gradient with a Partial placement: redistribute it to its parameter's first")
+    mesh = x.device_mesh
+    return all(mesh.get_local_rank(i) == 0 for i, p in enumerate(x.placements) if p.is_replicate())
+
+
 @torch.no_grad()
 def global_norm(tree: PyTree) -> torch.Tensor:
     """sqrt(sum over leaves of sum(x^2)), in fp32 (a 0-d tensor on the leaves' device);
-    one fp32 copy of a leaf at a time, squared in place."""
-    total = None
+    one fp32 copy of a leaf at a time, squared in place.  On DTensor
+    leaves each element is counted once and the sum crosses ranks in one
+    all-reduce (the module docstring)."""
+    total, mesh = None, None
     for x in tree_leaves(tree):
-        sq = torch.sum(x.to(F32, copy=True).square_())
+        if hasattr(x, "device_mesh"):
+            mesh = x.device_mesh
+            if not _counted_here(x):
+                continue
+        sq = torch.sum(_local(x).to(F32, copy=True).square_())
         total = sq if total is None else total + sq
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if mesh.size() != dist.get_world_size():
+            raise ValueError("a sharded global norm takes a mesh over every rank of the process group")
+        total = torch.zeros((), dtype=F32, device=mesh.device_type) if total is None else total
+        dist.all_reduce(total)
     return torch.sqrt(total)
 
 
@@ -141,7 +176,7 @@ def clip_by_global_norm(tree: PyTree, max_norm: float) -> Tuple[PyTree, torch.Te
     leaves come out fp32)."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    leaves = tree_leaves(tree)
+    leaves = [_local(x) for x in tree_leaves(tree)]
     if leaves:
         torch._foreach_mul_(leaves, scale)
     return tree, norm
@@ -225,6 +260,9 @@ def _adam_core(lr, b1, b2, eps, weight_decay, state_dtype=F32) -> Optimizer:
         a = _Adam(step, lr_fn, b1, b2, eps, weight_decay)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]), tree_leaves(state["v"]),
                               tree_leaves(params)):
+            if hasattr(p, "device_mesh") and not (g.placements == m.placements == v.placements == p.placements):
+                raise ValueError("a gradient or moment laid out otherwise than its parameter")
+            g, m, v, p = (_local(x) for x in (g, m, v, p))  # one placement: the update runs on the local shards
             for gb, mb, vb, pb in zip(*(row_blocks(x, CHUNK_BYTES) for x in (g.contiguous(), m, v, p))):
                 u = a.step_of(*a.moments(gb, mb, vb), pb if weight_decay else None)
                 pb.add_(u.to(pb.dtype))  # apply_updates' rounding: u cast to the parameter's dtype, then added

@@ -168,5 +168,33 @@ def test_moe_refuses_what_it_cannot_run():
     p = tm.moe_init(0, tcfg, device="cpu")
     with pytest.raises(ValueError, match="groups"):
         tm.moe_apply(p, tcfg, torch.zeros(32, 32))
-    with pytest.raises(NotImplementedError, match="shard_tokens"):
-        tm.moe_apply(p, dataclasses.replace(tcfg, groups=1, shard_tokens=lambda x: x), torch.zeros(32, 32))
+
+
+HOOKS = ("shard_tokens", "shard_entries", "shard_dispatch", "shard_buffers")
+
+
+def test_moe_calls_each_hook_on_the_reference_shapes():
+    """The four sharding hooks are called, at groups 2, on the shapes the
+    reference passes them: the tokens (G, Tg, d), the entries (G, T·k,
+    d), and the (G, E, C, d) buffers (``shard_dispatch`` and
+    ``shard_buffers``, each before and after the experts); identity hooks
+    leave the output as it is without them."""
+    jcfg, tcfg = _cfgs(groups=2, n_experts=4, top_k=2)
+    jparams = jm.moe_init(jax.random.PRNGKey(4), jcfg)
+    x = np.random.default_rng(4).standard_normal((32, 32)).astype(np.float32)
+    seen, jseen = {h: [] for h in HOOKS}, {h: [] for h in HOOKS}
+
+    def recorder(store, name):
+        return lambda a: store[name].append(tuple(a.shape)) or a
+
+    out, _ = tm.moe_apply(_port_params(jparams, tcfg), dataclasses.replace(
+        tcfg, **{h: recorder(seen, h) for h in HOOKS}), torch.from_numpy(x))
+    jm.moe_apply(jparams, dataclasses.replace(jcfg, **{h: recorder(jseen, h) for h in HOOKS}), jnp.asarray(x))
+    cap = tm._capacity(16, tcfg)
+    want = {"shard_tokens": {(2, 16, 32)}, "shard_entries": {(2, 32, 32)},
+            "shard_dispatch": {(2, 4, cap, 32)}, "shard_buffers": {(2, 4, cap, 32)}}
+    for h in HOOKS:
+        assert seen[h] and set(seen[h]) == set(jseen[h]) == want[h], (h, seen[h], jseen[h])
+    assert len(seen["shard_dispatch"]) == len(seen["shard_buffers"]) == 2
+    plain, _ = tm.moe_apply(_port_params(jparams, tcfg), tcfg, torch.from_numpy(x))
+    assert torch.equal(out, plain)
