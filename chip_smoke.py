@@ -82,8 +82,9 @@ Phases (each prints one JSON line; any failure exits nonzero):
    within ``LM_REL_L2`` / ``LM_MAX_ABS``; greedy tokens that forward
    would pick otherwise are counted; the decode mapping held to the
    plain version on the filled cache's own prefix views (layers 0 and
-   31, 1 to 1088 keys, as ``_gqa_decode_layer`` passes them); the
-   weights are freed.  Then ``flash_attention`` against its plain
+   31, 1 to 1088 keys, as ``_gqa_decode_layer`` passes them); decode
+   steps with the attention operator paired with steps through its raw
+   launch function (``decode_operator_cost``); the weights are freed.  Then ``flash_attention`` against its plain
    version in bf16 at the prefill row (B 4, Hq 32, Hkv 8, S 4096, D 128,
    causal), the decode row (B 16, Sq 1, Sk 32768) and the decode path's
    own shape (B 4, Sk 1088), timed beside the plain version and
@@ -182,9 +183,8 @@ Phases (each prints one JSON line; any failure exits nonzero):
    over the core rows that K3 and the later rounds' K2 need);
 13. lm_zoo: the rest of the LM zoo in bf16, weights drawn on the card by
    ``transformer_init(0, cfg)``, one model at a time (each freed before
-   the next loads): gemma3-27b (62 layers, window 1024, 5:1
-   local:global) and granite-20b (52 layers, MQA) at full width and
-   depth; grok-1-314b (8 experts, top-2) at full width with its depth
+   the next loads): gemma3-27b (window 1024, 5:1 local:global) and
+   granite-20b (52 layers, MQA) at full width and depth; grok-1-314b (8 experts, top-2) at full width with its depth
    cut to 4 of 64 layers (39.7 GiB) and deepseek-v2-236b (MLA, 160
    experts top-6 and 2 shared) at full width cut to 5 of 60 layers (1
    dense prefix + 4 MoE, 32.2 GiB), the weights that fit one card.
@@ -192,9 +192,11 @@ Phases (each prints one JSON line; any failure exits nonzero):
    (cut from ``prefill_32k``'s 32 x 32768; warmed, then timed; MoE at the
    published capacity 1.25 with each layer's ``drop_fraction``); a
    prompt fed a token a step and 32 greedy tokens at B 2 (cut from
-   ``decode_32k``'s 128 x 32768): gemma3 the first 1,152 tokens through
-   ``transformer_decode_step_windowed`` into 1,024-slot rings (they
-   wrap), the others 256 through ``transformer_decode_step``; MoE models
+   ``decode_32k``'s 128 x 32768): gemma3 1,152 tokens into 1,024-slot
+   rings, the first ``ZOO_RING_FILL`` (1,008) through
+   ``transformer_prefill_windowed`` and the rest a step each through
+   ``transformer_decode_step_windowed`` (the rings wrap at 1,024), the
+   others 256 through ``transformer_decode_step``; MoE models
    decode and are checked at the no-drop capacity ``n_experts / top_k``
    (a dropped entry makes forward differ from decode); decode against
    prefill at the last prompt position and against forward at 16
@@ -269,8 +271,9 @@ Phases (each prints one JSON line; any failure exits nonzero):
    ``molecule`` (128 graphs): each one step on a small batch held to a
    CPU copy (``TRAIN_STEP_TOL``: every gradient, relative L2 per leaf,
    then the loss and the updated parameters), then a warm-up and three timed steps
-   (rows/s, edges/s).  ``ogb_products`` waits for A12b (its shape-only
-   cell and ``build_gnn_train``'s edge sharding);
+   (rows/s, edges/s).  ``ogb_products`` is not trained on one card: its
+   cell (``build_gnn_train``, the edges split over a mesh) is traced in
+   phase 16's dry run;
 15. plane: the sharded index plane (``repro_torch.distributed``) on the
    whole MS-150k set (152,185 x 768) at eps 0.55, tau 5, alpha 1.5, with
    phase 3's estimator's predictions computed once and handed to every
@@ -324,11 +327,27 @@ Phases (each prints one JSON line; any failure exits nonzero):
    card (the static checks, LAF104 on two gloo ranks, LAF103's
    sync-debug probe and LAF105 and LAF108 on CUDA), no library is built
    after phase 2 (``kernels._build.BUILDS``), the operators' dispatch
-   cost is timed against their raw launch functions, and the full dry
-   run (``python -m repro_torch.launch.dryrun --all --mesh both``: 16
-   cluster records on 256 and 512 fake ranks, every one ``ok``) is
-   written under ``artifacts/dryrun_torch`` with its roofline table
-   printed.  No fallback.
+   cost is timed against their raw launch functions.  The model cells
+   (A12b, ``launch.steps.build_cell``, world 1 over NCCL, the launch
+   counts set to 0 just before each and read just after): llama3-8b's
+   ``train_4k`` cell at full width, 2 of 32 layers, B 2 x 2,048, bf16,
+   against the single-device ``lm_train_step`` from the same weights
+   (``CELL_TOL``), then the same cell traced on ``meta`` tensors: its
+   ``flash_attention`` and ``flash_attention_bwd`` launches equal the
+   card's, and the trace's peak live bytes are printed beside the card's
+   (the arguments plus ``max_memory_allocated`` over the step) with their
+   ratio; bst's ``retrieval_cand`` cell at full width (10^6 candidates)
+   against the single-device user tower and ``retrieval_scores``, its
+   ``embedding_bag`` launch equal to the trace's; gat-cora's
+   ``full_graph_sm`` cell against ``gnn_train_step``; the new
+   operators' dispatch cost against their raw launch functions (and
+   beside a form of the attention launch that mutates its log-sum-exp
+   buffer).  Then
+   the dry run (``python -m repro_torch.launch.dryrun``): every cluster
+   record on 256 and 512 fake ranks (16, every one ``ok``) and the model
+   cells of ``CELL_DRYRUN`` on 256 (``CELL_DRYRUN_LEFT`` is left to the
+   CPU run, which writes all of them), under ``artifacts/dryrun_torch``
+   with the roofline tables printed.  No fallback.
 17. sharded_lm (``sharded_lm_phase``): the LM steps sharded over the
    ranks of a ``("data", "model")`` mesh (``launch.steps`` with
    ``mesh=``: DTensor parameters, optimizer state, activations and KV
@@ -373,6 +392,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import logging
@@ -522,8 +542,15 @@ SERVE_QUERIES, SERVE_SINGLE_CALLS, EVICT_FRAC = 1024, 200, 0.05
 FLIP_MARGIN = 1e-5  # |dot - threshold| of a pair whose hit differs between the card and the CPU
 
 
+LINES = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # every emitted line, kept on disk beside the printed ones
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    LINES.parent.mkdir(exist_ok=True)
+    with open(LINES, "a") as f:
+        f.write(line + "\n")
 
 
 def fail(msg: str) -> int:
@@ -1596,6 +1623,7 @@ def lm_serve(dev):
             gap.pop("tolerance")
             on_cache.append({"layer": layer, "keys": n, **gap})
     del q, out
+    line["operator_vs_raw_launch"] = decode_operator_cost(model, cfg, generated[-1], cache, LM_PROMPT + LM_NEW - 1)
     checks = {
         "params_8030261248": n_params == 8_030_261_248 == cfg.param_count(),
         "prefill_launches_32": prefill_launches == cfg.n_layers,
@@ -1659,6 +1687,7 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True, d
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1678,18 +1707,11 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True, d
     del out, ref
     if not time_it:
         return ok, row
-    # unmasked (query, key) pairs of this shape: what the work needs
-    qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device="cuda")[None, :]
-    keep = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
-    if causal:
-        keep &= kpos <= qpos
-    if window is not None:
-        keep &= kpos > qpos - window
-    pairs = int(keep.sum())
-    flops = 2.0 * b * hq * pairs * (d + dv)
-    n_bytes = 2 * (b * hq * sq * (d + dv) + b * hkv * sk * (d + dv))
-    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    # the (query, key) pairs the mask keeps and the keys read: what the work needs
+    c = cost.attention_cost(b, hq, hkv, sq, sk, d, dv, causal=causal, window=window)
+    pairs = b * hq * cost.attention_span(sq, sk, causal, window)[0]
+    flops, n_bytes = c.ops, c.bytes
+    b_ms, b_by = c.bound_ms()
     fp32_ms, _ = bound_ms(n_bytes, flops, FP32_FLOPS)
     vp = F.pad(v, (0, d - dv)) if dv != d else None
 
@@ -1708,7 +1730,7 @@ def flash_row(name, b, hq, hkv, sq, sk, d, causal, window, seed, time_it=True, d
                     "library_queued_ms": queued_ms(library)})
     if dv != d:
         row.update({"library_v_own_width_ms": lib, "library_v_padded_ms": lib_padded,
-                    "two_term_floor_ms": bound_ms(n_bytes, 2.0 * b * hq * pairs * (d + 2 * dv), BF16_FLOPS)[0]})
+                    "two_term_floor_ms": bound_ms(n_bytes, 2.0 * pairs * (d + 2 * dv), BF16_FLOPS)[0]})
         lib = min(lib, lib_padded)
     row.update({"flops": flops, "bytes": n_bytes, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "plain_ms": plain,
                 "library_ms": lib, "library": "F.scaled_dot_product_attention(enable_gqa=True), bf16",
@@ -1753,6 +1775,46 @@ def host_ms(fn, reps: int, warmup: int = 2):
     return float(np.median(times)), times
 
 
+@contextlib.contextmanager
+def raw_attention_launch():
+    """``flash_attention`` calling its raw launch function in place of the
+    operator ``repro_torch::flash_attention`` (the same launch and count)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    op = ops._attention_op
+    ops._attention_op = op._init_fn
+    try:
+        yield
+    finally:
+        ops._attention_op = op
+
+
+def decode_operator_cost(model, cfg, token, cache, pos, steps: int = 32) -> dict:
+    """Decode steps at ``pos`` (the cache's last position, written again
+    with the token it holds) with the attention operator and with its raw
+    launch function, one of each in turn, ``steps`` each, each synced:
+    the operator's dispatch as the path feels it (its median of the
+    paired differences beside the medians: the host's speed drifts over
+    seconds)."""
+    import torch
+
+    from repro_torch.models.transformer import transformer_decode_step
+
+    ms = {"operator": [], "raw_launch": []}
+    for i in range(2 * steps + 2):
+        kind = "raw_launch" if i % 2 else "operator"
+        with raw_attention_launch() if kind == "raw_launch" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            transformer_decode_step(model, cfg, token, cache, pos)
+            torch.cuda.synchronize()
+            if i >= 2:  # one warm step of each
+                ms[kind].append(1e3 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    paired = [a - b for a, b in zip(ms["operator"], ms["raw_launch"])]
+    return {"step_ms_median": med, "step_ms": ms, "added_ms_per_step_median_of_pairs": float(np.median(paired)),
+            "attention_calls_per_step": cfg.n_layers}
+
+
 def recsys_gap(card, cpu):
     """(ok, fields) of the card's fp32 output against the CPU's."""
     card, cpu = card.float().cpu(), cpu.float()
@@ -1770,6 +1832,7 @@ def eb_row(name, table, ids, combiner, time_it=True, library=None):
     V reads row V - 1), the ids read and the bags written once."""
     import torch
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
@@ -1787,9 +1850,9 @@ def eb_row(name, table, ids, combiner, time_it=True, library=None):
     if not time_it:
         return ok, row
     distinct = int(torch.unique(ids[ids >= 0].clamp(max=v - 1)).numel())
-    n_bytes = distinct * d * table.element_size() + 4 * (b * length + b * d)
-    gathered_bytes = valid * d * table.element_size() + 4 * (b * length + b * d)
-    b_ms, b_by = bound_ms(n_bytes)
+    n_bytes = cost.embedding_bag_cost(b, length, d, rows=distinct, elem=table.element_size()).bytes
+    gathered_bytes = cost.embedding_bag_cost(b, length, d, rows=valid, elem=table.element_size()).bytes
+    b_ms, b_by = cost.embedding_bag_cost(b, length, d, rows=distinct, elem=table.element_size()).bound_ms()
 
     def kernel():
         return embedding_bag(table, ids, combiner=combiner)
@@ -2561,10 +2624,13 @@ def evaluation_line(by_method, main, baselines):
 
 
 # phase 13: the rest of the LM zoo, one card each, bf16, weights drawn by
-# transformer_init(0, cfg) on the card; depth cut only where the weights
-# would not fit (grok-1: 4 of 64 layers, 39.7 GiB; deepseek-v2: 5 of 60,
-# 1 dense prefix + 4 MoE, 32.2 GiB); prefill 2 x 4096 and decode prompts
-# cut from prefill_32k / decode_32k to fit the run's time limit
+# transformer_init(0, cfg) on the card; depth cut where the weights would
+# not fit (grok-1: 4 of 64 layers, 39.7 GiB; deepseek-v2: 5 of 60, 1 dense
+# prefix + 4 MoE, 32.2 GiB); prefill 2 x 4096 and decode prompts cut
+# from prefill_32k / decode_32k.  gemma3-27b's prompt fills its rings by
+# the windowed prefill up to ZOO_RING_FILL and goes on a step each past
+# the ring's edge (1,152 prompt steps at full depth took 147-173 s,
+# host-bound)
 ZOO_PREFILL = (2, 4096)
 ZOO_CELLS = {
     # name: (layers kept or None, decode prompt tokens, greedy tokens, windowed decode)
@@ -2573,6 +2639,7 @@ ZOO_CELLS = {
     "grok-1-314b": (4, 256, 32, False),
     "deepseek-v2-236b": (5, 256, 32, False),
 }
+ZOO_RING_FILL = 1008    # windowed decode: prompt tokens through transformer_prefill_windowed (16 short of the ring)
 ZOO_MOE_TOKENS = 1024   # one MoE layer's tokens, bf16 against fp32 expert GEMMs
 PREFILL_TRIES = 8       # prompt positions, from the last back, for decode == prefill (MoE route flips)
 
@@ -2677,7 +2744,9 @@ def zoo_model(name, dev):
     ``ZOO_CELLS`` says), prefill of ``ZOO_PREFILL`` tokens (warmed, then
     timed; MoE: each layer's drop fraction at the published capacity),
     then a prompt fed a token a step (gemma3: ``make_cache_windowed``'s
-    rings, wrapped) and greedy tokens, each path with the launch count
+    rings, its first ``ZOO_RING_FILL`` tokens through
+    ``transformer_prefill_windowed``, then steps past the ring's edge)
+    and greedy tokens, each path with the launch count
     set to 0 just before it and read just after; decode against prefill
     at the last prompt position and against forward at 16 positions
     (MoE models decode and run these checks at the no-drop capacity
@@ -2752,15 +2821,28 @@ def zoo_model(name, dev):
     del toks
     step = tt.transformer_decode_step_windowed if windowed else tt.transformer_decode_step
     cache = (tt.make_cache_windowed if windowed else tt.make_cache)(dcfg, b, steps)
-    check_at = sorted(set(range(n_prompt // 16 - 1, n_prompt, n_prompt // 16))
-                      | ({cfg.window - 1, cfg.window, n_prompt - 1} if windowed else set()))[-16:]
+    fill = ZOO_RING_FILL if windowed else 0
+    if windowed:  # 16 positions from the first stepped one on, 1,023, 1,024 and the last among them
+        extras = {cfg.window - 1, cfg.window, n_prompt - 1}
+        check_at = sorted(extras | {int(t) for t in np.linspace(fill, n_prompt - 1, 16 - len(extras))})
+    else:
+        check_at = sorted(set(range(n_prompt // 16 - 1, n_prompt, n_prompt // 16)))[-16:]
     saved, step_s, step_launches, generated = {}, [], [], []
     n_moe = 0 if cfg.moe is None else cfg.n_layers - cfg.n_dense_layers
+    fill_s, fill_launches = 0.0, 0
+    if fill:
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = tt.transformer_prefill_windowed(model, dcfg, prompt[:, :fill], cache)
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        fill_launches = metrics.snapshot().get(counter, 0)
     metrics.reset()
     torch.cuda.synchronize()
     with route_log() as dec_log:
         t0 = time.perf_counter()
-        for t in range(n_prompt):
+        for t in range(fill, n_prompt):
             logits, cache = step(model, dcfg, prompt[:, t : t + 1], cache, t)
             if t in check_at or t >= n_prompt - PREFILL_TRIES:
                 saved[t] = logits.float()
@@ -2781,10 +2863,11 @@ def zoo_model(name, dev):
     step_ms = 1e3 * float(np.median(step_s))
     # flash_attention calls a step: one a GQA layer; MLA's absorbed decode calls none
     per_step = 0 if cfg.attention == "mla" else cfg.n_layers
-    line.update({"decode_batch": b, "cache_len": steps, "prompt_steps": n_prompt, "greedy_steps": n_new,
+    line.update({"decode_batch": b, "cache_len": steps, "prompt_steps": n_prompt - fill, "greedy_steps": n_new,
+                 "prompt_filled": fill, "fill_s": fill_s, "fill_launches": fill_launches,
                  "decode": "transformer_decode_step_windowed" if windowed else "transformer_decode_step",
                  "decode_capacity_factor": None if cfg.moe is None else dcfg.moe.capacity_factor,
-                 "prompt_s": prompt_s, "prompt_ms_per_step": 1e3 * prompt_s / n_prompt,
+                 "prompt_s": prompt_s, "prompt_ms_per_step": 1e3 * prompt_s / (n_prompt - fill),
                  "step_ms_median": step_ms, "step_ms_min": 1e3 * min(step_s), "step_ms_max": 1e3 * max(step_s),
                  "decode_tokens_per_s": b / (step_ms / 1e3), "decode_launches": decode_launches,
                  "launches_per_step": sorted(set(step_launches)), "peak_mem_bytes": torch.cuda.max_memory_allocated()})
@@ -2832,7 +2915,8 @@ def zoo_model(name, dev):
     checks = {
         "prefill_launches": prefill_launches == cfg.n_layers,
         "launches_per_step": set(step_launches) == {per_step},
-        "decode_launches": decode_launches == per_step * steps,
+        "decode_launches": decode_launches == per_step * (steps - fill),
+        "fill_launches": fill_launches == (cfg.n_layers if fill else 0),
         "decode_equals_prefill": rel_a <= LM_REL_L2 and abs_a <= LM_MAX_ABS and not bool(flip_pre.all()),
         "decode_equals_forward": (rel_b <= LM_REL_L2 and abs_b <= LM_MAX_ABS
                                   and 2 * int(keep_at.sum()) >= keep_at.numel()),
@@ -3090,6 +3174,7 @@ def bwd_row(name, shape, seed):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 
@@ -3134,10 +3219,10 @@ def bwd_row(name, shape, seed):
 
     fb, f_only = time_ms(sdpa_fwd_bwd, reps=5), time_ms(sdpa_fwd, reps=5)
     del ql, kl, vl
-    pairs = b * hq * s * (s + 1) // 2
-    flops = 2.0 * pairs * (3 * d + 2 * dv)
-    n_bytes = 2 * (2 * b * hq * s * (d + dv) + 2 * b * hkv * s * (d + dv)) + 4 * b * hq * s  # q, dq, o, dO; k, dk, v, dv; lse
-    b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS)
+    c = cost.attention_bwd_cost(b, hq, hkv, s, s, d, dv, causal=True)  # q, dq, o, dO; k, dk, v, dv; lse
+    pairs = b * hq * cost.attention_span(s, s, True)[0]
+    flops, n_bytes = c.ops, c.bytes
+    b_ms, b_by = c.bound_ms()
     row = {"name": name, "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d, "Dv": dv, "causal": True,
                                    "dtype": "bfloat16"},
            "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs, "tolerance": BWD_TOL,
@@ -3166,6 +3251,7 @@ def attention_bwd_rows():
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -3191,8 +3277,7 @@ def attention_bwd_rows():
     plain_f = time_ms(lambda: attention_ref(q, k, v, causal=True, return_lse=True), reps=2, warmup=1)
     del ref, lse_ref
     lib_f = time_ms(sdpa_fwd, reps=5)
-    fwd_flops = 4.0 * (b * hq * s * (s + 1) // 2) * d
-    fb_ms, fb_by = bound_ms(2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s, fwd_flops, BF16_FLOPS)
+    fb_ms, fb_by = cost.attention_cost(b, hq, hkv, s, s, d, d, causal=True, lse=True).bound_ms()
     lse_row = {"name": "flash_attention_lse", "shape": bwd["shape"], **gap, "lse_max_abs_err": lse_err,
                "ms": (w1 + w2) / 2, "ms_turns": [w1, w2], "queued_ms": qw,
                "ms_lse_not_written": (n1 + n2) / 2, "ms_lse_not_written_turns": [n1, n2],
@@ -3819,9 +3904,9 @@ def gnn_train(dev):
         torch.cuda.empty_cache()
     del csr, reddit
     gc.collect()
-    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "waits for A12b: the reference "
-                  "shards its 61.9 M edges over the mesh (build_gnn_train), and its (E, H, D) fp32 messages and "
-                  "their gradients come to about 40 GB"})
+    lines.append({"phase": "train_gnn", "shape": "ogb_products", "skipped": "not on one card: its cell "
+                  "(launch.steps.build_gnn_train) splits the 61.9 M edges over a mesh, and its (E, H, D) fp32 "
+                  "messages and their gradients come to about 40 GB; the dry run traces it (phase 16)"})
     return ok, lines
 
 
@@ -4269,8 +4354,16 @@ def dispatch_cost_us(dev, reps: int = 300) -> dict:
     labels = torch.arange(128, dtype=torch.int32, device=dev)
     rows = torch.full((64,), 2**31 - 1, dtype=torch.int32, device=dev)
     out = torch.empty(64, dtype=torch.int32, device=dev)
-    calls = {"row_popcount": (_row_popcount_op, (words, None, None)),
-             "label_prop_rect": (_label_prop_rect_op, (rows, labels, words, out, None, False))}
+    return _dispatch_cost({"row_popcount": (_row_popcount_op, (words, None, None)),
+                           "label_prop_rect": (_label_prop_rect_op, (rows, labels, words, out, None, False))}, reps)
+
+
+def _dispatch_cost(calls: dict, reps: int) -> dict:
+    """{name: op_us, raw_us, added_us} of ``calls`` ({name: (operator,
+    args)}): the operator and its ``_init_fn`` each timed back to back over
+    ``reps`` calls, in turns (op, raw, op, raw), synchronized at both ends."""
+    import torch
+
     res = {}
     for name, (op, a) in calls.items():
         t = {}
@@ -4343,6 +4436,278 @@ def frontier_parity(dc, dp, near, ham, q_flips, db_flips, gate_near, band):
     counts_ok = bool(((dc <= may.sum(dim=1)) | gate_near).all())
     partial_ok = bool((dp <= may.sum(dim=0)).all())
     return counts_ok, partial_ok, int(may.sum())
+
+
+# phase 16's model cells (A12b): ``launch.steps.build_cell``'s LM, recsys and
+# GNN cells on the card at world 1 (NCCL), each held to its single-device step
+CELL_LM = ("llama3-8b", 2, 2, 2048)  # (arch, layers kept of 32, batch rows, tokens a row): phase 17's cut
+CELL_LM_LOSS_REL, CELL_LM_NORM_REL = 1e-4, 1e-3
+CELL_REL, CELL_LEAF_REL = 1e-5, 1e-4
+CELL_TOL = (f"llama3-8b train cell (bf16) vs the single-device lm_train_step: loss |cell - single| <= "
+            f"{CELL_LM_LOSS_REL} |single|, grad norm <= {CELL_LM_NORM_REL} |single|; bst retrieval scores and the "
+            f"GAT step (fp32): loss and scores relative (L2) <= {CELL_REL}, updated leaves relative L2 <= "
+            f"{CELL_LEAF_REL}; the trace's launches equal the card's counters; the LM cell's trace-to-card peak "
+            f"ratio within [0.8, 1.25]")
+CELL_PEAK_RATIO = (0.8, 1.25)
+# the dry run's model cells on the card: the named subset on pod16x16 but
+# deepseek-v2-236b:train_4k, whose 60 layers x 16 microbatches trace in ~430 s
+# on a CPU (the full set is written on the CPU: PERF.md section 6)
+CELL_DRYRUN = ("llama3-8b:train_4k,llama3-8b:prefill_32k,llama3-8b:decode_32k,gemma3-27b:long_500k:windowed,"
+               "gat-cora:ogb_products,bst:train_batch,bst:serve_p99,bst:retrieval_cand")
+CELL_DRYRUN_CLUSTER = "laf_dbscan:nyt_150k,laf_dbscan:glove_150k,laf_dbscan:ms_150k,laf_dbscan:web_1b"
+CELL_DRYRUN_LEFT = "deepseek-v2-236b:train_4k (its trace takes ~430 s: the CPU run holds its record)"
+
+
+def _dict_bytes(tree) -> int:
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(_dict_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_dict_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) and tree.device.type != "cpu" else 0
+
+
+def _rel_l2(a, b) -> float:
+    import torch
+
+    a, b = torch.as_tensor(a).detach().double().cpu(), torch.as_tensor(b).detach().double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _launched() -> dict:
+    from repro_torch.obs import metrics
+
+    return {k: v for k, v in metrics.snapshot("kernel.").items() if k.endswith(".launches") and v}
+
+
+def _card_cell(cell, args):
+    """One call of ``cell.step_fn`` on the card with the launch counts set
+    to 0 just before and read just after: (outputs, launches, seconds,
+    the card's peak = the arguments' bytes + max_memory_allocated over the
+    call less what was allocated before it)."""
+    import torch
+
+    from repro_torch.obs import metrics
+
+    torch.cuda.synchronize()
+    metrics.reset()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, _launched(), seconds, _dict_bytes(args) + torch.cuda.max_memory_allocated() - before
+
+
+def cell_lm_train(mesh, dev) -> dict:
+    """llama3-8b ``train_4k``'s cell at full width, ``CELL_LM``'s depth and
+    batch, bf16: the cell's step on the card against the single-device
+    ``lm_train_step`` from the same weights and batch; then the same cell
+    traced on ``meta`` tensors (launches, peak)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.cell import shard_args
+    from repro_torch.launch.steps import build_cell, lm_optimizer, lm_train_step
+    from repro_torch.launch.trace_analysis import analyze_trace
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.optimizer import param_tree
+
+    name, layers, b, s = CELL_LM
+    arch = get_arch(name)
+    cfg = dataclasses.replace(arch.make_config(), n_layers=layers)
+    arch = dataclasses.replace(arch, make_config=lambda: cfg)
+    cell = build_cell(arch, ShapeSpec("train_4k", "train", {"seq_len": s, "global_batch": b}), mesh)
+    model = tt.transformer_init(0, cfg, device=dev)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in lm_batches(0, b, s, cfg.vocab)(0).items()}
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = lm_optimizer(cfg)
+    args = shard_args(cell, mesh, (params, opt.init(params), batch))
+    del params
+    (_, _, m), launches, seconds, card_peak = _card_cell(cell, args)
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    del args, m
+    torch.cuda.empty_cache()
+    tree = param_tree(model)
+    _, _, want = lm_train_step(model, cfg, tree, opt.init(tree), batch)
+    want_loss, want_norm = float(want["loss"]), float(want["grad_norm"])
+    del model, tree, want
+    torch.cuda.empty_cache()
+    tr = analyze_trace(cell.step_fn, *cell.args)
+    ratio = tr.peak_live_bytes / card_peak
+    ok = (abs(loss - want_loss) <= CELL_LM_LOSS_REL * abs(want_loss)
+          and abs(norm - want_norm) <= CELL_LM_NORM_REL * abs(want_norm)
+          and tr.launches == launches and not tr.error and CELL_PEAK_RATIO[0] <= ratio <= CELL_PEAK_RATIO[1])
+    return {"cell": cell.name, "layers": layers, "batch": [b, s], "seconds": seconds, "loss": loss,
+            "single_loss": want_loss, "grad_norm": norm, "single_grad_norm": want_norm, "launches": launches,
+            "trace_launches": tr.launches, "trace_peak_bytes": tr.peak_live_bytes, "card_peak_bytes": card_peak,
+            "peak_ratio": ratio, "trace_collectives": tr.collective_summary()["total"], "ok": ok}
+
+
+def cell_bst_retrieval(mesh, dev) -> dict:
+    """bst ``retrieval_cand``'s cell at full width (a 5,000,000 x 32 item
+    table, 1,000,000 candidates) against the single-device user tower and
+    ``retrieval_scores``; its ``embedding_bag`` launches against the
+    trace's."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cell import shard_args
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.trace_analysis import analyze_trace
+    from repro_torch.models import recsys
+
+    arch = get_arch("bst")
+    shape = arch.shapes["retrieval_cand"]
+    cfg = arch.make_config()
+    cell = build_cell(arch, shape, mesh)
+    model = recsys.bst_init(0, cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    hist = torch.randint(0, cfg.item_vocab, (shape.meta["batch"], cfg.seq_len), generator=g, device=dev,
+                         dtype=torch.int32)
+    cands = torch.randn((shape.meta["n_candidates"], cfg.embed_dim), generator=g, device=dev)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    args = shard_args(cell, mesh, (params, {"hist": hist, "target": hist[:, 0].contiguous()}, cands))
+    out, launches, seconds, _ = _card_cell(cell, args)
+    got = out.full_tensor() if hasattr(out, "full_tensor") else out
+    want = recsys.retrieval_scores(recsys.bst_user_embedding(model, cfg, hist), cands)
+    rel = _rel_l2(got, want)
+    tr = analyze_trace(cell.step_fn, *cell.args)
+    ok = rel <= CELL_REL and launches == tr.launches and bool(torch.isfinite(got).all()) and not tr.error
+    return {"cell": cell.name, "seconds": seconds, "scores_rel_l2": rel, "launches": launches,
+            "trace_launches": tr.launches, "ok": ok}
+
+
+def cell_gat(mesh, dev) -> dict:
+    """gat-cora ``full_graph_sm``'s cell (2,708 nodes, 10,556 edges of
+    ``powerlaw_graph``) against ``gnn_train_step`` from the same weights."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gat_cora import config_for_shape
+    from repro_torch.data.synthetic import powerlaw_graph
+    from repro_torch.launch.cell import shard_args
+    from repro_torch.launch.steps import build_cell, gnn_optimizer, gnn_train_step, pad_edges
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    arch = get_arch("gat-cora")
+    shape = arch.shapes["full_graph_sm"]
+    cfg = config_for_shape(shape.name)
+    cell = build_cell(arch, shape, mesh)
+    rng = np.random.default_rng(9)
+    graph = powerlaw_graph(rng, shape.meta["n_nodes"], shape.meta["n_edges"], shape.meta["d_feat"])
+    graph["label_mask"] = (rng.random(shape.meta["n_nodes"]) < 0.5).astype(np.float32)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in pad_edges(graph, mesh.size()).items()}
+    params = gnn.gat_init(0, cfg, device=dev)
+    mine = tree_map(lambda t: t.detach().clone(), params)
+    args = shard_args(cell, mesh, (mine, gnn_optimizer().init(mine), batch))
+    (new, _, m), _, seconds, _ = _card_cell(cell, args)
+    got = tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t, new)
+    want_params, _, want = gnn_train_step(cfg, params, gnn_optimizer().init(params), batch)
+    loss_rel = abs(float(m["loss"]) - float(want["loss"])) / abs(float(want["loss"]))
+    leaf_rel = max(_rel_l2(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want_params)))
+    ok = loss_rel <= CELL_REL and leaf_rel <= CELL_LEAF_REL
+    return {"cell": cell.name, "seconds": seconds, "loss": float(m["loss"]), "single_loss": float(want["loss"]),
+            "loss_rel": loss_rel, "leaf_rel_l2_max": leaf_rel, "ok": ok}
+
+
+_MUTATING = []
+
+
+def _mutating_attention_op():
+    """``flash_attention``'s launch behind an operator that writes the
+    log-sum-exp into a buffer it is given (``mutates_args``), registered
+    once, for ``model_dispatch_cost_us``'s comparison."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    if not _MUTATING:
+        @torch.library.custom_op("repro_smoke::flash_attention_lse_mutating", mutates_args=("lse",),
+                                 device_types="cuda", schema="(Tensor q, Tensor k, Tensor v, Tensor(a!) lse, "
+                                 "bool causal, int? window, float scale, int q_offset) -> Tensor")
+        def op(q, k, v, lse, causal, window, scale, q_offset):
+            return ops._launch(q, k, v, causal, window, scale, q_offset, lse)
+
+        _MUTATING.append(op)
+    return _MUTATING[0]
+
+
+def model_dispatch_cost_us(dev, reps: int = 300) -> dict:
+    """Microseconds each of phase 16's new operators (``flash_attention``,
+    ``flash_attention_lse``, ``flash_attention_bwd``, ``embedding_bag``)
+    adds over its raw launch function, as ``dispatch_cost_us`` times the
+    cluster operators; ``flash_attention_lse_mutating``: the same launch
+    behind an operator that mutates a log-sum-exp buffer it is given (the
+    form the operator first had); ``flash_attention`` also at the decode
+    path's shape under ``torch.inference_mode`` (the serving entry points'
+    mode), with a ``cProfile`` of those calls: the Python functions that
+    take the most time of their own."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    from repro_torch.kernels.embedding_bag.ops import _embedding_bag_op
+    from repro_torch.kernels.flash_attention.ops import _attention_bwd_op, _attention_lse_op, _attention_op
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 2, 128, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out, lse = _attention_lse_op(q, k, v, True, None, 0.088, 0)
+    dout = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+    table = torch.randn((1000, 32), generator=g, device=dev)
+    ids = torch.randint(0, 1000, (64, 8), generator=g, device=dev, dtype=torch.int32)
+    res = _dispatch_cost({
+        "flash_attention_lse_mutating": (_mutating_attention_op(), (q, k, v, lse, True, None, 0.088, 0)),
+        "flash_attention": (_attention_op, (q, k, v, True, None, 0.088, 0)),
+        "flash_attention_lse": (_attention_lse_op, (q, k, v, True, None, 0.088, 0)),
+        "flash_attention_bwd": (_attention_bwd_op, (q, k, v, out, lse, dout, True, None, 0.088, 0)),
+        "embedding_bag": (_embedding_bag_op, (table, ids, True)),
+    }, reps)
+    with torch.inference_mode():
+        b, sk = LM_PREFILL[0], LM_PROMPT + LM_NEW
+        qd = torch.randn((b, 32, 1, 128), generator=g, device=dev).to(torch.bfloat16)
+        kd, vd = (torch.randn((b, 8, sk, 128), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        call = (qd, kd, vd, True, None, 0.088, sk - 1)
+        res["flash_attention_decode_inference_mode"] = _dispatch_cost({"op": (_attention_op, call)}, reps)["op"]
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(reps):
+            _attention_op(*call)
+        prof.disable()
+        torch.cuda.synchronize()
+    buf = io.StringIO()
+    stats = pstats.Stats(prof, stream=buf)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]  # by time of its own
+    res["flash_attention_decode_inference_mode"]["profile_us_per_call"] = [
+        {"function": f"{fn[0].split('site-packages/')[-1]}:{fn[1]}({fn[2]})", "own_us": 1e6 * st[2] / reps,
+         "cumulative_us": 1e6 * st[3] / reps} for fn, st in top]
+    return res
+
+
+def model_cells(mesh, dev):
+    """Phase 16's model cells on the card (``cell_lm_train``,
+    ``cell_bst_retrieval``, ``cell_gat``) and the new operators' dispatch
+    cost.  Returns (ok, line fragment)."""
+    import torch
+
+    out = {"tolerance": CELL_TOL}
+    ok = True
+    for name, fn in (("llama3_8b_train", cell_lm_train), ("bst_retrieval", cell_bst_retrieval),
+                     ("gat_full_graph_sm", cell_gat)):
+        out[name] = fn(mesh, dev)
+        ok &= out[name]["ok"]
+        torch.cuda.empty_cache()
+    out["dispatch"] = model_dispatch_cost_us(dev)
+    return ok, out
 
 
 def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches):
@@ -4425,9 +4790,15 @@ def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches
             # the same two cells traced on fake tensors
             fake_f, fake_o = build_laf_cluster(arch, shape, mesh), build_one_launch_cluster(arch, shape, mesh)
             tf, to = analyze_trace(fake_f.step_fn, *fake_f.args), analyze_trace(fake_o.step_fn, *fake_o.args)
+            f_card_peak, o_card_peak = f_peak + _arg_bytes(f_args), o_peak + _arg_bytes(o_args)
+            del f_args, o_args, cpu_in, card, qf, dots
+            torch.cuda.empty_cache()
+            # the LM, recsys and GNN cells on the card, held to their single-device steps and traced
+            t0 = time.perf_counter()
+            cells_ok, cells_line = model_cells(mesh, dev)
+            cells_line["seconds"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
-    f_card_peak, o_card_peak = f_peak + _arg_bytes(f_args), o_peak + _arg_bytes(o_args)
     trace_ok = tf.launches == f_launches and to.launches == o_launches and not tf.error and not to.error
     line.update({
         "frontier": {"seconds": f_s, "launches": f_launches, "rows_held_to_cpu": rows, "cpu_seconds": cpu_s,
@@ -4447,6 +4818,8 @@ def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches
                   "one_launch_peak_ratio": to.peak_live_bytes / o_card_peak},
     })
     ok &= frontier_ok and one_ok and trace_ok
+    line["model_cells"] = cells_line
+    ok &= cells_ok
     # laf-lint on the card, in this process
     t0 = time.perf_counter()
     buf = io.StringIO()
@@ -4463,20 +4836,33 @@ def tooling_phase(data, est, eps, tau, dev, builds_after_phase2, phase3_launches
     n_launches = sum(phase3_launches.values())
     line["dispatch"] = {"per_call_us": cost_us, "phase3_launches": n_launches,
                         "phase3_added_ms_at_most": added * n_launches / 1e3}
-    # the full dry run on fake ranks, and its roofline
+    # what the attention operator's dispatch adds to phase 9's decode path (34,816 calls)
+    line["model_cells"]["decode_path_added_ms"] = (
+        line["model_cells"]["dispatch"]["flash_attention_decode_inference_mode"]["added_us"] * 32
+        * (LM_PROMPT + LM_NEW) / 1e3)
+    # the dry run on fake ranks, and its roofline: every cluster record on both
+    # meshes, and the model cells' named subset on pod16x16
     t0 = time.perf_counter()
     out_dir = ROOT / "artifacts" / "dryrun_torch"
-    rc = dryrun.main(["--all", "--mesh", "both", "--out", str(out_dir), "--quiet"])
+    rc = dryrun.main(["--cells", CELL_DRYRUN_CLUSTER, "--mesh", "both", "--out", str(out_dir), "--quiet"])
+    cluster_s = time.perf_counter() - t0
+    rc_cells = dryrun.main(["--cells", CELL_DRYRUN, "--mesh", "single", "--out", str(out_dir), "--quiet"])
     tables = roofline.build_table(out_dir)
     recs = [r for rows_ in tables.values() for r in rows_ if r.arch == "laf_dbscan"]
+    cell_recs = [r for r in tables.get("pod16x16", []) if r.arch != "laf_dbscan"]
     for mesh_name, rows_ in tables.items():
-        print(roofline.to_markdown([r for r in rows_ if r.arch == "laf_dbscan"], mesh_name), file=sys.stderr)
-    line["dryrun"] = {"rc": rc, "seconds": time.perf_counter() - t0, "records": len(recs),
-                      "ok": sum(r.status == "ok" for r in recs),
-                      "roofline": [{k: v for k, v in r.as_dict().items() if k in (
-                          "shape", "mesh", "compute_s", "memory_s", "collective_s", "bound", "mem_gib")}
-                                   for r in recs]}
+        print(roofline.to_markdown(rows_, mesh_name), file=sys.stderr)
+    keys = ("arch", "shape", "mesh", "status", "compute_s", "memory_s", "collective_s", "bound", "mem_gib", "note")
+    line["dryrun"] = {"rc": rc, "seconds": time.perf_counter() - t0, "cluster_seconds": cluster_s,
+                      "records": len(recs), "ok": sum(r.status == "ok" for r in recs),
+                      "roofline": [{k: v for k, v in r.as_dict().items() if k in keys} for r in recs],
+                      "model_cells": {"rc": rc_cells, "cells": CELL_DRYRUN, "left_to_the_cpu_run": CELL_DRYRUN_LEFT,
+                                      "records": len(cell_recs), "ok": sum(r.status == "ok" for r in cell_recs),
+                                      "roofline": [{k: v for k, v in r.as_dict().items() if k in keys}
+                                                   for r in cell_recs]}}
     ok &= rc == 0 and len(recs) == 16 and all(r.status == "ok" for r in recs)
+    ok &= rc_cells == 0 and len(cell_recs) == len(CELL_DRYRUN.split(",")) and all(
+        r.status == "ok" for r in cell_recs)
     line["seconds"] = time.perf_counter() - t_phase
     line["ok"] = ok
     return ok, line
@@ -4837,6 +5223,7 @@ def run(args) -> int:
     from repro_torch.obs import metrics
 
     obs.enable(trace=False, metrics_on=True)  # the launch counts are counters
+    LINES.unlink(missing_ok=True)
 
     dev = torch.device("cuda")
     # 1. device

@@ -24,8 +24,9 @@ __all__ = ["resolve_device", "exact_fp32"]
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
-    passes ``device="cpu"`` (or a ``torch.device``).  Raises when a CUDA
-    device is asked for (explicitly or by default) and none is present."""
+    passes ``device="cpu"`` (or a ``torch.device``); ``"meta"`` holds
+    shapes only (a dry run's trace).  Raises when a CUDA device is asked
+    for (explicitly or by default) and none is present."""
     import torch
 
     dev = torch.device("cuda" if device is None else device)
@@ -34,7 +35,7 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

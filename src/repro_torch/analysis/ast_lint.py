@@ -30,6 +30,8 @@
 
 Suppress one site with ``# laf-lint: disable=<check-id>`` on the line
 (or the line above); whole paths belong in ``baseline.toml``.
+
+:class:`LafLintPlugin` runs the per-file checks as a flake8 plugin.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from .registry import Finding, register
 __all__ = [
     "iter_py_files", "parse_file", "filter_inline_suppressed", "check_file_traced_branch",
     "check_file_wallclock_sync", "check_file_raw_kernel_launch", "check_tree_kernel_tile_contract",
-    "hot_files", "DISPATCH_CALLS", "launcher_symbols",
+    "hot_files", "DISPATCH_CALLS", "launcher_symbols", "LafLintPlugin",
 ]
 
 
@@ -527,3 +529,44 @@ def _check_raw_launch(ctx) -> List[Finding]:
           description="ops.py's mirrors of CUDA tile constants and its divisibility checks agree with the source")
 def _check_tiles(ctx) -> List[Finding]:
     return check_tree_kernel_tile_contract(ctx.src_root, ctx.repo_root)
+
+
+# ---------------------------------------------------------------------------
+# flake8 plugin
+# ---------------------------------------------------------------------------
+
+
+class LafLintPlugin:
+    """flake8 entry point (the AST family's per-file checks, LAF301-303;
+    the tree-wide tile contract and the trace and probe passes need the
+    whole repository and stay in ``python -m repro_torch.analysis``).
+
+    Register under ``flake8.extension`` as
+    ``LAF = repro_torch.analysis.ast_lint:LafLintPlugin``; ``run()``
+    yields ``(line, column, "LAFnnn message", type)`` as flake8 reads
+    it, with the inline suppressions applied."""
+
+    name = "laf-lint"
+    version = "1.0.0"
+
+    def __init__(self, tree: ast.AST, filename: str = "<unknown>"):
+        self._tree = tree
+        self._filename = filename
+
+    def run(self):
+        from .registry import CHECKS, load_all_checks
+
+        load_all_checks()
+        path = Path(self._filename)
+        symbols = launcher_symbols(Path(__file__).resolve().parents[1] / "kernels" / "_build.py")
+        findings: List[Finding] = []
+        for per_file in (check_file_traced_branch, check_file_wallclock_sync,
+                         lambda p, t, rel: check_file_raw_kernel_launch(p, t, rel, symbols)):
+            findings.extend(per_file(path, self._tree, str(path)))
+        try:
+            findings = filter_inline_suppressed(findings, path.read_text().splitlines())
+        except OSError:
+            pass
+        for f in findings:
+            code = CHECKS[f.check].code if f.check in CHECKS else "LAF300"
+            yield f.line, 0, f"{code} {f.message}", type(self)

@@ -9,7 +9,10 @@ targets and the dry run's records all go through the same code:
 * LAF101 ``trace-live-slab``: the one-launch cell adds no slab-sized
   live buffer: its traced peak live bytes are at most its arguments,
   its outputs and the fixpoint's vector working set (the reference
-  proves this by donating ``rows``; PyTorch has no donation);
+  proves this by donating ``rows``; PyTorch has no donation); a model's
+  train cell returns its parameters and optimizer state as its
+  arguments' storage (the reference donates both), nothing fresh but
+  its metrics;
 * LAF103 ``trace-host-read-in-loop``: no host read inside the sweep's
   launch loop or the fixpoint's rounds (traced, a host read of a fake
   device value raises; on a card the probe also enqueues a sweep and
@@ -38,7 +41,7 @@ from .registry import Finding, register
 __all__ = [
     "ROUNDS_LOOP", "fixpoint_slack_bytes",
     "check_live_slab", "check_host_reads", "check_packed_loop_write", "check_loop_state",
-    "check_bitmap_collective", "check_loop_allowlist", "check_bytes_budget", "check_trace",
+    "check_bitmap_collective", "check_loop_allowlist", "check_bytes_budget", "check_train_in_place", "check_trace",
 ]
 
 ROUNDS_LOOP = "label_prop.rounds"
@@ -130,9 +133,11 @@ _ALLOWED = {ROUNDS_LOOP: {("all_reduce", "min", "int32"), ("all_reduce", "sum", 
 
 
 def check_loop_allowlist(tr, label: str) -> List[Finding]:
+    """The clustering loops' allowlists (a model cell's loops, its
+    microbatches and loss chunks, carry DTensor's collectives by design)."""
     out = []
     for c in tr.collectives:
-        if c.loop is None:
+        if c.loop not in _ALLOWED:
             continue
         allowed = _ALLOWED.get(c.loop, set())
         if (c.op, c.reduce, c.dtype) not in allowed:
@@ -155,10 +160,31 @@ def check_bytes_budget(tr, budget: Optional[int], label: str) -> List[Finding]:
     )]
 
 
+def check_train_in_place(tr, meta: dict, label: str) -> List[Finding]:
+    """LAF101's reading for a model's train cell: PyTorch has no buffer
+    donation, so the step updates its parameters and optimizer state in
+    place and returns them as the arguments' own storage; a fresh output
+    beyond the step's scalar metrics is a second copy of them."""
+    limit = 64 * 4  # the metrics: a few fp32 scalars
+    if meta.get("kind") != "train" or tr.output_fresh_bytes <= limit:
+        return []
+    return [Finding(
+        "trace-live-slab", label, 0,
+        f"the train step returns {tr.output_fresh_bytes:,} bytes outside its arguments: a second copy of the "
+        f"parameters or the optimizer state (arguments {tr.argument_bytes:,})",
+        hint="update the parameters and the moments in place, leaf by leaf",
+    )]
+
+
 def check_trace(tr, label: str, *, meta: Optional[dict] = None, byte_budget: Optional[int] = None) -> List[Finding]:
-    """Every trace check that applies to one trace (the dry run's lint)."""
+    """Every trace check that applies to one trace (the dry run's lint):
+    the packed-words and clustering-loop checks on the cluster cells, the
+    in-place reading of LAF101 on the model families' train cells."""
     meta = meta or {}
-    out = check_host_reads(tr, label) + check_bitmap_collective(tr, label) + check_loop_allowlist(tr, label)
+    out = check_host_reads(tr, label) + check_loop_allowlist(tr, label)
+    if str(meta.get("kind", "")).endswith("cluster"):
+        out += check_bitmap_collective(tr, label)
+    out += check_train_in_place(tr, meta, label)
     if meta.get("kind") == "one_launch_cluster":
         out += check_live_slab(tr, meta, label) + check_packed_loop_write(tr, meta, label)
         out += check_loop_state(tr, meta, label)

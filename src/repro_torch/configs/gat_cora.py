@@ -2,7 +2,8 @@
 [arXiv:1710.10903] (port of ``repro.configs.gat_cora``).  Shapes:
 full-batch Cora, sampled Reddit-scale minibatch (fanout 15-10 — the
 neighbor sampler in ``repro_torch.data.graph_sampler``), OGB products
-full-batch-large (edge-sharded: waits for A10), batched molecules."""
+full-batch-large (its edges split over a mesh: ``launch.steps.build_gnn_train``),
+batched molecules."""
 
 from ..models.gnn import GATConfig
 from .registry import GNN_SHAPES, ArchSpec, register

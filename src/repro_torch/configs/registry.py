@@ -6,8 +6,8 @@ documented skips.  ``_ensure_loaded`` imports the configs the port can
 run: the five LMs (``llama3_8b``, ``gemma3_27b``, ``granite_20b``,
 ``grok1_314b``, ``deepseek_v2_236b``), the four recsys rankers
 ``bst``, ``deepfm``, ``dien`` and ``autoint``, and the GNN
-``gat_cora`` (its ``ogb_products`` shape, edge-sharded in the
-reference, waits for A12b's ``build_gnn_train``), and ``laf_dbscan``, the
+``gat_cora`` (its ``ogb_products`` shape edge-sharded by
+``launch.steps.build_gnn_train``), and ``laf_dbscan``, the
 paper's own workload (``LAFClusterConfig``, family ``cluster``).
 """
 

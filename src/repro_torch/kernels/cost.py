@@ -24,13 +24,18 @@ operator's arguments (shapes only, so a fake tensor will do).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple
+from functools import lru_cache
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 __all__ = [
     "HBM_BYTES_PER_S", "FP32_FLOPS", "TF32_FLOPS", "BF16_FLOPS", "INT8_OPS", "NVLINK_BYTES_PER_S",
     "KernelCost", "bound_ms", "register_op", "KERNEL_OPS", "KernelOp",
     "hamming_filter_cost", "rmi_mlp_cost", "rmi_predict_cost", "row_popcount_cost", "label_prop_rect_cost",
-    "col_reduce_cost", "label_prop_update_cost", "label_prop_fixpoint_cost",
+    "col_reduce_cost", "label_prop_update_cost", "label_prop_fixpoint_cost", "attention_span", "attention_cost",
+    "attention_bwd_cost",
+    "embedding_bag_cost",
 ]
 
 HBM_BYTES_PER_S = 3.35e12    # HBM3
@@ -121,6 +126,65 @@ def label_prop_update_cost(cap: int, r: int) -> KernelCost:
 def label_prop_fixpoint_cost(r: int, w: int, rounds: int) -> KernelCost:
     """A fixpoint of ``rounds`` rounds, each K2's bytes and the update's."""
     return (label_prop_rect_cost(r, w) + label_prop_update_cost(32 * w, r)).scaled(rounds)
+
+
+@lru_cache(maxsize=4096)
+def attention_span(sq: int, sk: int, causal: bool, window: Optional[int] = None,
+                   q_offset: Optional[int] = None) -> Tuple[int, int]:
+    """(pairs, keys) of one (batch row, query head) of a call: the
+    (query, key) pairs the mask keeps and the keys some query reads.
+    Query ``i`` sits at ``q_offset + i`` (``Sk - Sq`` unless given) and
+    keeps key ``j`` where ``j <= q_offset + i`` when causal and ``j >
+    q_offset + i - window`` when windowed, the kernel's own mask (the
+    tiles it skips hold no kept pair)."""
+    off = sk - sq if q_offset is None else int(q_offset)
+    pos = np.arange(off, off + sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, pos) if causal else np.full(sq, sk - 1, dtype=np.int64)
+    lo = np.maximum(0, pos - int(window) + 1) if window is not None else np.zeros(sq, dtype=np.int64)
+    n = np.maximum(0, hi - lo + 1)
+    live = n > 0
+    keys = int(hi[live].max() - lo[live].min() + 1) if live.any() else 0
+    return int(n.sum()), keys
+
+
+def attention_cost(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, dv: int, *, causal: bool,
+                   window: Optional[int] = None, q_offset: Optional[int] = None, elem: int = 2,
+                   lse: bool = False) -> KernelCost:
+    """``flash_attention``: q read once, the keys and values some query
+    reads read once, the output (and the fp32 log-sum-exp) written once;
+    2·pairs·(D + Dv) operations on the bf16 tensor cores (fp32 operands:
+    the fp32 rate), pairs = B·Hq times the pairs the causal and window
+    mask keeps at ``q_offset`` (:func:`attention_span`; prefill at D =
+    Dv, causal, no window: 4·B·Hq·S(S + 1)/2·D).  A decode call (Sq = 1)
+    is bound by its bytes."""
+    pairs, keys = attention_span(sq, sk, causal, window, q_offset)
+    n_bytes = elem * (b * hq * sq * d + b * hkv * keys * (d + dv) + b * hq * sq * dv) + (4 * b * hq * sq if lse else 0)
+    return KernelCost(2.0 * b * hq * pairs * (d + dv), n_bytes, BF16_FLOPS if elem == 2 else FP32_FLOPS)
+
+
+def attention_bwd_cost(b: int, hq: int, hkv: int, sq: int, sk: int, d: int, dv: int, *, causal: bool,
+                       window: Optional[int] = None, q_offset: Optional[int] = None,
+                       elem: int = 2) -> KernelCost:
+    """``flash_attention_bwd``: q, the output, dO and the fp32 log-sum-exp
+    read once, the keys and values some query reads read once, dQ, dK, dV
+    written once; 2·pairs·(3D + 2Dv) operations over the pairs the mask
+    keeps, as :func:`attention_cost` counts them (S = QKᵀ again, dV = Pᵀ
+    dO, dP = dO Vᵀ, dQ = dS K, dK = dSᵀ Q: 2.5 x the forward's at D =
+    Dv)."""
+    pairs, keys = attention_span(sq, sk, causal, window, q_offset)
+    q, o = b * hq * sq * d, b * hq * sq * dv
+    n_bytes = elem * (2 * q + 2 * o + b * hkv * (keys + sk) * (d + dv)) + 4 * b * hq * sq
+    return KernelCost(2.0 * b * hq * pairs * (3 * d + 2 * dv), n_bytes, BF16_FLOPS if elem == 2 else FP32_FLOPS)
+
+
+def embedding_bag_cost(b: int, length: int, d: int, *, rows: int = None, elem: int = 4) -> KernelCost:
+    """``embedding_bag``: the table rows the ids name read once, the ids
+    read, the (B, D) fp32 output written: elem·rows·D + 4·B·L + 4·B·D.
+    ``rows`` defaults to B·L, every id a row of its own: an upper bound,
+    since a cost function reads shapes only and cannot count the distinct
+    rows the ids name (a repeated row is read once from L2)."""
+    rows = b * length if rows is None else rows
+    return KernelCost(0.0, elem * rows * d + 4 * b * length + 4 * b * d)
 
 
 @dataclass(frozen=True)

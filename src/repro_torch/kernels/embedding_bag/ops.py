@@ -8,6 +8,13 @@ table and (B, L) int32 ids, every negative id padding, and returns the
 table launches ``csrc/embedding_bag.cu`` or raises.  The reference
 wrapper's padding of B to the batch tile exists for the TPU's grid and
 is left out: the kernel masks the ragged last block itself.
+
+The CUDA launch is the operator ``repro_torch::embedding_bag``
+(``torch.library.custom_op``; its real implementation is the raw launch
+function ``_launch``): its fake implementation gives the (B, D) fp32
+output, so a dispatch trace takes the launch path with no card (a fake
+CUDA or a ``meta`` table), and its cost
+(``kernels.cost.embedding_bag_cost``) is registered beside it.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from ...obs import metrics as _metrics
 from .. import _build
+from ..cost import embedding_bag_cost, register_op
 from .ref import embedding_bag_ref
 
 __all__ = ["embedding_bag", "LAUNCHES", "COMBINERS"]
@@ -62,6 +70,22 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *, combiner: str = "su
     _check(table, ids, combiner)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, combiner=combiner)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {table.device}")
-    return _launch(table, ids, combiner)
+    return _embedding_bag_op(table, ids, combiner == "mean")
+
+
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=(), device_types="cuda")
+def _embedding_bag_op(table: torch.Tensor, ids: torch.Tensor, mean: bool) -> torch.Tensor:
+    """One ``embedding_bag`` launch on checked operands: (B, D) fp32."""
+    return _launch(table, ids, "mean" if mean else "sum")
+
+
+@_embedding_bag_op.register_fake
+def _(table, ids, mean):
+    return table.new_empty((ids.shape[0], table.shape[1]), dtype=torch.float32)
+
+
+register_op("repro_torch::embedding_bag", lambda table, ids, mean: LAUNCHES["embedding_bag"],
+            lambda table, ids, mean: embedding_bag_cost(ids.shape[0], ids.shape[1], table.shape[1],
+                                                        elem=table.element_size()))

@@ -45,6 +45,22 @@ widths; the fp32 mapping answers ``_PAD_V`` there, and the call is made
 again with v, the output and dO zero-padded to D, dV cut back.  Serving
 (``inference_mode``, or nothing requiring a gradient) writes no
 log-sum-exp and launches exactly as before.
+
+The CUDA launches are the operators ``repro_torch::flash_attention``
+(serving: the output alone), ``repro_torch::flash_attention_lse``
+(training's forward: the output and its log-sum-exp) and
+``repro_torch::flash_attention_bwd`` (``torch.library.custom_op``, none
+mutating an argument: an operator that mutates one dispatches through
+an extra Python kernel that costs several times the call); each
+real implementation is the raw launch function (``_launch``,
+``_launch_bwd``: the ``_PAD_V`` retry, the decode mapping's two kernels
+under one count), and each fake implementation returns the outputs'
+shapes, so a dispatch trace takes the launch path with no card: on fake
+CUDA tensors, or on ``meta`` tensors, which the wrappers route to the
+operators as they route CUDA ones (shapes only: the dry run's model
+cells, whose autograd a CPU-only build cannot run on fake CUDA
+tensors).  Their costs (``kernels.cost.attention_cost``,
+``attention_bwd_cost``) are registered beside them.
 """
 
 from __future__ import annotations
@@ -54,8 +70,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from typing import Optional, Tuple
+
 from ...obs import metrics as _metrics
 from .. import _build
+from ..cost import attention_bwd_cost, attention_cost, register_op
 from .ref import attention_bwd_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_bwd", "decode_splits", "LAUNCHES", "HEAD_DIMS", "HEAD_PAIRS",
@@ -168,14 +187,56 @@ def flash_attention(q, k, v, *, causal: bool = False, window=None, scale=None, q
     ``flash_attention_bwd``)."""
     _check(q, k, v, window)
     q_offset = k.shape[2] - q.shape[2] if q_offset is None else int(q_offset)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _Attention.apply(q, k, v, bool(causal), window, scale, q_offset)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset)
+    return _attention_op(q, k, v, bool(causal), _window(window), scale, q_offset)
+
+
+def _window(window) -> Optional[int]:
+    return None if window is None else int(window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: Optional[int],
+                  scale: float, q_offset: int) -> torch.Tensor:
+    """One ``flash_attention`` call on the card (``_launch``), serving:
+    (B, Hq, Sq, Dv), no log-sum-exp."""
     return _launch(q, k, v, causal, window, scale, q_offset)
+
+
+@_attention_op.register_fake
+def _(q, k, v, causal, window, scale, q_offset):
+    return q.new_empty((*q.shape[:3], v.shape[3]))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=(), device_types="cuda")
+def _attention_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: Optional[int],
+                      scale: float, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``flash_attention`` call on the card (``_launch``), training's
+    forward: (the output (B, Hq, Sq, Dv), its fp32 log-sum-exp (B, Hq,
+    Sq))."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, scale, q_offset, lse), lse
+
+
+@_attention_lse_op.register_fake
+def _(q, k, v, causal, window, scale, q_offset):
+    return q.new_empty((*q.shape[:3], v.shape[3])), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _attention_cost(lse):
+    return lambda q, k, v, causal, window, scale, q_offset: attention_cost(
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3], causal=causal,
+        window=window, q_offset=q_offset, elem=q.element_size(), lse=lse)
+
+
+register_op("repro_torch::flash_attention", lambda *a: LAUNCHES["flash_attention"], _attention_cost(False))
+register_op("repro_torch::flash_attention_lse", lambda *a: LAUNCHES["flash_attention"], _attention_cost(True))
 
 
 def _check_bwd(q, k, v):
@@ -210,10 +271,32 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = False, window
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, window=window, scale=scale,
                                  q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check_bwd(q, k, v)
+    return _attention_bwd_op(q, k, v, out, lse, dout, bool(causal), _window(window), scale, q_offset)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(), device_types="cuda")
+def _attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, causal: bool, window: Optional[int], scale: float,
+                      q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ``flash_attention_bwd`` call on the card (``_launch_bwd``):
+    (dq, dk, dv)."""
     return _launch_bwd(q, k, v, out, lse, dout, causal, window, scale, q_offset)
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, window, scale, q_offset):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+register_op("repro_torch::flash_attention_bwd", lambda *a: LAUNCHES["flash_attention_bwd"],
+            lambda q, k, v, out, lse, dout, causal, window, scale, q_offset: attention_bwd_cost(
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3], v.shape[3], causal=causal,
+                window=window, q_offset=q_offset, elem=q.element_size()))
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, window, scale, q_offset):
@@ -258,8 +341,7 @@ class _Attention(torch.autograd.Function):
                                      return_lse=True)
         else:
             _check_bwd(q, k, v)  # raise before the forward's launch, not after it
-            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-            out = _launch(q, k, v, causal, window, scale, q_offset, lse)
+            out, lse = _attention_lse_op(q, k, v, causal, _window(window), scale, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale, q_offset)
         return out

@@ -7,7 +7,10 @@ Functions, not module constants: importing this module touches no
 process group.  Each call needs ``torch.distributed`` initialised with a
 world of exactly the mesh's size: the real ranks, or the fake process
 group the dry run brings up (``repro_torch.launch.dryrun``), where the
-mesh is a ``"cpu"`` mesh (a CUDA mesh would select a card per rank).
+mesh is a ``"cuda"`` mesh as on the card (no card is touched: every
+rank is this process's rank 0), so that DTensor issues the collectives
+it issues there (on a ``"cpu"`` mesh it replaces an all-to-all by an
+all-gather and a chunk).
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ __all__ = ["make_production_mesh", "make_test_mesh", "mesh_device_type"]
 
 
 def mesh_device_type() -> str:
-    """``"cuda"`` on a machine with a card and a real process group,
-    ``"cpu"`` otherwise (a gloo or fake group)."""
+    """``"cuda"`` on a machine with a card and a real NCCL group, and
+    under the fake group; ``"cpu"`` otherwise (a gloo group)."""
     import torch
     import torch.distributed as dist
 
-    return "cuda" if torch.cuda.is_available() and dist.get_backend() == "nccl" else "cpu"
+    backend = dist.get_backend()
+    return "cuda" if backend == "fake" or (torch.cuda.is_available() and backend == "nccl") else "cpu"
 
 
 def _mesh(shape, axes):

@@ -22,7 +22,11 @@ distances at the int8 tensor-core rate, the RMI forward at fp32).
 
 ``model_flops`` is the reference's analytic useful work per rank (6ND
 for training, 2ND for serving, 2·n·d·frontier for a cluster round);
-``roofline_fraction`` = compute / max(terms), as in the reference.
+``roofline_fraction`` = compute / max(terms), as in the reference.  The
+compute term's aten peak is the record's ``meta["dtype"]``'s: bf16 for
+the bf16 LM configs, fp32 for the recsys, GNN and cluster cells.
+``improvement_hint`` speaks of clustering for the cluster cells and
+gives the reference's hints for the model families' rows.
 
 Biases: eager PyTorch makes every op a fusion boundary, so the memory
 term is an upper bound; a loop that ends early on the card (the
@@ -77,21 +81,24 @@ class Row:
     collective_s: float = 0.0
     bound: str = ""
     mem_gib: float = 0.0
+    coll_gib: float = 0.0
     trace_flops: float = 0.0
     model_flops: Optional[float] = None
     flops_ratio: Optional[float] = None
     roofline_fraction: float = 0.0
     note: str = ""
+    kind: str = ""
 
     def as_dict(self):
         return self.__dict__.copy()
 
 
 def roofline_row(rec: dict) -> Row:
+    shape = rec["shape"] + (f" ({rec['variant']})" if rec.get("variant", "baseline") != "baseline" else "")
     if rec.get("status") == "skip":
-        return Row(rec["arch"], rec["shape"], rec["mesh"], "skip", note=rec.get("reason", ""))
+        return Row(rec["arch"], shape, rec["mesh"], "skip", note=rec.get("reason", ""))
     if rec.get("status") != "ok":
-        return Row(rec["arch"], rec["shape"], rec["mesh"], "error", note=rec.get("error", "")[:120])
+        return Row(rec["arch"], shape, rec["mesh"], "error", note=rec.get("error", "")[:120])
     t = rec["trace_analysis"]
     meta = rec.get("meta", {})
     peak = PEAKS.get(meta.get("dtype", "float32"), FP32_FLOPS)
@@ -101,19 +108,26 @@ def roofline_row(rec: dict) -> Row:
     terms = {"compute": ct, "memory": mt, "collective": lt}
     bound = max(terms, key=terms.get)
     mf = model_flops(meta, meta.get("kind", ""), rec["n_devices"])
-    shape = rec["shape"] + (f" ({rec['variant']})" if rec.get("variant", "baseline") != "baseline" else "")
     work = t["flops"] + sum(t["kernel_ops"].values())
     return Row(
         rec["arch"], shape, rec["mesh"], "ok",
         compute_s=ct, memory_s=mt, collective_s=lt, bound=bound,
-        mem_gib=rec["memory"]["bytes_per_rank"]["peak"] / 2**30,
+        mem_gib=rec["memory"]["bytes_per_rank"]["peak"] / 2**30, coll_gib=lt * LINK_BW / 2**30,
         trace_flops=work, model_flops=mf,
         flops_ratio=(mf / work) if (mf and work) else None,
         roofline_fraction=(ct / max(terms.values())) if max(terms.values()) > 0 else 0.0,
+        kind=meta.get("kind", ""),
     )
 
 
 def improvement_hint(row: Row) -> str:
+    if not row.kind.endswith("cluster"):  # the LM, recsys and GNN rows: the reference's hints
+        if row.bound == "collective":
+            return ("reduce re-gather traffic: bf16 collectives, fewer remat-induced all-gathers, overlap with "
+                    "compute")
+        if row.bound == "memory":
+            return "fuse the softmax/score chain (the flash kernel) / cut fp32 intermediates"
+        return "increase arithmetic intensity (larger tiles/batch) or cut remat recompute"
     formation = "one_launch" in row.shape
     if row.bound == "collective":
         return "fewer or smaller all-reduces a round; overlap them with the next launch"
@@ -137,18 +151,18 @@ def to_markdown(rows: List[Row], mesh: str) -> str:
         f"### Mesh {mesh}",
         "",
         "| arch | shape | compute s | memory s | collective s | bound | roofline frac | mem GiB/rank | "
-        "MODEL/trace ops | note |",
-        "|---|---|---|---|---|---|---|---|---|---|",
+        "coll GiB/rank | MODEL/trace ops | note |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         if r.status in ("skip", "error"):
             lines.append(f"| {r.arch} | {r.shape} | — | — | — | {r.status.upper() if r.status == 'error' else 'skip'}"
-                         f" | — | — | — | {r.note[:60]} |")
+                         f" | — | — | — | — | {r.note[:60]} |")
             continue
         ratio = f"{r.flops_ratio:.2f}" if r.flops_ratio else "n/a"
         lines.append(
             f"| {r.arch} | {r.shape} | {r.compute_s:.3g} | {r.memory_s:.3g} | {r.collective_s:.3g} | {r.bound} | "
-            f"{r.roofline_fraction:.2f} | {r.mem_gib:.2f} | {ratio} | {improvement_hint(r)[:60]} |"
+            f"{r.roofline_fraction:.2f} | {r.mem_gib:.2f} | {r.coll_gib:.3g} | {ratio} | {improvement_hint(r)[:60]} |"
         )
     return "\n".join(lines)
 

@@ -34,10 +34,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..distributed.sharding import is_dtensor
 from ..kernels.flash_attention import flash_attention
+from ..obs import loop_scope
 from ..kernels.flash_attention.ops import HEAD_DIMS, HEAD_PAIRS
 
 __all__ = [
-    "dense_init", "dense", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
+    "dense_init", "dense", "pinned", "sharded_lookup", "rmsnorm_init", "rmsnorm", "layernorm_init", "layernorm",
     "rope_frequencies", "apply_rope", "blockwise_attention", "swiglu_init", "swiglu",
     "geglu_init", "geglu", "mlp_init", "mlp_apply", "cross_entropy_loss",
     "chunked_cross_entropy", "cache_write", "split_heads", "whole",
@@ -78,6 +79,15 @@ def whole(x, *dims):
     dims = {d % x.ndim for d in dims}
     return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_shard() and p.dim in dims else p
                                                for p in x.placements))
+
+
+def pinned(x):
+    """``x`` itself; on a DTensor, its gradient comes back laid out as ``x``
+    is (a redistribution to its own placements, whose backward
+    redistributes the gradient).  Applied to a view's output, the view's
+    backward never meets a gradient split where the view's output is not
+    (the card's DTensor refuses to split or flatten a split dimension)."""
+    return x.redistribute(x.device_mesh, x.placements) if is_dtensor(x) else x
 
 
 def dense(w, x):
@@ -215,10 +225,11 @@ def cache_write(cache, dim: int, pos: int, new):
 
     A plain tensor: ``cache`` itself.  A DTensor: ``new`` is laid out as
     the cache with ``dim`` whole and written into this rank's local
-    shard.  Where ``dim`` (the sequence) is sharded, only the rank that
-    owns ``pos`` writes, and the return is the cache with ``dim``
-    gathered on every rank (the reference's semantics: the layer's keys
-    gathered before attention)."""
+    shard.  Where ``dim`` (the sequence) is sharded, over one mesh
+    dimension or several (split major first), only the rank that owns
+    ``pos`` writes, and the return is the cache with ``dim`` gathered on
+    every rank (the reference's semantics: the layer's keys gathered
+    before attention)."""
     if not is_dtensor(cache):
         cache.select(dim, pos).copy_(new.select(dim, 0).to(cache.dtype))
         return cache
@@ -232,14 +243,67 @@ def cache_write(cache, dim: int, pos: int, new):
     if not owners:
         local.select(dim, pos).copy_(value.to(local.dtype))
         return cache
-    (axis,) = owners
-    n = mesh.size(axis)
+    n, shard = 1, 0
+    for axis in owners:  # this rank's shard index over the owning dimensions, major first
+        n *= mesh.size(axis)
+        shard = shard * mesh.size(axis) + mesh.get_local_rank(axis)
     if cache.shape[dim] % n:
         raise ValueError(f"a cache of {cache.shape[dim]} positions does not split over {n} ranks")
     per = cache.shape[dim] // n
-    if mesh.get_local_rank(axis) == pos // per:
+    if shard == pos // per:
         local.select(dim, pos % per).copy_(value.to(local.dtype))
     return cache.redistribute(mesh, unsplit)
+
+
+def _row_offset(mesh, dims, n_rows: int) -> int:
+    """This rank's first row of a table split by rows over the mesh
+    dimensions ``dims`` (major first, as DTensor splits)."""
+    lo, per = 0, n_rows
+    for i in dims:
+        per //= mesh.size(i)
+        lo += mesh.get_local_rank(i) * per
+    return lo
+
+
+def sharded_lookup(table, ids, *, bag: bool = False):
+    """``table[ids]`` (or, ``bag``, the (B, D) fp32 bag sums of
+    ``embedding_bag``'s ``sum`` combiner) of a DTensor table, through a
+    ``local_map``: the ids gathered over the mesh dimensions that split
+    the table, each rank's rows looked up (ids outside them give zero;
+    padding to the kernel), a ``Partial`` sum over the dimensions that
+    split the rows, a column split kept; then laid out as the batch (the
+    ids' split of dimension 0, replicated elsewhere).  The table's
+    gradient is each rank's scatter of its rows, a ``Partial`` sum over
+    the dimensions that split only the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels.embedding_bag import embedding_bag
+
+    mesh = table.device_mesh
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    t_pl, i_pl = table.placements, ids.placements
+    rows = [i for i, p in enumerate(t_pl) if p.is_shard(0)]
+    cols = [i for i, p in enumerate(t_pl) if p.is_shard(1)]
+    ids_in = tuple(Replicate() if i in rows or i in cols else p for i, p in enumerate(i_pl))
+    last = 1 if bag else ids.ndim
+    out_pl = [Partial() if i in rows else Shard(last) if i in cols else ids_in[i] for i in range(mesh.ndim)]
+    grad_pl = tuple(p if i in rows or i in cols else (Partial() if ids_in[i].is_shard() else Replicate())
+                    for i, p in enumerate(t_pl))
+    n_rows = table.shape[0]
+
+    def local(t, idx):
+        j = idx.long() - _row_offset(mesh, rows, n_rows)
+        mine = (j >= 0) & (j < t.shape[0])
+        if bag:
+            return embedding_bag(t, torch.where(mine, j, -1).to(torch.int32).contiguous(), combiner="sum")
+        got = t[j.clamp(0, t.shape[0] - 1)]
+        return torch.where(mine[..., None], got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    out = local_map(local, out_placements=out_pl, in_placements=(t_pl, ids_in), in_grad_placements=(grad_pl, ids_in),
+                    device_mesh=mesh, redistribute_inputs=True)(table, ids)
+    return out.redistribute(mesh, [Shard(0) if p.is_shard(0) else Replicate() for p in i_pl])
 
 
 def _kv_heads_of(hq: int, hkv: int, lo: int, hi: int):
@@ -419,11 +483,12 @@ def chunked_cross_entropy(
     h = whole(h, 1)  # chunks of the sequence: a split sequence is gathered first
     remat = torch.is_grad_enabled() and (h.requires_grad or w_head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(0, s, chunk):
-        hc, lc = h[:, c : c + chunk], labels[:, c : c + chunk]
-        if remat:
-            total = total + checkpoint(_chunk_nll, w_head, hc, lc, shard_logits, use_reentrant=False,
-                                       preserve_rng_state=False)
-        else:
-            total = total + _chunk_nll(w_head, hc, lc, shard_logits)
+    with loop_scope("lm.ce_chunks"):
+        for c in range(0, s, chunk):
+            hc, lc = h[:, c : c + chunk], labels[:, c : c + chunk]
+            if remat:
+                total = total + checkpoint(_chunk_nll, w_head, hc, lc, shard_logits, use_reentrant=False,
+                                           preserve_rng_state=False)
+            else:
+                total = total + _chunk_nll(w_head, hc, lc, shard_logits)
     return total / (b * s)

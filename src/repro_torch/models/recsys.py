@@ -20,6 +20,15 @@ the reference leaves them to XLA.  fp32 products run with TF32 off
 (``exact_fp32``), since the reference is fp32.  The GRU scans of DIEN
 are Python loops over the sequence.
 
+A row-sharded table (a DTensor split by rows, as ``launch.steps``'
+recsys cells lay out the tables of 4,096 rows or more) is read by
+``_rows`` and ``_bag``: each rank gathers the ids' rows it holds (an id
+outside its rows gives zero, or padding to the kernel), the parts are
+summed across the table's axes, and the result comes back in the
+batch's layout.  A bag's mean is that global sum divided by the bag's
+valid ids, never a mean of per-rank means: each rank launches the
+kernel's ``sum`` combiner on its own rows.
+
 Each model has one forward body, differentiable (``_deepfm_logits``
 and its kin); ``recsys_logits(params, cfg, batch)`` runs it in the
 caller's grad mode, as the reference's train step calls its forward
@@ -44,8 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import exact_fp32, resolve_device
+from ..distributed.sharding import is_dtensor
 from ..kernels.embedding_bag import embedding_bag
-from .layers import _device_and_generator, dense, dense_init, layernorm, layernorm_init, mlp_apply, mlp_init
+from .layers import (_device_and_generator, dense, dense_init, layernorm, layernorm_init, mlp_apply, mlp_init, pinned,
+                     sharded_lookup, whole)
 
 __all__ = [
     "ParamTree", "embedding_tables_init", "lookup_fields", "bce_loss",
@@ -121,10 +132,18 @@ def embedding_tables_init(gen, vocab_sizes: Sequence[int], dim: int, dtype=torch
     return [_normal(gen, (v, dim), 0.01, dtype, dev) for v in vocab_sizes]
 
 
+def _rows(table, ids) -> torch.Tensor:
+    """``table[ids]``, the reference's ``take`` (a DTensor table through
+    ``layers.sharded_lookup``)."""
+    if is_dtensor(table):
+        return sharded_lookup(table, ids, bag=False)
+    return table[_ids(ids, table.device).long()]
+
+
 def lookup_fields(tables, ids) -> torch.Tensor:
     """ids (B, F) -> (B, F, dim)."""
     ids = _ids(ids, tables[0].device).long()
-    return torch.stack([t[ids[:, f]] for f, t in enumerate(tables)], dim=1)
+    return torch.stack([_rows(t, ids[:, f]) for f, t in enumerate(tables)], dim=1)
 
 
 def bce_loss(logits: torch.Tensor, labels) -> torch.Tensor:
@@ -175,8 +194,8 @@ def _deepfm_logits(params: DeepFM, cfg: DeepFMConfig, ids) -> torch.Tensor:
     # FM second order: 0.5 * ((sum_f v)^2 - sum_f v^2)
     s = emb.sum(dim=1)
     fm2 = 0.5 * (s.square() - emb.square().sum(dim=1)).sum(dim=-1)
-    fm1 = torch.cat([t[ids[:, f]] for f, t in enumerate(params["first_order"])], dim=1).sum(dim=1)
-    deep = mlp_apply(params["mlp"], emb.reshape(emb.shape[0], -1))[:, 0]
+    fm1 = torch.cat([_rows(t, ids[:, f]) for f, t in enumerate(params["first_order"])], dim=1).sum(dim=1)
+    deep = mlp_apply(params["mlp"], _rows_flat(emb))[:, 0]
     return (fm1 + fm2 + deep).to(torch.float32) + params["bias"]
 
 
@@ -225,15 +244,30 @@ def autoint_init(seed_or_generator, cfg: AutoIntConfig, device=None) -> AutoInt:
                         "head": dense_init(gen, cfg.n_fields * d, 1, cfg.dtype, device=dev)})
 
 
+def _heads(x, n: int, d: int):
+    """(..., n·d) -> (..., n, d).  A DTensor's last dimension is gathered
+    first and the heads ``pinned`` (the card's DTensor splits no split
+    dimension, forward or backward)."""
+    return pinned(whole(x, x.ndim - 1).reshape(*x.shape[:-1], n, d))
+
+
+def _rows_flat(x):
+    """(B, ...) -> (B, -1): each row's features in one; a DTensor split
+    past its batch dimension is gathered there first (a flatten keeps a
+    split only on its leading dimension; the card's DTensor refuses it
+    otherwise)."""
+    return pinned(whole(x, *range(1, x.ndim)).reshape(x.shape[0], -1))
+
+
 def _field_attention(p, cfg: AutoIntConfig, x):
     b, f, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, f, cfg.n_heads, cfg.d_attn)
-    k = dense(p["wk"], x).reshape(b, f, cfg.n_heads, cfg.d_attn)
-    v = dense(p["wv"], x).reshape(b, f, cfg.n_heads, cfg.d_attn)
+    q = _heads(dense(p["wq"], x), cfg.n_heads, cfg.d_attn)
+    k = _heads(dense(p["wk"], x), cfg.n_heads, cfg.d_attn)
+    v = _heads(dense(p["wv"], x), cfg.n_heads, cfg.d_attn)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
     attn = torch.softmax(logits / math.sqrt(cfg.d_attn), dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(torch.float32))
-    o = o.reshape(b, f, cfg.n_heads * cfg.d_attn).to(x.dtype)
+    o = pinned(whole(o, 2, 3).reshape(b, f, cfg.n_heads * cfg.d_attn)).to(x.dtype)
     return torch.relu(o + dense(p["wres"], x))
 
 
@@ -242,7 +276,7 @@ def _autoint_logits(params: AutoInt, cfg: AutoIntConfig, ids) -> torch.Tensor:
     x = lookup_fields(params["tables"], ids)                        # (B, F, D)
     for p in params["attn_layers"]:
         x = _field_attention(p, cfg, x)
-    return dense(params["head"], x.reshape(x.shape[0], -1))[:, 0].to(torch.float32)
+    return dense(params["head"], _rows_flat(x))[:, 0].to(torch.float32)
 
 
 @torch.inference_mode()
@@ -319,17 +353,16 @@ def _interests(params: DIEN, cfg: DIENConfig, emb):
 def _dien_logits(params: DIEN, cfg: DIENConfig, hist, target) -> torch.Tensor:
     exact_fp32()
     table = params["item_table"]
-    emb = table[_ids(hist, table.device).long()]                      # (B, L, D)
-    tgt = table[_ids(target, table.device).long()]                    # (B, D)
+    emb = _rows(table, hist)                                          # (B, L, D)
+    tgt = _rows(table, target)                                        # (B, D)
     interests = _interests(params, cfg, emb)                          # (L, B, G)
 
-    # attention of target on each interest state (for AUGRU update gates)
-    tgt_proj = F.pad(tgt, (0, cfg.gru_dim - cfg.embed_dim))
-    att_logits = torch.einsum(
-        "lbg,bg->lb",
-        dense(params["att_w"], interests).to(torch.float32),
-        tgt_proj.to(torch.float32),
-    ) / math.sqrt(cfg.gru_dim)
+    # attention of target on each interest state (for AUGRU update gates): the reference pads the target
+    # with zeros to the GRU width, so only the projection's first embed_dim columns meet it; the
+    # projection batch-major, (B, L, G), so a batch split over ranks stays the leading dimension of the
+    # product's flattened rows (DTensor cannot flatten (L, B) with B split)
+    proj = dense(params["att_w"], interests.transpose(0, 1))[..., : cfg.embed_dim]
+    att_logits = torch.einsum("bld,bd->lb", proj.to(torch.float32), tgt.to(torch.float32)) / math.sqrt(cfg.gru_dim)
     att = torch.softmax(att_logits, dim=0)                            # (L, B)
 
     # interest evolution AUGRU
@@ -393,23 +426,23 @@ def _bst_logits(params: BST, cfg: BSTConfig, hist, target) -> torch.Tensor:
     hist, target = _ids(hist, dev).long(), _ids(target, dev).long()
     b, l = hist.shape
     seq = torch.cat([hist, target[:, None]], dim=1)                   # (B, L+1)
-    x = params["item_table"][seq] + params["pos_table"][None]
+    x = _rows(params["item_table"], seq) + params["pos_table"][None]
     d, h = cfg.embed_dim, cfg.n_heads
     dh = d // h
     for p in params["blocks"]:
         xn = layernorm(p["ln1"], x)
-        q = dense(p["wq"], xn).reshape(b, l + 1, h, dh)
-        k = dense(p["wk"], xn).reshape(b, l + 1, h, dh)
-        v = dense(p["wv"], xn).reshape(b, l + 1, h, dh)
+        q = _heads(dense(p["wq"], xn), h, dh)
+        k = _heads(dense(p["wk"], xn), h, dh)
+        v = _heads(dense(p["wv"], xn), h, dh)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
         attn = torch.softmax(logits / math.sqrt(dh), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", attn, v.to(torch.float32)).reshape(b, l + 1, d)
+        o = pinned(whole(torch.einsum("bhqk,bkhd->bqhd", attn, v.to(torch.float32)), 2, 3).reshape(b, l + 1, d))
         x = x + dense(p["wo"], o.to(x.dtype))
         xn = layernorm(p["ln2"], x)
         # jax.nn.leaky_relu's default slope is 0.01, as torch's
         ff = F.leaky_relu(dense(p["ff1"], xn).to(torch.float32), 0.01)
         x = x + dense(p["ff2"], ff.to(x.dtype))
-    return mlp_apply(params["mlp"], x.reshape(b, -1))[:, 0].to(torch.float32)
+    return mlp_apply(params["mlp"], _rows_flat(x))[:, 0].to(torch.float32)
 
 
 @torch.inference_mode()
@@ -462,7 +495,7 @@ def dien_user_embedding(params: DIEN, cfg: DIENConfig, hist) -> torch.Tensor:
     """Final interest state truncated to embed_dim (item-embedding space)."""
     exact_fp32()
     table = params["item_table"]
-    interests = _interests(params, cfg, table[_ids(hist, table.device).long()])
+    interests = _interests(params, cfg, _rows(table, hist))
     return interests[-1][:, : cfg.embed_dim]
 
 
@@ -471,10 +504,16 @@ def bst_user_embedding(params: BST, cfg: BSTConfig, hist) -> torch.Tensor:
     """Mean-pooled behavior-sequence embedding (B, embed_dim) in fp32: one
     ``embedding_bag(combiner="mean")`` launch over the item table.  Ids
     must lie in [0, item_vocab) (``ctr_batch`` draws only those), where
-    it equals the reference's ``take`` + mean."""
+    it equals the reference's ``take`` + mean.  A DTensor table: each
+    rank launches the ``sum`` combiner on its own rows
+    (``layers.sharded_lookup``), and the summed bags are divided by their
+    valid ids."""
     table = params["item_table"]
-    ids = _ids(hist, table.device).to(torch.int32).contiguous()
-    return embedding_bag(table, ids, combiner="mean")
+    ids = _ids(hist, table.device).to(torch.int32)
+    if is_dtensor(table):
+        sums = sharded_lookup(table, ids, bag=True)
+        return sums / (ids >= 0).sum(dim=1, keepdim=True).clamp(min=1).to(sums.dtype)
+    return embedding_bag(table, ids.contiguous(), combiner="mean")
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..distributed.sharding import is_dtensor
 from .layers import (apply_rope, blockwise_attention, cache_write, chunked_cross_entropy, cross_entropy_loss, dense,
-                     rmsnorm, split_heads, swiglu, whole)
+                     rmsnorm, sharded_lookup, split_heads, swiglu, whole)
 from .mla import MLAConfig, mla_attention, mla_decode_step, mla_shapes
 from .moe import MoEConfig, moe_apply, moe_shapes
 
@@ -77,7 +77,8 @@ def Identity(x):
 __all__ = [
     "Identity", "TransformerConfig", "Transformer", "transformer_init", "transformer_from_jax",
     "transformer_hidden", "transformer_forward", "transformer_loss", "transformer_prefill",
-    "make_cache", "transformer_decode_step", "make_cache_windowed", "transformer_decode_step_windowed",
+    "make_cache", "transformer_decode_step", "make_cache_windowed", "transformer_prefill_windowed",
+    "transformer_decode_step_windowed",
 ]
 
 
@@ -321,14 +322,22 @@ def _embed(embed, tokens, dtype):
     DTensors each rank looks its own batch rows up in the table gathered
     over the vocabulary (its split of D kept): a ``local_map``, whose
     gradient is each rank's scatter of its rows (a ``Partial`` sum over
-    the ranks that split the batch)."""
+    the ranks that split the batch).  Where one mesh dimension splits both
+    D and the batch (the windowed decode's all-axes table), the token ids
+    are gathered there, not the table; a table split by rows alone (the
+    same decode on 512 ranks: its D does not divide them) would be
+    gathered whole, so each rank looks its own rows up instead
+    (``layers.sharded_lookup``)."""
     if not is_dtensor(embed):
         return embed.to(dtype)[tokens]
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    tok = tokens.placements
+    if not any(p.is_shard(1) for p in embed.placements) and any(p.is_shard(0) for p in embed.placements):
+        return sharded_lookup(embed, tokens).to(dtype)
+
     table = tuple(Shard(1) if p.is_shard(1) else Replicate() for p in embed.placements)
+    tok = tuple(Replicate() if t.is_shard(1) else b for t, b in zip(table, tokens.placements))
     grad = tuple(t if t.is_shard(1) else (Partial() if b.is_shard(0) else Replicate()) for t, b in zip(table, tok))
     out = [Shard(0) if b.is_shard(0) else (Shard(2) if t.is_shard(1) else Replicate()) for t, b in zip(table, tok)]
     return local_map(lambda e, t: e.to(dtype)[t], out_placements=out, in_placements=(table, tok),
@@ -557,6 +566,38 @@ def make_cache_windowed(cfg: TransformerConfig, batch: int, max_len: int, dtype=
     }
 
 
+@torch.inference_mode()
+def transformer_prefill_windowed(params: Transformer, cfg: TransformerConfig, tokens, cache):
+    """Prefill of the hybrid local/global decode: the forward of
+    ``tokens`` (B, S) at positions 0..S-1 that also writes each layer's
+    keys (RoPE applied) and values into ``make_cache_windowed``'s caches:
+    a global layer's S positions, a local layer's last ``min(S, W)``
+    into their ring slots (position t in slot t % W), as S decode steps
+    would leave them.  ``transformer_decode_step_windowed`` goes on at
+    ``cur_len = S``.  -> (the last position's logits (B, V), the same
+    cache dict)."""
+    _check_hybrid(cfg)
+    nb, ge, _ = _hybrid_blocks(cfg)
+    tokens = _tokens(tokens, params.embed.device)
+    b, s = tokens.shape
+    h = _embed(params.embed, tokens, cfg.dtype)
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    for i, (p, window) in enumerate(zip(params.layers, _windows(cfg))):
+        attn_out, (k, v) = _gqa_attend(p["attn"], cfg, rmsnorm(p["ln1"], h), positions, window=window)
+        if window is None:
+            cache["glob_k"][i // ge, :, :, :s] = k
+            cache["glob_v"][i // ge, :, :, :s] = v
+        else:
+            kc, vc = ((cache["loc_k"][i // ge, i % ge], cache["loc_v"][i // ge, i % ge]) if i < nb * ge
+                      else (cache["suf_k"][i - nb * ge], cache["suf_v"][i - nb * ge]))
+            kept = torch.arange(max(0, s - kc.shape[2]), s, device=h.device)
+            kc.index_copy_(2, kept % kc.shape[2], k[:, :, kept])
+            vc.index_copy_(2, kept % vc.shape[2], v[:, :, kept])
+        h = h + attn_out
+        h = h + _ffn(p, cfg, rmsnorm(p["ln2"], h))
+    return dense(params.lm_head, rmsnorm(params.ln_f, h)[:, -1]), cache
+
+
 def _windowed_decode_layer(p, cfg: TransformerConfig, h, kc, vc, cur_len: int, is_global: bool):
     """One decode layer against a full (global) cache or a ring buffer
     (local): position t lives in slot t % W, RoPE applied at write time,
@@ -568,8 +609,7 @@ def _windowed_decode_layer(p, cfg: TransformerConfig, h, kc, vc, cur_len: int, i
         return _gqa_decode_layer(p, cfg, h, kc, vc, cur_len, None)
     q, k, v = _decode_qkv(p["attn"], cfg, rmsnorm(p["ln1"], h), cur_len)
     w = kc.shape[2]
-    kc[:, :, cur_len % w] = k[:, :, 0].to(kc.dtype)
-    vc[:, :, cur_len % w] = v[:, :, 0].to(vc.dtype)
+    kc, vc = cache_write(kc, 2, cur_len % w, k), cache_write(vc, 2, cur_len % w, v)
     o = blockwise_attention(q, kc, vc, causal=False, kv_block=cfg.kv_block, valid_len=min(cur_len + 1, w))
     return _decode_out(p, cfg, h, o)
 
@@ -579,12 +619,15 @@ def transformer_decode_step_windowed(params: Transformer, cfg: TransformerConfig
     """One decode step over ``make_cache_windowed``'s caches: each
     (local^(per_block - 1), global) block, then the local suffix layers;
     the caches are written in place and the same dict is returned.
-    Gives ``transformer_decode_step``'s logits on a full cache."""
+    Gives ``transformer_decode_step``'s logits on a full cache.  On
+    DTensors (``launch.steps``' ``windowed`` decode cell) the ring is
+    written by ``layers.cache_write``: a window split over ranks is
+    written by the rank that owns the slot, then gathered."""
     _check_hybrid(cfg)
     cur_len = int(cur_len)
     nb, ge, ns = _hybrid_blocks(cfg)
     token = _tokens(token, params.embed.device)
-    h = params.embed.to(cfg.dtype)[token]
+    h = _embed(params.embed, token, cfg.dtype)
     for bi in range(nb):
         for j in range(ge - 1):
             h = _windowed_decode_layer(params.layers[bi * ge + j], cfg, h, cache["loc_k"][bi, j],

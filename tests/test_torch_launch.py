@@ -21,6 +21,7 @@ This module imports no JAX at import time: its rank bodies run in
 spawned children that import it.
 """
 
+import contextlib
 import dataclasses
 import functools
 
@@ -334,6 +335,38 @@ def test_fake_trace_collectives_equal_gloo_counters():
                            "kernel.label_prop_update.launches": 64, "kernel.col_reduce.launches": 1}
 
 
+@pytest.mark.parametrize("mode", ["inference", "grad"])
+def test_trace_counts_a_dtensor_product_on_its_local_shards(mode):
+    """A product of DTensors on 8 fake ranks, on ``meta`` shards: the
+    trace counts rank 0's own product (its FLOPs, its output) and none of
+    the ops DTensor's sharding propagation runs on the global shapes
+    (torch 2.13 decomposes ``matmul`` there, on plain ``meta`` tensors);
+    under ``inference_mode`` the composite ``matmul`` reaches the trace
+    whole and is counted as its product."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.trace_analysis import analyze_trace
+
+    b, s, d, f = 64, 32, 128, 256
+
+    def step(x, w):
+        with torch.inference_mode() if mode == "inference" else contextlib.nullcontext():
+            xd = DTensor.from_local(x, mesh, [Shard(0)], run_check=False)
+            wd = DTensor.from_local(w, mesh, [Replicate()], run_check=False)
+            return torch.matmul(xd, wd).to_local()
+
+    with fake_group(8):
+        mesh = init_device_mesh("cuda", (8,), mesh_dim_names=("data",))
+        tr = analyze_trace(step, torch.empty((b, s, d), device="meta"), torch.empty((d, f), device="meta"))
+    assert tr.error is None
+    assert tr.flops == 2 * b * s * d * f
+    assert tr.peak_live_bytes == 4 * (b * s * d + d * f + b * s * f)
+    assert tr.foreign_ops  # the propagation ran, and was left out
+    assert max(p[0] for p in tr.peak_storages) == 4 * b * s * f
+
+
 # -- the roofline against the reference's ------------------------------------
 
 
@@ -386,6 +419,21 @@ def test_roofline_terms_scale_with_the_constants():
 
 COSTS = [
     # (cost, the number PERF.md §6 states, what it is)
+    ("attention_prefill_ops", 5.50e11, "flash_attention prefill at B 4, Hq 32, S 4096, D 128, causal"),
+    ("attention_prefill_bound_ms", 0.556, "its bound on the bf16 tensor cores"),
+    ("attention_decode_bytes", 2.15e9, "the decode at B 16, Hq 32, Hkv 8, Sk 32,768, D 128"),
+    ("attention_decode_bound_ms", 0.641, "its bytes bound"),
+    ("attention_pair_bound_ms", 1.390, "MLA's (192, 128) prefill at B 2, H 128, S 4096: 2·pairs·(192 + 128)"),
+    ("attention_bwd_bound_ms", 1.390, "flash_attention_bwd at the D 128 prefill shape"),
+    ("attention_bwd_pair_ops", 3.574e12, "flash_attention_bwd at the (192, 128) pair"),
+    ("attention_bwd_pair_bound_ms", 3.614, "its bound"),
+    ("attention_window_ops", 5.412e11, "gemma3-27b's local layer: prefill at B 1, Hq 32, Hkv 16, S 32,768, D 128, "
+                                       "window 1,024 (1/16 of the causal pairs)"),
+    ("attention_window_bwd_ops", 1.353e12, "flash_attention_bwd at the same windowed shape"),
+    ("attention_offset_decode_bytes", 6.737e7, "a decode at B 16, Hq 32, Hkv 8, Sk 32,768 whose query sits at "
+                                               "position 1,023: the first 1,024 keys read"),
+    ("embedding_bag_bytes_distinct", 470.2e6, "embedding_bag, 262,144 bags of 20 from 5M x 32, distinct rows"),
+    ("embedding_bag_bound_ms", 0.2166, "the same with every id a row (the cost function's upper bound)"),
     ("hamming_filter_ops", 1.28e11, "K1 at 4096 x 30,437, 512 bits"),
     ("rmi_predict_ops", 3.49e11, "rmi_mlp at 30,437 x 769, 1 + 2 + 4 experts"),
     ("hamming_bound_ms", 0.0645, "K1's bytes bound at the same shape"),
@@ -405,8 +453,50 @@ def test_cost_functions_reproduce_the_bound_inputs(name, want, what):
         "hamming_bound_ms": lambda: cost.hamming_filter_cost(4096, 30437, 768, 16, bitmap=True).bound_ms()[0],
         "row_popcount_bytes": lambda: cost.row_popcount_cost(18432, 952).bytes,
         "fixpoint_bytes_round": lambda: cost.label_prop_fixpoint_cost(18432, 952, 1).bytes,
+        "attention_prefill_ops": lambda: cost.attention_cost(4, 32, 8, 4096, 4096, 128, 128, causal=True).ops,
+        "attention_prefill_bound_ms": lambda: cost.attention_cost(4, 32, 8, 4096, 4096, 128, 128,
+                                                                  causal=True).bound_ms()[0],
+        "attention_decode_bytes": lambda: cost.attention_cost(16, 32, 8, 1, 32768, 128, 128, causal=True).bytes,
+        "attention_decode_bound_ms": lambda: cost.attention_cost(16, 32, 8, 1, 32768, 128, 128,
+                                                                 causal=True).bound_ms()[0],
+        "attention_pair_bound_ms": lambda: cost.attention_cost(2, 128, 128, 4096, 4096, 192, 128,
+                                                               causal=True).bound_ms()[0],
+        "attention_bwd_bound_ms": lambda: cost.attention_bwd_cost(4, 32, 8, 4096, 4096, 128, 128,
+                                                                  causal=True).bound_ms()[0],
+        "attention_bwd_pair_ops": lambda: cost.attention_bwd_cost(2, 128, 128, 4096, 4096, 192, 128, causal=True).ops,
+        "attention_bwd_pair_bound_ms": lambda: cost.attention_bwd_cost(2, 128, 128, 4096, 4096, 192, 128,
+                                                                       causal=True).bound_ms()[0],
+        "attention_window_ops": lambda: cost.attention_cost(1, 32, 16, 32768, 32768, 128, 128, causal=True,
+                                                            window=1024).ops,
+        "attention_window_bwd_ops": lambda: cost.attention_bwd_cost(1, 32, 16, 32768, 32768, 128, 128, causal=True,
+                                                                    window=1024).ops,
+        "attention_offset_decode_bytes": lambda: cost.attention_cost(16, 32, 8, 1, 32768, 128, 128, causal=True,
+                                                                     q_offset=1023).bytes,
+        "embedding_bag_bytes_distinct": lambda: cost.embedding_bag_cost(262144, 20, 32, rows=3_247_500).bytes,
+        "embedding_bag_bound_ms": lambda: cost.embedding_bag_cost(262144, 20, 32).bound_ms()[0],
     }[name]()
     assert got == pytest.approx(want, rel=0.01), what
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (7, 7, True, None, None), (5, 9, True, 3, None), (1, 40, True, None, 12), (1, 40, True, 8, 30),
+    (6, 6, False, 2, None), (4, 20, True, 5, 2), (3, 3, True, 1, None)])
+def test_attention_span_counts_the_kernels_mask(sq, sk, causal, window, q_offset):
+    """The pairs and keys the cost functions count are the ones the
+    plain version's mask keeps, at every causal, window and offset."""
+    from repro_torch.kernels import cost
+
+    off = sk - sq if q_offset is None else q_offset
+    qpos = np.arange(sq)[:, None] + off
+    kpos = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), dtype=bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    read = np.flatnonzero(keep.any(axis=0))
+    assert cost.attention_span(sq, sk, causal, window, q_offset) == (
+        int(keep.sum()), int(read[-1] - read[0] + 1) if read.size else 0)
 
 
 # -- the meshes and the dry run ----------------------------------------------
@@ -427,8 +517,44 @@ def test_production_mesh_matches_the_reference(multi_pod, monkeypatch):
         assert (tuple(mesh.shape), tuple(mesh.mesh_dim_names)) == want
 
 
-@pytest.mark.parametrize("variant", ["baseline", "one_launch"])
+def _model_cell(case):
+    """A reduced (arch, shape, variant) of one model builder (the dry-run
+    cases below)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import ShapeSpec
+
+    name, kind, variant = {
+        "lm-train": ("llama3-8b", "train", "baseline"), "lm-prefill": ("deepseek-v2-236b", "prefill", "baseline"),
+        "lm-decode": ("grok-1-314b", "decode", "baseline"), "lm-windowed": ("gemma3-27b", "decode", "windowed"),
+        "lm-windowed-b1": ("gemma3-27b", "decode1", "windowed"),
+        "recsys-train": ("dien", "train", "baseline"), "recsys-forward": ("autoint", "forward", "baseline"),
+        "recsys-retrieval": ("bst", "retrieval", "baseline"), "gnn-molecule": ("gat-cora", "molecule", "baseline"),
+        "gnn-edges": ("gat-cora", "full_graph_sm", "baseline")}[case]
+    arch = get_arch(name)
+    if arch.family == "gnn":
+        meta = ({"n_nodes": 6, "n_edges": 10, "batch": 8, "d_feat": 64} if kind == "molecule"
+                else {"n_nodes": 40, "n_edges": 101, "d_feat": 1433})
+        return arch, ShapeSpec(kind, "train", meta), variant
+    cfg = arch.make_reduced_config()
+    arch = dataclasses.replace(arch, make_config=lambda: cfg)
+    meta = {"train": {"seq_len": 64, "global_batch": 8}, "prefill": {"seq_len": 64, "global_batch": 8},
+            "decode": {"seq_len": 64, "global_batch": 8}, "decode1": {"seq_len": 64, "global_batch": 1},
+            }.get(kind) if arch.family == "lm" else ({"batch": 1, "n_candidates": 64} if kind == "retrieval"
+                                                     else {"batch": 16})
+    name = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k", "decode1": "long_500k"}
+    return arch, ShapeSpec(name.get(kind, kind) if arch.family == "lm" else kind,
+                           "decode" if kind == "decode1" else kind, meta), variant
+
+
+MODEL_CASES = ["lm-train", "lm-prefill", "lm-decode", "lm-windowed", "lm-windowed-b1", "recsys-train",
+               "recsys-forward", "recsys-retrieval", "gnn-molecule", "gnn-edges"]
+
+
+@pytest.mark.parametrize("variant", ["baseline", "one_launch"] + MODEL_CASES)
 def test_dry_run_of_the_reduced_cells_on_8_fake_ranks(variant, tmp_path):
+    """One reduced cell of every builder (the cluster cell's two variants,
+    each model builder) traced on 8 fake ranks: an ``ok`` record with no
+    trace finding, and a roofline row."""
     import json
 
     from repro_torch.launch import dryrun
@@ -437,8 +563,17 @@ def test_dry_run_of_the_reduced_cells_on_8_fake_ranks(variant, tmp_path):
 
     with dryrun.fake_group(8):
         mesh = make_test_mesh(8)
-        rec = dryrun.run_cell(_arch(backend="random_projection"), _shape(), mesh, "test2x4", tmp_path,
-                              variant=variant, verbose=False)
+        if variant == "lm-windowed-b1":  # B 1: the ring split over ("pod", "data"), written by its one owner
+            from torch.distributed.device_mesh import init_device_mesh
+
+            mesh = init_device_mesh("cuda", (2, 2, 2), mesh_dim_names=("pod", "data", "model"))
+        if variant in MODEL_CASES:
+            arch, shape, v = _model_cell(variant)
+            rec = dryrun.run_cell(arch, shape, mesh, "test2x4", tmp_path, variant=v, verbose=False)
+            assert rec["trace_device"] == "meta" and "whole_weights" in rec
+        else:
+            rec = dryrun.run_cell(_arch(backend="random_projection"), _shape(), mesh, "test2x4", tmp_path,
+                                  variant=variant, verbose=False)
     assert rec["status"] == "ok", rec.get("traceback")
     for key in ("meta", "placements", "memory", "trace_analysis", "collectives", "analysis_findings", "wall_s",
                 "trace_s", "n_devices"):

@@ -162,6 +162,38 @@ def test_windowed_decode_matches_jax_and_full_cache(n_layers):
     _close(logits, fwd[:, -1])
 
 
+@pytest.mark.parametrize("n_fill", [5, 8, 11], ids=["short-of-the-ring", "to-the-ring-edge", "past-it"])
+def test_windowed_prefill_leaves_the_caches_of_its_decode_steps(n_fill):
+    """The windowed prefill of the first ``n_fill`` tokens, then decode
+    steps past 2 W: its logits are the forward's at the last filled
+    position, its caches the reference's after ``n_fill`` decode steps,
+    and every later step's logits and the final caches the reference's
+    decode all the way."""
+    jcfg, cfg = _hybrid(8)
+    w = cfg.window
+    steps = 2 * w + 3
+    jparams = jt.transformer_init(jax.random.PRNGKey(5), jcfg)
+    model = tt.transformer_from_jax(_np(jparams), cfg, device="cpu")
+    b = 2
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, size=(b, steps)).astype(np.int32)
+    jstep = jax.jit(lambda p, t, c, n: jt.transformer_decode_step_windowed(p, jcfg, t, c, n))
+    jcache = jt.make_cache_windowed(jcfg, b, steps, dtype=jnp.float32)
+    for t in range(n_fill):
+        want, jcache = jstep(jparams, jnp.asarray(toks[:, t : t + 1]), jcache, t)
+    cache = tt.make_cache_windowed(cfg, b, steps, device="cpu")
+    logits, out = tt.transformer_prefill_windowed(model, cfg, toks[:, :n_fill], cache)
+    assert out is cache
+    _close(logits, want)
+    for key in cache:
+        _close(cache[key], jcache[key])
+    for t in range(n_fill, steps):
+        want, jcache = jstep(jparams, jnp.asarray(toks[:, t : t + 1]), jcache, t)
+        logits, cache = tt.transformer_decode_step_windowed(model, cfg, toks[:, t : t + 1], cache, t)
+        _close(logits, want)
+    for key in cache:
+        _close(cache[key], jcache[key])
+
+
 def test_windowed_decode_refuses_other_configs():
     cfg = get_arch("granite-20b").make_reduced_config()   # no window
     with pytest.raises(ValueError, match="window"):
