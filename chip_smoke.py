@@ -219,7 +219,7 @@ Phases (each prints one JSON line; any failure exits nonzero):
    queued beside ``scaled_dot_product_attention`` with its bound;
 14. train: the training half.  B11 (``flash_attention_bwd``, the
    gradient of attention) against ``attention_bwd_ref`` on the card at
-   every instantiated width (16, 32, 128, 192) and MLA's (192, 128)
+   every instantiated width (16, 32, 64, 128, 192) and MLA's (192, 128)
    pair, fp32 and bf16, causal, windowed and unmasked, Hq / Hkv 1, 4 and
    8, ragged S, a query offset (``BWD_CASES``; the forward's log-sum-exp
    within ``LSE_TOL``, the gradients within ``BWD_TOL``, the autograd
@@ -234,10 +234,11 @@ Phases (each prints one JSON line; any failure exits nonzero):
    log-sum-exp written, beside it not written).  llama3-8b at full
    width, 2 layers, 1 x 1,024 tokens, bf16: every parameter's gradient
    through the kernels against the same loss through ``attention_ref``
-   with autograd (``GRAD_REL_L2``; ``model_grads``).  llama3-8b training at full width, 8 of
-   32 layers (2,795,573,248 parameters: bf16 weights and grads, fp32
-   AdamW state), B 8 x 4,096 (``train_4k``'s sequence; batch cut from
-   256), ``lm_batches(0, 8, 4096, 128256)``'s batch 0 repeated, remat,
+   with autograd (``GRAD_REL_L2``; ``model_grads``).  llama3-8b
+   training at full width, 2 of 32 layers (``TRAIN_LM_LAYERS``: bf16
+   weights and grads, fp32 AdamW state; 8 layers' 27.96 GB checkpoint
+   took a minute each way), B 8 x 4,096 (``train_4k``'s sequence; batch
+   cut from 256), ``lm_batches(0, 8, 4096, 128256)``'s batch 0 repeated, remat,
    ``ce_chunk`` 512, ``adamw(lr=3e-4)`` behind a 100-step linear warmup
    (``TRAIN_LM_WARMUP``), through ``train_loop`` with a checkpoint
    directory: 3 steps (the first a warm-up), saved, one more step of the
@@ -247,8 +248,8 @@ Phases (each prints one JSON line; any failure exits nonzero):
    resumed from the checkpoint (its parameters and optimizer state
    fingerprinted against the saved ones: bit for bit) and stepped once
    (its loss against the uninterrupted run's, ``RESUME_TOL``); the loss
-   must fall; the launches of a step: ``flash_attention`` 16 (forward
-   and remat recompute), ``flash_attention_bwd`` 8.  The zoo's training
+   must fall; the launches of a step: ``flash_attention`` 4 (forward
+   and remat recompute), ``flash_attention_bwd`` 2.  The zoo's training
    (``ZOO_TRAIN``), each at full width with its depth cut from its
    training state: deepseek-v2 (2 of 60 layers: the dense prefix + 1
    MoE, MLA at (192, 128)), grok-1 (1 of 64) and gemma3-27b (6 of 62: 5
@@ -376,6 +377,37 @@ Phases (each prints one JSON line; any failure exits nonzero):
    single-device step's, the first (untimed) step's, peak memory a
    rank, launches a rank, the collectives of a forward and backward by
    kind (``CommDebugMode``), the staging function's calls.  No fallback.
+18. examples (``examples_phase``): the paths of the port's example
+   twins.  First the D 64 rows (``d64_rows``): ``flash_attention`` at
+   head width 64, its prefill with the log-sum-exp and its decode
+   mapping, and ``flash_attention_bwd``, in fp32 and bf16, at
+   train_lm's shape (B 8, Hq 10, Hkv 2, S 256) and at (B 4, Hq 10, Hkv
+   2, S 4096), causal, each held to its plain version, timed back to
+   back and queued beside the same call zero-padded to D 128 (the path
+   before D 64 was instantiated), SDPA (its backward: forward +
+   ``backward()`` less its forward) and the bound, with ptxas's
+   registers and spills of every ``<64>`` instantiation.  Then
+   ``train_lm_64``: ``examples/train_lm_torch.py``'s ~100M model
+   (d_model 640, 12 layers, 10 query heads over 2, d_head 64, fp32,
+   remat) at its batch (8 x 256) and optimizer: one step held to a CPU
+   copy (``TRAIN_STEP_TOL``), then ``train_loop`` for 4 steps with a
+   checkpoint, one more step, dropped, resumed into other weights from
+   the checkpoint (bit for bit) and stepped once (``RESUME_TOL``); 24
+   ``flash_attention`` and 12 ``flash_attention_bwd`` launches a step.
+   Then ``recsys_serving``: ``examples/recsys_serving_torch.py``'s
+   ``serve`` at bst's full width (a 5M-row table), 150,000 catalogue
+   items in 120 genres ingested by the RP stream in 4,096-row batches
+   (eps 0.12, tau 5), 1,024 users (one ``embedding_bag`` launch), the
+   full and the cluster-pruned scans, recall@10, the scored share,
+   ``assign`` in bulk and 200 single-user calls (p50, p99), the launch
+   counts set to 0 just before and read just after; then the example's
+   own sizes (20,000 items, batches of 4,000, 4 users) on the card held
+   to the same flow on the CPU, which a spawned process (4 threads)
+   runs from the start of phase 14 on (``start_recsys_twin``): labels
+   equal up to relabelling (else ARI >= 0.99, the pairs within
+   ``FLIP_MARGIN`` of the threshold counted), shortlists, top-10 lists
+   (ties within ``RS_TIE``), recall and ``assign`` equal, the user
+   embeddings within ``RECSYS_TOL``.  No fallback.
 
 Metrics are off by default (as in the reference); the script turns them
 on before it drives a path, since the launch counts are counters.
@@ -496,6 +528,13 @@ KERNELS = {
                                           "src/repro/kernels/hamming_filter/kernel.py:150 "
                                           "(_filter_count_bitmap_stats_kernel -> :253; the sharded sweep's "
                                           "telemetry, src/repro/distributed/index_plane.py:419-427)"),
+    "flash_attention<64>": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:90 (flash_attention_pallas -> :110, "
+                            "_make_kernel :30; at head width 64: the LM examples' model, examples/train_lm.py:30,35)"),
+    "flash_attention_bwd<64>": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "(no Pallas kernel) the gradient of `blockwise_attention`, "
+                                "`src/repro/models/layers.py:94`, taken by `jax.value_and_grad`; at head width 64: "
+                                "the LM examples' training, examples/train_lm.py:45-48"),
     "row_popcount_band": ("src/repro_torch/csrc/popcount.cu",
                           "src/repro/kernels/label_prop/ops.py:174 (no Pallas kernel; here with a bit range a "
                           "row: KNN-BLOCK's windows, src/repro/core/baselines.py:76-83)"),
@@ -3026,6 +3065,11 @@ BWD_CASES = [
     (1, 4, 4, 129, 129, 192, 192, True, None, -20), (1, 4, 1, 128, 128, 192, 128, True, None, None),
     (1, 4, 4, 129, 129, 192, 128, True, None, None), (2, 4, 4, 257, 257, 192, 128, True, 100, None),
     (1, 4, 2, 200, 200, 192, 128, True, None, -30), (1, 8, 8, 64, 300, 192, 128, False, None, None),
+    # D 64 (B8d): the LM examples' width; train_lm's heads (10 over 2), the
+    # tile's and the step's edges, unmasked, a window, a negative offset
+    (1, 10, 2, 256, 256, 64, 64, True, None, None), (1, 4, 4, 127, 127, 64, 64, True, None, None),
+    (2, 4, 1, 129, 129, 64, 64, False, None, None), (1, 4, 4, 257, 257, 64, 64, True, 90, None),
+    (1, 4, 2, 100, 260, 64, 64, True, None, -20),
 ]
 LSE_TOL = "|kernel - plain| <= 1e-4 (1 + |plain|), fp32 lse; +inf on the same rows"
 BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2^-7 |plain| + 1e-3 rms(plain) "
@@ -3041,7 +3085,9 @@ BWD_MLA_ROW = (2, 128, 128, 4096, 192, 128)  # B, Hq, Hkv, S, D, Dv: deepseek-v2
 GRAD_CHECK = (2, 1, 1024)         # layers, batch, tokens
 GRAD_REL_L2 = 0.05                # per leaf, bf16: the kernel's P.V is two bf16 terms, the plain P fp32
 # llama3-8b training at full width, depth cut
-TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 8, 4096
+# 2 of 32 layers: at 8 its checkpoint (27.96 GB) took 58-67 s to save and as
+# long to restore; phase 18's train_lm_64 saves and resumes too
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 2, 8, 4096
 # the reference's adamw(lr=3e-4) behind a linear warmup over 100 steps: at a
 # constant 3e-4 Adam's first steps move all 2.8 B parameters by +-lr at once,
 # and the loss on one batch rises 11.8 -> 14.0 -> 14.6 -> 25.7 through the
@@ -3130,7 +3176,7 @@ def bwd_case(c, dtype, seed):
 
 def check_attention_bwd():
     """B11 held to its plain version at every instantiated width (16, 32,
-    128, 192 and MLA's (192, 128) pair), both dtypes and every mask of
+    64, 128, 192 and MLA's (192, 128) pair), both dtypes and every mask of
     ``BWD_CASES``; the decode mapping (Sq = 1), which writes no
     log-sum-exp, raises before the forward launches.  Returns (ok, case
     rows, raises)."""
@@ -3495,8 +3541,8 @@ def lm_train(dev):
     one repeated batch (step 0 the warm-up), saved; one more step of the
     live state (the uninterrupted run); dropped (the kill); a model drawn
     from another seed resumed by ``train_loop`` from the checkpoint (no
-    step left, so nothing is written again: one 26 GiB checkpoint a run,
-    not two), its state fingerprinted against the saved one's, then
+    step left, so nothing is written again: one checkpoint a run, not
+    two), its state fingerprinted against the saved one's, then
     stepped once.  Returns (ok, line, launches a
     step)."""
     import dataclasses
@@ -3525,7 +3571,8 @@ def lm_train(dev):
             "params": cfg.param_count(), "batch": TRAIN_LM_BATCH, "seq": TRAIN_LM_SEQ, "microbatches": n_mb,
             "ce_chunk": chunk, "remat": cfg.remat,
             "optimizer": f"adamw(lr=warmup_linear(3e-4, {TRAIN_LM_WARMUP}, 10000)), fp32 state, clip 1.0",
-            "reduced": {"n_layers": "8 of 32 (the weights, grads and fp32 AdamW state of one card)",
+            "reduced": {"n_layers": f"{TRAIN_LM_LAYERS} of 32 (at 8, the weights, grads and fp32 AdamW state of one "
+                                    "card, the checkpoint's save and restore took 58-67 s each)",
                         "global_batch": "8 of train_4k's 256 (one microbatch)"}}
 
     def start(seed):
@@ -5203,6 +5250,487 @@ def sharded_lm_phase(dev):
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the LM examples' model on attention at D 64 (B8d) with its kernel
+# rows, and the recsys serving example at full width (A8b)
+# ---------------------------------------------------------------------------
+
+TRAIN_LM64 = (8, 256, 4)       # batch rows, tokens a row, train_loop steps (step 0 the warm-up): the example's batch
+D64_SHAPES = {"train_lm": (8, 10, 2, 256), "long": (4, 10, 2, 4096)}  # B, Hq, Hkv, S at D 64, causal
+D64_FP32_TOL = "|kernel - plain| <= 2e-5 (1 + |plain|), fp32 out"
+RS_ITEMS, RS_USERS, RS_ASSIGN_CALLS = 150_000, 1024, 200  # catalogue items (120 genres), users, single assign calls
+RS_TWIN = (20_000, 4000, 4)    # items, batch, users: the example's defaults, held card against CPU
+RS_TWIN_THREADS = 4            # the CPU twin's torch threads (it runs beside the card's phases)
+RS_TIE = 1e-5                  # two top-10 lists may differ only where the swapped items' scores are this close
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def d64_ptxas() -> dict:
+    """ptxas's registers and spill bytes of every ``<64>`` instantiation
+    of the forward (three mappings) and the backward (both)."""
+    out = {}
+    for kernel in ("prefill_fp32_kernel", "prefill_tc_kernel", "decode_split_kernel"):
+        out.update(ptxas_entries("flash_attention", kernel))
+    out.update(bwd_ptxas())
+    return {k: v for k, v in out.items() if "64" in k.rstrip(">").split("<")[-1].split(",")}
+
+
+def d64_gap(out, ref):
+    """(ok, max |err|) of a D 64 output against the plain one: one bf16
+    step (``flash_gap``) or ``D64_FP32_TOL``."""
+    import torch
+
+    if out.dtype == torch.bfloat16:
+        ok, gap = flash_gap(out, ref)
+        return ok, gap["max_abs_err"]
+    err = (out - ref).abs()
+    return bool((err <= 2e-5 * (1 + ref.abs())).all()) and bool(out.isfinite().all()), float(err.max())
+
+
+def d64_rows(label, shape, dtype, seed):
+    """The D 64 rows at ``shape`` (B, Hq, Hkv, S; causal) in ``dtype``:
+    the prefill with its log-sum-exp (training's forward), the decode
+    mapping (one query against the S keys) and the backward, each held to
+    its plain version on the same inputs, with its time back to back and
+    queued, the bound (``kernels/cost.py``), the same call with q, k, v
+    (and the output, dO) zero-padded to D 128 (the path before D 64 was
+    instantiated) and SDPA's time (its backward: forward + ``backward()``
+    less its forward).  Returns (ok, [prefill, decode, backward])."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost
+    from repro_torch.kernels.flash_attention import flash_attention, ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
+
+    b, hq, hkv, s = shape
+    d, scale, elem = 64, 64 ** -0.5, torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shp):
+        return torch.randn(shp, generator=g, device="cuda", dtype=torch.float32).to(dtype)
+
+    def pad(t):
+        return F.pad(t, (0, 128 - d))
+
+    def sdpa(q, k, v, causal=True):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+    dt = str(dtype).split(".")[-1]
+    base = {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "causal": True, "dtype": dt}
+    tol = FLASH_TOL if dtype == torch.bfloat16 else D64_FP32_TOL
+    q, k, v, dout = draw(b, hq, s, d), draw(b, hkv, s, d), draw(b, hkv, s, d), draw(b, hq, s, d)
+    qp, kp, vp, doutp = pad(q), pad(k), pad(v), pad(dout)
+
+    # the prefill with the log-sum-exp written
+    lse, lse_p = (torch.empty((b, hq, s), dtype=torch.float32, device="cuda") for _ in range(2))
+    fwd = lambda: ops._launch(q, k, v, True, None, scale, 0, lse)  # noqa: E731
+    fwd_p = lambda: ops._launch(qp, kp, vp, True, None, scale, 0, lse_p)  # noqa: E731
+    out = fwd()
+    ref, lse_ref = attention_ref(q, k, v, causal=True, return_lse=True)
+    ok_f, err_f = d64_gap(out, ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    ok_f &= lse_err <= 1e-4 * (1 + float(lse_ref.abs().max()))
+    del ref, lse_ref
+    t1, p1 = time_ms(fwd, reps=5), time_ms(fwd_p, reps=5)
+    qd, qdp = queued_ms(fwd, reps=10), queued_ms(fwd_p, reps=10)
+    t2, p2 = time_ms(fwd, reps=5), time_ms(fwd_p, reps=5)
+    c = cost.attention_cost(b, hq, hkv, s, s, d, d, causal=True, elem=elem, lse=True)
+    pre = {"name": "flash_attention<64>", "mapping": "prefill with the log-sum-exp", "cell": label,
+           "shape": {**base, "Sq": s, "Sk": s}, "max_abs_err": err_f, "lse_max_abs_err": lse_err, "tolerance": tol,
+           "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": qd, "padded_d128_ms": (p1 + p2) / 2,
+           "padded_d128_ms_turns": [p1, p2], "padded_d128_queued_ms": qdp,
+           "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True, return_lse=True), reps=2, warmup=1),
+           "library_ms": time_ms(lambda: sdpa(q, k, v), reps=5),
+           "library": f"F.scaled_dot_product_attention(enable_gqa=True, is_causal=True), {dt}",
+           "flops": c.ops, "bytes": c.bytes, "bound_ms": c.bound_ms()[0], "bound_by": c.bound_ms()[1], "ok": ok_f}
+    pre["padded_over_d64"] = pre["padded_d128_ms"] / pre["ms"]
+
+    # the decode mapping: the last position's query against all S keys
+    q1, q1p = q[:, :, -1:].contiguous(), qp[:, :, -1:].contiguous()
+    dec = lambda: flash_attention(q1, k, v, causal=True)  # noqa: E731
+    dec_p = lambda: flash_attention(q1p, kp, vp, causal=True, scale=scale)  # noqa: E731
+    ok_d, err_d = d64_gap(dec(), attention_ref(q1, k, v, causal=True))
+    t1, p1 = time_ms(dec, reps=10), time_ms(dec_p, reps=10)
+    qd, qdp = queued_ms(dec), queued_ms(dec_p)
+    t2, p2 = time_ms(dec, reps=10), time_ms(dec_p, reps=10)
+    c = cost.attention_cost(b, hq, hkv, 1, s, d, d, causal=True, elem=elem)
+    decode = {"name": "flash_attention<64>", "mapping": "decode (Sq = 1)", "cell": label,
+              "shape": {**base, "Sq": 1, "Sk": s}, "max_abs_err": err_d, "tolerance": tol,
+              "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": qd, "padded_d128_ms": (p1 + p2) / 2,
+              "padded_d128_ms_turns": [p1, p2], "padded_d128_queued_ms": qdp,
+              "plain_ms": time_ms(lambda: attention_ref(q1, k, v, causal=True), reps=3, warmup=1),
+              "library_ms": time_ms(lambda: sdpa(q1, k, v, causal=False), reps=10),
+              "library_queued_ms": queued_ms(lambda: sdpa(q1, k, v, causal=False)),
+              "library": f"F.scaled_dot_product_attention(enable_gqa=True), {dt}, one query (no mask)",
+              "bytes": c.bytes, "bound_ms": c.bound_ms()[0], "bound_by": c.bound_ms()[1], "ok": ok_d}
+    decode["padded_over_d64"] = decode["padded_d128_ms"] / decode["ms"]
+
+    # the backward, from the kernel's own output and log-sum-exp
+    out_p = fwd_p()
+    bwd = lambda: ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)  # noqa: E731
+    bwd_p = lambda: ops.flash_attention_bwd(qp, kp, vp, out_p, lse_p, doutp, causal=True, scale=scale)  # noqa: E731
+    got, want = bwd(), attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    ok_b, errs = True, []
+    for a, w in zip(got, want):
+        o, e, _ = bwd_grad_gap(a, w, dtype)
+        ok_b &= o
+        errs.append(e)
+    del got, want
+    t1, p1 = time_ms(bwd, reps=3, warmup=1), time_ms(bwd_p, reps=3, warmup=1)
+    qd, qdp = queued_ms(bwd, reps=3), queued_ms(bwd_p, reps=3)
+    t2, p2 = time_ms(bwd, reps=3, warmup=0), time_ms(bwd_p, reps=3, warmup=0)
+    plain = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, dout, causal=True), reps=1, warmup=1)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True).backward(dout)
+
+    fb, f_only = time_ms(sdpa_fwd_bwd, reps=5), time_ms(lambda: sdpa(q, k, v), reps=5)
+    c = cost.attention_bwd_cost(b, hq, hkv, s, s, d, d, causal=True, elem=elem)
+    back = {"name": "flash_attention_bwd<64>", "mapping": "backward", "cell": label,
+            "shape": {**base, "Sq": s, "Sk": s}, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+            "tolerance": BWD_TOL, "ms": (t1 + t2) / 2, "ms_turns": [t1, t2], "queued_ms": qd,
+            "padded_d128_ms": (p1 + p2) / 2, "padded_d128_ms_turns": [p1, p2], "padded_d128_queued_ms": qdp,
+            "plain_ms": plain, "library_ms": fb - f_only, "library_fwd_bwd_ms": fb, "library_fwd_ms": f_only,
+            "library": f"F.scaled_dot_product_attention(enable_gqa=True, is_causal=True), {dt}: forward + "
+                       "backward() less its forward",
+            "flops": c.ops, "bytes": c.bytes, "bound_ms": c.bound_ms()[0], "bound_by": c.bound_ms()[1], "ok": ok_b}
+    back["padded_over_d64"] = back["padded_d128_ms"] / back["ms"]
+    del q, k, v, dout, qp, kp, vp, doutp, out, out_p, lse, lse_p, ql, kl, vl
+    torch.cuda.empty_cache()
+    return ok_f and ok_d and ok_b, [pre, decode, back]
+
+
+def train_lm_64(dev):
+    """``examples/train_lm_torch.py``'s ~100M model (d_model 640, 12 layers,
+    10 query heads over 2 kv heads, d_head 64, fp32) at its batch (8 x
+    256, ``lm_batches(0, ...)``) and optimizer (``adamw(3e-4, weight_decay
+    0.1)``, clip 1.0, one microbatch, the whole logits), its attention the
+    D 64 kernels: first one step held to a CPU copy (``cpu_step_parity``),
+    then from the same weights ``train_loop`` for ``TRAIN_LM64[2]`` steps
+    with a checkpoint directory (saved at the end) and one more step (the
+    uninterrupted run); dropped; a model drawn from another seed resumed
+    by ``train_loop`` from the checkpoint, its state fingerprinted against
+    the saved one's, and stepped once.  Returns (ok, line, launches a
+    step)."""
+    import copy as copy_
+    import functools
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models.transformer import transformer_init, transformer_loss
+    from repro_torch.train.optimizer import adamw, param_tree
+    from repro_torch.train.trainer import TrainLoopConfig, train_loop
+
+    rows, seq, steps = TRAIN_LM64
+    cfg = load_example("train_lm_torch").make_config(small=False)
+    opt = adamw(lr=3e-4, weight_decay=0.1)
+    make_batch = lm_batches(0, rows, seq, cfg.vocab)
+    ckpt = ROOT / "build" / "chip_smoke_train_lm64_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    loop_cfg = TrainLoopConfig(total_steps=steps, ckpt_dir=str(ckpt), ckpt_every=10 ** 9, log_every=1)
+    line = {"phase": "train_lm_64", "example": "examples/train_lm_torch.py", "params": cfg.param_count(),
+            "d_model": cfg.d_model, "n_layers": cfg.n_layers, "n_heads": cfg.n_heads, "kv_heads": cfg.kv_heads,
+            "d_head": cfg.d_head, "dtype": str(cfg.dtype), "remat": cfg.remat, "batch": rows, "seq": seq,
+            "optimizer": "adamw(lr=3e-4, weight_decay=0.1), clip 1.0, one microbatch, ce_chunk 0"}
+
+    def start(seed):
+        model = transformer_init(seed, cfg, device=dev).requires_grad_(True)
+        params = param_tree(model)
+        return model, params, opt.init(params)
+
+    def step_of(model):
+        return functools.partial(lm_train_step, model, cfg, opt=opt, n_microbatches=1, ce_chunk=0)
+
+    # step 0 against a CPU copy of the same weights
+    t0 = time.perf_counter()
+    model, params, state = start(0)
+    host = copy_.deepcopy(model).cpu()
+    host_params = param_tree(host)
+    host_state = opt.init(host_params)
+    b0 = make_batch(0)
+    b0_dev = {k: torch.as_tensor(v, device=dev) for k, v in b0.items()}
+    p_ok, parity = cpu_step_parity(
+        lambda: step_of(model)(params, state, b0)[2], lambda: step_of(host)(host_params, host_state, b0)[2],
+        params, host_params,
+        lambda: transformer_loss(model, cfg, b0_dev["tokens"], b0_dev["labels"]),
+        lambda: transformer_loss(host, cfg, b0["tokens"], b0["labels"]))
+    line.update({"parity_ok": p_ok, "parity": parity, "parity_tolerance": TRAIN_STEP_TOL,
+                 "parity_s": time.perf_counter() - t0})
+    del model, params, state, host, host_params, host_state, b0_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the run, saved at its end, and the uninterrupted run's next step
+    launches, logs = [], []
+    model, params, state = start(0)
+    step = synced_step(step_of(model), launches)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_loop(loop_cfg, step, params, state, make_batch, log=logs.append)
+    loop_s = time.perf_counter() - t0
+    hist, state = out["history"], out["opt_state"]
+    saved_fp = fingerprint((params, state))
+    _, state, m = step(params, state, make_batch(steps))
+    loss_a = float(m["loss"])
+    step_s = [h["step_s"] for h in hist]
+    losses = [h["loss"] for h in hist]
+    line.update({"losses": losses + [loss_a], "step_s": step_s, "warmup_step_s": step_s[0],
+                 "step_s_timed": step_s[1:], "tokens_per_s": rows * seq / float(np.median(step_s[1:])),
+                 "save_s": loop_s - sum(step_s), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                 "launches_a_step": launches[1]})
+    # the kill, then the resume into other weights
+    del model, params, state, out, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, params, state = start(1)
+    step = synced_step(step_of(model), launches)
+    t0 = time.perf_counter()
+    out = train_loop(loop_cfg, step, params, state, make_batch, log=logs.append)
+    restore_s = time.perf_counter() - t0
+    state = out["opt_state"]
+    restored = fingerprint((params, state)) == saved_fp
+    _, state, m = step(params, state, make_batch(steps))
+    loss_b = float(m["loss"])
+    line.update({"resumed_from": [x for x in logs if x.startswith("resumed")], "restore_s": restore_s,
+                 "restored_bit_for_bit": restored, "resumed_step": int(state["step"]) - 1,
+                 "resumed_loss": loss_b, "uninterrupted_loss": loss_a, "resumed_loss_bit_equal": loss_b == loss_a,
+                 "resume_rel_diff": abs(loss_b - loss_a) / abs(loss_a), "resume_tolerance": RESUME_TOL,
+                 "checkpoint_bytes": sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())})
+    want = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+    ok = p_ok and all(np.isfinite(line["losses"])) and restored and not out["history"]
+    ok &= line["resumed_step"] == steps and line["resume_rel_diff"] <= RESUME_TOL
+    ok &= all(x == want for x in launches)
+    line.update({"launches_expected": want, "ok": ok})
+    del model, params, state, out, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return ok, line, launches[1]
+
+
+def recsys_twin_cpu(n_cand: int, batch: int, users: int, threads: int) -> dict:
+    """Body of the recsys example's CPU twin, run in a process of its own
+    (``start_recsys_twin``): ``serve`` at bst's full width on the CPU with
+    ``bst_init(0, cfg, device="cpu")``'s parameters (the card's phase draws
+    the same ones on the CPU and moves them), ``threads`` torch threads.
+    Returns the compared results and the seconds it took."""
+    import torch
+
+    torch.set_num_threads(threads)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.models.recsys import bst_init
+
+    t0 = time.perf_counter()
+    cfg = get_arch("bst").make_config()
+    out = load_example("recsys_serving_torch").serve(cfg, bst_init(0, cfg, device="cpu"), n_cand=n_cand,
+                                                     batch=batch, n_users=users, device="cpu")
+    return {**{k: v for k, v in out.items() if k not in ("stream", "snapshot", "catalogue")},
+            "wall_s": time.perf_counter() - t0, "threads": threads}
+
+
+def start_recsys_twin():
+    """The CPU twin of phase 18's recsys check, started in a spawned
+    process so that it runs while the card works on other phases: (the
+    pool, its future).  The caller shuts the pool down."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(recsys_twin_cpu, *RS_TWIN, RS_TWIN_THREADS)
+
+
+def relabelling(want, got):
+    """The map of ``got``'s cluster ids onto ``want``'s where the two
+    labellings are equal up to relabelling (noise -1 on both), else
+    None."""
+    if not np.array_equal(want < 0, got < 0):
+        return None
+    pairs = set(zip(got[got >= 0].tolist(), want[want >= 0].tolist()))
+    to_want = dict(pairs)
+    if len(to_want) != len(pairs) or len(set(to_want.values())) != len(to_want):
+        return None
+    return {**to_want, -1: -1}
+
+
+def top_lists_agree(a, b, q, cands) -> bool:
+    """Two top-k lists (users x k) agree where equal, or where each
+    position that differs holds two items whose float64 scores are within
+    ``RS_TIE``: a tie put in another order."""
+    for u in range(len(q)):
+        x, y = np.asarray(a[u]), np.asarray(b[u])
+        if len(x) != len(y):
+            return False
+        diff = x != y
+        if diff.any():
+            qs = q[u].astype(np.float64)
+            sx, sy = cands[x[diff]].astype(np.float64) @ qs, cands[y[diff]].astype(np.float64) @ qs
+            if np.abs(sx - sy).max() > RS_TIE:
+                return False
+    return True
+
+
+def near_threshold_pairs(cands, eps, dev, chunk: int = 4096) -> int:
+    """Pairs (i < j) of the catalogue whose float64 dot lies within
+    ``FLIP_MARGIN`` of 1 - eps: where the card's fp32 band test and the
+    CPU's may decide a hit differently."""
+    import torch
+
+    x = torch.from_numpy(cands).to(dev, torch.float64)
+    n = 0
+    for s in range(0, len(x), chunk):
+        d = x[s : s + chunk] @ x.T
+        near = (d - (1.0 - eps)).abs() <= FLIP_MARGIN
+        rows = torch.arange(s, s + len(d), device=dev)[:, None]
+        n += int((near & (torch.arange(len(x), device=dev)[None, :] > rows)).sum())
+    return n
+
+
+def recsys_serving_phase(dev, twin):
+    """``examples/recsys_serving_torch.py``'s ``serve`` on the card at
+    bst's full width (``make_config``: embed_dim 32, seq_len 20, 8 heads,
+    a 5M-row item table; ``bst_init(0, cfg, device="cpu")``'s parameters
+    moved to the card): ``RS_ITEMS`` catalogue items in the example's 120
+    genres in batches of ``STREAM_BATCH``, eps 0.12, tau 5, ``RS_USERS``
+    users, the kernel counts set to 0 just before and read just after;
+    then ``RS_ASSIGN_CALLS`` single-user ``assign`` calls (p50, p99).
+    Then the example's own sizes (``RS_TWIN``) on the card, held to the
+    CPU twin (``twin``, the future of ``start_recsys_twin``) under phase
+    12's contract: labels equal up to relabelling, else ARI >= 0.99 with
+    the pairs within ``FLIP_MARGIN`` of the threshold counted; the top-10
+    lists equal but for ties within ``RS_TIE``; the user embeddings
+    within ``RECSYS_TOL``.  Returns (ok, line, launches)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.metrics import adjusted_rand_index
+    from repro_torch.models.recsys import bst_init
+    from repro_torch.obs import metrics
+
+    t_phase = time.perf_counter()
+    ex = load_example("recsys_serving_torch")
+    cfg = get_arch("bst").make_config()
+    model = bst_init(0, cfg, device="cpu").to(dev)
+    line, checks = {"phase": "recsys_serving", "example": "examples/recsys_serving_torch.py", "bst": "make_config()",
+                    "item_vocab": cfg.item_vocab, "embed_dim": cfg.embed_dim, "items": RS_ITEMS,
+                    "batch": STREAM_BATCH, "eps": ex.EPS, "tau": ex.TAU, "users": RS_USERS}, {}
+    names = ("embedding_bag",) + STREAM_RP_KERNELS
+    metrics.reset()
+    torch.cuda.synchronize()
+    out = ex.serve(cfg, model, n_cand=RS_ITEMS, batch=STREAM_BATCH, n_users=RS_USERS, device=dev)
+    snap = metrics.snapshot()
+    launches = {k: snap.get(f"kernel.{k}.launches", 0) for k in names}
+    sec = out["seconds"]
+    lat = []
+    q = out["user_embeddings"]
+    for i in range(RS_ASSIGN_CALLS):
+        t0 = time.perf_counter()
+        out["stream"].assign(q[i : i + 1])
+        lat.append(time.perf_counter() - t0)
+    line.update({"ingest_s": sec["ingest"], "ingest_rows_per_s": RS_ITEMS / sec["ingest"],
+                 "n_batches": out["n_batches"], "last_batch_s": out["last_batch_s"], "n_clusters": out["n_clusters"],
+                 "clustered_share": float(np.mean(out["labels"] >= 0)), "user_embedding_s": sec["embed"],
+                 "full_scan_s": sec["full_scan"], "pruned_scan_s": sec["pruned_scan"], "recall_at_10": out["recall"],
+                 "scored_share": out["scored_frac"], "assign_bulk_s": sec["assign"],
+                 "assign_p50_ms": 1e3 * float(np.percentile(lat, 50)),
+                 "assign_p99_ms": 1e3 * float(np.percentile(lat, 99)),
+                 "assigned": int((out["assign_labels"] >= 0).sum()), "launches": launches})
+    checks["launches"] = launches["embedding_bag"] == 1 and all(v > 0 for v in launches.values())
+    checks["clustered"] = out["n_clusters"] > 0 and 0 < out["scored_frac"] < 1
+    del out
+    torch.cuda.empty_cache()
+
+    # the example's own sizes: the card against the CPU twin
+    n_cand, batch, users = RS_TWIN
+    card = ex.serve(cfg, model, n_cand=n_cand, batch=batch, n_users=users, device=dev)
+    t0 = time.perf_counter()
+    cpu = twin.result()
+    wait_s = time.perf_counter() - t0
+    to_cpu = relabelling(cpu["labels"], card["labels"])
+    ari = adjusted_rand_index(card["labels"], cpu["labels"])
+    cands = card["catalogue"]
+    qc = cpu["user_embeddings"]
+    emb_ok, emb_gap = recsys_gap(torch.from_numpy(card["user_embeddings"]), torch.from_numpy(qc))
+    full_ok = top_lists_agree(card["top_full"], cpu["top_full"], qc, cands)
+    twin_line = {"items": n_cand, "batch": batch, "users": users, "cpu_wall_s": cpu["wall_s"],
+                 "cpu_threads": cpu["threads"], "cpu_seconds": cpu["seconds"], "card_seconds": card["seconds"],
+                 "waited_s": wait_s, "labels_equal_up_to_relabelling": to_cpu is not None, "ari": ari,
+                 "labels_differing": None if to_cpu is not None else int((card["labels"] != cpu["labels"]).sum()),
+                 "near_threshold_pairs": near_threshold_pairs(cands, ex.EPS, dev),
+                 "n_clusters": [card["n_clusters"], cpu["n_clusters"]], "recall": [card["recall"], cpu["recall"]],
+                 "scored_share": [card["scored_frac"], cpu["scored_frac"]], "user_embeddings": emb_gap,
+                 "top_full_agree": full_ok}
+    checks["twin_labels"] = to_cpu is not None or ari >= 0.99
+    checks["twin_embeddings"] = emb_ok
+    checks["twin_top_full"] = full_ok
+    if to_cpu is not None:  # the same clusters: the shortlists, pruned lists and assign must match too
+        twin_line["top_clusters_equal"] = bool(np.array_equal(np.vectorize(to_cpu.get)(card["top_clusters"]),
+                                                              cpu["top_clusters"]))
+        twin_line["top_pruned_agree"] = top_lists_agree(card["top_pruned"], cpu["top_pruned"], qc, cands)
+        twin_line["assign_equal"] = bool(
+            np.array_equal([to_cpu[int(x)] for x in card["assign_labels"]], cpu["assign_labels"])
+            and np.array_equal(card["assign_hits"], cpu["assign_hits"])
+            and np.allclose(card["assign_confidence"], cpu["assign_confidence"], rtol=0, atol=1e-6))
+        checks["twin_serving"] = (twin_line["top_clusters_equal"] and twin_line["top_pruned_agree"]
+                                  and twin_line["assign_equal"] and card["recall"] == cpu["recall"])
+    line.update({"twin": twin_line, "checks": checks, "seconds": time.perf_counter() - t_phase,
+                 "twin_tolerance": f"phase 12's: labels equal up to relabelling, else ARI >= 0.99 with the pairs "
+                                   f"within {FLIP_MARGIN} of 1 - eps counted; top-10 lists equal but for ties within "
+                                   f"{RS_TIE}; user embeddings {RECSYS_TOL}"})
+    del model, card
+    torch.cuda.empty_cache()
+    return all(checks.values()), line, launches
+
+
+def examples_phase(dev, twin):
+    """Phase 18: the D 64 rows (``d64_rows`` at ``D64_SHAPES`` in fp32 and
+    bf16, with ptxas's ``<64>`` entries), ``train_lm_64`` and
+    ``recsys_serving_phase``, each path's launch counts read around its
+    own run.  Returns (ok, kernel rows, launches by row)."""
+    t_phase = time.perf_counter()
+    import torch
+
+    ok, rows = True, []
+    for i, (label, shape) in enumerate(D64_SHAPES.items()):
+        for j, dtype in enumerate((torch.float32, torch.bfloat16)):
+            r_ok, r = d64_rows(label, shape, dtype, seed=60 + 2 * i + j)
+            ok &= r_ok
+            rows += r
+    emit({"phase": "flash_attention_d64", "seconds": time.perf_counter() - t_phase, "ok": ok,
+          "ptxas": d64_ptxas(), "rows": rows})
+    t0 = time.perf_counter()
+    t_ok, t_line, step_launches = train_lm_64(dev)
+    emit({**t_line, "seconds": time.perf_counter() - t0})
+    r_ok, r_line, rs_launches = recsys_serving_phase(dev, twin)
+    emit(r_line)
+    ok &= t_ok and r_ok
+    emit({"phase": "examples", "seconds": time.perf_counter() - t_phase, "ok": ok,
+          "checks": {"d64_rows": all(r["ok"] for r in rows), "train_lm_64": t_ok, "recsys_serving": r_ok}})
+    # the kernels line's D 64 entries: the fp32 rows at train_lm's shape (the
+    # path's own dtype and shape; every row is in the flash_attention_d64 line)
+    kernel_rows = [r for r in rows if r["cell"] == "train_lm" and r["shape"]["dtype"] == "float32"
+                   and r["mapping"] != "decode (Sq = 1)"]
+    launches = {"flash_attention<64>": step_launches["flash_attention"],
+                "flash_attention_bwd<64>": step_launches["flash_attention_bwd"]}
+    return ok, kernel_rows, launches
+
+
 def run(args) -> int:
     import torch
 
@@ -5452,6 +5980,7 @@ def run(args) -> int:
     # 14. training: B11 and its rows, the full-width gradient check,
     #     llama3-8b with save and resume, the recsys and GAT steps, each
     #     step's launch counts read around it
+    twin_pool, twin = start_recsys_twin()  # phase 18's CPU twin, on the host's cores while the card trains
     tr_ok, tr_rows, tr_launches = train_phase(dev)
     ok &= tr_ok and all(n > 0 for n in tr_launches.values())
     launches.update(tr_launches)
@@ -5473,9 +6002,18 @@ def run(args) -> int:
     #     each held to the single-device step; each step's counts read around it
     sh_ok, sh_launches = sharded_lm_phase(dev)
     ok &= sh_ok and all(n > 0 for n in sh_launches.values())
+    # 18. the examples' paths: attention at D 64 (its rows, train_lm's model
+    #     trained, saved and resumed) and the recsys serving example at full
+    #     width, held to its CPU twin; each path's counts read around it
+    try:
+        ex_ok, ex_rows, ex_launches = examples_phase(dev, twin)
+    finally:
+        twin_pool.shutdown(wait=True, cancel_futures=True)
+    ok &= ex_ok and all(n > 0 for n in ex_launches.values())
+    launches.update(ex_launches)
     rows = []
     for k in [k1, *lp, pc_row, *rc, *st, rmi, *comp_rows, *fa_rows, *eb_rows, band, pc_conn, *zf_rows, *tr_rows,
-              *pl_rows]:
+              *pl_rows, *ex_rows]:
         source, replaces = KERNELS[k["name"]]
         rows.append({"name": k["name"], "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[k["name"]], "library_ms": None,
@@ -5492,7 +6030,9 @@ def run(args) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=152185, help="dataset rows (MS-150k: 152185)")
-    ap.add_argument("--epochs", type=int, default=10, help="estimator epochs (paper: 200)")
+    ap.add_argument("--epochs", type=int, default=5,
+                    help="estimator epochs (paper: 200; 5 since the examples' phase: at 4, 6 and 10 the card's "
+                         "predicted cores and ARIs are the same, scripts/estimator_epochs_probe.py)")
     ap.add_argument("--k1-rows", type=int, default=4096, help="queries in the K1 comparison")
     args = ap.parse_args()
     try:

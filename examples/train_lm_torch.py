@@ -8,9 +8,9 @@ pipeline, AdamW, clipping, checkpointing + resume, straggler policy).
 The twin of ``examples/train_lm.py`` on ``repro_torch`` alone: the same
 configs, batches (``lm_batches``) and optimizer; each step is
 ``launch.steps.lm_train_step`` (the attention forward and backward are
-the ``flash_attention`` kernels on the card, their plain versions on
-the CPU).  A second run with the same ``--ckpt-dir`` resumes from its
-last checkpoint.
+the ``flash_attention`` kernels on the card at head width 64, their
+plain versions on the CPU).  A second run with the same ``--ckpt-dir``
+resumes from its last checkpoint.
 """
 
 import argparse
@@ -25,6 +25,16 @@ from repro_torch.train.trainer import TrainLoopConfig, train_loop
 import torch
 
 
+def make_config(small: bool) -> TransformerConfig:
+    """The ~100M-parameter model (d_model 640, 12 layers, 10 query heads
+    over 2 kv heads, d_head 64, fp32), or ~10M with ``small``."""
+    if small:
+        return TransformerConfig(vocab=4096, d_model=256, n_layers=4, n_heads=4, kv_heads=2, d_head=64, d_ff=1024,
+                                 dtype=torch.float32, kv_block=128)
+    return TransformerConfig(vocab=16384, d_model=640, n_layers=12, n_heads=10, kv_heads=2, d_head=64,
+                             d_ff=2560, dtype=torch.float32, kv_block=128)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=300)
@@ -35,13 +45,7 @@ def main():
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args()
 
-    if args.small:
-        cfg = TransformerConfig(vocab=4096, d_model=256, n_layers=4, n_heads=4, kv_heads=2, d_head=64, d_ff=1024,
-                                dtype=torch.float32, kv_block=128)
-    else:
-        # ~100M params
-        cfg = TransformerConfig(vocab=16384, d_model=640, n_layers=12, n_heads=10, kv_heads=2, d_head=64,
-                                d_ff=2560, dtype=torch.float32, kv_block=128)
+    cfg = make_config(args.small)
     print(f"model: {cfg.param_count() / 1e6:.1f}M params on {args.device}")
 
     model = transformer_init(0, cfg, device=args.device)

@@ -10,7 +10,7 @@ kernels (``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``).
     python3 scripts/flash_attention_bwd_check.py     # one CUDA card, ~1 min with the build
 
 Cases (``chip_smoke.BWD_CASES``): every head width the backward takes
-(16, 32, 128, 192) and MLA's (192, 128) pair, fp32 and bf16, causal,
+(16, 32, 64, 128, 192) and MLA's (192, 128) pair, fp32 and bf16, causal,
 windowed and unmasked, Hq / Hkv of 1, 4 and 8, ragged S, a query offset
 (rows with no key among them).
 Each case runs the forward with the log-sum-exp written (against

@@ -5,7 +5,7 @@ against the plain version on the card.
 
     python3 scripts/flash_attention_check.py     # one CUDA card, ~25 s with the build
 
-Cases: every head width the kernel takes (16, 32, 128, 192) in bf16 and
+Cases: every head width the kernel takes (16, 32, 64, 128, 192) in bf16 and
 fp32, the prefill (causal, non-causal, windowed, ragged S, GQA) and the
 decode mapping (split over Sk, MQA at Hkv 1, a 1,024-slot ring read
 unmasked), MLA's (192, 128) pair (v at 128; causal and not, ragged S,
@@ -39,6 +39,10 @@ CASES = [
     (2, 8, 2, 1000, 1000, 128, True, None), (2, 32, 8, 1, 1088, 128, True, None),
     (2, 48, 1, 1, 288, 128, True, None), (2, 32, 16, 1, 1024, 128, False, None),
     (2, 4, 2, 70, 70, 16, True, None), (2, 4, 2, 200, 200, 32, True, None),
+    # D 64: the LM examples' width (train_lm: Hq 10, Hkv 2, S 256)
+    (2, 10, 2, 256, 256, 64, True, None), (1, 4, 4, 300, 300, 64, True, None),
+    (1, 4, 4, 70, 200, 64, False, None), (1, 4, 2, 513, 513, 64, True, 100),
+    (2, 10, 2, 1, 1000, 64, True, None), (8, 10, 2, 1, 256, 64, True, None),
 ]
 # MLA's pair, (B, Hq, Hkv, Sq, Sk, causal, window, q_offset) at q/k 192, v 128
 PAIR_CASES = [
@@ -112,7 +116,7 @@ def main() -> int:
             ok, err = gap(out, attention_ref(q, k, v, causal=True, scale=1 / math.sqrt(d)))
             ok_all &= ok
             print(json.dumps({"mla_widths": [d, dv], "dtype": str(dtype), "ok": ok, "max_abs_err": err}), flush=True)
-    for d, dv in ((64, 64), (128, 64), (192, 64)):
+    for d, dv in ((96, 96), (128, 64), (192, 64)):
         x, y = draw(1, 2, 8, d), draw(1, 2, 8, dv)
         try:
             flash_attention(x, x, y)

@@ -25,7 +25,7 @@
 //   thread loads Q once and a 3-stage ring of 128-key K and V tiles by
 //   TMA (4-d tensor maps over (D, S, H, B) built from the strides; the
 //   out-of-bounds zero fill covers the ragged tail; swizzle 128, 64 or
-//   32 bytes for D 128, 32, 16), each stage behind mbarriers.  S = Q.K^T
+//   32 bytes for D 64 and 128, 32, 16), each stage behind mbarriers.  S = Q.K^T
 //   is wgmma m64n128k16 (bf16 products exact, fp32 sums); the online
 //   softmax runs in registers on the accumulator fragment, in fp32 (exp
 //   on the special-function unit), masking only tiles that cross the
@@ -64,7 +64,7 @@
 //   gives out = sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
 //   1e-30): a wholly masked split (m = -1e30, l = 0) adds exactly 0.
 //
-// Head widths D: 16, 32, 128 and 192 (MLA's concatenated q/k, 128 + 64),
+// Head widths D: 16, 32, 64, 128 and 192 (MLA's concatenated q/k, 128 + 64),
 // and one (DK, DV) pair, (192, 128): MLA's v and output at their own
 // width in the bf16 prefill (TC<DK, DV> below), P.V at N 128 on a 32 KB V
 // tile over a 2-stage K and V ring.  Its floor is 2 pairs (192 + 2 x 128)
@@ -74,7 +74,11 @@
 // and the wrapper (ops.py) calls again with v padded to 192; no path
 // runs them at MLA's widths.  At DK 192 the bf16 prefill runs a
 // tile's steps in order (TC), and the decode mapping fits two blocks an
-// SM (Dec<T, D>).
+// SM (Dec<T, D>).  D 64 (the LM examples' width) is D 128's design at one
+// box a row: a bf16 row is 128 bytes, one 128-byte swizzle atom, so a Q,
+// K or V tile is a single 16 KB box (3-stage ring, 113 KB) and P.V runs
+// at N 64; the fp32 prefill's P tile fits in K's rows (51 KB); a decode
+// lane owns 2 output columns.
 //
 // For training, each prefill mapping also writes a query's fp32
 // log-sum-exp of the scaled scores (m + log l from its running max and
@@ -142,7 +146,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* base,
   }
 }
 
-// the probability tile reuses the K tile's rows where it fits (D 128)
+// the probability tile reuses the K tile's rows where it fits (D 64 and 128)
 template <int D> struct Prefill {
   static constexpr bool p_in_k = BQ * (BK + 4) <= BK * (D + 4);
   static constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 4) + BK * D + (p_in_k ? 0 : BQ * (BK + 4)));
@@ -456,6 +460,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
         "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16 bf16, registers) . B (16 x 64 bf16, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -1165,6 +1184,7 @@ extern "C" int flash_attention_launch(
   switch (D) {
     case 16: return (int)launch<16>(p, dtype, s);
     case 32: return (int)launch<32>(p, dtype, s);
+    case 64: return (int)launch<64>(p, dtype, s);
     case 128: return (int)launch<128>(p, dtype, s);
     case 192: return (int)launch<192>(p, dtype, s);
     default: return (int)cudaErrorInvalidValue;

@@ -15,7 +15,7 @@
 // keeps k_pos > q_pos - window, keys past Sk and queries past Sq are
 // masked.  A row that the forward found no key for has lse = +inf, and
 // every one of its (query, key) pairs is masked, so its p is 0 and its
-// gradients 0.  Head widths D: 16, 32, 128 and 192 with v as wide as q
+// gradients 0.  Head widths D: 16, 32, 64, 128 and 192 with v as wide as q
 // and k, and MLA's (D, Dv) = (192, 128) pair (q, k, dQ, dK 192 wide; v,
 // o, dO, dV 128).  Operands are contiguous (B, H, S, D), rows 16-byte
 // aligned; the wrapper copies others.  Outputs are in the inputs' type.
@@ -34,7 +34,7 @@
 //     thread; thread 0 issues the copies itself, so the block may use
 //     255).  It loads the K and V tiles once by TMA (4-d tensor maps over
 //     (D, S, H, B), zero fill past the ragged edge, swizzle 128, 64 or 32
-//     bytes for D 128, 32, 16), then the Q and dO tiles of 64 queries,
+//     bytes for D 64 and 128, 32, 16), then the Q and dO tiles of 64 queries,
 //     with their (lse2, D) pairs (a bulk copy), through a 2-stage ring behind
 //     mbarriers (step i + 1's copies issued as step i starts), over the kv
 //     head's query group (GQA: Hq / Hkv heads) and the query tiles the mask
@@ -52,7 +52,7 @@
 //       the buffer's own 64 key rows, K-major) and dQ_part = dS K (A the
 //       same buffer read as MN-major, i.e. transposed; K as MN-major B), at
 //       D 128 each warpgroup half of dQ_part's columns over all 128 keys,
-//       at D 16 and 32 all columns over its own 64 keys.  dK and dV stay in
+//       at D 16, 32 and 64 all columns over its own 64 keys.  dK and dV stay in
 //       fp32 registers over the whole walk (the group sum taken in place)
 //       and are written once, no atomics.  dQ is not recomputed: dQ_part
 //       (fp32) is added into the wrapper's zeroed fp32 (B, Hq, Sq_pad, D)
@@ -66,6 +66,10 @@
 //     (6.16: 168 bytes spilled where this layout spills 52-60).
 //     scripts/flash_attention_bwd_variants.py times this kernel beside
 //     copies with scalar adds and with none.
+//   - D 64 (the LM examples' width) is the one walk above with each row a
+//     single 128-byte box (128-byte swizzle): K and V 16 KB, Q and dO 8 KB
+//     a stage, two dS buffers, 130.5 KB; dK and dV take 64 accumulators a
+//     thread; dQ_part as at D 16 and 32 (all 64 columns, its own keys).
 //   - At q/k 192 (B11b: (192, 192) and MLA's (192, 128)) one walk does
 //     not fit.  dK and dV take (DK + DV) / 2 fp32 accumulators a thread:
 //     128 at D 128 (where ptxas already reports 255 registers and 52 bytes
@@ -401,6 +405,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -1322,6 +1340,7 @@ extern "C" int flash_attention_bwd_launch(
   switch (D) {
     case 16: return (int)launch<16>(p, dtype, s);
     case 32: return (int)launch<32>(p, dtype, s);
+    case 64: return (int)launch<64>(p, dtype, s);
     case 128: return (int)launch<128>(p, dtype, s);
     case 192: return (int)launch<192>(p, dtype, s);
     default: return (int)cudaErrorInvalidValue;

@@ -82,9 +82,9 @@ __all__ = ["flash_attention", "flash_attention_bwd", "decode_splits", "LAUNCHES"
 
 LAUNCHES = {"flash_attention": "kernel.flash_attention.launches",
             "flash_attention_bwd": "kernel.flash_attention_bwd.launches"}
-HEAD_DIMS = (16, 32, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
+HEAD_DIMS = (16, 32, 64, 128, 192)  # head widths the kernel is instantiated for (192: MLA's q/k)
 HEAD_PAIRS = ((192, 128),)      # (D, Dv) pairs with v narrower than q/k: MLA's (bf16 prefill at its own widths)
-BWD_DIMS = (16, 32, 128, 192)   # head widths the backward kernel is instantiated for (v as wide as q and k)
+BWD_DIMS = (16, 32, 64, 128, 192)  # head widths the backward kernel is instantiated for (v as wide as q and k)
 BWD_PAIRS = ((192, 128),)       # (D, Dv) pairs the backward takes: MLA's (bf16 at its own widths, fp32 v padded)
 BWD_PAD = 64                    # bf16 backward: query rows of its scratch and dQ accumulator, padded to a multiple
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

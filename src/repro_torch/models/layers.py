@@ -166,10 +166,11 @@ def blockwise_attention(
     Query ``i`` sits at position ``q_offset + i`` and attends the keys
     ``k[:, :, :valid_len]`` (the prefix view: the keys past it are masked
     in the reference); no valid key gives 0, as the reference's clamped
-    normalizer does.  A (D, Dv) pair the kernel is instantiated for
-    (``HEAD_PAIRS``: MLA's q/k 192 with v 128) goes in as it is.  Other
-    widths are zero-padded along D to the kernel's narrowest width
-    (``HEAD_DIMS``) that holds ``max(D, Dv)`` (MLA's reduced 24 and 16
+    normalizer does.  A width the kernel is instantiated for (``HEAD_DIMS``:
+    16, 32, 64, 128, 192; the LM examples' 64 among them) with v as wide,
+    and a (D, Dv) pair (``HEAD_PAIRS``: MLA's q/k 192 with v 128), go in
+    as they are.  Other widths are zero-padded along D to the narrowest
+    of ``HEAD_DIMS`` that holds ``max(D, Dv)`` (MLA's reduced 24 and 16
     run at 32), and the output is cut back to ``Dv``: zero columns of
     ``v`` add nothing, zero columns of ``q`` and ``k`` leave ``q·k``
     unchanged, and the scale stays 1/sqrt(D).  A width past the widest

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention.ops import (
     DECODE_GROUP, DECODE_TILE, HEAD_DIMS, HEAD_PAIRS, LAUNCHES, SMS, decode_splits,
 )
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref, merge_partials_ref
+from repro_torch.models import layers
 from repro_torch.models.layers import blockwise_attention
 from repro_torch.obs import metrics
 
@@ -62,6 +63,12 @@ CASES = [
     (2, 4, 2, 8, 40, 16, True, None),      # Sq < Sk, right-aligned
     (2, 8, 2, 1, 77, 32, True, None),      # decode, ragged Sk
     (2, 4, 1, 1, 77, 16, True, 16),        # decode with a window
+    # D 64 (B8d): the LM examples' width, at train_lm's heads (10 over 2)
+    (2, 2, 2, 64, 64, 64, True, None),     # causal
+    (1, 2, 2, 48, 48, 64, False, None),    # non-causal
+    (1, 4, 4, 64, 64, 64, True, 16),       # sliding window 16
+    (1, 10, 2, 32, 32, 64, True, None),    # GQA 10/2
+    (2, 10, 2, 1, 77, 64, True, None),     # decode, ragged Sk
 ]
 
 
@@ -378,6 +385,61 @@ def test_gpu_blockwise_attention_offsets_match_plain(dtype, metrics_on):
 
 
 # ---------------------------------------------------------------------------
+# D 64 (B8d): the LM examples' width, handed to the kernel as it is
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, S, causal, window)
+D64_CASES = [
+    (2, 2, 2, 40, True, None),     # causal
+    (1, 2, 2, 40, False, None),    # non-causal
+    (1, 4, 4, 48, True, 12),       # windowed
+    (1, 10, 2, 32, True, None),    # GQA: train_lm's 10 query heads over 2
+]
+
+
+def _kernel_widths(monkeypatch):
+    """The (q, k, v) widths each ``flash_attention`` call from
+    ``models.layers`` hands the kernel (a spy on the wrapper)."""
+    widths, kernel = [], layers.flash_attention
+
+    def spy(q, k, v, **kw):
+        widths.append((q.shape[-1], k.shape[-1], v.shape[-1]))
+        return kernel(q, k, v, **kw)
+
+    monkeypatch.setattr(layers, "flash_attention", spy)
+    return widths
+
+
+@pytest.mark.parametrize("case", D64_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_d64_blockwise_attention_matches_jax(case, monkeypatch):
+    """``blockwise_attention`` at D 64 against the reference's jnp
+    function, with the kernel handed width 64 (no padding to 128)."""
+    b, hq, hkv, s, causal, window = case
+    rng = np.random.default_rng(64 + sum(case[:4]))
+    q = rng.standard_normal((b, hq, s, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, 64)).astype(np.float32) for _ in range(2))
+    widths = _kernel_widths(monkeypatch)
+    got = blockwise_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+                              window=window)
+    assert widths == [(64, 64, 64)]
+    want = np.asarray(jax_blockwise(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, window=window,
+                                    kv_block=16))
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("d, width", [(48, 64), (64, 64), (100, 128), (128, 128)])
+def test_attention_pads_to_the_narrowest_instantiated_width(d, width, monkeypatch):
+    """A width in ``HEAD_DIMS`` reaches the kernel as it is; another is
+    zero-padded to the narrowest one that holds it (48 now runs at 64,
+    not 128), at the scale of its own width."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 24, d)).astype(np.float32)) for _ in range(3))
+    widths = _kernel_widths(monkeypatch)
+    got = blockwise_attention(q, k, v, causal=True)
+    assert widths == [(width, width, width)] and got.shape == (1, 4, 24, d)
+    np.testing.assert_allclose(got.numpy(), attention_ref(q, k, v, causal=True).numpy(), rtol=TOL, atol=TOL)
+
+# ---------------------------------------------------------------------------
 # D 192: MLA's concatenated q/k (128 + 64), its v (128) padded to it
 # ---------------------------------------------------------------------------
 
@@ -389,7 +451,7 @@ def test_mla_widths_match_jax(causal):
     ``flash_attention`` against the Pallas kernel in interpret mode and
     its oracle, at small S; the padding runs at the narrowest width in
     ``HEAD_DIMS`` that holds both."""
-    assert HEAD_DIMS == (16, 32, 128, 192)
+    assert HEAD_DIMS == (16, 32, 64, 128, 192)
     rng = np.random.default_rng(192)
     q, k = (rng.standard_normal((1, 2, 40, 192)).astype(np.float32) for _ in range(2))
     v = rng.standard_normal((1, 2, 40, 128)).astype(np.float32)
@@ -477,6 +539,10 @@ GPU_ZOO_CASES = [
     (2, 48, 1, 1, 288, 128, True, None),       # granite's MQA decode
     (2, 48, 1, 300, 300, 128, True, None),     # granite's MQA prefill
     (2, 32, 16, 1, 1024, 128, False, None),    # gemma3's full ring: 1024 slots, unmasked
+    (2, 10, 2, 256, 256, 64, True, None),      # D 64: train_lm's heads and sequence
+    (1, 4, 4, 300, 300, 64, False, None),      # D 64, ragged S, non-causal
+    (1, 4, 2, 513, 513, 64, True, 100),        # D 64, window across tiles
+    (2, 10, 2, 1, 1000, 64, True, None),       # D 64 decode, split over Sk
 ]
 
 
@@ -518,8 +584,8 @@ def test_gpu_zoo_shapes_match_plain(dtype, metrics_on):
         assert got.shape == (2, 4, s, dv)
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), rtol=tol, atol=tol,
                                    err_msg=f"mla {d}/{dv}")
-    x = torch.zeros((1, 2, 8, 64), device=dev, dtype=dtype)
-    with pytest.raises(ValueError, match="head width 64"):
+    x = torch.zeros((1, 2, 8, 96), device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="head width 96"):
         flash_attention(x, x, x)
 
 
@@ -591,6 +657,9 @@ GRAD_CASES = [
     (1, 4, 4, 13, 13, 192, 128, True, None, None),   # MLA's (192, 128) pair
     (2, 2, 1, 10, 17, 192, 128, False, None, None),  # the pair, unmasked, GQA
     (1, 4, 2, 15, 15, 192, 128, True, 5, None),      # the pair, a window
+    (1, 10, 2, 16, 16, 64, 64, True, None, None),    # D 64 (B8d): train_lm's heads, causal
+    (1, 4, 4, 12, 20, 64, 64, False, None, None),    # D 64, unmasked, Sq < Sk
+    (1, 4, 2, 15, 15, 64, 64, True, 5, None),        # D 64, a window
 ]
 
 
@@ -663,7 +732,7 @@ def test_gradient_path_needs_grad_mode():
     with torch.inference_mode():
         assert flash_attention(tq, tk, tv, causal=True).grad_fn is None
     assert flash_attention(tq.detach(), tk, tv, causal=True).grad_fn is None
-    assert BWD_DIMS == (16, 32, 128, 192) and BWD_PAIRS == ((192, 128),)
+    assert BWD_DIMS == (16, 32, 64, 128, 192) and BWD_PAIRS == ((192, 128),)
 
 
 # the bf16 mapping's tiles at their edges: S across the 128-key tile and the
@@ -675,6 +744,8 @@ GPU_GRAD_EDGES = [
     (1, 8, 2, 300, 300, 128, 128, True, 70, None), (1, 4, 2, 129, 129, 32, 32, True, 40, None),
     (1, 2, 2, 129, 129, 16, 16, True, None, -20), (1, 8, 1, 200, 257, 128, 128, True, None, -30),
     (1, 4, 1, 129, 129, 192, 192, True, None, None), (1, 4, 4, 127, 200, 192, 128, True, 70, None),
+    (1, 10, 2, 256, 256, 64, 64, True, None, None), (1, 4, 4, 127, 127, 64, 64, True, 40, None),
+    (2, 4, 1, 129, 200, 64, 64, False, None, None), (1, 4, 2, 130, 130, 64, 64, True, None, -20),
 ]
 
 

@@ -70,7 +70,7 @@ def test_no_jax_or_reference_imports():
     assert bad == []
     root = Path(__file__).resolve().parents[1]
     scripts = [root / "chip_smoke.py", *sorted((root / "examples").glob("*_torch.py"))]
-    assert len(scripts) == 4  # quickstart, cluster_embeddings, train_lm
+    assert len(scripts) == 5  # quickstart, cluster_embeddings, train_lm, recsys_serving
     assert [(s.name, m) for s in scripts for m in _imports(s) if m.split(".")[0] in ("jax", "repro")] == []
 
 
