@@ -229,9 +229,10 @@ Phases (each prints one JSON line; any failure exits nonzero):
    2, Hq = Hkv = 128, S 4096, the (192, 128) pair): back to back and
    queued, a second call's dK and dV bit for bit and dQ's gap, the plain
    version, SDPA's backward at the same widths as the library, the bound
-   (the five products on bf16 tensor cores) and the two-term floor,
-   ptxas; and the ``flash_attention_lse`` row (that forward with the
-   log-sum-exp written, beside it not written).  llama3-8b at full
+   (the five products on bf16 tensor cores), the two-term floor and the
+   floor of the products the kernel runs, ptxas; and the
+   ``flash_attention_lse`` row (that forward with the log-sum-exp
+   written, beside it not written).  llama3-8b at full
    width, 2 layers, 1 x 1,024 tokens, bf16: every parameter's gradient
    through the kernels against the same loss through ``attention_ref``
    with autograd (``GRAD_REL_L2``; ``model_grads``).  llama3-8b
@@ -3065,6 +3066,13 @@ BWD_CASES = [
     (1, 4, 4, 129, 129, 192, 192, True, None, -20), (1, 4, 1, 128, 128, 192, 128, True, None, None),
     (1, 4, 4, 129, 129, 192, 128, True, None, None), (2, 4, 4, 257, 257, 192, 128, True, 100, None),
     (1, 4, 2, 200, 200, 192, 128, True, None, -30), (1, 8, 8, 64, 300, 192, 128, False, None, None),
+    # q/k 192's 64-key tile and 64-query step at their edges (Sq and Sk 63, 64,
+    # 65), Hq / Hkv of 1 and 4, a window, a negative offset, unmasked with Sk > Sq
+    (1, 4, 4, 63, 63, 192, 128, True, None, None), (2, 4, 1, 64, 64, 192, 128, True, None, None),
+    (1, 4, 4, 65, 65, 192, 128, True, 64, None), (1, 4, 1, 65, 130, 192, 128, True, None, -10),
+    (1, 4, 4, 63, 65, 192, 128, False, None, None), (1, 4, 1, 63, 63, 192, 192, True, None, None),
+    (1, 4, 4, 65, 65, 192, 192, True, None, -5), (1, 4, 4, 64, 129, 192, 192, False, None, None),
+    (1, 4, 1, 129, 129, 192, 192, True, 64, None),
     # D 64 (B8d): the LM examples' width; train_lm's heads (10 over 2), the
     # tile's and the step's edges, unmasked, a window, a negative offset
     (1, 10, 2, 256, 256, 64, 64, True, None, None), (1, 4, 4, 127, 127, 64, 64, True, None, None),
@@ -3077,8 +3085,8 @@ BWD_TOL = ("fp32: |kernel - plain| <= 1e-4 |plain| + 1e-4 rms(plain); bf16: <= 2
            "bf16 terms, and adds dQ into its fp32 accumulator atomically, in an order that changes from run to "
            "run, so two calls' dQ may differ in the last bits, within this bound; dK and dV are equal bit for bit)")
 # B11's kernels by name (bf16: the tensor-core launch and its two small kernels; fp32: the CUDA-core ones)
-BWD_KERNELS = ("attn_bwd_stats_kernel", "attn_bwd_tc_kernel", "attn_bwd_dq_kernel", "delta_kernel", "dkdv_kernel",
-               "dq_kernel")
+BWD_KERNELS = ("attn_bwd_stats_kernel", "attn_bwd_tc_kernel", "attn_bwd_wide_kernel", "attn_bwd_dq_kernel",
+               "delta_kernel", "dkdv_kernel", "dq_kernel")
 BWD_ROW = (4, 32, 8, 4096, 128)   # B, Hq, Hkv, S, D: the forward row's shape, causal, bf16
 BWD_MLA_ROW = (2, 128, 128, 4096, 192, 128)  # B, Hq, Hkv, S, D, Dv: deepseek-v2's training shape, causal, bf16
 # full-width gradients through the kernels against the same step through attention_ref with autograd
@@ -3207,6 +3215,20 @@ def bwd_ptxas():
     return out
 
 
+def bwd_design_ops(b, hq, hkv, s, d, dv):
+    """The operations the bf16 backward issues at a causal (b, hq, hkv, s,
+    d, dv), from its own walk (``query_tiles`` in flash_attention_bwd.cu): a
+    block per tile of TK keys (128; 64 at q/k 192) steps over the 64-query
+    tiles the mask leaves, whole tiles, for each of its Hq / Hkv heads; a
+    step runs S^T and dP^T once and dV, dK and dQ_part in two terms each.
+    At q/k 192 a block also issues its last step's S^T and dP^T again (the
+    next step's, issued early, is the same code on every step)."""
+    tk, tm = (64 if d > 128 else 128), 64
+    steps = sum(-(-s // tm) - k0 // tm for k0 in range(0, s, tk))
+    again = 2.0 * tk * tm * (d + dv) * -(-s // tk) if d > 128 else 0.0
+    return b * hkv * ((hq // hkv) * steps * 2.0 * tk * tm * (d + dv + 2 * dv + 2 * d + 2 * d) + again)
+
+
 def bwd_row(name, shape, seed):
     """A ``flash_attention_bwd`` row at ``shape`` (B, Hq, Hkv, S, D, Dv;
     causal, bf16): against the plain version on the same inputs, a second
@@ -3214,9 +3236,10 @@ def bwd_row(name, shape, seed):
     its time back to back and queued, the plain version's, SDPA's backward
     at the same widths (its forward plus ``backward()`` less its forward),
     the bound (the five products, 2 pairs (D + Dv + Dv + D + D) FLOP, on
-    bf16 tensor cores) and the two-term floor (P and dS as two terms in
-    dV, dK and dQ: 2 pairs (D + Dv + 2 Dv + 2 D + 2 D)).  Returns (ok, row,
-    the inputs (q, k, v, dout, out, lse))."""
+    bf16 tensor cores), the two-term floor (P and dS as two terms in dV,
+    dK and dQ: 2 pairs (D + Dv + 2 Dv + 2 D + 2 D)) and the floor of the
+    products the kernel issues (``bwd_design_ops``).  Returns (ok, row, the
+    inputs (q, k, v, dout, out, lse))."""
     import torch
     import torch.nn.functional as F
 
@@ -3278,6 +3301,7 @@ def bwd_row(name, shape, seed):
                       "forward",
            "flops": flops, "bytes": n_bytes, "bound_ms": b_ms, "bound_by": b_by,
            "two_term_floor_ms": bound_ms(n_bytes, 2.0 * pairs * (5 * d + 3 * dv), BF16_FLOPS)[0],
+           "design_floor_ms": bound_ms(n_bytes, bwd_design_ops(b, hq, hkv, s, d, dv), BF16_FLOPS)[0],
            "bound_fp32_cuda_cores_ms": bound_ms(n_bytes, flops, FP32_FLOPS)[0],
            "second_call": {"dk_dv_bit_equal": dkdv_equal, "dq_max_abs_diff": dq_gap,
                            "dq_elements_differing": dq_differ, "dq_within_tolerance": dq_ok},

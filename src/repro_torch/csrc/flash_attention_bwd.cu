@@ -28,9 +28,10 @@
 //   - attn_bwd_stats_kernel: a warp a query row, (lse log2 e, D) in fp32
 //     into the wrapper's scratch, rows padded to a multiple of 64
 //     (lse2 = +inf past Sq, so a padded row's p is 0 without a test).
-//   - attn_bwd_tc_kernel: a block per (128-key tile, b, kv head), key tile
-//     0 (the heaviest under a causal mask) first; two warpgroups of 64 keys
-//     each and no producer warpgroup (dK and dV alone take 128 registers a
+//   - attn_bwd_tc_kernel (q/k 16, 32, 64 and 128): a block per (128-key
+//     tile, b, kv head), key tile 0 (the heaviest under a causal mask)
+//     first; two warpgroups of 64 keys each and no producer warpgroup
+//     (dK and dV alone take 128 registers a
 //     thread; thread 0 issues the copies itself, so the block may use
 //     255).  It loads the K and V tiles once by TMA (4-d tensor maps over
 //     (D, S, H, B), zero fill past the ragged edge, swizzle 128, 64 or 32
@@ -70,28 +71,64 @@
 //     single 128-byte box (128-byte swizzle): K and V 16 KB, Q and dO 8 KB
 //     a stage, two dS buffers, 130.5 KB; dK and dV take 64 accumulators a
 //     thread; dQ_part as at D 16 and 32 (all 64 columns, its own keys).
-//   - At q/k 192 (B11b: (192, 192) and MLA's (192, 128)) one walk does
-//     not fit.  dK and dV take (DK + DV) / 2 fp32 accumulators a thread:
-//     128 at D 128 (where ptxas already reports 255 registers and 52 bytes
-//     spilled), 160 at the pair, 192 at (192, 192), before S, dP and the
-//     fragments; and the layout above (two K/V tiles, 2-stage Q and dO
-//     rings, two dS buffers) takes 225 KB at the pair and 257 KB at (192,
-//     192) of the 227 KB a block may hold.  So the block walks its query
-//     steps twice over the same resident K and V tiles: walk 1 computes S^T
-//     -> P^T and dV += P^T dO (live: dV's DV / 2 accumulators, S^T's 32 and
-//     P's 32 fragment registers: 128 at the pair, 160 at (192, 192)), and
-//     writes dV; walk 2 computes S^T, dP^T -> dS^T and dK += dS^T Q, dQ_part
-//     = dS K (live: dK's 96, S^T and dP^T's 64, then dK's 96 and dQ_part's
-//     48: at most 160).  The ring carries both walks' steps in order (Q and
-//     dO are read twice).  That is 9 product units of DK or DV width where
-//     one walk would run 8 (S^T once more), with the same dQ adds.  The
-//     192-wide operands are stored as 32-column boxes (64-byte swizzle):
-//     dQ_part's split is 96 columns a warpgroup, three whole boxes of K
-//     (with 64-column boxes it would be one and a half).  Shared memory:
-//     pair K 48 + V 32 + 2 x (Q 24 + dO 16) + two dS buffers 64 = 225 KB
-//     (+ 1 KB alignment, 1 KB static); (192, 192) K 48 + V 48 + 2 x (24 +
-//     24) + one dS buffer 32 = 225 KB, with a second barrier a step before
-//     the buffer is written again.
+//   - attn_bwd_wide_kernel, q/k 192 (B11b: MLA's (192, 128) pair and (192,
+//     192)).  Over 128 keys dK and dV would take (DK + DV) / 2 fp32
+//     accumulators a thread (160 at the pair, 192 at (192, 192)) before S,
+//     dP and the fragments, so the block takes 64 keys and gives its two
+//     warpgroups roles over the same 64 key rows:
+//       warpgroup 0 (P):  S^T = K Q^T (SS, 12 k-steps), P^T = exp2 (...)
+//         with the mask, P^T in fp32 to shared memory (16 KB, by thread:
+//         the other warpgroup's thread t holds the same (key, query)
+//         places), dV += P^T dO (A the P^T fragments, hi + lo);
+//       warpgroup 1 (dS): dP^T = V dO^T, then (named barrier BAR_P) dS^T =
+//         P^T o (dP^T - D) in fp32 (probs_t's arithmetic), dS^T (hi, lo) to
+//         the dS buffer as key rows (16 KB), dK += dS^T Q (A the dS^T
+//         fragments);
+//       both (BAR_DS): dQ_part = dS K over the 64 keys, warpgroup w columns
+//         [96 w, 96 w + 96) (A the dS buffer read as MN-major).
+//     The 192-wide operands are TMA boxes of 32 columns (64-byte swizzle),
+//     so that a warpgroup's 96 columns of K are three whole boxes.
+//     S and its exp run once a (query, key) pair: 8 product units of the
+//     pair's width where the two walks that this replaced ran 9.  One
+//     warpgroup's exp or dS runs while the other's products do, and step
+//     i + 1's S^T or dP^T is issued before step i's dQ_part is staged (two
+//     ring stages; the last step issues its own again, unused, so every
+//     step runs the same code: a branch around the wait made ptxas
+//     serialize the wgmma, C7518).  Live a thread: dV 64 (96 at (192,
+//     192)) or dK 96 accumulators, S^T or dP^T 32, the fragments 32,
+//     dQ_part 48; ptxas gives 251-252 registers, no spill.  dQ_part goes
+//     out through shared memory: each warp writes its 16 query rows as
+//     three 2 KB boxes (16 rows x 32 columns, TMA's 128-byte swizzle) and
+//     its lane 0 adds each into the fp32 accumulator by a bulk tensor
+//     reduce-add (cp.reduce.async.bulk.tensor, map dmap) and goes on; the
+//     L2 performs the adds.  With 64-key tiles they are twice the 128-key
+//     tile's, ~26.6 GB at deepseek-v2's training shape.  Shared memory at
+//     the pair: K 24 + V 16 + 2 x (Q 24 + dO 16) + P^T 16 + dS^T 16 + dQ's
+//     boxes 48 = 200 KB (+ 1 KB alignment, 1 KB static); at (192, 192) V
+//     and dO are 24 KB each, 224 KB (+ 1 + 1 of the 227 a block may hold),
+//     the same two stages and the same early issue.  Thread 0 loads K and
+//     V and the first stages; thread 128 (the dS warpgroup finishes a step
+//     last) refills a released stage.
+//     Where the adds' cost goes, and variants tried on the card and not
+//     kept (queued ms at B 2, Hq = Hkv = 128, S 4096, the pair, causal;
+//     NVIDIA H100 80GB HBM3, 700 W; scripts/flash_attention_bwd_variants.py
+//     --pair, and --spec scripts/flash_attention_bwd_pair_variants.json,
+//     in one call each with this kernel's 13.46 and 16.24 beside): no
+//     staging and no adds 10.2-10.5; the boxes written and fenced but not
+//     added 12.0; added by plain TMA stores instead 13.2-13.4 (so the
+//     staging costs ~1.6, the bytes into the L2 ~1.3, the add itself
+//     ~0.2); half the adds (every other warp or step) 12.0-12.4; dQ_part by
+//     16-byte REDs from registers 29.3-29.4 (the --pair call, beside this
+//     kernel's 13.39-13.46); nothing issued ahead 14.2-14.3; an L2
+//     evict_last hint on the reduce-adds 13.8-14.0.  Also tried, in forms
+//     of this kernel whose code is not kept, so with no time stated here:
+//     the staged rows added one row at a time by one-dimensional bulk
+//     reduce-adds; clusters of two or four blocks (adjacent key tiles)
+//     summing their dQ_part in distributed shared memory first (half the
+//     adds, but a block waits for its peer every step); Q and dO shared by
+//     TMA multicast in a cluster of two; K's or V's fragments held in
+//     registers (K's: 20 bytes spilled, C7512).  The two walks it
+//     replaced: 15.29-15.42 (--pair --source on their code).
 //   - attn_bwd_dq_kernel: dQ = scale acc in bf16.
 //   Why two terms: the A operands P and dS are fp32 values; each runs as
 //   hi + lo bf16 fragments (hi = bf16(x), lo = bf16(x - hi)), two wgmma
@@ -99,9 +136,10 @@
 //   bits (the forward's P.V does the same: rounded once, P misses one
 //   bf16 step of the fp32-P value on 224,501 of 2,097,152 outputs).  So
 //   three of the five products count twice, a floor of 8/5 of the bound.
-//   The adds into dQ's accumulator land in an order that changes from run
-//   to run, so dQ may differ between two calls in its last bits; dK and dV
-//   are reproducible bit for bit.
+//   The adds into dQ's accumulator (REDs, or at q/k 192 the TMA's
+//   reduce-adds) land in an order that changes from run to run, so dQ may
+//   differ between two calls in its last bits; dK and dV are reproducible
+//   bit for bit.
 // * fp32: delta_kernel, dkdv_kernel and dq_kernel on the CUDA cores (fp32
 //   FMA: tensor cores would need TF32).  dkdv: a block per (64-key tile, b,
 //   kv head), 256 threads; the tile's K and V stay in shared memory, the
@@ -219,6 +257,12 @@ __device__ __forceinline__ void fence_async_shared() {
 __device__ __forceinline__ void warpgroups_sync(int n_threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(n_threads) : "memory");
 }
+
+// named barrier `id` over both warpgroups: wait, or arrive without waiting
+// (this thread's earlier writes to shared memory are seen by the threads
+// that wait on it)
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
 
 // 2^x on the special-function unit (flushes results below 2^-126 to 0)
 __device__ __forceinline__ float ex2(float x) {
@@ -473,64 +517,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int TN = 128;                          // keys per block: two warpgroups of 64
+constexpr int TN = 128;                          // keys per block of the one-walk mapping: two warpgroups of 64
 constexpr int TM = 64;                           // queries per step
-constexpr int TC_THREADS = 256;                  // two warpgroups; thread 0 also issues the copies
-constexpr int NST = 2;                           // stages of the (Q, dO, (lse2, D)) ring
+constexpr int TC_THREADS = 256;                  // two warpgroups
+constexpr int NST = 2;                           // one walk: stages of the (Q, dO, (lse2, D)) ring
 constexpr int PAD = 64;                          // query rows of the scratch and dQ's accumulator (ops.py BWD_PAD)
 constexpr int DS_ROW = TM * 2;                   // bytes of a key's row of one dS term: 64 queries, the swizzle span
-constexpr int DS_TERM = TN * DS_ROW;             // one dS^T term: 128 key rows
+constexpr int DS_TERM = TN * DS_ROW;             // one walk: one dS^T term, 128 key rows
 constexpr int DS_BUF = 2 * DS_TERM;              // hi and lo
 constexpr size_t SMEM_MAX = 232448;              // shared memory a block may hold
 static_assert(TM == PAD, "a step's (lse2, D) pairs are one bulk copy inside the padded rows");
 
 // one operand width's geometry: rows stored as swizzled TMA boxes of BOXD
-// elements (ROWB bytes, the swizzle span); K and V tiles of TN rows, Q and
+// elements (ROWB bytes, the swizzle span); K and V tiles of TK rows, Q and
 // dO of TM.  At 192 the boxes are 32 wide (64-byte swizzle) so that
 // dQ_part's 96 columns a warpgroup are three whole boxes of K (with 64-wide
 // boxes they would be one and a half).  SPLIT and NQ are read for the q/k
 // width: at 128 and 192 each warpgroup takes half of dQ_part's columns over
-// all 128 keys (NQ / 2 accumulators); narrower, all columns over its own 64
-// keys.
-template <int D> struct Geo {
+// all TK keys (NQ / 2 accumulators); narrower, all columns over its own
+// TK / 2 keys.
+template <int D, int TK> struct Geo {
+  static constexpr int DIM = D;
+  static constexpr int KEYS = TK;
   static constexpr int ROWB = D == 192 ? 64 : D * 2 < 128 ? D * 2 : 128;
   static constexpr int BOXD = ROWB / 2;
   static constexpr int NBOX = D / BOXD;
-  static constexpr int BOXK = TN * ROWB;
+  static constexpr int BOXK = TK * ROWB;
   static constexpr int BOXQ = TM * ROWB;
   static constexpr int TILE_K = NBOX * BOXK;
   static constexpr int TILE_Q = NBOX * BOXQ;
   static constexpr uint32_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
   static constexpr bool SPLIT = D >= 128;
   static constexpr int NQ = SPLIT ? D / 2 : D;
+  static constexpr int DS_TERM = TK * DS_ROW;    // one dS^T term of the tile's key rows
   static_assert(NQ % BOXD == 0, "a warpgroup's dQ_part columns are whole boxes of K");
 };
 
-// the launch at q/k width DK and v width DV.  TWO_WALK: dK and dV do not
-// fit beside each other in registers, so the block walks its query steps
-// twice (dV first, then dK and dQ).  NDS: two dS buffers (by step parity)
-// where they fit, else one and a second barrier a step.
+// the launch at q/k width DK and v width DV.  WIDE (q/k 192):
+// attn_bwd_wide_kernel, a 64-key tile a block with the two warpgroups in
+// two roles; else attn_bwd_tc_kernel, the one walk over a 128-key tile.
 template <int DK, int DV> struct TC {
-  using GK = Geo<DK>;
-  using GV = Geo<DV>;
-  static constexpr bool TWO_WALK = DK + DV > 256;
+  static constexpr bool WIDE = DK > 128;
+  static constexpr int TK = WIDE ? TN / 2 : TN;
+  using GK = Geo<DK, TK>;
+  using GV = Geo<DV, TK>;
+  // both: K and V, the (Q, dO, (lse2, D)) ring of NST stages.  One walk:
+  // two dS buffers, by step parity.  Wide: P (fp32, 64 keys x 64 queries),
+  // one dS^T buffer (hi, lo) and dQ's staging (a warp's 16 query rows of
+  // NQ floats as NQ / 32 swizzled boxes of 2 KB)
   static constexpr size_t STATIC = NST * TM * sizeof(float2) + (1 + 2 * NST) * sizeof(uint64_t);
   static constexpr size_t BASE = 1024 + (size_t)GK::TILE_K + GV::TILE_K + NST * ((size_t)GK::TILE_Q + GV::TILE_Q);
-  static constexpr int NDS = BASE + 2 * (size_t)DS_BUF + STATIC <= SMEM_MAX ? 2 : 1;
-  static constexpr size_t smem = BASE + NDS * (size_t)DS_BUF;
+  static constexpr size_t WIDE_SMEM = BASE + (size_t)TK * TM * 4 + 2 * (size_t)GK::DS_TERM + 8 * (GK::NQ / 32) * 2048;
+  static constexpr size_t smem = WIDE ? WIDE_SMEM : BASE + 2 * (size_t)DS_BUF;
   static_assert(smem + STATIC <= SMEM_MAX, "a block's shared memory");
-  static_assert(TWO_WALK || DK == DV, "one walk holds v as wide as q and k");
+  static_assert(WIDE || DK == DV, "one walk holds v as wide as q and k");
 };
 
 // acc (64 x 64) = A . B^T over D: A 64 rows of a K-major tile of boxes
 // BOXK bytes apart (K or V: this warpgroup's keys), B a K-major tile of
 // boxes BOXQ apart (Q or dO); a 16-wide step is 32 bytes along the
 // swizzled row
-template <int D>
+template <class G>
 __device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a_addr, uint32_t b_addr) {
-  using G = Geo<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < G::DIM / 16; ++kk) {
     const uint32_t col = (kk * 32) % G::ROWB, box = kk * 32 / G::ROWB;
     wgmma_ss<0, 0>(acc, gmma_desc(a_addr + box * G::BOXK + col, 16, 8 * G::ROWB, G::LAYOUT),
                 gmma_desc(b_addr + box * G::BOXQ + col, 16, 8 * G::ROWB, G::LAYOUT), kk > 0);
@@ -538,12 +588,11 @@ __device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a_addr, 
 }
 
 // acc (64 x D) += (hi + lo) . B over the step's 64 queries, A from
-// registers, B the dO tile as MN-major (D contiguous): a 16-query step is
-// 16 rows, and the leading byte offset steps from one box of D to the next
-template <int D>
-__device__ __forceinline__ void issue_grad(float (&acc)[D / 2], const uint32_t (&hi)[TM / 16][4],
+// registers, B a Q or dO tile as MN-major (D contiguous): a 16-query step
+// is 16 rows, and the leading byte offset steps from one box of D to the next
+template <class G>
+__device__ __forceinline__ void issue_grad(float (&acc)[G::DIM / 2], const uint32_t (&hi)[TM / 16][4],
                                            const uint32_t (&lo)[TM / 16][4], uint32_t b_addr) {
-  using G = Geo<D>;
 #pragma unroll
   for (int kc = 0; kc < TM / 16; ++kc) {
     const uint64_t db = gmma_desc(b_addr + kc * 16 * G::ROWB, G::BOXQ, 8 * G::ROWB, G::LAYOUT);
@@ -555,33 +604,31 @@ __device__ __forceinline__ void issue_grad(float (&acc)[D / 2], const uint32_t (
 // dK += (dS_hi + dS_lo)^T . Q over the step's 64 queries: A this
 // warpgroup's 64 key rows of the dS buffer (K-major: a 16-query step is
 // 32 bytes along the swizzled row), B the Q tile as MN-major
-template <int D>
-__device__ __forceinline__ void issue_dk(float (&acc)[D / 2], uint32_t ds_rows, uint32_t q_addr) {
-  using G = Geo<D>;
+template <class G>
+__device__ __forceinline__ void issue_dk(float (&acc)[G::DIM / 2], uint32_t ds_rows, uint32_t q_addr) {
 #pragma unroll
   for (int kc = 0; kc < TM / 16; ++kc) {
     const uint64_t db = gmma_desc(q_addr + kc * 16 * G::ROWB, G::BOXQ, 8 * G::ROWB, G::LAYOUT);
     wgmma_ss<0, 1>(acc, gmma_desc(ds_rows + kc * 32, 16, 8 * DS_ROW, 1), db, 1);
-    wgmma_ss<0, 1>(acc, gmma_desc(ds_rows + DS_TERM + kc * 32, 16, 8 * DS_ROW, 1), db, 1);
+    wgmma_ss<0, 1>(acc, gmma_desc(ds_rows + G::DS_TERM + kc * 32, 16, 8 * DS_ROW, 1), db, 1);
   }
 }
 
 // dQ_part (64 queries x NQ) = (dS_hi + dS_lo) . K: A the dS buffer read
 // as dS (MN-major: the queries of a key are contiguous; a 16-key step is
 // 16 rows), B the resident K tile as MN-major (16 rows a step).  SPLIT:
-// columns [NQ w, NQ w + NQ) (K's boxes from NQ w / BOXD) over all 128
-// keys; else all columns over warpgroup w's 64 keys.
-template <int D>
-__device__ __forceinline__ void issue_dq(float (&acc)[Geo<D>::NQ / 2], uint32_t ds_addr, uint32_t k_addr, int w) {
-  using G = Geo<D>;
-  constexpr int STEPS = (G::SPLIT ? TN : TN / 2) / 16;
-  const uint32_t a0 = ds_addr + (G::SPLIT ? 0 : w * (TN / 2) * DS_ROW);
-  const uint32_t b0 = k_addr + (G::SPLIT ? w * (G::NQ / G::BOXD) * G::BOXK : w * (TN / 2) * G::ROWB);
+// columns [NQ w, NQ w + NQ) (K's boxes from NQ w / BOXD) over all KEYS
+// keys; else all columns over warpgroup w's KEYS / 2 keys.
+template <class G>
+__device__ __forceinline__ void issue_dq(float (&acc)[G::NQ / 2], uint32_t ds_addr, uint32_t k_addr, int w) {
+  constexpr int STEPS = (G::SPLIT ? G::KEYS : G::KEYS / 2) / 16;
+  const uint32_t a0 = ds_addr + (G::SPLIT ? 0 : w * (G::KEYS / 2) * DS_ROW);
+  const uint32_t b0 = k_addr + (G::SPLIT ? w * (G::NQ / G::BOXD) * G::BOXK : w * (G::KEYS / 2) * G::ROWB);
 #pragma unroll
   for (int kk = 0; kk < STEPS; ++kk) {
     const uint64_t db = gmma_desc(b0 + kk * 16 * G::ROWB, G::BOXK, 8 * G::ROWB, G::LAYOUT);
-    wgmma_ss<1, 1>(acc, gmma_desc(a0 + kk * 16 * DS_ROW, DS_TERM, 8 * DS_ROW, 1), db, kk > 0);
-    wgmma_ss<1, 1>(acc, gmma_desc(a0 + DS_TERM + kk * 16 * DS_ROW, DS_TERM, 8 * DS_ROW, 1), db, 1);
+    wgmma_ss<1, 1>(acc, gmma_desc(a0 + kk * 16 * DS_ROW, G::DS_TERM, 8 * DS_ROW, 1), db, kk > 0);
+    wgmma_ss<1, 1>(acc, gmma_desc(a0 + G::DS_TERM + kk * 16 * DS_ROW, G::DS_TERM, 8 * DS_ROW, 1), db, 1);
   }
 }
 
@@ -611,23 +658,40 @@ __device__ __forceinline__ void probs_t(float (&s)[32], float (&dp)[32], const f
   }
 }
 
-// dS^T of warpgroup w's 64 keys (fragments as split_hi_lo leaves them:
-// this thread's keys row and row + 8, queries 16 kc + 8 (t / 2) + 2 (lane
-// % 4) + {0, 1}, a packed pair) into a dS buffer: per term 128 key rows of
-// the 64 queries, 128 bytes in TMA's 128-byte swizzle (16-byte chunk c of
-// key row k at chunk c ^ (k % 8)); w's keys are rows 64 w .. 64 w + 63.
+// dS^T in place from dP^T (dp) and the P^T fragment that the other
+// warpgroup left in shared memory (pb: its thread t's registers 4 j .. 4 j
+// + 3 at float4 j * 128 + t, the same (key, query) places as this
+// thread's): dS^T = P^T o (dP^T - D), the arithmetic of probs_t's DS
+__device__ __forceinline__ void ds_from_p(float (&dp)[32], const float4* pb, const float2* st, int t, int lane) {
+#pragma unroll
+  for (int j = 0; j < TM / 8; ++j) {
+    const float4 sv = *reinterpret_cast<const float4*>(st + 8 * j + 2 * (lane % 4));
+    const float4 pv = pb[j * 128 + t];
+    dp[4 * j] = pv.x * (dp[4 * j] - sv.y);
+    dp[4 * j + 1] = pv.y * (dp[4 * j + 1] - sv.w);
+    dp[4 * j + 2] = pv.z * (dp[4 * j + 2] - sv.y);
+    dp[4 * j + 3] = pv.w * (dp[4 * j + 3] - sv.w);
+  }
+}
+
+// dS^T of 64 keys (fragments as split_hi_lo leaves them: this thread's
+// keys row and row + 8, queries 16 kc + 8 (t / 2) + 2 (lane % 4) + {0, 1},
+// a packed pair) into a dS buffer at key rows k0 .. k0 + 63: per term
+// (TERM bytes apart) key rows of the 64 queries, 128 bytes in TMA's
+// 128-byte swizzle (16-byte chunk c of key row k at chunk c ^ (k % 8)).
 // dK reads it as dS^T (K-major), dQ as dS (MN-major).
+template <int TERM>
 __device__ __forceinline__ void store_ds(uint8_t* buf, const uint32_t (&hi)[TM / 16][4],
-                                         const uint32_t (&lo)[TM / 16][4], int w, int row, int lane) {
+                                         const uint32_t (&lo)[TM / 16][4], int k0, int row, int lane) {
   const int x = row & 7;  // rows row and row + 8 share their place in the swizzle
 #pragma unroll
   for (int kc = 0; kc < TM / 16; ++kc)
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const int k = (TN / 2) * w + row + 8 * (t & 1), chunk = 2 * kc + (t >> 1);
+      const int k = k0 + row + 8 * (t & 1), chunk = 2 * kc + (t >> 1);
       uint8_t* at = buf + k * DS_ROW + ((chunk ^ x) << 4) + 4 * (lane % 4);
       *reinterpret_cast<uint32_t*>(at) = hi[kc][t];
-      *reinterpret_cast<uint32_t*>(at + DS_TERM) = lo[kc][t];
+      *reinterpret_cast<uint32_t*>(at + TERM) = lo[kc][t];
     }
 }
 
@@ -646,6 +710,62 @@ __device__ __forceinline__ void add_dq(float* acc, const float (&dq)[NQ / 2], in
     const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
     const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
     if (q0 + r < p.Sq) red_add4(acc + 8 * j, odd ? r0 : a0, odd ? r1 : a1, odd ? b0 : r0, odd ? b1 : r1);
+  }
+}
+
+// one box of fp32 in shared memory (laid out as the map's swizzle has it)
+// added into global memory at coordinates (c0, c1, c2, c3) of a 4-d map by
+// the TMA unit (a bulk reduce-add, completed in the L2), in this thread's
+// bulk group
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                               int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// this thread's bulk groups have read their shared memory (READ) or are complete
+template <bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a warp's 16 query rows of its warpgroup's dQ_part (64 queries x NQ) into
+// dQ's fp32 accumulator: the rows go to the warp's staging boxes (NQ / 32
+// boxes of 16 rows x 32 columns, 128 bytes a row in the map's 128-byte
+// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8); this thread's
+// rows r = lane / 4 and r + 8, columns 8 j + 2 (lane % 4) + {0, 1}), and
+// lane 0 adds each box at (c0 + 32 x, q0, h, b) by a bulk tensor
+// reduce-add and goes on: the add runs in the TMA unit and the L2, off the
+// warpgroup's path.  Lane 0 first waits until its last adds have read the
+// boxes.
+template <int NQ>
+__device__ __forceinline__ void stage_dq(uint8_t* boxes, const float (&dq)[NQ / 2], const CUtensorMap* map, int c0,
+                                         int q0, int h, int b, int lane) {
+  if (lane == 0) bulk_wait<true>();
+  __syncwarp();
+  const int r = lane / 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      const int chunk = 2 * (j % 4) + (lane % 4) / 2;
+      *reinterpret_cast<float2*>(boxes + (j / 4) * 2048 + (r + 8 * hr) * 128 + ((chunk ^ r) << 4) + 8 * (lane & 1)) =
+          make_float2(dq[4 * j + 2 * hr], dq[4 * j + 2 * hr + 1]);
+    }
+  fence_async_shared();
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int x = 0; x < NQ / 32; ++x) tma_reduce_add(map, boxes + x * 2048, c0 + 32 * x, q0, h, b);
+    bulk_commit();
   }
 }
 
@@ -689,6 +809,21 @@ __global__ void __launch_bounds__(256) attn_bwd_stats_kernel(Params p) {
   if (lane == 0) reinterpret_cast<float2*>(p.stats)[row] = make_float2(l2, acc);
 }
 
+// the query tiles [qt_lo, qt_lo + n_qt) that hold an unmasked (query, key)
+// pair with the keys [k0, k0 + tk)
+__device__ __forceinline__ void query_tiles(const Params& p, int k0, int tk, int& qt_lo, int& n_qt) {
+  const int off = p.q_offset;
+  const int k_last = min(k0 + tk, p.Sk) - 1;
+  int hi = (p.Sq + TM - 1) / TM - 1;
+  qt_lo = 0;
+  if (p.causal && k0 - off > 0) qt_lo = (k0 - off) / TM;
+  if (p.window >= 0) {
+    const long long last = (long long)k_last + p.window - 1 - off;  // the last query position a key here reaches
+    hi = last < 0 ? -1 : (int)min((long long)hi, last / TM);
+  }
+  n_qt = max(hi - qt_lo + 1, 0);
+}
+
 template <int DK, int DV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     attn_bwd_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -696,12 +831,13 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   using C = TC<DK, DV>;
   using GK = typename C::GK;
   using GV = typename C::GV;
+  static_assert(!C::WIDE, "q/k 192 runs attn_bwd_wide_kernel");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = align1024(smem_raw);
   uint8_t* vs = ks + GK::TILE_K;
   uint8_t* qs = vs + GV::TILE_K;            // NST Q tiles
   uint8_t* gs = qs + NST * GK::TILE_Q;      // NST dO tiles
-  uint8_t* ds = gs + NST * GV::TILE_Q;      // NDS dS buffers
+  uint8_t* ds = gs + NST * GV::TILE_Q;      // two dS buffers
   __shared__ __align__(16) float2 st[NST][TM];
   __shared__ __align__(8) uint64_t kv_full, full[NST], empty[NST];
 
@@ -709,22 +845,14 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int bg = blockIdx.y, b = bg / p.Hkv, g = bg % p.Hkv;
   const int rep = p.Hq / p.Hkv;
   const int off = p.q_offset;
-
-  // the query tiles that hold an unmasked (query, key) pair with this key tile
-  const int k_last = min(k0 + TN, p.Sk) - 1;
-  int qt_lo = 0, qt_hi = (p.Sq + TM - 1) / TM - 1;
-  if (p.causal && k0 - off > 0) qt_lo = (k0 - off) / TM;
-  if (p.window >= 0) {
-    const long long last = (long long)k_last + p.window - 1 - off;  // the last query position a key here reaches
-    qt_hi = last < 0 ? -1 : (int)min((long long)qt_hi, last / TM);
-  }
-  const int n_qt = max(qt_hi - qt_lo + 1, 0), n_steps = rep * n_qt;
-  const int n_loads = (C::TWO_WALK ? 2 : 1) * n_steps;  // the ring's loads: each walk's steps in order
+  int qt_lo, n_qt;
+  query_tiles(p, k0, TN, qt_lo, n_qt);
+  const int n_steps = rep * n_qt;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // load j (step j % n_steps) of the Q and dO tiles and (lse2, D) pairs into stage j % NST
+  // step j's Q and dO tiles and (lse2, D) pairs into stage j % NST
   auto load_step = [&](int j) {
-    const int s = j % NST, i = j % n_steps, h = g * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * TM;
+    const int s = j % NST, h = g * rep + j / n_qt, q0 = (qt_lo + j % n_qt) * TM;
     mbar_expect_tx(&full[s], GK::TILE_Q + GV::TILE_Q + TM * (int)sizeof(float2));
     for (int x = 0; x < GK::NBOX; ++x)
       tma_load(qs + s * GK::TILE_Q + x * GK::BOXQ, &qmap, &full[s], x * GK::BOXD, q0, h, b);
@@ -742,7 +870,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     mbar_expect_tx(&kv_full, GK::TILE_K + GV::TILE_K);
     for (int x = 0; x < GK::NBOX; ++x) tma_load(ks + x * GK::BOXK, &kmap, &kv_full, x * GK::BOXD, k0, g, b);
     for (int x = 0; x < GV::NBOX; ++x) tma_load(vs + x * GV::BOXK, &vmap, &kv_full, x * GV::BOXD, k0, g, b);
-    for (int j = 0; j < NST && j < n_loads; ++j) load_step(j);
+    for (int j = 0; j < NST && j < n_steps; ++j) load_step(j);
   }
   __syncthreads();
 
@@ -760,7 +888,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv) + (long long)bg * p.Sk * DV;
   // thread 0 issues load j + 1 into the stage that load j - 1 released
   auto refill = [&](int j) {
-    if (tid == 0 && j >= 1 && j + 1 < n_loads) {
+    if (tid == 0 && j >= 1 && j + 1 < n_steps) {
       mbar_wait(&empty[(j + 1) % NST], ((j - 1) / NST) & 1);
       load_step(j + 1);
     }
@@ -777,143 +905,249 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   };
 
   mbar_wait(&kv_full, 0);
-  if constexpr (!C::TWO_WALK) {
-    float dk[DK / 2], dv[DV / 2];
+  float dk[DK / 2], dv[DV / 2];
 #pragma unroll
-    for (int j = 0; j < DK / 2; ++j) dk[j] = dv[j] = 0.f;
-    for (int i = 0; i < n_steps; ++i) {
-      const int sx = i % NST, q0 = (qt_lo + i % n_qt) * TM;
-      refill(i);
-      // a step's scores, fragments and dQ_part live only inside it, each
-      // zeroed just before the product that overwrites it: a value held for
-      // the wgmma's read-write operands from an earlier point would keep
-      // its registers busy
-      float s[32], dp[32], dq[GK::NQ / 2];
+  for (int j = 0; j < DK / 2; ++j) dk[j] = dv[j] = 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    const int sx = i % NST, q0 = (qt_lo + i % n_qt) * TM;
+    refill(i);
+    // a step's scores, fragments and dQ_part live only inside it, each
+    // zeroed just before the product that overwrites it: a value held for
+    // the wgmma's read-write operands from an earlier point would keep
+    // its registers busy
+    float s[32], dp[32], dq[GK::NQ / 2];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
-      uint32_t phi[TM / 16][4], plo[TM / 16][4], shi[TM / 16][4], slo[TM / 16][4];
-      mbar_wait(&full[sx], (i / NST) & 1);
-      const uint32_t q_addr = smem_u32(qs + sx * GK::TILE_Q), g_addr = smem_u32(gs + sx * GV::TILE_Q);
-      // S^T = K Q^T, dP^T = V dO^T
-      pin(s), pin(dp);
-      wgmma_fence();
-      issue_scores<DK>(s, kw_addr, q_addr);
-      issue_scores<DV>(dp, vw_addr, g_addr);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(s), pin(dp);
-      const int qa = q0 + off;  // the tile's first query position
-      if (edge(qa))
-        probs_t<true, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-      else
-        probs_t<false, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-      split_hi_lo(s, phi, plo);
-      split_hi_lo(dp, shi, slo);
-      // dS^T to shared memory for dK and dQ (the buffer two steps back is
-      // free: both warpgroups waited for its products before the last barrier)
-      const uint32_t dsb = (i & 1) * DS_BUF;
-      store_ds(ds + dsb, shi, slo, w, row, lane);
-      fence_async_shared();
-      warpgroups_sync(TC_THREADS);  // both warpgroups' dS^T are in the buffer
-      // dV += P^T dO, dK += dS^T Q, dQ_part = dS K, one chain
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    uint32_t phi[TM / 16][4], plo[TM / 16][4], shi[TM / 16][4], slo[TM / 16][4];
+    mbar_wait(&full[sx], (i / NST) & 1);
+    const uint32_t q_addr = smem_u32(qs + sx * GK::TILE_Q), g_addr = smem_u32(gs + sx * GV::TILE_Q);
+    // S^T = K Q^T, dP^T = V dO^T
+    pin(s), pin(dp);
+    wgmma_fence();
+    issue_scores<GK>(s, kw_addr, q_addr);
+    issue_scores<GV>(dp, vw_addr, g_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s), pin(dp);
+    const int qa = q0 + off;  // the tile's first query position
+    if (edge(qa))
+      probs_t<true, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
+    else
+      probs_t<false, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
+    split_hi_lo(s, phi, plo);
+    split_hi_lo(dp, shi, slo);
+    // dS^T to shared memory for dK and dQ (the buffer two steps back is
+    // free: both warpgroups waited for its products before the last barrier)
+    const uint32_t dsb = (i & 1) * DS_BUF;
+    store_ds<DS_TERM>(ds + dsb, shi, slo, (TN / 2) * w, row, lane);
+    fence_async_shared();
+    warpgroups_sync(TC_THREADS);  // both warpgroups' dS^T are in the buffer
+    // dV += P^T dO, dK += dS^T Q, dQ_part = dS K, one chain
 #pragma unroll
-      for (int j = 0; j < GK::NQ / 2; ++j) dq[j] = 0.f;
-      pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
-      wgmma_fence();
-      issue_grad<DV>(dv, phi, plo, g_addr);
-      issue_dk<DK>(dk, ds_addr + dsb + w * (TN / 2) * DS_ROW, q_addr);
-      issue_dq<DK>(dq, ds_addr + dsb, k_addr, w);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
-      mbar_arrive(&empty[sx]);  // this step's Q, dO and (lse2, D) are read
-      add_dq<DK, GK::NQ>(dq_at(i), dq, q0, row, odd, p);
-    }
-    store_rows<DK>(dk_out, dk, kw, row, lane, p.Sk, p.scale);
-    store_rows<DV>(dv_out, dv, kw, row, lane, p.Sk, 1.f);
-  } else {
-    {  // walk 1: S^T -> P^T -> dV += P^T dO
-      float dv[DV / 2];
-#pragma unroll
-      for (int j = 0; j < DV / 2; ++j) dv[j] = 0.f;
-      for (int i = 0; i < n_steps; ++i) {
-        const int sx = i % NST, q0 = (qt_lo + i % n_qt) * TM;
-        refill(i);
-        float s[32];
-#pragma unroll
-        for (int j = 0; j < 32; ++j) s[j] = 0.f;
-        uint32_t phi[TM / 16][4], plo[TM / 16][4];
-        mbar_wait(&full[sx], (i / NST) & 1);
-        const uint32_t q_addr = smem_u32(qs + sx * GK::TILE_Q), g_addr = smem_u32(gs + sx * GV::TILE_Q);
-        pin(s);
-        wgmma_fence();
-        issue_scores<DK>(s, kw_addr, q_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(s);
-        const int qa = q0 + off;
-        if (edge(qa))
-          probs_t<true, false>(s, s, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-        else
-          probs_t<false, false>(s, s, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-        split_hi_lo(s, phi, plo);
-        pin(dv), pin(phi), pin(plo);
-        wgmma_fence();
-        issue_grad<DV>(dv, phi, plo, g_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(dv), pin(phi), pin(plo);
-        mbar_arrive(&empty[sx]);
-      }
-      store_rows<DV>(dv_out, dv, kw, row, lane, p.Sk, 1.f);
-    }
-    {  // walk 2: S^T, dP^T -> dS^T; dK += dS^T Q, dQ_part = dS K
-      float dk[DK / 2];
-#pragma unroll
-      for (int j = 0; j < DK / 2; ++j) dk[j] = 0.f;
-      for (int i = 0; i < n_steps; ++i) {
-        const int j = n_steps + i, sx = j % NST, q0 = (qt_lo + i % n_qt) * TM;
-        refill(j);
-        float s[32], dp[32], dq[GK::NQ / 2];
-#pragma unroll
-        for (int x = 0; x < 32; ++x) s[x] = dp[x] = 0.f;
-        uint32_t shi[TM / 16][4], slo[TM / 16][4];
-        mbar_wait(&full[sx], (j / NST) & 1);
-        const uint32_t q_addr = smem_u32(qs + sx * GK::TILE_Q), g_addr = smem_u32(gs + sx * GV::TILE_Q);
-        pin(s), pin(dp);
-        wgmma_fence();
-        issue_scores<DK>(s, kw_addr, q_addr);
-        issue_scores<DV>(dp, vw_addr, g_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(s), pin(dp);
-        const int qa = q0 + off;
-        if (edge(qa))
-          probs_t<true, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-        else
-          probs_t<false, true>(s, dp, st[sx], kw + row, qa + 2 * (lane % 4), lane, p, sl2);
-        split_hi_lo(dp, shi, slo);
-        const uint32_t dsb = (C::NDS == 2 ? (i & 1) : 0) * DS_BUF;
-        // one buffer: the other warpgroup's products of the last step have read it
-        if (C::NDS == 1) warpgroups_sync(TC_THREADS);
-        store_ds(ds + dsb, shi, slo, w, row, lane);
-        fence_async_shared();
-        warpgroups_sync(TC_THREADS);
-#pragma unroll
-        for (int x = 0; x < GK::NQ / 2; ++x) dq[x] = 0.f;
-        pin(dk), pin(dq);
-        wgmma_fence();
-        issue_dk<DK>(dk, ds_addr + dsb + w * (TN / 2) * DS_ROW, q_addr);
-        issue_dq<DK>(dq, ds_addr + dsb, k_addr, w);
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(dk), pin(dq);
-        mbar_arrive(&empty[sx]);
-        add_dq<DK, GK::NQ>(dq_at(i), dq, q0, row, odd, p);
-      }
-      store_rows<DK>(dk_out, dk, kw, row, lane, p.Sk, p.scale);
-    }
+    for (int j = 0; j < GK::NQ / 2; ++j) dq[j] = 0.f;
+    pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
+    wgmma_fence();
+    issue_grad<GV>(dv, phi, plo, g_addr);
+    issue_dk<GK>(dk, ds_addr + dsb + w * (TN / 2) * DS_ROW, q_addr);
+    issue_dq<GK>(dq, ds_addr + dsb, k_addr, w);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv), pin(dk), pin(phi), pin(plo), pin(dq);
+    mbar_arrive(&empty[sx]);  // this step's Q, dO and (lse2, D) are read
+    add_dq<DK, GK::NQ>(dq_at(i), dq, q0, row, odd, p);
   }
+  store_rows<DK>(dk_out, dk, kw, row, lane, p.Sk, p.scale);
+  store_rows<DV>(dv_out, dv, kw, row, lane, p.Sk, 1.f);
+}
+
+// named barriers of the wide kernel (bar 1 is warpgroups_sync's)
+constexpr int BAR_P = 2;   // the P warpgroup has left P^T in shared memory (it arrives, the dS warpgroup waits)
+constexpr int BAR_DS = 3;  // dS^T is in its buffer, and the P warpgroup has issued its dV (both wait)
+
+// q/k 192 (B11b: MLA's (192, 128) pair and (192, 192)): one walk, S once.
+// A block per (64-key tile, b, kv head), key tile 0 first; the two
+// warpgroups share the tile's keys and split the work by role:
+//   warpgroup 0 (P):  S^T = K Q^T -> P^T (the mask, exp2) -> P^T (fp32) to
+//     shared memory -> dV += P^T dO (A from registers);
+//   warpgroup 1 (dS): dP^T = V dO^T -> (waits for P^T) dS^T = P^T o (dP^T
+//     - D) -> dS^T (hi, lo) to shared memory -> dK += dS^T Q (A from
+//     registers);
+//   both, once dS^T is in its buffer: dQ_part = dS K over the 64 keys,
+//     warpgroup w columns [96 w, 96 w + 96), staged in shared memory and
+//     added into dQ's accumulator by bulk tensor reduce-adds (dmap).
+// So one warpgroup's exp or dS runs while the other's products do.
+// Thread 0 loads K and V and the ring's first stages; thread 128, the
+// last to finish a step (the dS warpgroup waits for P^T), refills the
+// stage it released.  Ordering: P^T is written after the dS warpgroup read
+// the last one (both met at BAR_DS since), dS^T after the P warpgroup's dQ
+// products of the last step completed (it waits for them before it
+// arrives at BAR_P), so one buffer of each does.
+template <int DK, int DV>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    attn_bwd_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+                         const __grid_constant__ CUtensorMap dmap, Params p) {
+  using C = TC<DK, DV>;
+  using GK = typename C::GK;
+  using GV = typename C::GV;
+  constexpr int S = NST, TK = C::TK;
+  static_assert(C::WIDE && TK == 64, "64 keys: one warpgroup's rows");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + GK::TILE_K;
+  uint8_t* qs = vs + GV::TILE_K;                                     // S Q tiles
+  uint8_t* gs = qs + S * GK::TILE_Q;                                 // S dO tiles
+  float4* pb = reinterpret_cast<float4*>(gs + S * GV::TILE_Q);       // P^T, fp32, by thread
+  uint8_t* ds = reinterpret_cast<uint8_t*>(pb) + TK * TM * 4;        // dS^T, hi and lo
+  uint8_t* stage = ds + 2 * GK::DS_TERM;                             // dQ_part: a warp's boxes
+  __shared__ __align__(16) float2 st[S][TM];
+  __shared__ __align__(8) uint64_t kv_full, full[S], empty[S];
+
+  const int k0 = blockIdx.x * TK;
+  const int bg = blockIdx.y, b = bg / p.Hkv, g = bg % p.Hkv;
+  const int rep = p.Hq / p.Hkv;
+  const int off = p.q_offset;
+  int qt_lo, n_qt;
+  query_tiles(p, k0, TK, qt_lo, n_qt);
+  const int n_steps = rep * n_qt;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto load_step = [&](int j) {
+    const int s = j % S, h = g * rep + j / n_qt, q0 = (qt_lo + j % n_qt) * TM;
+    mbar_expect_tx(&full[s], GK::TILE_Q + GV::TILE_Q + TM * (int)sizeof(float2));
+    for (int x = 0; x < GK::NBOX; ++x)
+      tma_load(qs + s * GK::TILE_Q + x * GK::BOXQ, &qmap, &full[s], x * GK::BOXD, q0, h, b);
+    for (int x = 0; x < GV::NBOX; ++x)
+      tma_load(gs + s * GV::TILE_Q + x * GV::BOXQ, &gmap, &full[s], x * GV::BOXD, q0, h, b);
+    bulk_load(st[s], p.stats + 2 * ((long long)(b * p.Hq + h) * p.Sq_pad + q0), TM * sizeof(float2), &full[s]);
+  };
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], TC_THREADS);
+    }
+    mbar_fence_init();
+    mbar_expect_tx(&kv_full, GK::TILE_K + GV::TILE_K);
+    for (int x = 0; x < GK::NBOX; ++x) tma_load(ks + x * GK::BOXK, &kmap, &kv_full, x * GK::BOXD, k0, g, b);
+    for (int x = 0; x < GV::NBOX; ++x) tma_load(vs + x * GV::BOXK, &vmap, &kv_full, x * GV::BOXD, k0, g, b);
+    for (int j = 0; j < S && j < n_steps; ++j) load_step(j);
+  }
+  __syncthreads();
+
+  // this thread holds key rows row and row + 8 of the tile in S^T, dP^T,
+  // dK and dV, and query rows row and row + 8 of dQ_part
+  const int w = warp / 4, t = tid % 128;
+  const int row = 16 * (warp % 4) + lane / 4;
+  const float sl2 = p.scale * LOG2E;
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs), ds_addr = smem_u32(ds);
+  uint8_t* boxes = stage + warp * (GK::NQ / 32) * 2048;
+  // the (64-key, 64-query) tile at query position qa crosses the diagonal or the window's edge
+  auto edge = [&](int qa) {
+    return (p.causal && k0 + TK - 1 > qa) || (p.window >= 0 && k0 <= qa + TM - 1 - p.window);
+  };
+  // dQ_part = dS K, this warpgroup's columns, once dS^T is in its buffer
+  auto issue_dq_part = [&](float (&dq)[GK::NQ / 2]) {
+    bar_sync(BAR_DS);
+#pragma unroll
+    for (int j = 0; j < GK::NQ / 2; ++j) dq[j] = 0.f;
+    pin(dq);
+    wgmma_fence();
+    issue_dq<GK>(dq, ds_addr, k_addr, w);
+    wgmma_commit();
+  };
+  // a role's first product of step j (S^T = K Q^T or dP^T = V dO^T, G the
+  // width it runs over) into acc, once the step's stage has landed
+  auto issue_first = [&](auto geo, uint32_t a_addr, uint8_t* tiles, int tile_bytes, int j, float (&acc)[32]) {
+    using G = decltype(geo);
+    const int sx = j % S;
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+    mbar_wait(&full[sx], (j / S) & 1);
+    pin(acc);
+    wgmma_fence();
+    issue_scores<G>(acc, a_addr, smem_u32(tiles + sx * tile_bytes));
+    wgmma_commit();
+  };
+  // the step's stage released (thread 128, in the dS warpgroup, which
+  // finishes a step last, refills it) and dQ_part added
+  auto end_step = [&](int i, int sx, const float (&dq)[GK::NQ / 2]) {
+    mbar_arrive(&empty[sx]);  // this step's Q, dO and (lse2, D) are read
+    if (tid == 128 && i + S < n_steps) {
+      mbar_wait(&empty[sx], (i / S) & 1);
+      load_step(i + S);
+    }
+    const int h = g * rep + i / n_qt, q0 = (qt_lo + i % n_qt) * TM;
+    stage_dq<GK::NQ>(boxes, dq, &dmap, GK::NQ * w, q0 + 16 * (warp % 4), h, b, lane);
+  };
+  // step i + 1's first product is issued before step i's dQ_part is
+  // staged and added, and runs meanwhile (on the last step, step i's
+  // again: the same uniform code on every step)
+
+  mbar_wait(&kv_full, 0);
+  if (w == 0) {
+    float dv[DV / 2], s[32];
+#pragma unroll
+    for (int j = 0; j < DV / 2; ++j) dv[j] = 0.f;
+    if (n_steps > 0) issue_first(GK{}, k_addr, qs, GK::TILE_Q, 0, s);
+    for (int i = 0; i < n_steps; ++i) {
+      const int sx = i % S, q0 = (qt_lo + i % n_qt) * TM;
+      float dq[GK::NQ / 2];
+      uint32_t phi[TM / 16][4], plo[TM / 16][4];
+      wgmma_wait<0>();
+      pin(s);
+      const int qa = q0 + off;
+      if (edge(qa))
+        probs_t<true, false>(s, s, st[sx], k0 + row, qa + 2 * (lane % 4), lane, p, sl2);
+      else
+        probs_t<false, false>(s, s, st[sx], k0 + row, qa + 2 * (lane % 4), lane, p, sl2);
+#pragma unroll
+      for (int j = 0; j < TM / 8; ++j)
+        pb[j * 128 + t] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      bar_arrive(BAR_P);
+      split_hi_lo(s, phi, plo);
+      pin(dv), pin(phi), pin(plo);
+      wgmma_fence();
+      issue_grad<GV>(dv, phi, plo, smem_u32(gs + sx * GV::TILE_Q));
+      wgmma_commit();
+      issue_dq_part(dq);
+      issue_first(GK{}, k_addr, qs, GK::TILE_Q, min(i + 1, n_steps - 1), s);
+      wgmma_wait<1>();
+      pin(dv), pin(phi), pin(plo), pin(dq);
+      end_step(i, sx, dq);
+    }
+    wgmma_wait<0>();
+    store_rows<DV>(static_cast<__nv_bfloat16*>(p.dv) + (long long)bg * p.Sk * DV, dv, k0, row, lane, p.Sk, 1.f);
+  } else {
+    float dk[DK / 2], dp[32];
+#pragma unroll
+    for (int j = 0; j < DK / 2; ++j) dk[j] = 0.f;
+    if (n_steps > 0) issue_first(GV{}, v_addr, gs, GV::TILE_Q, 0, dp);
+    for (int i = 0; i < n_steps; ++i) {
+      const int sx = i % S;
+      float dq[GK::NQ / 2];
+      uint32_t shi[TM / 16][4], slo[TM / 16][4];
+      wgmma_wait<0>();
+      pin(dp);
+      bar_sync(BAR_P);  // P^T is in shared memory
+      ds_from_p(dp, pb, st[sx], t, lane);
+      split_hi_lo(dp, shi, slo);
+      store_ds<GK::DS_TERM>(ds, shi, slo, 0, row, lane);
+      fence_async_shared();
+      pin(dk), pin(shi), pin(slo);
+      wgmma_fence();
+      issue_grad<GK>(dk, shi, slo, smem_u32(qs + sx * GK::TILE_Q));
+      wgmma_commit();
+      issue_dq_part(dq);
+      issue_first(GV{}, v_addr, gs, GV::TILE_Q, min(i + 1, n_steps - 1), dp);
+      wgmma_wait<1>();
+      pin(dk), pin(shi), pin(slo), pin(dq);
+      end_step(i, sx, dq);
+    }
+    wgmma_wait<0>();
+    store_rows<DK>(static_cast<__nv_bfloat16*>(p.dk) + (long long)bg * p.Sk * DK, dk, k0, row, lane, p.Sk, p.scale);
+  }
+  if (lane == 0) bulk_wait<false>();  // the adds are complete before the block's shared memory goes
 }
 
 // dQ = scale acc in bf16 over rows [0, Sq) of each (b, h): four columns a thread
@@ -1243,19 +1477,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 4-d map over (D, S, H, B) of a contiguous bf16 operand, boxes of
-// (box_d, box_s) swizzled over rows of `rowb` bytes
-cudaError_t make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, int box_d, int box_s, int rowb) {
+// a 4-d map over (D, S, H, B) of a contiguous bf16 (or, F32, fp32) operand,
+// boxes of (box_d, box_s) swizzled over rows of `rowb` bytes
+cudaError_t make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, int box_d, int box_s, int rowb,
+                     bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = f32 ? 4 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2, (cuuint64_t)H * S * D * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * e, (cuuint64_t)S * D * e, (cuuint64_t)H * S * D * e};
   const cuuint32_t box[4] = {(cuuint32_t)box_d, (cuuint32_t)box_s, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = rowb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                : rowb == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, unit,
+  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -1271,14 +1508,24 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   cudaError_t e = cudaGetLastError();
   CUtensorMap qm, km, vm, gm;
   if (e == cudaSuccess) e = make_map(&qm, p.q, DK, p.Sq, p.Hq, p.B, GK::BOXD, TM, GK::ROWB);
-  if (e == cudaSuccess) e = make_map(&km, p.k, DK, p.Sk, p.Hkv, p.B, GK::BOXD, TN, GK::ROWB);
-  if (e == cudaSuccess) e = make_map(&vm, p.v, DV, p.Sk, p.Hkv, p.B, GV::BOXD, TN, GV::ROWB);
+  if (e == cudaSuccess) e = make_map(&km, p.k, DK, p.Sk, p.Hkv, p.B, GK::BOXD, C::TK, GK::ROWB);
+  if (e == cudaSuccess) e = make_map(&vm, p.v, DV, p.Sk, p.Hkv, p.B, GV::BOXD, C::TK, GV::ROWB);
   if (e == cudaSuccess) e = make_map(&gm, p.dout, DV, p.Sq, p.Hq, p.B, GV::BOXD, TM, GV::ROWB);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(attn_bwd_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
-  if (e != cudaSuccess) return e;
-  attn_bwd_tc_kernel<DK, DV><<<dim3((p.Sk + TN - 1) / TN, p.B * p.Hkv), TC_THREADS, C::smem, stream>>>(qm, km, vm, gm,
-                                                                                                      p);
+  const dim3 grid((p.Sk + C::TK - 1) / C::TK, p.B * p.Hkv);
+  if constexpr (C::WIDE) {
+    // dQ's accumulator, (DK, Sq_pad, Hq, B) fp32, in boxes of 16 rows x 32 columns
+    CUtensorMap dm;
+    if (e == cudaSuccess) e = make_map(&dm, p.dq_acc, DK, p.Sq_pad, p.Hq, p.B, 32, 16, 128, true);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_bwd_wide_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+    if (e != cudaSuccess) return e;
+    attn_bwd_wide_kernel<DK, DV><<<grid, TC_THREADS, C::smem, stream>>>(qm, km, vm, gm, dm, p);
+  } else {
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attn_bwd_tc_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+    if (e != cudaSuccess) return e;
+    attn_bwd_tc_kernel<DK, DV><<<grid, TC_THREADS, C::smem, stream>>>(qm, km, vm, gm, p);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long long n4 = (long long)p.B * p.Hq * p.Sq * DK / 4;

@@ -735,9 +735,9 @@ def test_gradient_path_needs_grad_mode():
     assert BWD_DIMS == (16, 32, 64, 128, 192) and BWD_PAIRS == ((192, 128),)
 
 
-# the bf16 mapping's tiles at their edges: S across the 128-key tile and the
-# 64-query step, a window's edge inside a tile, a negative query offset
-# (rows with no key), Hq / Hkv of 1, 4 and 8
+# the bf16 mapping's tiles at their edges: S across the 128-key tile (64 at
+# q/k 192) and the 64-query step, a window's edge inside a tile, a negative
+# query offset (rows with no key), Hq / Hkv of 1, 4 and 8
 GPU_GRAD_EDGES = [
     (1, 4, 4, 127, 127, 128, 128, True, None, None), (1, 4, 1, 128, 128, 128, 128, True, None, None),
     (2, 8, 1, 129, 129, 128, 128, True, None, None), (1, 4, 4, 257, 257, 128, 128, False, None, None),
@@ -746,6 +746,12 @@ GPU_GRAD_EDGES = [
     (1, 4, 1, 129, 129, 192, 192, True, None, None), (1, 4, 4, 127, 200, 192, 128, True, 70, None),
     (1, 10, 2, 256, 256, 64, 64, True, None, None), (1, 4, 4, 127, 127, 64, 64, True, 40, None),
     (2, 4, 1, 129, 200, 64, 64, False, None, None), (1, 4, 2, 130, 130, 64, 64, True, None, -20),
+    # q/k 192's 64-key tile and 64-query step: Sq and Sk 63, 64, 65, Hq / Hkv
+    # of 1 and 4, a window, a negative offset, unmasked with Sk > Sq
+    (1, 4, 4, 63, 63, 192, 128, True, None, None), (2, 4, 1, 64, 64, 192, 128, True, None, None),
+    (1, 4, 4, 65, 65, 192, 128, True, 64, None), (1, 4, 1, 65, 130, 192, 128, True, None, -10),
+    (1, 4, 4, 63, 65, 192, 128, False, None, None), (1, 4, 1, 64, 64, 192, 192, True, None, None),
+    (1, 4, 4, 65, 65, 192, 192, True, 40, -5), (1, 4, 4, 63, 129, 192, 192, False, None, None),
 ]
 
 
@@ -876,16 +882,44 @@ def test_two_term_p_and_ds_hold_the_backward_gate(capsys):
         print(f"\none-term P and dS: gradients (dq, dk, dv) outside BWD_TOL per BWD_CASES case: {misses}")
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1, 64, 192, 128), (2, 4, 2, 200, 128, 128), (1, 2, 2, 300, 192, 192),
+                                   (2, 128, 128, 4096, 192, 128)])
+def test_bwd_design_ops_counts_the_kernels_walk(shape):
+    """``chip_smoke.bwd_design_ops`` (the smoke's ``design_floor_ms``)
+    against every (key block, 64-query tile) pair written out: a causal
+    block of TK keys (128; 64 at q/k 192) runs the tiles where some query
+    reaches its first key, each head of its group, at 2 TK 64 (D + Dv +
+    2 Dv + 2 D + 2 D) operations a tile, and at q/k 192 its last tile's
+    S^T and dP^T once more.  At deepseek-v2's training shape the count
+    lies between the two-term floor's and the two walks' (S twice)."""
+    smoke = _chip_smoke()
+    b, hq, hkv, s, d, dv = shape
+    tk, tm = (64, 64) if d > 128 else (128, 64)
+    want = 0.0
+    for k0 in range(0, s, tk):
+        tiles = sum(1 for q0 in range(0, s, tm) if k0 <= q0 + tm - 1)
+        want += hq * tiles * 2.0 * tk * tm * (5 * d + 3 * dv)
+        if d > 128 and tiles:
+            want += hkv * 2.0 * tk * tm * (d + dv)
+    got = smoke.bwd_design_ops(*shape)
+    assert got == b * want
+    if shape == smoke.BWD_MLA_ROW:
+        pairs = b * hq * s * (s + 1) / 2
+        assert 2.0 * pairs * (5 * d + 3 * dv) < got <= 2.0 * pairs * (6 * d + 3 * dv)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(128, 128), (192, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_attention_gradient_is_reproducible(dtype):
-    """Two calls on the same inputs: dK and dV equal bit for bit (written
-    once from registers); dQ too in fp32, and in bf16 (atomic adds into
-    the fp32 accumulator, in a run's own order) within ``BWD_TOL``."""
+def test_gpu_attention_gradient_is_reproducible(dtype, dims):
+    """Two calls on the same inputs, at D 128 and at MLA's (192, 128)
+    pair: dK and dV equal bit for bit (written once from registers); dQ
+    too in fp32, and in bf16 (adds into the fp32 accumulator, in a run's
+    own order) within ``BWD_TOL``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     smoke = _chip_smoke()
-    case = (2, 8, 2, 300, 300, 128, 128, True, None, None)
+    case = (2, 8, 2, 300, 300, *dims, True, None, None)
     q, k, v, g = (torch.from_numpy(a).to("cuda", dtype) for a in _grad_inputs(case, seed=7))
     out, lse = attention_ref(q, k, v, causal=True, return_lse=True)
     first = flash_attention_bwd(q, k, v, out, lse, g, causal=True)
